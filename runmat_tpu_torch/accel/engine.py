@@ -11,14 +11,17 @@ tensors on an explicit `torch.device`:
     (`_build_program`) and runs them eagerly, op by op, freeing each
     intermediate after its last use;
   * random draws go through `ops.threefry.rng_draw`: the hand-written CUDA
-    kernel on a card, its plain PyTorch version on the CPU.
+    kernel on a card, its plain PyTorch version on the CPU;
+  * `linalg` goes through `DenseOps` (`accel/dense.py`), whose `histcounts`
+    runs on the hand-written histogram kernel (`ops/histogram.py`).
 
 Values are stored in their physical shape (`phys_shape`: scalars rank-0,
 vectors rank-1) and in torch's row-major layout; the MATLAB column-major
 order is applied where it is observable (`reshape_f`).
 
-Methods outside this slice either decline through the runtime's route gates
-(`route_linalg`, `route_fft`) or raise `NotImplementedError`. None of them
+Methods outside the ported slices either decline (`route_fft`, a `linalg`
+kind without a builder, complex operands), counted as host fallbacks when a
+device value has to come back, or raise `NotImplementedError`. None of them
 computes on the host while the value is claimed to be on the device.
 """
 
@@ -42,11 +45,13 @@ from runmat_tpu.values import MatArray, normalize_shape
 
 from ..ops import table
 from ..ops.threefry import rng_draw
+from .dense import DenseOps
 from .lazy import TorchLazyNode
 
 # median is left out: torch.median takes the lower middle value
 _REDUCE_OPS = {"sum", "mean", "min", "max", "any", "all", "prod",
                "std0", "std1", "var0", "var1", "nnz"}
+_SCAN_OPS = {"cumsum", "cumprod", "cummax", "cummin"}
 
 _DTYPES = {np.dtype(k): v for k, v in (
     (np.bool_, torch.bool), (np.int8, torch.int8), (np.int16, torch.int16),
@@ -122,6 +127,7 @@ class TorchEngine:
         self.dispatch_seq = 0
         self.gathered_seq = 0
         self.residency = ResidencyPool()
+        self.dense = DenseOps(self)
 
     # ------------------------------------------------------------- dtype policy
 
@@ -210,7 +216,19 @@ class TorchEngine:
             min(a.size, b.size) >= self.offload_threshold
 
     def route_linalg(self, *xs) -> bool:
-        return self._declines("linalg", "linalg not ported (A7)", *xs)
+        """JaxEngine's policy (engine.py:832-845): a resident operand, or
+        auto-offload by the largest operand's size. Whether the kind has a
+        builder is `linalg`'s question."""
+        xs = [x for x in xs if isinstance(x, MatArray)]
+        if any(x.is_complex for x in xs):
+            return self._declines("linalg", "complex not ported (A8)", *xs)
+        if any(x.on_device for x in xs):
+            return True
+        if not self.auto_offload:
+            return False
+        if any(x.mclass not in ("double", "single") for x in xs):
+            return False
+        return max((x.size for x in xs), default=0) >= self.offload_threshold
 
     def route_fft(self, x: MatArray) -> bool:
         return self._declines("fft", "fft not ported (A7)", x)
@@ -333,6 +351,34 @@ class TorchEngine:
         node = self._op("c:linspace", [sn, en], (int(n),), (1, n), dt)
         return MatArray.from_device(node, mclass)
 
+    def scan(self, op: str, x: MatArray, axis: int, reverse: bool,
+             omitnan: bool, keep_class: str) -> Optional[MatArray]:
+        """cumsum/cumprod/cummax/cummin along logical `axis` (0-based)."""
+        if op not in _SCAN_OPS:
+            self._declines("s:" + op, "scan not ported", x)
+            return None
+        nx = x.dev
+        dt = self.dtype_for(keep_class)
+        node = self._op("s:" + op, [nx],
+                        (int(axis), bool(reverse), bool(omitnan), str(dt)),
+                        nx.shape, dt)
+        out = MatArray.from_device(node, keep_class)
+        out.dl = getattr(x, "dl", False)
+        return out
+
+    def linalg(self, kind: str, xs: list, opts: tuple = (),
+               out_class: Optional[str] = None) -> Optional[list]:
+        """Eager device op through `DenseOps`; outputs are leaf MatArrays.
+        None when the port has no builder for `kind`: the caller's host
+        path (engine.py:847-860)."""
+        out = self.dense.call(kind, xs, opts)
+        if out is None:
+            return None
+        if out_class is None:
+            out_class = "single" if any(x.mclass == "single" for x in xs) \
+                else "double"
+        return [self.dense._leaf(arr, out_class) for arr in out]
+
     # ------------------------------------------------------ indexing fast path
 
     def index_read(self, base: MatArray, args: list) -> Optional[MatArray]:
@@ -412,9 +458,6 @@ class TorchEngine:
     def structural(self, op, xs, static, out_shape):
         _not_ported(f"structural {op}", "A6")
 
-    def scan(self, op, x, axis, reverse, omitnan, keep_class):
-        _not_ported(f"scan {op}", "A6")
-
     def sort(self, x, axis, descend, want_idx):
         _not_ported("sort", "A6")
 
@@ -423,9 +466,6 @@ class TorchEngine:
 
     def setop(self, op, a, b, stable=False, want_idx=False):
         _not_ported(f"setop {op}", "A6")
-
-    def linalg(self, kind, xs, opts=(), out_class=None):
-        _not_ported(f"linalg {kind}", "A7")
 
     def fft(self, x, n, dim, inverse):
         _not_ported("fft", "A7")
@@ -513,6 +553,8 @@ class TorchEngine:
             return op[2:] in _REDUCE_OPS
         if op.startswith("rng:"):
             return op[4:] in ("rand", "randn")
+        if op.startswith("s:"):
+            return op[2:] in _SCAN_OPS
         return op in self._OPS
 
     def _tensor(self, a, dt: np.dtype) -> torch.Tensor:
@@ -570,6 +612,9 @@ class TorchEngine:
         if op.startswith("r:"):
             return self._exec_reduce(op[2:], static, dt, args[0],
                                      in_shapes[0], out_shape)
+        if op.startswith("s:"):
+            return self._exec_scan(op[2:], static, dt, args[0],
+                                   in_shapes[0], out_shape)
         if op == "cast":
             return self._tensor(args[0], np.dtype(static[0]))
         if op == "matmul":
@@ -702,6 +747,52 @@ class TorchEngine:
                 r = (d * d).sum(dim=axes, keepdim=True) / (n - ddof)
             return (torch.sqrt(r) if name.startswith("std") else r).to(tdt)
         raise MatError("MATLAB:internal", f"Unknown reduce '{name}'.")
+
+    def _exec_scan(self, name: str, static: tuple, dt: np.dtype, x,
+                   lshape: tuple, out_shape: tuple) -> torch.Tensor:
+        """Scans with MATLAB NaN semantics (engine.py:1791-1831):
+        cumsum/cumprod honour omitnan (NaN -> identity); cummax/cummin
+        always skip NaN until the first non-NaN (np.fmax.accumulate)."""
+        axis, reverse, omitnan, _ = static
+        tdt = torch_dtype(dt)
+        # logical axis -> physical axis (vectors are stored rank-1)
+        if lshape and tuple(x.shape) != tuple(lshape):
+            if x.ndim <= 1:
+                nonsing = next((i for i, s in enumerate(lshape) if s != 1), 0)
+                if axis != nonsing:
+                    return self._to_phys(x.to(tdt), out_shape)  # no-op scan
+                axis = 0
+            else:
+                x = x.reshape(lshape)
+        elif axis >= x.ndim:
+            return self._to_phys(x.to(tdt), out_shape)
+        if x.ndim == 0:
+            x = x.reshape(1)
+        if reverse:
+            x = x.flip(axis)
+        isf = x.is_floating_point()
+        if name in ("cumsum", "cumprod"):
+            xx = x.to(tdt) if tdt.is_floating_point else x
+            if omitnan and isf:
+                ident = 0.0 if name == "cumsum" else 1.0
+                xx = torch.where(torch.isnan(xx), torch.full_like(xx, ident),
+                                 xx)
+            fn = torch.cumsum if name == "cumsum" else torch.cumprod
+            r = fn(xx, dim=axis)
+        elif isf:
+            nan = torch.isnan(x)
+            sent = float("-inf") if name == "cummax" else float("inf")
+            fn = torch.cummax if name == "cummax" else torch.cummin
+            r = fn(torch.where(nan, torch.full_like(x, sent), x),
+                   dim=axis).values
+            allnan = torch.cumprod(nan.to(x.dtype), dim=axis)
+            r = torch.where(allnan > 0, torch.full_like(r, float("nan")), r)
+        else:
+            fn = torch.cummax if name == "cummax" else torch.cummin
+            r = fn(x, dim=axis).values
+        if reverse:
+            r = r.flip(axis)
+        return self._to_phys(r.to(tdt), out_shape)
 
     def _exec_rng(self, kind: str, static: tuple, dt: np.dtype, args: list):
         key, n, shape, mclass = static

@@ -1,17 +1,19 @@
-"""The port on an NVIDIA card: the Threefry kernel against its plain PyTorch
-version, and the slice against the jax-free host engine. Marked `cuda`; each
-test skips without a card. On a card machine without jax, run them with
+"""The port on an NVIDIA card: the Threefry and histogram kernels against
+their plain PyTorch versions, and the slices against the jax-free host
+engine. Marked `cuda`; each test skips without a card. On a card machine
+without jax, run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 (`tests/conftest.py` imports jax). This file imports none of it.
 Tolerances: uniforms bit-exact; normals f32 atol=rtol=2e-6, f64
-atol=rtol=1e-13; workload results rtol=1e-4.
+atol=rtol=1e-13; histogram counts exact; workload results rtol=1e-4.
 """
 
 import io
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,3 +82,85 @@ def test_workload_on_card_matches_host(card, name, pre, label, var):
         assert threefry.launches - before == 16
     if name == "image_normalize":
         assert threefry.launches - before == 1
+
+
+HIST_MODES = [("search", torch.float32, None), ("search", torch.float64, None),
+              ("direct", torch.float32, (7, 0)),
+              ("direct", torch.float32, (-1, -3)),
+              ("direct", torch.float32, (-2, -4)),
+              ("direct", torch.float32, (3, 5))]
+
+
+# 1000, 4096 and 30000 bins cross the kernel's shared-memory layouts (per
+# warp, per block, global counts) in every mode; 65536 takes direct mode
+# to the global layout
+@pytest.mark.parametrize("nb", [1, 3, 7, 80, 256, 257, 1000, 4096, 30000,
+                                65536])
+@pytest.mark.parametrize("n", [1, 3, 1023, 65537])
+@pytest.mark.parametrize("mode,dtype,affine", HIST_MODES,
+                         ids=["f32", "f64", "direct-k7-m0", "direct-k-1-m-3",
+                              "direct-k-2-m-4", "direct-k3-m5"])
+def test_histogram_kernel_matches_plain(card, mode, dtype, affine, n, nb):
+    from runmat_tpu_torch.ops import histogram
+    rng = np.random.default_rng(n * 1000 + nb)
+    if affine is None:
+        e = np.sort(rng.uniform(-2.0, 2.0, nb + 1))
+        if nb >= 3:
+            e[1] = e[2]                                  # a repeated edge
+    else:
+        k, m = affine
+        e = (m + np.arange(nb + 1)) * 2.0 ** -k
+    span = e[-1] - e[0]
+    x = rng.uniform(e[0] - 0.2 * span, e[-1] + 0.2 * span, n)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    e = e.astype(np_dt)
+    tiny = np.finfo(np_dt).smallest_subnormal
+    special = [np.nan, e[0], e[-1], e[nb // 2], np.inf, -np.inf, tiny, -tiny,
+               np.nextafter(e[nb // 2], np_dt(np.inf)),
+               np.nextafter(e[nb // 2], np_dt(-np.inf)),
+               np.nextafter(e[-1], np_dt(np.inf))]
+    x[:min(n, len(special))] = special[:min(n, len(special))]
+    xt = torch.from_numpy(x.astype(np_dt)).to(card)
+    et = torch.from_numpy(e.astype(np_dt)).to(card)
+    before = histogram.launches
+    got = histogram.histcounts(xt, et, affine)
+    torch.cuda.synchronize()
+    assert histogram.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.int64 and got.shape == (nb,)
+    if affine is None:
+        want = histogram.plain_histcounts(xt, et)
+    else:
+        want = histogram.plain_histcounts_affine(xt, nb, *affine)
+    assert torch.equal(got, want)
+    ref = np.histogram(x.astype(np_dt).astype(np.float64),
+                       bins=e.astype(np_dt).astype(np.float64))[0]
+    assert np.array_equal(got.cpu().numpy(), ref)
+
+
+def test_histogram_stats_on_card_matches_host(card):
+    import runmat_tpu_torch
+    from runmat_tpu import accel
+    from runmat_tpu.session import Session
+    from runmat_tpu_torch.ops import histogram
+
+    src = "N = 1048576;\n" + open(
+        "runmat_tpu_torch/workloads/histogram_stats.m").read()
+    prev = accel.active_engine()
+    accel.set_engine(None)
+    host = Session(accelerate=False, stdout=io.StringIO())
+    host.run_source(src)
+    try:
+        s = runmat_tpu_torch.session("cuda")
+        eng = accel.active_engine()
+        before = histogram.launches
+        r = s.execute(src)
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+    assert r.error is None, r.error
+    assert re.search(r"RESULT_ok HIST=", r.output)
+    want = float(host.get("res").host().reshape(-1)[0])
+    got = float(s.get("res").host().reshape(-1)[0])
+    assert abs(got - want) <= 1e-4 * abs(want)
+    assert histogram.launches - before == 3
+    assert eng.stats["host_fallbacks"] == 0

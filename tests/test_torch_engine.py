@@ -262,13 +262,24 @@ def test_outside_the_slice_declines_or_raises(engines):
     _, eng = engines
     x = MatArray(_data((4, 4), "double", special=False), "double")
     d = eng.upload(x)
+    z = MatArray(np.array([[1j, 2.0]]), "double")
     before = eng.stats["host_fallbacks"]
-    assert eng.route_linalg(d) is False and eng.route_fft(d) is False
+    # linalg routes a resident operand; a kind without a builder declines
+    # in linalg, counted because the operand is on the device
+    assert eng.route_linalg(d) is True
+    assert eng.linalg("inv", [d]) is None
+    assert eng.stats["host_fallbacks"] == before + 1
+    # a host operand of an unported kind declines without a count
+    assert eng.linalg("inv", [x]) is None
+    assert eng.stats["host_fallbacks"] == before + 1
+    # complex declines; fft declines, counted for the resident operand
+    assert eng.route_linalg(z) is False
+    assert eng.route_fft(d) is False
     assert eng.stats["host_fallbacks"] == before + 2
     for call in (lambda: eng.sort(d, 0, False, False),
-                 lambda: eng.scan("cumsum", d, 0, False, False, "double"),
                  lambda: eng.index_write(d, [], d),
-                 lambda: eng.upload(MatArray(np.array([[1j]]), "double"))):
+                 lambda: eng.upload(z)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             call()
     assert eng.reduce("median", d, (0,), "double", "") is None
+    assert eng.scan("cumsum", d, 0, False, False, "double") is not None

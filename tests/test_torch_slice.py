@@ -7,6 +7,14 @@ rtol=1e-4, because the f32 `exp` step compounds over T iterations. Workspace
 arrays are held to their workload's rtol, element by element and also
 scaled by the array's largest magnitude (payoff = max(S - K, 0) cancels
 S ~ 100 down to small values, which keep S's absolute error).
+
+The statistics slice, `runmat_tpu_torch/workloads/histogram_stats.m` at
+N = 65536: HIST rtol=1e-5 (f32 sums in another order). Counts are exact:
+`cu` (of uniforms, which both engines draw bit for bit) equals JaxEngine's,
+and `cz`, `cq` equal `np.histogram` of each engine's own draws. Between the
+engines `cz` and `cq` may differ by 1 per bin, because normals agree across
+backends only to a few ulp and a draw within an ulp of an edge may land on
+either side.
 """
 
 import re
@@ -100,3 +108,73 @@ def test_monte_carlo_loop_folds_in_both(restore_engine):
     assert any(k[0] == "device_loop" for k in jeng._jit_cache)
     # the stream advanced by T draws of M/2 blocks in both
     assert ts.rng.counter == js.rng.counter == 16 * 4096 // 2
+
+
+HIST_SRC = "N = 65536;\n" + open(
+    "runmat_tpu_torch/workloads/histogram_stats.m").read()
+HIST_DATA = {"cu": ("u", np.arange(129) / 128),
+             "cz": ("z", np.arange(-40, 41) / 10),
+             "cq": ("z .* z", [0, 0.25, 0.5, 1, 2, 4, 8, 16])}
+
+
+def _run_hist():
+    jeng = JaxEngine(platform="cpu", **OFFLOAD)
+    accel.set_engine(jeng)
+    js = Session(accelerate=True)
+    jr = js.execute(HIST_SRC)
+    ts = runmat_tpu_torch.session("cpu", **OFFLOAD)
+    teng = accel.active_engine()
+    tr = ts.execute(HIST_SRC)
+    runmat_tpu_torch.uninstall()
+    assert jr.error is None and tr.error is None, (jr.error, tr.error)
+    return (js, jr, jeng), (ts, tr, teng)
+
+
+def _own_histogram(s, name):
+    """np.histogram of the session's own data over the script's edges, in
+    the edges' f32 or f64 values as the script gives them."""
+    expr, edges = HIST_DATA[name]
+    z = s.get("z").host().astype(np.float64).reshape(-1)
+    data = {"u": s.get("u").host().astype(np.float64).reshape(-1), "z": z,
+            "z .* z": (s.get("z").host() * s.get("z").host()).astype(
+                np.float64).reshape(-1)}[expr]
+    e = np.asarray(edges, np.float64)
+    if name != "cq":
+        e = e.astype(np.float32).astype(np.float64)
+    return np.histogram(data, bins=e)[0]
+
+
+def test_histogram_stats_matches_jax_engine(restore_engine):
+    (js, jr, _), (ts, tr, teng) = _run_hist()
+    np.testing.assert_allclose(_printed(tr.output, "HIST"),
+                               _printed(jr.output, "HIST"), rtol=1e-5)
+    np.testing.assert_allclose(ts.get("res").host(), js.get("res").host(),
+                               rtol=1e-5)
+    assert np.array_equal(ts.get("cu").host(), js.get("cu").host())
+    for name in ("cu", "cz", "cq"):
+        for s in (js, ts):
+            c = s.get(name)
+            assert c.mclass == "single", name
+            h = c.host()
+            assert h.dtype == (np.float64 if name == "cq" else np.float32)
+            assert np.array_equal(h.reshape(-1),
+                                  _own_histogram(s, name).astype(h.dtype))
+        assert np.abs(ts.get(name).host() - js.get(name).host()).max() <= 1
+    st = teng.stats
+    assert st["host_fallbacks"] == 0
+
+
+def test_histogram_stats_device_arrays(restore_engine):
+    (js, _, _), (ts, _, _) = _run_hist()
+    # u and z come back to the host inside histcounts (the shared builtin
+    # gathers its input first), in both engines; the rest stays on device
+    for s in (js, ts):
+        assert not s.get("u").on_device and not s.get("z").on_device
+        for k in ("cu", "cz", "cq", "pz", "Fz", "sm", "dF"):
+            assert s.get(k).on_device, k
+    for k in ("pz", "Fz", "sm", "dF", "area", "chi2"):
+        want, got = js.get(k).host(), ts.get(k).host()
+        assert got.shape == want.shape and got.dtype == want.dtype, k
+        scale = float(np.max(np.abs(want)))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale,
+                                   err_msg=k)
