@@ -9,26 +9,31 @@ line is printed:
   2. build: csrc/*.cu with nvcc into build/runmat_tpu_torch/ (one nvcc per
      source, all started together);
   3. kernels against plain: the Threefry kernel against its plain PyTorch
-     version on the card and the host numpy stream, at the main path's
-     shapes and more, with the time of both for 10^7 values of each kind;
-     the histogram kernel against its plain versions, exactly, in its three
-     modes over sizes up to 2^26 and 1 to 256 bins, and up to 2^20+1
+     version on the card and the port's host numpy stream, at the main
+     path's shapes and more, with the time of both for 10^7 values of each
+     kind; the histogram kernel against its plain versions, exactly, in its
+     three modes over sizes up to 2^26 and 1 to 256 bins, and up to 2^20+1
      values at 257 to 65536 bins, which cross its shared-memory layouts
-     (and against np.histogram up to 2^20+1 values), with the time of both
-     at 2^26 and of the kernel alone at many bins;
+     (and against np.histogram up to 2^20+1 values), with the time of the
+     kernel, the plain version and `torch.histc` (direct mode) at 2^26 and
+     of the kernel alone at many bins (runmat_tpu_torch/histbench.py);
   4. main path: benchmarks/{elementwise_math,monte_carlo,image_normalize}.m
      at their default sizes through runmat_tpu_torch.session("cuda"),
-     against the jax-free host engine (Session(accelerate=False)) for
-     CHECK and PRICE, and for MSE against a float64 evaluation of the
-     script on the frames the host engine drew; with the kernel's launch
-     count, the loop fold and the warm wall times;
+     against the port's host engine (Session(accelerate=False)) for CHECK
+     and PRICE, and for MSE against a float64 evaluation of the script on
+     the frames the host engine drew; with the kernel's launch count, the
+     loop fold and the warm wall times;
   5. statistics path: runmat_tpu_torch/workloads/histogram_stats.m at its
-     default N = 2^26, HIST against the host engine, the three histograms
+     default N = 2^26 through Session.run_source and once through
+     Session.execute, HIST against the host engine, the three histograms
      against np.histogram of the port's own data, the histogram kernel's
-     launches, and the warm wall time;
+     launches, the bytes copied to and from the card, and the warm walls;
   6. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
-Imports nothing of jax.
+Each kernel's `launches` is read from the runs of phases 4 and 5, with the
+counts set to 0 just before each run. `bound_ms` is the larger of the bytes
+the call must move over 3.35 TB/s and its operations over the card's rate
+for them (BOUND_* below). Imports nothing of jax and nothing of runmat_tpu.
 """
 
 from __future__ import annotations
@@ -64,6 +69,27 @@ HIST_NUMPY_UP_TO = (1 << 20) + 1           # np.histogram as a third opinion
 HIST_WORKLOAD = "runmat_tpu_torch/workloads/histogram_stats.m"
 HIST_EDGES = {"cu": np.arange(129) / 128,
               "cq": np.array([0, 0.25, 0.5, 1, 2, 4, 8, 16])}
+# histogram_stats.m's calls (runmat_tpu_torch/histbench.py makes their
+# inputs) and the line of the Pallas kernel each replaces
+HIST_MAIN_CALLS = {"direct f32": ("cu, 128 bins", "67"),
+                   "search f32": ("cz, 80 bins", "216"),
+                   "search f64": ("cq, 7 bins", "216")}
+# the statistics path copies only scalars and edges: u, z and z.*z stay on
+# the card
+HIST_TRANSFER_LIMIT = 1 << 20
+TIMING_REPS = 50
+# the least time the card could take (NVIDIA H100 SXM data sheet): HBM3 at
+# 3.35 TB/s; for operations, the cycles a warp spends in a kernel's loop
+# (runmat_tpu_torch/sass.py, from the built machine code) on 4 sub-
+# partitions of each of 132 SMs at the 1.98 GHz boost clock
+BOUND_BYTES_PER_S = 3.35e12
+BOUND_WARP_CYCLES_PER_S = 4 * 132 * 1.98e9
+# A Threefry draw's operations: its counter blocks, each one iteration of
+# the uniform kernel's loop of its width. The normal kernels' loops also
+# hold the cold paths of sinf/cosf's argument reduction, so their static
+# count would overstate the work; counting the counter blocks alone keeps
+# the bound a floor.
+THREEFRY_LOOPS = {"float32": "uniform_f32", "float64": "uniform_f64"}
 
 
 class SmokeFailure(Exception):
@@ -99,29 +125,25 @@ def phase_build():
             print(f"  ptxas: {line.strip()}")
 
 
-def _time_ms(fn, reps: int = 20) -> float:
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def _bound(nbytes: float, warp_cycles: float = 0.0) -> tuple:
+    """(bound_ms, bound_by): bytes over the memory rate against the warp
+    cycles of the work over the card's rate for them, whichever is
+    larger."""
+    by_bytes = nbytes / BOUND_BYTES_PER_S * 1e3
+    by_ops = warp_cycles / BOUND_WARP_CYCLES_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
-def phase_kernel() -> dict:
-    import numpy as np
+def phase_kernel() -> list:
     import torch
 
-    from runmat_tpu.ops import ctrng as host
-    from runmat_tpu_torch.ops import threefry
+    from runmat_tpu_torch import sass
+    from runmat_tpu_torch.histbench import time_ms
+    from runmat_tpu_torch.ops import ctrng, threefry
 
     dev = torch.device("cuda")
-    worst = 0.0
+    worst = {"rand": 0.0, "randn": 0.0}
     cases = [(kind, n, dt, ctr) for kind in ("rand", "randn")
              for dt in (torch.float32, torch.float64)
              for n in SIZES for ctr in COUNTERS]
@@ -141,7 +163,7 @@ def phase_kernel() -> dict:
                   f"against plain (max err {err:g})")
             if n <= 10 ** 7:
                 c = ctr if isinstance(ctr, int) else ctr[0] | (ctr[1] << 32)
-                ref, _ = host.uniform(np, KEY, c, n, np.dtype(name))
+                ref, _ = ctrng.np_uniform(KEY, c, n, np.dtype(name))
                 check(np.array_equal(got.cpu().numpy(), ref),
                       f"rand {name} n={n} ctr={ctr}: not bit-exact "
                       f"against the host stream")
@@ -150,25 +172,47 @@ def phase_kernel() -> dict:
             check(bool(torch.isfinite(got).all()) and torch.allclose(
                 got, want, rtol=tol, atol=tol),
                 f"randn {name} n={n} ctr={ctr}: max err {err:g} > {tol:g}")
-        worst = max(worst, err)
+        worst[kind] = max(worst[kind], err)
         print(f"kernel {kind} {name} n={n} ctr={ctr}: max_abs_err={err:g}")
 
+    mixes = sass.loop_mixes()
     timings = {}
+    n = 10 ** 7
     for kind in ("rand", "randn"):
         for dt in (torch.float32, torch.float64):
-            n = 10 ** 7
-            k_ms = _time_ms(lambda: threefry.rng_draw(kind, KEY, 0, n, dt, dev))
-            p_ms = _time_ms(lambda: threefry.plain_draw(kind, KEY, 0, n, dt,
-                                                        dev))
+            k_ms = time_ms(lambda: threefry.rng_draw(kind, KEY, 0, n, dt, dev),
+                           TIMING_REPS)
+            p_ms = time_ms(lambda: threefry.plain_draw(kind, KEY, 0, n, dt,
+                                                       dev), TIMING_REPS)
             name = str(dt).split(".")[-1]
-            timings[(kind, name)] = (k_ms, p_ms)
+            # counter blocks: f32 two values each; f64 uniform one value
+            # each, f64 normal two blocks per pair of values
+            blocks = (n + 1) // 2 if dt == torch.float32 else \
+                (n if kind == "rand" else 2 * ((n + 1) // 2))
+            (mixed,) = [m for k, m in mixes.items()
+                        if THREEFRY_LOOPS[name] in k]
+            bound = _bound(n * (4 if dt == torch.float32 else 8),
+                           blocks / 32 * mixed["loop_cycles"])
+            timings[(kind, name)] = (k_ms, p_ms, bound)
             print(f"time {kind} {name} n=1e7: kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms")
-    k_ms, p_ms = timings[("randn", "float32")]
-    return {"name": "threefry2x32", "route": "cuda",
+                  f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}), share of bound {bound[0] / k_ms:.2f}; "
+                  f"loop {json.dumps(mixed)}")
+    out = []
+    for kind, label in (("rand", "uniform"), ("randn", "normal")):
+        k_ms, p_ms, bound = timings[(kind, "float32")]
+        out.append({
+            "name": f"threefry2x32_{label}_f32", "route": "cuda",
             "source": "runmat_tpu_torch/csrc/threefry.cu",
-            "replaces": "runmat_tpu/ops/pallas/threefry.py:51",
-            "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+            "replaces": "runmat_tpu/ops/pallas/threefry.py:"
+                        + ("134" if kind == "rand" else "114"),
+            "launches": 0, "launch_key": f"{kind} float32",
+            "max_abs_err": worst[kind], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            # torch.rand draws Philox, another stream: no library call
+            # computes these values
+            "library_ms": None})
+    return out
 
 
 def _hist_inputs(base, n: int, nb: int, dtype, affine, seed: int):
@@ -204,9 +248,10 @@ def _hist_inputs(base, n: int, nb: int, dtype, affine, seed: int):
     return x, e
 
 
-def phase_histogram_kernel() -> dict:
+def phase_histogram_kernel() -> list:
     import torch
 
+    from runmat_tpu_torch import histbench
     from runmat_tpu_torch.ops import histogram
 
     dev = torch.device("cuda")
@@ -218,7 +263,7 @@ def phase_histogram_kernel() -> dict:
              ("search f64", torch.float64, None)]
     modes += [(f"direct k={k} m={m}", torch.float32, (k, m))
               for k, m in HIST_AFFINE]
-    worst = 0
+    total = 0
     for n in HIST_SIZES:
         cases = 0
         bins = HIST_BINS + (HIST_MANY_BINS if n <= HIST_NUMPY_UP_TO else ())
@@ -242,63 +287,59 @@ def phase_histogram_kernel() -> dict:
                     check(np.array_equal(got.cpu().numpy(), ref),
                           f"histcounts {label} n={n} B={nb}: not "
                           f"np.histogram")
-                worst = max(worst, err)
                 cases += 1
+        total += cases
         print(f"kernel histcounts n={n}: {cases} cases (B in {bins}, "
               f"{len(modes)} modes) equal plain"
               + (" and np.histogram" if n <= HIST_NUMPY_UP_TO else ""))
+    print(f"kernel histcounts: {total} cases bit-exact")
 
     # the main path's three calls, at its size: 2^26 values each
-    n = 1 << 26
-    u = torch.rand(n, dtype=torch.float32, device=dev, generator=gen)
-    z = torch.randn(n, dtype=torch.float32, device=dev, generator=gen)
-    ez = torch.tensor(np.arange(-40, 41) / 10, dtype=torch.float32,
-                      device=dev)
-    timed = {
-        "direct f32 (cu, 128 bins)": (
-            u, torch.tensor(HIST_EDGES["cu"], dtype=torch.float32,
-                            device=dev), (7, 0)),
-        "search f32 (cz, 80 bins)": (z, ez, None),
-        "search f64 (cq, 7 bins)": (
-            (z * z).double(), torch.tensor(HIST_EDGES["cq"],
-                                           dtype=torch.float64, device=dev),
-            None)}
-    times = {}
-    for label, (x, e, affine) in timed.items():
-        nb = e.numel() - 1
-        k_ms = _time_ms(lambda: histogram.histcounts(x, e, affine))
-        if affine is None:
-            p_ms = _time_ms(lambda: histogram.plain_histcounts(x, e))
-        else:
-            p_ms = _time_ms(lambda: histogram.plain_histcounts_affine(
-                x, nb, *affine))
-        check(torch.equal(histogram.histcounts(x, e, affine),
-                          histogram.plain_histcounts(x, e)),
-              f"histcounts {label} n=2^26: kernel differs from plain")
+    calls = histbench.main_path_calls(gen)
+    res = histbench.measure(histogram, calls, TIMING_REPS, plain_reps=5)
+    out = []
+    for mode, (call, line) in HIST_MAIN_CALLS.items():
+        r = res["calls"][mode]
+        check(r["equal"], f"histcounts {mode} ({call}) n=2^26: kernel differs "
+              f"from plain by up to {r['max_abs_err']:g}")
+        if "library_equal" in r:
+            check(r["library_equal"],
+                  f"torch.histc differs from the kernel ({call})")
+        x, e, _ = calls[mode]
+        bound = _bound(x.numel() * x.element_size()
+                       + e.numel() * e.element_size() + (e.numel() - 1) * 8)
+        k_ms, lib_ms = r["ms"], r["library_ms"]
         gbs = x.numel() * x.element_size() / (k_ms * 1e-3) / 1e9
-        times[label] = (k_ms, p_ms)
-        print(f"time histcounts {label} n=2^26: kernel {k_ms:.4f} ms "
-              f"({gbs:.0f} GB/s of x), plain {p_ms:.4f} ms")
-    for nb in HIST_MANY_BINS:
-        e = torch.linspace(-4, 4, nb + 1, dtype=torch.float32, device=dev)
-        k_ms = _time_ms(lambda: histogram.histcounts(z, e))
+        print(f"time histcounts {mode} ({call}) n=2^26: kernel {k_ms:.4f} "
+              f"ms ({gbs:.0f} GB/s of x), plain {r['plain_ms']:.4f} ms, "
+              f"library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), share of bound "
+              f"{bound[0] / k_ms:.2f}")
+        out.append({
+            "name": f"histcounts_{mode.replace(' ', '_')}", "route": "cuda",
+            "source": "runmat_tpu_torch/csrc/histogram.cu",
+            "replaces": f"runmat_tpu/ops/pallas/histogram.py:{line}",
+            "launches": 0, "launch_key": mode,
+            "max_abs_err": r["max_abs_err"], "ms": k_ms,
+            "plain_ms": r["plain_ms"], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms})
+    if res["torch_histogram_cuda"] is True:
+        print("library: torch.histogram takes CUDA tensors")
+    else:
+        print(f"library: torch.histogram refuses CUDA tensors "
+              f"({res['torch_histogram_cuda']}), so search mode has none")
+    for nb, k_ms in res["many_bins"].items():
         print(f"time histcounts search f32 (normals, {nb} bins) n=2^26: "
               f"kernel {k_ms:.4f} ms")
-    return {"name": "histcounts", "route": "cuda",
-            "source": "runmat_tpu_torch/csrc/histogram.cu",
-            "replaces": "runmat_tpu/ops/pallas/histogram.py:67,216",
-            "max_abs_err": worst,
-            "ms": sum(k for k, _ in times.values()),
-            "plain_ms": sum(p for _, p in times.values()),
-            "modes": {k: {"ms": a, "plain_ms": b}
-                      for k, (a, b) in times.items()}}
+    return out
 
 
 def _host_reference(src: str) -> tuple:
-    """The script under the jax-free host engine. run_source skips the
-    workspace preview that formats every element of a host array."""
-    from runmat_tpu import accel
-    from runmat_tpu.session import Session
+    """The script under the port's host engine (no device engine).
+    run_source skips the workspace preview."""
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.session import Session
     check(accel.active_engine() is None, "an engine is active for the host run")
     buf = io.StringIO()
     s = Session(accelerate=False, stdout=buf)
@@ -311,7 +352,6 @@ def _image_normalize_f64(imgs) -> float:
     frames the host engine drew (the same Threefry stream as the port's).
     The host engine's own single-precision means over dims [2 3] lose
     accuracy at 2160 x 3840 frames, so MSE is held to this evaluation."""
-    import numpy as np
     gain, bias, gamma0, eps0 = (float(np.float32(v))
                                 for v in (1.0123, -0.02, 1.8, 1e-6))
     total = 0.0
@@ -330,13 +370,25 @@ def _result_value(output: str, label: str) -> float:
     return float(m.group(1))
 
 
-def phase_main_path() -> int:
+def _zero_launches() -> None:
+    from runmat_tpu_torch.ops import histogram, threefry
+    for mod in (histogram, threefry):
+        mod.launches = 0
+        mod.launches_by.clear()
+
+
+def _read_launches() -> dict:
+    from runmat_tpu_torch.ops import histogram, threefry
+    return {"threefry": dict(threefry.launches_by),
+            "histogram": dict(histogram.launches_by)}
+
+
+def phase_main_path() -> dict:
     import torch
 
     import runmat_tpu_torch
-    from runmat_tpu import accel
-    from runmat_tpu.values import MatArray
-    from runmat_tpu_torch.ops import threefry
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.values import MatArray
 
     sources = {w: open(f"benchmarks/{w}.m").read() for w in WORKLOADS}
     refs = {}
@@ -356,18 +408,20 @@ def phase_main_path() -> int:
         del s
 
     runs = {}
-    threefry.launches = 0
+    _zero_launches()
     for w in WORKLOADS:
         s = runmat_tpu_torch.session("cuda")
         eng = accel.active_engine()
-        before = threefry.launches
+        before = dict(_read_launches()["threefry"])
         r = s.execute(sources[w])
         torch.cuda.synchronize()
-        runs[w] = (s, eng, r, threefry.launches - before)
+        after = _read_launches()["threefry"]
+        runs[w] = (s, eng, r, {k: v - before.get(k, 0)
+                               for k, v in after.items()})
         runmat_tpu_torch.uninstall()
-    total_launches = threefry.launches
+    launches = _read_launches()
 
-    for w, (s, eng, r, launches) in runs.items():
+    for w, (s, eng, r, draws) in runs.items():
         check(r.error is None, f"{w}: {r.error}")
         label, var = RESULT_KEY[w]
         printed = _result_value(r.output, label)
@@ -393,24 +447,24 @@ def phase_main_path() -> int:
             check(st["loop_folds"] == 1 and st["loop_bails"] == 0,
                   f"monte_carlo: loop_folds={st['loop_folds']} "
                   f"loop_bails={st['loop_bails']}")
-            check(launches >= 256, f"monte_carlo: {launches} launches")
+            check(draws.get("randn float32", 0) >= 256,
+                  f"monte_carlo: {draws} launches")
         if w == "image_normalize":
-            check(launches >= 1, f"image_normalize: {launches} launches")
+            check(draws.get("rand float32", 0) >= 1,
+                  f"image_normalize: {draws} launches")
         print(f"port {w}: {r.output.strip()} (reference {ref_value!r}, rel err "
               f"{abs(value - ref_value) / abs(ref_value):.3g}); threefry "
-              f"launches {launches}; cuda arrays {arrays}; stats "
+              f"launches {draws}; cuda arrays {arrays}; stats "
               f"{json.dumps({k: v for k, v in st.items() if v})}")
     runs.clear()
 
     for w in WORKLOADS:
         _walls(sources[w], w)
-    return total_launches
+    return launches
 
 
 def _run_source(s, src: str) -> str:
-    """Session.run_source with the session's output captured: unlike
-    Session.execute it builds no workspace preview, which formats every
-    element of each host array (histogram_stats leaves two of 2^26)."""
+    """Session.run_source with the session's output captured."""
     s.stdout = io.StringIO()
     s.run_source(src)
     return s.stdout.getvalue()
@@ -418,7 +472,8 @@ def _run_source(s, src: str) -> str:
 
 def _walls(src: str, label: str, preview: bool = True) -> None:
     """First run, then the median of 3 warm runs, in one fresh session;
-    through Session.execute, or Session.run_source without the preview."""
+    through Session.execute (which builds the workspace preview), or
+    Session.run_source."""
     import torch
 
     import runmat_tpu_torch
@@ -434,18 +489,18 @@ def _walls(src: str, label: str, preview: bool = True) -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     runmat_tpu_torch.uninstall()
-    print(f"wall {label}: first {walls[0] * 1e3:.1f} ms, warm median of 3 "
-          f"{statistics.median(walls[1:]) * 1e3:.1f} ms "
+    how = "execute" if preview else "run_source"
+    print(f"wall {label} ({how}): first {walls[0] * 1e3:.1f} ms, warm median "
+          f"of 3 {statistics.median(walls[1:]) * 1e3:.1f} ms "
           f"({', '.join(f'{x * 1e3:.1f}' for x in walls[1:])})")
 
 
-def phase_statistics_path() -> int:
+def phase_statistics_path() -> dict:
     import torch
 
     import runmat_tpu_torch
-    from runmat_tpu import accel
-    from runmat_tpu.errors import MatError
-    from runmat_tpu_torch.ops import histogram, threefry
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.errors import MatError
 
     src = open(HIST_WORKLOAD).read()
     t0 = time.perf_counter()
@@ -458,7 +513,7 @@ def phase_statistics_path() -> int:
 
     s = runmat_tpu_torch.session("cuda")
     eng = accel.active_engine()
-    threefry.launches = histogram.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     try:
         output = _run_source(s, src)
@@ -466,20 +521,25 @@ def phase_statistics_path() -> int:
         raise SmokeFailure(f"histogram_stats: {e}") from e
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, draws = histogram.launches, threefry.launches
+    launches = _read_launches()
+    st = dict(eng.stats)
     runmat_tpu_torch.uninstall()
 
-    on_card = ("cu", "cz", "cq", "pz", "Fz", "sm", "dF")
+    on_card = ("u", "z", "cu", "cz", "cq", "pz", "Fz", "sm", "dF")
     for k in on_card:
         v = s.get(k)
         check(v.on_device, f"histogram_stats: {k} is on the host")
         t = eng.materialize(v.dev)
         check(isinstance(t, torch.Tensor) and t.is_cuda,
               f"histogram_stats: {k} is not a CUDA tensor")
-    on_host = [k for k in ("u", "z") if not s.get(k).on_device]
-    print(f"port histogram_stats: CUDA tensors {list(on_card)}; on the host "
-          f"after the run: {on_host} (histcounts gathers its input before "
-          f"it routes, runmat_tpu/runtime/builtins/stats.py:115)")
+    check(st["gather_bytes"] < HIST_TRANSFER_LIMIT,
+          f"histogram_stats: {st['gather_bytes']} bytes gathered")
+    check(st["upload_bytes"] < HIST_TRANSFER_LIMIT,
+          f"histogram_stats: {st['upload_bytes']} bytes uploaded (u, z or "
+          f"z.*z went up again)")
+    print(f"port histogram_stats: CUDA tensors {list(on_card)}; gathers "
+          f"{st['gathers']} ({st['gather_bytes']} bytes), uploads "
+          f"{st['uploads']} ({st['upload_bytes']} bytes)")
 
     printed = _result_value(output, "HIST")
     value = float(s.get("res").host().reshape(-1)[0])
@@ -505,18 +565,39 @@ def phase_statistics_path() -> int:
               f"np.histogram of the port's own data; largest bin "
               f"{int(want.max())}")
 
-    st = eng.stats
-    check(launches == 3, f"histogram_stats: {launches} histogram launches")
-    check(draws == 2, f"histogram_stats: {draws} threefry launches")
+    hist = launches["histogram"]
+    check(sum(hist.values()) == 3 and all(
+        hist.get(m) == 1 for m in ("direct f32", "search f32", "search f64")),
+        f"histogram_stats: histogram launches {hist}")
+    check(sum(launches["threefry"].values()) == 2,
+          f"histogram_stats: threefry launches {launches['threefry']}")
     check(st["host_fallbacks"] == 0,
           f"histogram_stats: {st['host_fallbacks']} host fallbacks")
     print(f"port histogram_stats: {output.strip()} (reference "
           f"{ref_value!r}, rel err {abs(value - ref_value) / abs(ref_value):.3g});"
-          f" histcounts launches {launches}; threefry launches {draws}; stats "
+          f" launches {launches}; stats "
           f"{json.dumps({k: v for k, v in st.items() if v})}; first run "
           f"{wall * 1e3:.1f} ms")
     del s
+
+    # once through Session.execute: its workspace preview formats no array
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    r = s.execute(src)
+    torch.cuda.synchronize()
+    runmat_tpu_torch.uninstall()
+    check(r.error is None, f"histogram_stats (execute): {r.error}")
+    check(abs(_result_value(r.output, "HIST") - ref_printed)
+          <= PARITY_RTOL * abs(ref_printed),
+          f"histogram_stats (execute): {r.output.strip()}")
+    check(eng.stats["gather_bytes"] < HIST_TRANSFER_LIMIT,
+          f"histogram_stats (execute): {eng.stats['gather_bytes']} bytes "
+          f"gathered")
+    print(f"port histogram_stats (execute): {r.output.strip()}; gathers "
+          f"{eng.stats['gathers']} ({eng.stats['gather_bytes']} bytes)")
+    del s
     _walls(src, "histogram_stats", preview=False)
+    _walls(src, "histogram_stats", preview=True)
     return launches
 
 
@@ -531,9 +612,14 @@ def main() -> int:
     try:
         phase(phase_device)
         phase(phase_build)
-        kernels = [phase(phase_kernel), phase(phase_histogram_kernel)]
-        kernels[0]["launches"] = phase(phase_main_path)
-        kernels[1]["launches"] = phase(phase_statistics_path)
+        kernels = phase(phase_kernel) + phase(phase_histogram_kernel)
+        paths = [phase(phase_main_path), phase(phase_statistics_path)]
+        for k in kernels:
+            group = "threefry" if k["name"].startswith("threefry") \
+                else "histogram"
+            key = k.pop("launch_key")
+            k["launches"] = sum(p[group].get(key, 0) for p in paths)
+            check(k["launches"] > 0, f"{k['name']}: no launch on the paths")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

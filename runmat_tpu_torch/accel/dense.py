@@ -24,11 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from runmat_tpu.accel.engine import phys_shape
-from runmat_tpu.values import MatArray, normalize_shape
-
 from ..ops import histogram
-from .lazy import TorchLazyNode
+from ..values import MatArray, normalize_shape
+from .lazy import LazyNode
 
 _WORK = {np.dtype(np.float32): torch.float32,
          np.dtype(np.float64): torch.float64}
@@ -67,10 +65,11 @@ class DenseOps:
     def _leaf(self, arr: torch.Tensor, mclass: str, lshape=None) -> MatArray:
         eng = self.eng
         shape = normalize_shape(lshape if lshape is not None else arr.shape)
+        from .engine import phys_shape
         ps = phys_shape(shape)
         if tuple(arr.shape) != ps:
             arr = arr.reshape(ps)
-        node = TorchLazyNode(eng, "leaf", [], (), shape, _NUMPY[arr.dtype],
+        node = LazyNode(eng, "leaf", [], (), shape, _NUMPY[arr.dtype],
                              value=arr)
         node.dispatch_id = eng.dispatch_seq
         return MatArray.from_device(node, mclass)

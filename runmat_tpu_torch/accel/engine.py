@@ -1,12 +1,13 @@
-"""TorchEngine: the runmat_tpu engine contract on PyTorch tensors.
+"""TorchEngine: the engine contract of `runmat_tpu`'s JaxEngine on PyTorch
+tensors.
 
-The host layers of `runmat_tpu` (front end, VM, builtins, `values.py`,
-`session.py`) reach the device only through the methods the runtime calls on
-`runmat_tpu.accel.active_engine()`. This engine answers them with torch
-tensors on an explicit `torch.device`:
+The port's host layers (front end, VM, builtins, `values.py`, `session.py`,
+copied from `runmat_tpu`) reach the device only through the methods the
+runtime calls on `accel.active_engine()`. This engine answers them with
+torch tensors on an explicit `torch.device`:
 
-  * every call adds a node to the lazy DAG of `runmat_tpu.accel.lazy`, as
-    under `JaxEngine`;
+  * every call adds a node to the lazy DAG of `accel/lazy.py`, as under
+    `JaxEngine`;
   * `materialize` turns the DAG into the same program tuples
     (`_build_program`) and runs them eagerly, op by op, freeing each
     intermediate after its last use;
@@ -23,6 +24,9 @@ Methods outside the ported slices either decline (`route_fft`, a `linalg`
 kind without a builder, complex operands), counted as host fallbacks when a
 device value has to come back, or raise `NotImplementedError`. None of them
 computes on the host while the value is claimed to be on the device.
+
+`_categorize` and `phys_shape` are copied from `runmat_tpu/accel/engine.py`
+(48-90).
 """
 
 from __future__ import annotations
@@ -35,18 +39,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from runmat_tpu import dtypes
-from runmat_tpu.accel.engine import _categorize, phys_shape
-from runmat_tpu.accel.lazy import DEFAULT_FUSE_CAP, topo_order
-from runmat_tpu.accel.residency import ResidencyPool
-from runmat_tpu.errors import MatError
-from runmat_tpu.ops import ctrng as philox
-from runmat_tpu.values import MatArray, normalize_shape
-
+from .. import dtypes
+from ..errors import MatError
+from ..ops import ctrng as philox
 from ..ops import table
 from ..ops.threefry import rng_draw
+from ..runtime.dispatch import _broadcast_check, matlab_broadcast_shape
+from ..unported import not_ported
+from ..values import MatArray, normalize_shape
+from ..vm.indexing import ColonMark
 from .dense import DenseOps
-from .lazy import TorchLazyNode
+from .lazy import DEFAULT_FUSE_CAP, LazyNode, topo_order
+from .residency import ResidencyPool
 
 # median is left out: torch.median takes the lower middle value
 _REDUCE_OPS = {"sum", "mean", "min", "max", "any", "all", "prod",
@@ -77,9 +81,43 @@ def reshape_f(x: torch.Tensor, shape) -> torch.Tensor:
     return flat.reshape(shape[::-1]).permute(*reversed(range(len(shape))))
 
 
-def _not_ported(method: str, item: str):
-    raise NotImplementedError(
-        f"runmat_tpu_torch: {method} not ported yet (ROADMAP {item})")
+def _categorize(ops: list) -> str:
+    """Dominant dispatch category for telemetry (≙ ProviderTelemetry
+    per-category counters)."""
+    cats = set()
+    for op in ops:
+        if op == "matmul":
+            cats.add("matmul")
+        elif op.startswith("rng:"):
+            cats.add("rng")
+        elif op.startswith("r:"):
+            cats.add("reduction")
+        elif op.startswith("s:"):
+            cats.add("scan")
+        elif op.startswith(("gather", "scatter", "slice", "maskset",
+                            "fillall")):
+            cats.add("indexing")
+    for c in ("matmul", "rng", "reduction", "scan", "indexing"):
+        if c in cats:
+            return c
+    return "elementwise"
+
+
+def phys_shape(shape: tuple) -> tuple:
+    """Logical MATLAB shape -> physical on-device shape: scalars (), vectors
+    rank-1, everything else in its logical shape. The logical shape lives
+    on the LazyNode / MatArray."""
+    n = 1
+    for s in shape:
+        n *= s
+    if n == 1:
+        return ()
+    nonsing = [s for s in shape if s != 1]
+    if len(nonsing) == 1:
+        return (nonsing[0],)
+    if n == 0:
+        return (0,) if len(nonsing) <= 1 else tuple(shape)
+    return tuple(shape)
 
 
 class TorchEngine:
@@ -146,30 +184,30 @@ class TorchEngine:
 
     def upload(self, x: MatArray, force_shard: bool = False) -> MatArray:
         if x.is_complex:
-            _not_ported("complex upload", "A8")
+            not_ported("complex upload", "A8")
         h = x.host()
-        node = TorchLazyNode(self, "leaf", [], (), h.shape, h.dtype,
+        node = LazyNode(self, "leaf", [], (), h.shape, h.dtype,
                              value=self.to_device(h))
         return MatArray.from_device(node, x.mclass)
 
-    def _lift(self, x: MatArray, dt: np.dtype) -> TorchLazyNode:
+    def _lift(self, x: MatArray, dt: np.dtype) -> LazyNode:
         """MatArray -> DAG node. Host scalars become scalar parameters."""
         if x.on_device:
             return x.dev
         h = x._host
         if h.dtype.kind == "c":
-            _not_ported("complex operands", "A8")
+            not_ported("complex operands", "A8")
         if h.size == 1:
             return self._scalar_node(h.reshape(-1)[0], dt)
-        return TorchLazyNode(self, "leaf", [], (), h.shape, h.dtype,
+        return LazyNode(self, "leaf", [], (), h.shape, h.dtype,
                              value=self.to_device(h))
 
-    def _scalar_node(self, v, dt: np.dtype) -> TorchLazyNode:
-        return TorchLazyNode(self, "scalar", [], (), (1, 1), dt, value=v)
+    def _scalar_node(self, v, dt: np.dtype) -> LazyNode:
+        return LazyNode(self, "scalar", [], (), (1, 1), dt, value=v)
 
     def _op(self, op: str, inputs: list, static: tuple, shape,
-            dtype) -> TorchLazyNode:
-        node = TorchLazyNode(self, op, inputs, static, shape, dtype)
+            dtype) -> LazyNode:
+        node = LazyNode(self, op, inputs, static, shape, dtype)
         if node.n_ops > self.fuse_cap:
             self.materialize(node)
         return node
@@ -186,7 +224,7 @@ class TorchEngine:
     def route_binary(self, op: str, a: MatArray, b: MatArray) -> bool:
         if a.is_complex or b.is_complex:
             return self._declines(op, "complex not ported (A8)", a, b)
-        if op not in table.BINARY:
+        if op not in table.TORCH_BINARY:
             return self._declines(op, "op not in the torch table", a, b)
         if a.on_device or b.on_device:
             return True
@@ -200,7 +238,7 @@ class TorchEngine:
     def route_unary(self, op: str, a: MatArray) -> bool:
         if a.is_complex:
             return self._declines(op, "complex not ported (A8)", a)
-        if op not in table.UNARY:
+        if op not in table.TORCH_UNARY:
             return self._declines(op, "op not in the torch table", a)
         if a.on_device:
             return True
@@ -257,8 +295,6 @@ class TorchEngine:
             dt = work_dt = self.dtype_for(out_class)
         na = self._lift(a, work_dt)
         nb = self._lift(b, work_dt)
-        from runmat_tpu.runtime.dispatch import (_broadcast_check,
-                                                 matlab_broadcast_shape)
         _broadcast_check(na.shape, nb.shape)
         shape = matlab_broadcast_shape(na.shape, nb.shape)
         node = self._op("b:" + op, [na, nb], (str(work_dt),), shape, dt)
@@ -384,7 +420,6 @@ class TorchEngine:
     def index_read(self, base: MatArray, args: list) -> Optional[MatArray]:
         """Colon, contiguous ranges and scalars; linear indexing over
         vectors (F-order) and `A(:)`. Anything else returns None."""
-        from runmat_tpu.vm.indexing import ColonMark
         nb = base.dev
         shape = nb.shape
         if len(args) == 1 and len(shape) != 1:
@@ -450,29 +485,29 @@ class TorchEngine:
     # ------------------------------------------------- outside this slice
 
     def index_read_general(self, base, args):
-        _not_ported("index_read_general", "A6")
+        not_ported("index_read_general", "A6")
 
     def index_write(self, base, args, rhs):
-        _not_ported("index_write", "A6")
+        not_ported("index_write", "A6")
 
     def structural(self, op, xs, static, out_shape):
-        _not_ported(f"structural {op}", "A6")
+        not_ported(f"structural {op}", "A6")
 
     def sort(self, x, axis, descend, want_idx):
-        _not_ported("sort", "A6")
+        not_ported("sort", "A6")
 
     def unique(self, x, stable, want_idx):
-        _not_ported("unique", "A6")
+        not_ported("unique", "A6")
 
     def setop(self, op, a, b, stable=False, want_idx=False):
-        _not_ported(f"setop {op}", "A6")
+        not_ported(f"setop {op}", "A6")
 
     def fft(self, x, n, dim, inverse):
-        _not_ported("fft", "A7")
+        not_ported("fft", "A7")
 
     # ------------------------------------------------------------ materialize
 
-    def materialize(self, node: TorchLazyNode) -> torch.Tensor:
+    def materialize(self, node: LazyNode) -> torch.Tensor:
         """Run the DAG reachable from `node` eagerly. Workspace-pinned nodes
         of the same DAG get their values in the same pass."""
         if node.value is not None:
@@ -546,9 +581,9 @@ class TorchEngine:
 
     def supports_op(self, op: str) -> bool:
         if op.startswith("b:"):
-            return op[2:] in table.BINARY
+            return op[2:] in table.TORCH_BINARY
         if op.startswith("u:"):
-            return op[2:] in table.UNARY
+            return op[2:] in table.TORCH_UNARY
         if op.startswith("r:"):
             return op[2:] in _REDUCE_OPS
         if op.startswith("rng:"):
@@ -596,7 +631,7 @@ class TorchEngine:
                     a = a.reshape(a.shape + (1,) * (b.ndim - a.ndim))
                 elif b.ndim < a.ndim:
                     b = b.reshape(b.shape + (1,) * (a.ndim - b.ndim))
-            r = table.BINARY[name](a, b)
+            r = table.TORCH_BINARY[name](a, b)
             if int_sat:
                 r = table.saturate_cast(r, tdt)
             if r.dtype != tdt:
@@ -607,7 +642,7 @@ class TorchEngine:
             a = args[0]
             if name not in ("isnan", "isinf", "isfinite", "logical_not"):
                 a = self._tensor(a, dt)
-            r = table.UNARY[name](a)
+            r = table.TORCH_UNARY[name](a)
             return r if r.dtype == tdt else r.to(tdt)
         if op.startswith("r:"):
             return self._exec_reduce(op[2:], static, dt, args[0],

@@ -1,19 +1,19 @@
-"""The `for`-loop fold for the PyTorch engine, and the seam that installs it.
+"""The `for`-loop fold of the port, on `TorchEngine`.
 
-`runmat_tpu`'s interpreter imports `try_device_loop` and `try_device_while`
-from `runmat_tpu.accel.loops` at each loop entry (`vm/interp.py`).
-`install_seam` rebinds those two module attributes to the functions here and
-`remove_seam` puts the originals back. Under any engine other than a
-`TorchEngine` the functions here delegate to the originals, so the JAX path
-is untouched.
-
-A `for` loop whose body is pure device math is traced once by the JAX
-package's `_Trace` (it only builds DAG nodes; its one jax call, in `_load`,
-is overridden) into a loop program, which then runs eagerly T times through
+The interpreter (`vm/interp.py`) calls `try_device_loop` and
+`try_device_while` at each loop entry. A `for` loop whose body is pure
+device math is traced once by `_Trace` (it only builds DAG nodes) into a
+loop program, which then runs eagerly T times through
 `TorchEngine.run_program`. Iteration t draws from counter block
 `start + t*BPI + offset` (BPI: blocks one iteration draws), computed on the
 host with the 64-bit carry into the high word, and the session state
 advances by `T*BPI` afterwards: the same values the interpreter would draw.
+
+`_Bail`, `_Marker`, `_bc`, `_note_bail`, `_scan_window` and `_Trace` are
+copied from `runmat_tpu/accel/loops.py` (31-57, 214-686); `_Trace._load`
+copies a host-resident carried variable to the device with the engine's
+`to_device` in place of `jax.device_put`. The JAX package's fold builders
+(`make_loop_fn`, `make_while_fn`) are not copied.
 
 A fold that fails is not silent: `stats["loop_bails"]` counts it and the
 launch log keeps the exception text. The interpreter then runs the loop.
@@ -22,53 +22,59 @@ launch log keeps the exception text. The interpreter then runs the loop.
 from __future__ import annotations
 
 import time
+from typing import Any, Optional
 
 import numpy as np
 
-from runmat_tpu.accel import active_engine
-from runmat_tpu.accel import loops as jloops
-from runmat_tpu.accel.engine import phys_shape
-from runmat_tpu.accel.lazy import topo_order
-from runmat_tpu.accel.loops import (_Bail, _Marker, _Trace, _bc, _note_bail,
-                                    _scan_window)
-from runmat_tpu.values import MatArray
+from ..unported import not_ported
+from ..values import MatArray
+from . import active_engine
+from .engine import phys_shape
+from .lazy import LazyNode, topo_order
 
-from .engine import TorchEngine
-from .lazy import TorchLazyNode
+# builtins that are safe to call during the trace: elementwise/broadcast math,
+# reductions, and creation — everything they produce for device args stays in
+# the lazy DAG
+_SAFE_BUILTINS = frozenset("""
+sin cos tan asin acos atan sinh cosh tanh asinh acosh atanh exp log log2
+log10 log1p expm1 sqrt abs sign floor ceil round fix real imag conj angle
+atan2 hypot power mod rem min max sum mean prod single double times plus
+minus rdivide ldivide uminus uplus zeros ones cumsum cumprod
+""".split())
 
-_ORIGINAL = {"try_device_loop": jloops.try_device_loop,
-             "try_device_while": jloops.try_device_while}
+_RNG_BUILTINS = frozenset(("rand", "randn"))
 
 
-def install_seam() -> None:
-    jloops.try_device_loop = try_device_loop
-    jloops.try_device_while = try_device_while
+class _Bail(Exception):
+    pass
 
 
-def remove_seam() -> None:
-    for name, fn in _ORIGINAL.items():
-        setattr(jloops, name, fn)
+class _Marker:
+    """Payload for scalar LazyNodes whose value is loop-iteration-dependent."""
+
+    __slots__ = ("tag", "arg")
+
+    def __init__(self, tag: str, arg: int = 0):
+        self.tag = tag      # "rng_lo" | "rng_hi" | "loopvar"
+        self.arg = arg      # rng: block offset within one iteration
 
 
 def try_device_while(interp, frame, code, marker_pc, jf_pc, end_pc):
     eng = active_engine()
-    if not isinstance(eng, TorchEngine):
-        return _ORIGINAL["try_device_while"](interp, frame, code, marker_pc,
-                                             jf_pc, end_pc)
-    eng.stats["while_not_ported"] += 1
+    if eng is not None:
+        eng.stats["while_not_ported"] += 1
     return None
 
 
 def try_device_loop(interp, frame, code, for_next_pc: int, iterable):
     """Run the whole `for` loop at `for_next_pc` on the device. Returns the
     pc to resume at, or None for the interpreter to run the loop."""
-    eng = active_engine()
-    if not isinstance(eng, TorchEngine):
-        return _ORIGINAL["try_device_loop"](interp, frame, code, for_next_pc,
-                                            iterable)
-    from runmat_tpu.runtime import registry
+    from ..runtime import registry
 
-    # eligibility: the same checks as runmat_tpu.accel.loops.try_device_loop
+    eng = active_engine()
+    if eng is None:
+        return None
+    # eligibility: the same checks as the JAX package's try_device_loop
     if not isinstance(iterable, MatArray) or iterable.on_device:
         return None
     if iterable.mclass not in ("double", "single") or iterable.is_complex:
@@ -102,8 +108,8 @@ def try_device_loop(interp, frame, code, for_next_pc: int, iterable):
     old_cap = eng.fuse_cap
     eng.fuse_cap = 1 << 60
     try:
-        tr = _TorchTrace(interp, frame, eng, registry, state, loopvar,
-                         written, iterable)
+        tr = _Trace(interp, frame, eng, registry, state, loopvar, written,
+                    iterable)
         tr.run(instrs, code.consts, lo_pc, hi_pc)
         result = _build_and_run(eng, tr, T, state, h)
     except Exception as e:
@@ -126,34 +132,478 @@ def try_device_loop(interp, frame, code, for_next_pc: int, iterable):
     return done + 1
 
 
-class _TorchTrace(_Trace):
+def _bc():
+    from ..vm import bytecode as B
+    return B
+
+
+def _note_bail(code, pc: int, limit: int = 8) -> None:
+    cur = code.loop_hints.get(pc, 0)
+    if cur == "never":
+        return
+    cur += 1
+    code.loop_hints[pc] = "never" if cur >= limit else cur
+
+
+def _scan_window(B, instrs, rng, written: set, allow_store: bool = True):
+    """Static eligibility scan over a bytecode window. Returns True when every
+    opcode is traceable (collecting written names), None to bail."""
+    for i in rng:
+        op, a, b, c, d = instrs[i]
+        if op == B.STORE:
+            if not allow_store or b:    # display output -> host side effect
+                return None
+            written.add(a)
+        elif op == B.STORE_INDEX:
+            if not allow_store or d or c != "paren":
+                return None
+            written.add(a)
+        elif op == B.BUILD_MAT:
+            if a != ():
+                return None          # only the empty [] literal is traceable
+        elif op in (B.CONST, B.LOAD, B.BINOP, B.UNOP, B.MTIMES, B.TRANSPOSE,
+                    B.RESOLVE_CALL, B.POP, B.DUP, B.CHECK_INTERRUPT,
+                    B.COLON_VAL, B.RANGE, B.PUSH_IXCTX, B.PUSH_IXCTX_VAR,
+                    B.POP_IXCTX, B.END_VAL, B.INDEX):
+            if op == B.RESOLVE_CALL and (d == 2 or c > 1):
+                return None
+            if op == B.INDEX and b != "paren":
+                return None
+        else:
+            return None
+    return True
+
+
+# --------------------------------------------------------------------------- #
+# trace: mini-interpreter over the restricted body window
+# --------------------------------------------------------------------------- #
+
+
+class _Trace:
+    def __init__(self, interp, frame, eng, registry, state, loopvar, written,
+                 iterable):
+        self.interp = interp
+        self.frame = frame
+        self.eng = eng
+        self.registry = registry
+        self.state = state
+        self.loopvar = loopvar
+        self.written = written
+        self.iterable = iterable
+        self.shadow: dict[str, Any] = {}
+        self.carry_in: dict[str, LazyNode] = {}   # read-before-write tracers
+        self.carry_init: dict[str, Any] = {}      # their initial device values
+        self.rng_blocks = 0                       # Philox blocks per iteration
+        self.loopvar_node: Optional[LazyNode] = None
+        self.marker_nodes: list[LazyNode] = []
+        self.ixctx: list = []                     # END_VAL context bases
+
+    # -- value access -------------------------------------------------------- #
+
+    def _resolves_to_builtin(self, name: str) -> bool:
+        """True only when `name` genuinely resolves to a registry builtin in
+        the tracing scope — nested functions, file-local siblings, classes,
+        local/session/imported functions all shadow intrinsics (mirrors
+        Interp.call_named resolution order; ≙ vm/object/resolve.rs)."""
+        f = self.frame
+        while f is not None:
+            if f.code is not None and name in getattr(f.code, "nested", {}):
+                return False
+            f = f.parent
+        if self.frame.code is not None:
+            sibs = getattr(self.frame.code, "siblings", None)
+            if sibs and name in sibs:
+                return False
+        if self.interp.session.classes.get(name) is not None:
+            return False
+        r = self.interp.resolve_function(name)
+        return r is not None and r[0] == "builtin"
+
     def _load(self, name: str):
-        """As `_Trace._load`, with a host-resident carried variable copied
-        to the device by the engine."""
-        if name in self.shadow or name == self.loopvar or \
-                name not in self.written:
-            return super()._load(name)
-        from runmat_tpu.vm.interp import NOVALUE
+        if name in self.shadow:
+            return self.shadow[name]
+        if name == self.loopvar:
+            if self.loopvar_node is None:
+                dt = np.dtype(np.float64 if self.iterable.mclass == "double"
+                              else np.float32)
+                node = LazyNode(self.eng, "scalar", [], (), (1, 1), dt,
+                                value=_Marker("loopvar"))
+                self.marker_nodes.append(node)
+                self.loopvar_node = node
+            return MatArray.from_device(self.loopvar_node, self.iterable.mclass)
+        from ..vm.interp import NOVALUE
         v = self.interp._load_name(self.frame, name)
         if v is NOVALUE:
             return NOVALUE
-        if not isinstance(v, MatArray) or v.mclass not in \
-                ("double", "single", "logical"):
+        if name in self.written:
+            # loop-carried: replace with a tracer leaf bound to the carry slot
+            if not isinstance(v, MatArray) or v.mclass not in \
+                    ("double", "single", "logical"):
+                raise _Bail()
+            if v.on_device:
+                init, dt = self.eng.materialize(v.dev), v.dev.dtype
+            else:
+                init, dt = self.eng.to_device(v.host()), v.host().dtype
+            node = LazyNode(self.eng, "leaf", [], (), v.shape, dt,
+                            value=init)
+            tracer = MatArray.from_device(node, v.mclass)
+            self.carry_in[name] = node
+            self.carry_init[name] = init
+            self.shadow[name] = tracer
+            return tracer
+        if isinstance(v, MatArray) and v.on_device and v.dev.value is None:
+            # Loop-invariant with a pending lazy DAG: force it ONCE here,
+            # outside the loop. Otherwise the producer chain (e.g. a 400 MB
+            # rand draw) is traced into the loop body and re-executes every
+            # iteration — numerically identical (counters are baked) but
+            # catastrophic for bandwidth. The node becomes a value-bearing
+            # leaf, so the program builder passes it as a loop-invariant arg.
+            self.eng.materialize(v.dev)
+        return v   # loop-invariant: used as-is (scalars lift on first op)
+
+    # -- rng ----------------------------------------------------------------- #
+
+    def _rng(self, kind: str, args: list) -> MatArray:
+        from ..values import text_of
+        dims = []
+        mclass = "double"
+        for a in args:
+            if isinstance(a, MatArray) and a.mclass == "char":
+                mclass = text_of(a)
+                if mclass not in ("double", "single"):
+                    raise _Bail()
+                continue
+            if not isinstance(a, MatArray) or a.on_device or a.size != 1:
+                raise _Bail()
+            dims.append(int(a.host().reshape(-1)[0]))
+        if not dims:
+            dims = [1]
+        if len(dims) == 1:
+            dims = [dims[0], dims[0]]
+        from ..values import normalize_shape
+        shape = normalize_shape(tuple(dims))
+        n = 1
+        for s in shape:
+            n *= s
+        from ..ops import ctrng
+        off = self.rng_blocks
+        self.rng_blocks += ctrng.blocks_for(kind, n, mclass)
+        lo = LazyNode(self.eng, "scalar", [], (), (1, 1), np.dtype(np.uint32),
+                      value=_Marker("rng_lo", off))
+        hi = LazyNode(self.eng, "scalar", [], (), (1, 1), np.dtype(np.uint32),
+                      value=_Marker("rng_hi", off))
+        self.marker_nodes += [lo, hi]
+        dt = self.eng.dtype_for(mclass)
+        node = self.eng._op("rng:" + kind, [lo, hi],
+                            (self.state.key, n, shape, mclass), shape, dt)
+        return MatArray.from_device(node, mclass)
+
+    # -- the mini-interpreter -------------------------------------------------#
+
+    def run(self, instrs, consts, lo_pc: int, hi_pc: int) -> None:
+        from ..runtime import dispatch as D
+        from ..vm.interp import NOVALUE, _collect_args, _unwrap1
+        B = _bc()
+        stack: list = []
+        pc = lo_pc
+        while pc < hi_pc:
+            op, a, b, c, d = instrs[pc]
+            pc += 1
+            if op == B.CONST:
+                stack.append(consts[a])
+            elif op == B.LOAD:
+                v = self._load(a)
+                if v is NOVALUE:
+                    raise _Bail()
+                stack.append(v)
+            elif op == B.STORE:
+                v = _unwrap1(stack.pop(), a)
+                self.shadow[a] = v
+            elif op == B.BINOP:
+                rhs = _unwrap1(stack.pop())
+                lhs = _unwrap1(stack.pop())
+                stack.append(self._op2(D.binary, a, lhs, rhs))
+            elif op == B.UNOP:
+                v = _unwrap1(stack.pop())
+                stack.append(self._op1(D.unary, a, v))
+            elif op == B.MTIMES:
+                rhs = _unwrap1(stack.pop())
+                lhs = _unwrap1(stack.pop())
+                stack.append(self._op2(D.mtimes, None, lhs, rhs))
+            elif op == B.TRANSPOSE:
+                v = _unwrap1(stack.pop())
+                r = D.ctranspose(v) if a else D.transpose(v)
+                self._check_taint([v], r)
+                stack.append(r)
+            elif op == B.DUP:
+                stack.append(stack[-1])
+            elif op == B.POP:
+                stack.pop()
+            elif op == B.CHECK_INTERRUPT:
+                pass
+            elif op == B.BUILD_MAT:
+                if a != ():
+                    raise _Bail()
+                stack.append(MatArray.empty())
+            elif op == B.COLON_VAL:
+                from ..vm.indexing import COLON
+                stack.append(COLON)
+            elif op == B.RANGE:
+                stop = _unwrap1(stack.pop())
+                step = _unwrap1(stack.pop()) if a else None
+                start = _unwrap1(stack.pop())
+                for v in (start, step, stop):
+                    if isinstance(v, MatArray) and v.on_device:
+                        raise _Bail()   # data-dependent extent
+                from ..vm.interp import _make_range
+                stack.append(_make_range(start, step, stop))
+            elif op == B.PUSH_IXCTX:
+                self.ixctx.append(stack[-1] if stack else None)
+            elif op == B.PUSH_IXCTX_VAR:
+                v = self._load(a)
+                self.ixctx.append(None if v is NOVALUE else v)
+            elif op == B.POP_IXCTX:
+                self.ixctx.pop()
+            elif op == B.END_VAL:
+                base = self.ixctx[-1] if self.ixctx else None
+                from ..vm.interp import _end_value
+                stack.append(_end_value(base, a, b))
+            elif op == B.INDEX:
+                args = _collect_args(stack, a)
+                base = _unwrap1(stack.pop())
+                if self.ixctx and self.ixctx[-1] is None:
+                    self.ixctx[-1] = base
+                stack.append(self._index_read(base, args))
+            elif op == B.STORE_INDEX:
+                args = _collect_args(stack, b)
+                rhs = _unwrap1(stack.pop())
+                self._store_index(a, args, rhs)
+            elif op == B.RESOLVE_CALL:
+                name, nargs, nargout = a, b, c
+                args = _collect_args(stack, nargs)
+                v = self._load(name) if d != 1 else NOVALUE
+                if v is not NOVALUE:
+                    if nargs == 0:
+                        stack.append(v)
+                        continue
+                    if isinstance(v, MatArray):
+                        stack.append(self._index_read(v, args))
+                        continue
+                    raise _Bail()   # paren-indexing a non-array traced value
+                if not self._resolves_to_builtin(name):
+                    raise _Bail()   # user/nested/local function shadows it
+                if name in _RNG_BUILTINS:
+                    stack.append(self._rng(name, args))
+                    continue
+                if name not in _SAFE_BUILTINS:
+                    raise _Bail()
+                bi = self.registry.lookup(name)
+                if bi is None:
+                    raise _Bail()
+                res = self.interp.call_builtin(bi, args, max(nargout, 1),
+                                               self.frame)
+                r = res[0] if res else NOVALUE
+                if r is NOVALUE:
+                    raise _Bail()
+                self._check_taint(args, r)
+                stack.append(r)
+            else:
+                raise _Bail()
+        return stack
+
+    # condition windows want the residual stack (the cond value)
+    run_window = run
+
+    # -- indexed reads / writes ----------------------------------------------#
+
+    def _is_dyn(self, a) -> bool:
+        """A subscript that is the raw loop variable (traced scalar)."""
+        return isinstance(a, MatArray) and a.on_device and \
+            a.dev is self.loopvar_node
+
+    def _check_loopvar_bounds(self, extent: int) -> None:
+        """The loop variable used as a subscript: every iterate must be an
+        in-range integer, known from the host iterable at gate time."""
+        if self.iterable is None:
             raise _Bail()
-        if v.on_device:
-            init, dt = self.eng.materialize(v.dev), v.dev.dtype
-        else:
-            init, dt = self.eng.to_device(v.host()), v.host().dtype
-        node = TorchLazyNode(self.eng, "leaf", [], (), v.shape, dt,
-                             value=init)
-        tracer = MatArray.from_device(node, v.mclass)
-        self.carry_in[name] = node
-        self.carry_init[name] = init
-        self.shadow[name] = tracer
-        return tracer
+        h = self.iterable.host().reshape(-1)
+        if not np.all(h == np.floor(h)) or h.size == 0 or \
+                h.min() < 1 or h.max() > extent:
+            raise _Bail()
+
+    def _classify_args(self, base: MatArray, args: list):
+        """-> (spec_args, dynamic?) where each entry is COLON | host MatArray
+        | ('dyn',). Bails on anything else (device masks handled separately
+        by engine.index_write)."""
+        from ..vm.indexing import ColonMark
+        dyn = False
+        for a in args:
+            if isinstance(a, ColonMark):
+                continue
+            if self._is_dyn(a):
+                dyn = True
+                continue
+            if isinstance(a, MatArray) and not a.on_device and \
+                    a.mclass != "logical":
+                continue
+            return None, False
+        return args, dyn
+
+    def _index_read(self, base, args: list):
+        if not isinstance(base, MatArray) or not args:
+            raise _Bail()
+        eng = self.eng
+        spec_args, dyn = self._classify_args(base, args)
+        if spec_args is None:
+            raise _Bail()
+        if not dyn:
+            if not base.on_device:
+                # loop-invariant host read: plain interpreter indexing
+                from ..vm import indexing as IXM
+                return IXM.read_paren(base, args)
+            r = eng.index_read(base, args)
+            if r is None:
+                r = eng.index_read_general(base, args)
+            if r is None:
+                raise _Bail()
+            return r
+        # dynamic subscript: lower to a traced gather
+        if not base.on_device:
+            if base.mclass not in ("double", "single", "logical"):
+                raise _Bail()
+            node = eng._lift(base, base.host().dtype)
+            base = MatArray.from_device(node, base.mclass)
+        nb = base.dev
+        shape = nb.shape
+        from ..vm.indexing import ColonMark
+        if len(args) == 1:
+            n = 1
+            for s in shape:
+                n *= s
+            self._check_loopvar_bounds(n)
+            node = eng._op("gather1d", [nb, args[0].dev], (), (1, 1),
+                           nb.dtype)
+            return MatArray.from_device(node, base.mclass)
+        if len(args) != len(shape):
+            raise _Bail()
+        inputs = [nb]
+        spec = []
+        out_shape = []
+        for k, a in enumerate(args):
+            if isinstance(a, ColonMark):
+                spec.append("colon")
+                out_shape.append(shape[k])
+            elif self._is_dyn(a):
+                self._check_loopvar_bounds(shape[k])
+                spec.append(("d", len(inputs)))
+                inputs.append(a.dev)
+                out_shape.append(1)
+            else:
+                iv = eng._index_vec(a, shape[k])
+                if iv is None:
+                    raise _Bail()
+                spec.append(("s", len(inputs)))
+                inputs.append(eng._idx_leaf(iv))
+                out_shape.append(iv.size)
+        from ..values import normalize_shape
+        node = eng._op("gatherN", inputs, (tuple(spec),),
+                       normalize_shape(out_shape), nb.dtype)
+        return MatArray.from_device(node, base.mclass)
+
+    def _store_index(self, name: str, args: list, rhs) -> None:
+        if not isinstance(rhs, MatArray) or not args:
+            raise _Bail()
+        base = self._load(name)
+        from ..vm.interp import NOVALUE
+        if base is NOVALUE or not isinstance(base, MatArray):
+            raise _Bail()
+        eng = self.eng
+        if not base.on_device:
+            raise _Bail()   # written vars are lifted by _load; anything else
+        spec_args, dyn = self._classify_args(base, args)
+        if spec_args is None:
+            # device logical mask with scalar rhs is handled by index_write
+            res = eng.index_write(base, args, rhs)
+            if res is None:
+                raise _Bail()
+            self.shadow[name] = res
+            return
+        if not dyn:
+            res = eng.index_write(base, args, rhs)
+            if res is None:
+                raise _Bail()
+            self.shadow[name] = res
+            return
+        if rhs.mclass not in ("double", "single", "logical") or \
+                rhs.is_complex != base.is_complex:
+            raise _Bail()
+        nb = base.dev
+        shape = nb.shape
+        from ..vm.indexing import ColonMark
+        rn = eng._lift(rhs, nb.dtype) if rhs.size != 1 or rhs.on_device \
+            else eng._scalar_node(rhs._host.reshape(-1)[0], nb.dtype)
+        if len(args) == 1:
+            n = 1
+            for s in shape:
+                n *= s
+            if rhs.size != 1:
+                raise _Bail()
+            self._check_loopvar_bounds(n)
+            node = eng._op("scatter1d", [nb, args[0].dev, rn], (), shape,
+                           nb.dtype)
+            self.shadow[name] = MatArray.from_device(node, base.mclass)
+            return
+        if len(args) != len(shape):
+            raise _Bail()
+        inputs = [nb]
+        spec = []
+        sel_shape = []
+        for k, a in enumerate(args):
+            if isinstance(a, ColonMark):
+                spec.append("colon")
+                sel_shape.append(shape[k])
+            elif self._is_dyn(a):
+                self._check_loopvar_bounds(shape[k])
+                spec.append(("d", len(inputs)))
+                inputs.append(a.dev)
+                sel_shape.append(1)
+            else:
+                iv = eng._index_vec(a, shape[k], unique_required=True)
+                if iv is None:
+                    raise _Bail()
+                spec.append(("s", len(inputs)))
+                inputs.append(eng._idx_leaf(iv))
+                sel_shape.append(iv.size)
+        nelem = 1
+        for s in sel_shape:
+            nelem *= s
+        if rhs.size not in (1, nelem):
+            raise _Bail()
+        inputs.append(rn)
+        node = eng._op("scatterN", inputs,
+                       (tuple(spec), tuple(sel_shape), rhs.size == 1),
+                       shape, nb.dtype)
+        self.shadow[name] = MatArray.from_device(node, base.mclass)
+
+    def _op2(self, fn, opname, lhs, rhs):
+        r = fn(opname, lhs, rhs) if opname is not None else fn(lhs, rhs)
+        self._check_taint([lhs, rhs], r)
+        return r
+
+    def _op1(self, fn, opname, v):
+        r = fn(opname, v)
+        self._check_taint([v], r)
+        return r
+
+    def _check_taint(self, args, result) -> None:
+        """Any op consuming a device value must produce a device value; a host
+        escape would bake iteration-0 data into every iteration."""
+        if any(isinstance(x, MatArray) and x.on_device for x in args):
+            if not (isinstance(result, MatArray) and result.on_device):
+                raise _Bail()
 
 
-def _build_and_run(eng: TorchEngine, tr: _TorchTrace, T: int, state,
+def _build_and_run(eng, tr: _Trace, T: int, state,
                    iter_host: np.ndarray) -> dict:
     names = sorted(tr.written)
     finals = {}
@@ -196,9 +646,7 @@ def _build_and_run(eng: TorchEngine, tr: _TorchTrace, T: int, state,
                 sources.append(("fixed", n.value))
         else:
             if not eng.supports_op(n.op):
-                raise NotImplementedError(
-                    f"runmat_tpu_torch: op {n.op} in a loop body not ported "
-                    f"yet (ROADMAP A6)")
+                not_ported(f"op {n.op} in a loop body", "A6")
             program.append((n.op, n.static, n.dtype,
                             tuple(index[id(i)] for i in n.inputs),
                             tuple(i.shape for i in n.inputs), n.shape))
@@ -247,7 +695,7 @@ def _build_and_run(eng: TorchEngine, tr: _TorchTrace, T: int, state,
     result = {}
     for k, name in enumerate(names):
         root = finals[name].dev
-        node = TorchLazyNode(eng, "leaf", [], (), tuple(root.shape),
+        node = LazyNode(eng, "leaf", [], (), tuple(root.shape),
                              root.dtype, value=carry[k])
         node.dispatch_id = eng.dispatch_seq
         result[name] = MatArray.from_device(node, finals[name].mclass)

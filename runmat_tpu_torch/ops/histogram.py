@@ -5,25 +5,35 @@ number of values, the two Pallas kernels of `runmat_tpu/ops/pallas/histogram.py`
 search mode over explicit edges (f32 or f64) and, when the edges are exact
 power-of-two affine ones (`affine_edge_params`), a direct index (f32). A CPU
 tensor takes the plain PyTorch versions below; a CUDA tensor launches the
-kernel or raises. `launches` counts kernel launches and nothing else.
+kernel or raises. `launches` counts kernel launches and nothing else;
+`launches_by` splits the count by mode ("search f32", "search f64",
+"direct f32").
 
 Semantics (MATLAB `histcounts`, as the Pallas kernels define them): bin k is
 [e_k, e_{k+1}), the last bin is closed on the right, NaN and out-of-range
-values count nowhere. Edges must be non-decreasing, as there.
+values count nowhere. Edges must be non-decreasing, as there. The kernel's
+search mode finds a value's bin through a guide table over [e_0, e_B] and
+exact compares with the edges of the table's bracket (`csrc/histogram.cu`
+says why that is exact); the plain search version below is the Pallas
+definition itself.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
+import numpy as np
 import torch
 
 from ._build import library
 
 launches = 0
+launches_by: collections.Counter = collections.Counter()   # by mode name
 
 _MODES = {torch.float32: 0, torch.float64: 1}
 _DIRECT = 2
+_MODE_NAMES = {0: "search f32", 1: "search f64", _DIRECT: "direct f32"}
 _CHUNK_CELLS = 1 << 26            # (chunk, B+1) compares per pass of the plain form
 _entry = None
 
@@ -39,6 +49,31 @@ def _kernel():
         fn.restype = ctypes.c_int
         _entry = fn
     return _entry
+
+
+def affine_edge_params(edges: np.ndarray):
+    """If `edges` (ascending, B+1 of them) is EXACTLY (m + k) * w in f32
+    for integer m and power-of-two w, return (log2(1/w), m) else None.
+    Copied from runmat_tpu/ops/pallas/histogram.py:40; the port's direct
+    index `floor(x*2^k) - m` is exact for every such m."""
+    e = np.asarray(edges, np.float32).reshape(-1)
+    if e.size < 2:
+        return None
+    w = float(e[1]) - float(e[0])
+    if not (w > 0 and np.isfinite(w)):
+        return None
+    j = np.log2(w)
+    if j != np.round(j) or abs(j) > 40:
+        return None
+    m = float(e[0]) / w
+    if m != np.round(m) or abs(m) > (1 << 18):
+        return None
+    k = int(-j)
+    mi = int(np.round(m))
+    recon = ((mi + np.arange(e.size)) * w).astype(np.float32)
+    if not np.array_equal(recon, e):
+        return None
+    return k, mi
 
 
 def plain_histcounts(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
@@ -115,11 +150,12 @@ def histcounts(x: torch.Tensor, edges: torch.Tensor,
     k_exp, m = affine if affine is not None else (0, 0)
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    rc = _kernel()(_DIRECT if affine is not None else _MODES[x.dtype],
-                   x.data_ptr(), n, edges.data_ptr(), nb, int(k_exp), int(m),
-                   counts.data_ptr(),
+    mode = _DIRECT if affine is not None else _MODES[x.dtype]
+    rc = _kernel()(mode, x.data_ptr(), n, edges.data_ptr(), nb, int(k_exp),
+                   int(m), counts.data_ptr(),
                    torch.cuda.current_stream(index).cuda_stream, index)
     if rc != 0:
         raise RuntimeError(f"histcounts kernel launch failed: CUDA error {rc}")
     launches += 1
+    launches_by[_MODE_NAMES[mode]] += 1
     return counts

@@ -3,11 +3,13 @@
 `rng_draw` is the single device RNG of the port. A CPU device takes the plain
 PyTorch stream (`ops/ctrng.py`); a CUDA device launches the hand-written
 kernel or raises. `launches` counts kernel launches and nothing else, so a
-run can show that its draws went through the kernel.
+run can show that its draws went through the kernel; `launches_by` splits
+the count by draw ("rand float32", "randn float64", ...).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -16,6 +18,7 @@ from . import ctrng
 from ._build import library
 
 launches = 0
+launches_by: collections.Counter = collections.Counter()
 
 _MODES = {("rand", torch.float32): 0, ("rand", torch.float64): 1,
           ("randn", torch.float32): 2, ("randn", torch.float64): 3}
@@ -67,4 +70,5 @@ def rng_draw(kind: str, key: tuple, counter, n: int, dtype: torch.dtype,
     if rc != 0:
         raise RuntimeError(f"threefry kernel launch failed: CUDA error {rc}")
     launches += 1
+    launches_by[f"{kind} {str(dtype).split('.')[-1]}"] += 1
     return out

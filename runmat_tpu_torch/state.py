@@ -1,22 +1,40 @@
-"""Carry a session's state across engines.
+"""Carry a session's state across engines and packages.
 
-`carry_session(src, dst)` gives `dst` the workspace and the RNG position of
-`src`, so a script continued in `dst` computes what it would have computed in
-`src`. Arrays cross as host numpy copies (`MatArray.host()`), whatever engine
-held them; the RNG crosses as `(seed, key, counter)`.
+`carry_session(src, dst)` gives `dst` (a session of the port) the workspace
+and the RNG position of `src`, so a script continued in `dst` computes what
+it would have computed in `src`. `src` may be a session of the port or of
+the JAX package: arrays cross as host numpy copies of whatever holds them
+(`to_matarray`), the RNG as `(seed, key, counter)`. Nothing here imports
+the JAX package; its values are read through their `host()` and `mclass`.
 """
 
 from __future__ import annotations
 
 import copy
 
-from runmat_tpu.values import MatArray
+import numpy as np
+
+from .values import MatArray
+
+
+def to_matarray(v) -> MatArray:
+    """A numpy array, or any array value with `host()` and `mclass` (a
+    MatArray of either package, on any device), as the port's host
+    MatArray. A numpy array takes the class of its dtype."""
+    if isinstance(v, np.ndarray):
+        return MatArray.from_np(v.copy())
+    return MatArray(np.array(v.host(), copy=True), v.mclass)
+
+
+def to_numpy(v: MatArray) -> np.ndarray:
+    """A port MatArray as a writable numpy array in its MATLAB shape."""
+    return np.array(v.host(), copy=True)
 
 
 def carry_session(src, dst) -> None:
     for name, v in src.base_frame.vars.items():
-        if isinstance(v, MatArray):
-            v = MatArray(v.host().copy(), v.mclass)
+        if hasattr(v, "host") and hasattr(v, "mclass"):
+            v = to_matarray(v)
         else:
             v = copy.deepcopy(v)
         dst.base_frame.vars[name] = v

@@ -99,3 +99,38 @@ def test_rng_draw_refuses_what_it_has_no_kernel_for():
     with pytest.raises(ValueError):
         threefry.rng_draw("rand", KEY, 0, 8, torch.float32, "meta")
 
+
+
+# --- the port's host numpy stream (the session's own draws) --------------- #
+
+@pytest.mark.parametrize("ctr", COUNTERS)
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_host_stream_is_the_jax_packages(n, ctr, dtype):
+    # the port's numpy stream is bit for bit the JAX package's numpy stream,
+    # normals included (the same numpy libm)
+    w = ctrng.np_raw_words(KEY, _c64(ctr), n)
+    jw = jctrng.raw_words(np, KEY, _c64(ctr), n)
+    assert all(np.array_equal(a, b) for a, b in zip(w, jw))
+    for ours, theirs in ((ctrng.np_uniform, jctrng.uniform),
+                         (ctrng.np_normal, jctrng.normal)):
+        got, nb = ours(KEY, _c64(ctr), n, np.dtype(dtype))
+        want, jnb = theirs(np, KEY, _c64(ctr), n, np.dtype(dtype))
+        assert nb == jnb and got.dtype == want.dtype
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 40 + 3])
+def test_session_state_is_the_jax_packages(seed):
+    ours, theirs = ctrng.PhiloxState(seed), jctrng.PhiloxState(seed)
+    assert ours.state_tuple() == theirs.state_tuple()
+    for n, dt in ((5, "double"), (8, "single"), (3, "double")):
+        assert np.array_equal(ctrng.host_rand(ours, n, dt),
+                              jctrng.host_rand(theirs, n, dt))
+        assert np.array_equal(ctrng.host_randn(ours, n, dt),
+                              jctrng.host_randn(theirs, n, dt))
+        assert ours.counter == theirs.counter
+    for kind in ("rand", "randn"):
+        for mclass in ("single", "double", np.float32):
+            assert ctrng.blocks_for(kind, 7, mclass) == \
+                jctrng.blocks_for(kind, 7, mclass)

@@ -1,11 +1,12 @@
 """The port on an NVIDIA card: the Threefry and histogram kernels against
-their plain PyTorch versions, and the slices against the jax-free host
-engine. Marked `cuda`; each test skips without a card. On a card machine
-without jax, run them with
+their plain PyTorch versions, and the slices against the port's host
+engine (its `Session(accelerate=False)`). Marked `cuda`; each test skips
+without a card. On a card machine without jax, run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-(`tests/conftest.py` imports jax). This file imports none of it.
+(`tests/conftest.py` imports jax). This file imports neither jax nor the
+JAX package.
 Tolerances: uniforms bit-exact; normals f32 atol=rtol=2e-6, f64
 atol=rtol=1e-13; histogram counts exact; workload results rtol=1e-4.
 """
@@ -54,9 +55,9 @@ def test_kernel_matches_plain(card, kind, dtype, n, ctr):
     ("image_normalize", "B = 8; H = 64; W = 96;", "MSE", "mse")])
 def test_workload_on_card_matches_host(card, name, pre, label, var):
     import runmat_tpu_torch
-    from runmat_tpu import accel
-    from runmat_tpu.session import Session
+    from runmat_tpu_torch import accel
     from runmat_tpu_torch.ops import threefry
+    from runmat_tpu_torch.session import Session
 
     src = pre + "\n" + open(f"benchmarks/{name}.m").read()
     prev = accel.active_engine()
@@ -139,9 +140,9 @@ def test_histogram_kernel_matches_plain(card, mode, dtype, affine, n, nb):
 
 def test_histogram_stats_on_card_matches_host(card):
     import runmat_tpu_torch
-    from runmat_tpu import accel
-    from runmat_tpu.session import Session
+    from runmat_tpu_torch import accel
     from runmat_tpu_torch.ops import histogram
+    from runmat_tpu_torch.session import Session
 
     src = "N = 1048576;\n" + open(
         "runmat_tpu_torch/workloads/histogram_stats.m").read()
@@ -164,3 +165,87 @@ def test_histogram_stats_on_card_matches_host(card):
     assert abs(got - want) <= 1e-4 * abs(want)
     assert histogram.launches - before == 3
     assert eng.stats["host_fallbacks"] == 0
+    # histcounts routes before it gathers: u and z stay on the card
+    assert s.get("u").on_device and s.get("z").on_device
+    assert eng.stats["gather_bytes"] < 1 << 20
+
+
+def _guide_cells(nb: int) -> int:
+    """The kernel's largest guide table for nb bins (histogram.cu)."""
+    cells = 64
+    while cells < 4096 and cells < 8 * nb:
+        cells *= 2
+    return cells
+
+
+def _edge_case(kind: str, nb: int, np_dt, rng):
+    """Edges and values at the guide table's edges: clustered edges (many
+    in one cell, so the bracket needs its binary search), repeated edges,
+    and values on, and one ulp beside, every edge and many cell boundaries;
+    NaN, +-Inf, +-0 and subnormals."""
+    e = np.sort(rng.uniform(-2.0, 2.0, nb + 1))
+    if kind == "clustered" and nb >= 2:
+        k = nb // 2 + 1
+        e = np.sort(np.concatenate([0.1 + rng.uniform(0, 1e-5, k),
+                                    rng.uniform(-2.0, 2.0, nb + 1 - k)]))
+    if kind == "repeated" and nb >= 2:
+        e[1:nb // 2 + 1] = e[1]
+    e = e.astype(np_dt)
+    cells = _guide_cells(nb)
+    bounds = (e[0] + (e[-1] - e[0]) * np.arange(cells + 1) / cells).astype(
+        np_dt)
+    near = np.concatenate([e, bounds])
+    up, down = np.nextafter(near, np_dt(np.inf)), np.nextafter(
+        near, np_dt(-np.inf))
+    tiny = np.finfo(np_dt).smallest_subnormal
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, tiny, -tiny],
+                       np_dt)
+    span = float(e[-1] - e[0])
+    x = np.concatenate([near, up, down, special,
+                        rng.uniform(e[0] - 0.1 * span, e[-1] + 0.1 * span,
+                                    65536).astype(np_dt)])
+    return x.astype(np_dt), e
+
+
+@pytest.mark.parametrize("kind", ["random", "clustered", "repeated"])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 5, 6, 7, 8, 80, 1000, 4096,
+                                30000, 65536])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_search_mode_at_the_guide_tables_edges(card, dtype, nb, kind):
+    from runmat_tpu_torch.ops import histogram
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    x, e = _edge_case(kind, nb, np_dt, np.random.default_rng(nb))
+    xt = torch.from_numpy(x).to(card)
+    et = torch.from_numpy(e).to(card)
+    want = histogram.plain_histcounts(xt, et)
+    # a 16-byte-aligned start and two that are not
+    for view in (xt, xt[1:], xt[3:]):
+        got = histogram.histcounts(view, et)
+        assert torch.equal(got, histogram.plain_histcounts(view, et))
+    got = histogram.histcounts(xt, et)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ref = np.histogram(x.astype(np.float64), bins=e.astype(np.float64))[0]
+    assert np.array_equal(got.cpu().numpy(), ref)
+
+
+@pytest.mark.parametrize("ends", ["-inf", "+inf", "equal", "huge"])
+def test_search_mode_without_a_usable_table(card, ends):
+    # an infinite end, all edges equal or a span that overflows f32 take the
+    # binary search over all edges
+    from runmat_tpu_torch.ops import histogram
+    e = np.array([-1.0, -0.5, 0.0, 0.5, 1.0], np.float32)
+    if ends == "-inf":
+        e[0] = -np.inf
+    elif ends == "+inf":
+        e[-1] = np.inf
+    elif ends == "equal":
+        e[:] = 0.25
+    else:
+        e = np.array([-3e38, -1.0, 0.0, 1.0, 3e38], np.float32)
+    x = np.concatenate([e, np.nextafter(e, np.float32(np.inf)),
+                        np.nextafter(e, np.float32(-np.inf)),
+                        np.array([np.nan, 0.3, -0.7, 2.0, -2.0], np.float32)])
+    xt, et = torch.from_numpy(x).to(card), torch.from_numpy(e).to(card)
+    assert torch.equal(histogram.histcounts(xt, et),
+                       histogram.plain_histcounts(xt, et))

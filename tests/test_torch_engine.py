@@ -1,7 +1,8 @@
 """TorchEngine (CPU) against JaxEngine (CPU), op by op on the main path.
 
 Both engines take every array (`auto_offload=True, offload_threshold=1`),
-get the same numpy inputs, and are read back through `MatArray.host()`.
+get the same numpy inputs, each as its own package's `MatArray`, and are
+read back through `MatArray.host()`.
 Tolerances: float32 rtol=atol=1e-6, float64 rtol=atol=1e-12, integers and
 logicals exact; the RNG streams as in test_torch_ctrng.py.
 """
@@ -11,12 +12,16 @@ import pytest
 import torch
 
 from runmat_tpu.accel.engine import JaxEngine
-from runmat_tpu.errors import MatError
 from runmat_tpu.ops import ctrng as jctrng
 from runmat_tpu.ops import table as jtable
-from runmat_tpu.values import MatArray
+from runmat_tpu.values import MatArray as JaxMatArray
+from runmat_tpu.vm.indexing import COLON as JAX_COLON
 from runmat_tpu_torch.accel.engine import TorchEngine, reshape_f
+from runmat_tpu_torch.errors import MatError
+from runmat_tpu_torch.ops import ctrng as tctrng
 from runmat_tpu_torch.ops import table as ttable
+from runmat_tpu_torch.values import MatArray as PortMatArray
+from runmat_tpu_torch.vm.indexing import COLON as PORT_COLON
 
 TOL = {"single": dict(rtol=1e-6, atol=1e-6),
        "double": dict(rtol=1e-12, atol=1e-12)}
@@ -26,6 +31,48 @@ TOL = {"single": dict(rtol=1e-6, atol=1e-6),
 def engines():
     kw = dict(auto_offload=True, offload_threshold=1)
     return JaxEngine(platform="cpu", **kw), TorchEngine("cpu", **kw)
+
+
+class Value:
+    """One numpy input, handed to each engine as its package's MatArray."""
+
+    def __init__(self, data, mclass):
+        self.data = np.asarray(data)
+        self.mclass = mclass
+
+    def host(self):
+        return self.data
+
+
+def MatArray(data, mclass):  # noqa: N802 - reads as the constructor it wraps
+    return Value(data, mclass)
+
+
+COLON = object()   # the colon subscript, as each package spells it
+
+
+class Engine:
+    """An engine whose methods take Values and COLON and pass them on as
+    the engine's own package's MatArray and colon."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        port = isinstance(eng, TorchEngine)
+        self.matarray = PortMatArray if port else JaxMatArray
+        self.colon = PORT_COLON if port else JAX_COLON
+
+    def _arg(self, a):
+        if isinstance(a, Value):
+            return self.matarray(a.data.copy(), a.mclass)
+        if a is COLON:
+            return self.colon
+        if isinstance(a, list):
+            return [self._arg(x) for x in a]
+        return a
+
+    def __getattr__(self, name):
+        fn = getattr(self.eng, name)
+        return lambda *args: fn(*(self._arg(a) for a in args))
 
 
 def _data(shape, mclass, seed=0, special=True):
@@ -39,7 +86,7 @@ def _data(shape, mclass, seed=0, special=True):
 
 def _both(engines, build):
     """build(eng) -> MatArray on the device; both read back to the host."""
-    return [build(e).host() for e in engines]
+    return [build(Engine(e)).host() for e in engines]
 
 
 def _close(got, want, mclass):
@@ -150,7 +197,6 @@ def test_full_and_linspace(engines, mclass):
 
 
 def test_index_read_ranges(engines):
-    from runmat_tpu.vm.indexing import COLON
     vec = MatArray(_data((1, 50), "single", special=False), "single")
     mat = MatArray(_data((6, 5), "double", special=False), "double")
     r = MatArray(np.arange(3.0, 11.0).reshape(1, -1), "double")
@@ -220,7 +266,7 @@ def test_reduce_vector_physical_axes(engines, mclass):
 @pytest.mark.parametrize("mclass", ["single", "double"])
 @pytest.mark.parametrize("kind", ["rand", "randn"])
 def test_random(engines, kind, mclass):
-    states = [jctrng.PhiloxState(seed=42), jctrng.PhiloxState(seed=42)]
+    states = [jctrng.PhiloxState(seed=42), tctrng.PhiloxState(seed=42)]
     for st in states:
         st.advance(0xFFFFFFFE)           # the draw carries into the high word
     want, got = [e.random(kind, st, (7, 3, 2), mclass).host()
@@ -238,7 +284,7 @@ def test_materialize_keeps_pinned_outputs(engines):
     # both, and intermediates are released along the way
     x = MatArray(_data((64, 1), "single", special=False), "single")
     outs = []
-    for e in engines:
+    for e in map(Engine, engines):
         mid = e.unary("exp", e.upload(x), "single")
         mid.dev.pinned = True
         top = e.binary("mul", mid, mid, "single")
@@ -260,9 +306,9 @@ def test_cuda_engine_needs_a_card():
 
 def test_outside_the_slice_declines_or_raises(engines):
     _, eng = engines
-    x = MatArray(_data((4, 4), "double", special=False), "double")
+    x = PortMatArray(_data((4, 4), "double", special=False), "double")
     d = eng.upload(x)
-    z = MatArray(np.array([[1j, 2.0]]), "double")
+    z = PortMatArray(np.array([[1j, 2.0]]), "double")
     before = eng.stats["host_fallbacks"]
     # linalg routes a resident operand; a kind without a builder declines
     # in linalg, counted because the operand is on the device
@@ -279,7 +325,8 @@ def test_outside_the_slice_declines_or_raises(engines):
     for call in (lambda: eng.sort(d, 0, False, False),
                  lambda: eng.index_write(d, [], d),
                  lambda: eng.upload(z)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(MatError, match="not yet ported") as ei:
             call()
+        assert ei.value.identifier == "RunMat:notPorted"
     assert eng.reduce("median", d, (0,), "double", "") is None
     assert eng.scan("cumsum", d, 0, False, False, "double") is not None

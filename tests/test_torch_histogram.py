@@ -193,3 +193,121 @@ def test_cpu_calls_take_the_plain_version_without_a_launch():
     histogram.histcounts(torch.rand(100), e)
     histogram.histcounts(torch.rand(100), e, affine=(3, 0))
     assert histogram.launches == before
+
+
+@pytest.mark.parametrize("edges", [
+    np.arange(129) / 128, (np.arange(-8, 9) * 0.25), np.arange(-40, 41) / 10,
+    np.array([0.0, 1.0]), np.array([0.0, 1.0, 3.0]), np.linspace(-1, 1, 65),
+    np.array([1.0, 1.0]), np.array([-np.inf, 0.0, 1.0])])
+def test_affine_edge_params_is_the_jax_packages(edges):
+    # the port's copy decides the direct index for the same edges
+    e = np.asarray(edges, np.float32)
+    assert histogram.affine_edge_params(e) == affine_edge_params(e)
+
+
+# --- the kernel's guide table, modelled on the CPU ------------------------- #
+# csrc/histogram.cu finds j(v) = #(e_k <= v) inside a bracket
+# [T(c), T(c+1)] of a table over G cells, cell(v) = clamp(floor(v*inv + off),
+# 0, G-1), T(c) = #(k : cell(e_k) < c), and settles j with exact compares.
+# The model below builds the same table (in f64, rounding v*inv + off once
+# more than the kernel's fma; any monotone cell() gives the same argument)
+# and holds the bracket to the true j at the design's edges.
+
+def _by_definition(x, e):
+    """The cumulative-count definition, vectorised: ge_k = #(x >= e_k),
+    counts = ge[:-1] - ge[1:], the last bin ge[B-1] - #(x > e_B)."""
+    xs = np.sort(x[~np.isnan(x)].astype(np.float64))
+    e64 = e.astype(np.float64)
+    ge = xs.size - np.searchsorted(xs, e64, side="left")
+    counts = ge[:-1] - ge[1:]
+    counts[-1] = ge[-2] - (xs.size - np.searchsorted(xs, e64[-1],
+                                                     side="right"))
+    return counts
+
+
+def _cell(v, inv, off, cells):
+    t = np.asarray(v, np.float64) * inv + off
+    return np.clip(np.floor(np.clip(t, 0, cells - 1)), 0, cells - 1).astype(
+        np.int64)
+
+
+def _filled_table(e64, inv, off, cells):
+    """T(0..cells) as the kernel's prologue fills it: the thread of edge k
+    writes k into the cells (cell(e_{k-1}), cell(e_k)], with cell(e_{-1}) =
+    -1 and cell(e_{B+1}) = cells."""
+    t = np.full(cells + 1, -1)
+    nb = e64.size - 1
+    for k in range(nb + 2):
+        first = 0 if k == 0 else int(_cell(e64[k - 1], inv, off, cells)) + 1
+        last = cells if k == nb + 1 else int(_cell(e64[k], inv, off, cells))
+        assert np.all(t[first:last + 1] == -1), "a cell written twice"
+        t[first:last + 1] = k
+    assert np.all(t >= 0), "a cell left unwritten"
+    return t
+
+
+def _guide_bins(x, e, cells):
+    x64, e64 = x.astype(np.float64), e.astype(np.float64)
+    inv = cells / (e64[-1] - e64[0])
+    off = -e64[0] * inv
+    table = np.searchsorted(_cell(e64, inv, off, cells),
+                            np.arange(cells + 1), side="left")
+    assert np.array_equal(_filled_table(e64, inv, off, cells), table)
+    inside = (x64 >= e64[0]) & (x64 <= e64[-1])
+    c = _cell(x64[inside], inv, off, cells)
+    lo, hi = table[c], table[c + 1]
+    j = np.searchsorted(e64, x64[inside], side="right")
+    assert np.all((lo <= j) & (j <= hi)), "bracket misses j"
+    b = np.minimum(j, e.size - 1) - 1
+    return np.bincount(b, minlength=e.size - 1), hi - lo
+
+
+def _design_edges(kind, nb, dtype, rng):
+    e = np.sort(rng.uniform(-2.0, 2.0, nb + 1))
+    if kind == "clustered" and nb >= 2:
+        k = nb // 2 + 1
+        e = np.sort(np.concatenate([0.1 + rng.uniform(0, 1e-5, k),
+                                    rng.uniform(-2.0, 2.0, nb + 1 - k)]))
+    if kind == "repeated" and nb >= 2:
+        e[1:nb // 2 + 1] = e[1]
+    return e.astype(dtype)
+
+
+def _design_values(e, cells, dtype, rng):
+    bounds = (e[0] + (e[-1] - e[0]) * np.arange(cells + 1) / cells).astype(
+        dtype)
+    near = np.concatenate([e, bounds])
+    tiny = np.finfo(dtype).smallest_subnormal
+    return np.concatenate([
+        near, np.nextafter(near, dtype(np.inf)),
+        np.nextafter(near, dtype(-np.inf)),
+        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, tiny, -tiny], dtype),
+        rng.uniform(e[0] - 0.5, e[-1] + 0.5, 4096).astype(dtype)]).astype(
+            dtype)
+
+
+@pytest.mark.parametrize("kind", ["random", "clustered", "repeated"])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 5, 6, 7, 8, 80, 1000, 4096,
+                                30000, 65536])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_guide_table_brackets_hold_the_bin(dtype, nb, kind):
+    rng = np.random.default_rng(nb + 7)
+    e = _design_edges(kind, nb, dtype, rng)
+    for cells in (64, 1024, 4096):
+        x = _design_values(e, cells, dtype, rng)
+        counts, widths = _guide_bins(x, e, cells)
+        assert np.array_equal(counts, _by_definition(x, e))
+        if kind == "random" and cells >= 8 * nb:
+            # the common case: most brackets hold no edge or one
+            assert np.mean(widths <= 1) > 0.9
+
+
+@pytest.mark.parametrize("kind", ["clustered", "repeated"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("nb", [1, 3, 8, 80, 1000])
+def test_plain_matches_the_oracle_at_the_design_edges(nb, dtype, kind):
+    rng = np.random.default_rng(nb)
+    e = _design_edges(kind, nb, dtype, rng)
+    x = _design_values(e, 1024, dtype, rng)
+    got = histogram.histcounts(torch.from_numpy(x), torch.from_numpy(e))
+    assert np.array_equal(got.numpy(), _by_definition(x, e))

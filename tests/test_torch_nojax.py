@@ -1,9 +1,10 @@
-"""The port runs where jax is not installed: a subprocess with `jax` blocked
-in `sys.modules` imports runmat_tpu_torch and runs the three workloads and
-the statistics script (`runmat_tpu_torch/workloads/histogram_stats.m`, whose
-histcounts reaches `affine_edge_params` of the JAX package's histogram
-module) at small size on TorchEngine(device="cpu"); the profiling tool
-imports there too."""
+"""The port runs where neither jax nor the JAX package can be imported: a
+subprocess with `jax` and `runmat_tpu` blocked in `sys.modules` imports
+runmat_tpu_torch and runs the three workloads and the statistics script
+(`runmat_tpu_torch/workloads/histogram_stats.m`) at small size on
+TorchEngine(device="cpu"), and a host session without an engine; the
+profiling and benchmark tools import there too. No module of the JAX
+package is loaded at the end."""
 
 import os
 import subprocess
@@ -15,9 +16,12 @@ CODE = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+sys.modules["runmat_tpu"] = None
 import runmat_tpu_torch
+import runmat_tpu_torch.histbench
 import runmat_tpu_torch.profile
-from runmat_tpu import accel
+from runmat_tpu_torch import accel
+from runmat_tpu_torch.session import Session
 
 small = {"elementwise_math": "points = 4096;",
          "monte_carlo": "M = 4096; T = 16;",
@@ -40,11 +44,19 @@ assert r.error is None, r.error
 print(r.output.strip())
 print("histogram_stats fallbacks", eng.stats["host_fallbacks"])
 runmat_tpu_torch.uninstall()
+h = Session(accelerate=False)
+r = h.execute("x = rand(1, 5); fprintf('HOST_ok %d\\n', numel(x));")
+assert r.error is None, r.error
+print(r.output.strip())
 print("jax blocked:", sys.modules["jax"] is None)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] == "runmat_tpu" and sys.modules[m])
+print("runmat_tpu modules:", loaded)
 """
 
 
 def test_port_runs_without_jax():
+    # the port runs without jax and without runmat_tpu
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     p = subprocess.run([sys.executable, "-c", CODE], cwd=REPO, env=env,
@@ -55,4 +67,6 @@ def test_port_runs_without_jax():
         assert f"RESULT_ok {label}=" in out, out
     assert "monte_carlo folds 1 fallbacks 0" in out, out
     assert "histogram_stats fallbacks 0" in out, out
+    assert "HOST_ok 5" in out, out
     assert "jax blocked: True" in out, out
+    assert "runmat_tpu modules: []" in out, out

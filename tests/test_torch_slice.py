@@ -2,16 +2,18 @@
 JaxEngine (CPU) and under the port's TorchEngine (CPU), same `.m` source,
 both engines taking every array (`auto_offload=True, offload_threshold=1`).
 
-Tolerances: CHECK and MSE rtol=1e-5 (f32 sums in another order); PRICE
-rtol=1e-4, because the f32 `exp` step compounds over T iterations. Workspace
-arrays are held to their workload's rtol, element by element and also
-scaled by the array's largest magnitude (payoff = max(S - K, 0) cancels
-S ~ 100 down to small values, which keep S's absolute error).
+The port runs its own host layers (a package of its own); the JAX package's
+`Session` runs on JaxEngine. Tolerances: CHECK and MSE rtol=1e-5 (f32 sums
+in another order); PRICE rtol=1e-4, because the f32 `exp` step compounds
+over T iterations. Workspace arrays are held to their workload's rtol,
+element by element and also scaled by the array's largest magnitude (payoff
+= max(S - K, 0) cancels S ~ 100 down to small values, which keep S's
+absolute error).
 
-The statistics slice, `runmat_tpu_torch/workloads/histogram_stats.m` at
-N = 65536: HIST rtol=1e-5 (f32 sums in another order). Counts are exact:
-`cu` (of uniforms, which both engines draw bit for bit) equals JaxEngine's,
-and `cz`, `cq` equal `np.histogram` of each engine's own draws. Between the
+The statistics slice, `runmat_tpu_torch/workloads/histogram_stats.m` at N =
+65536: HIST rtol=1e-5 (f32 sums in another order). Counts are exact: `cu`
+(of uniforms, which both engines draw bit for bit) equals JaxEngine's, and
+`cz`, `cq` equal `np.histogram` of each engine's own draws. Between the
 engines `cz` and `cq` may differ by 1 per bin, because normals agree across
 backends only to a few ulp and a draw within an ulp of an edge may land on
 either side.
@@ -26,7 +28,8 @@ import runmat_tpu_torch
 from runmat_tpu import accel
 from runmat_tpu.accel.engine import JaxEngine
 from runmat_tpu.session import Session
-from runmat_tpu.values import MatArray
+from runmat_tpu_torch import accel as port_accel
+from runmat_tpu_torch.values import MatArray as PortMatArray
 
 SMALL = {"elementwise_math": "points = 4096;",
          "monte_carlo": "M = 4096; T = 16;",
@@ -39,10 +42,11 @@ OFFLOAD = dict(auto_offload=True, offload_threshold=1)
 
 @pytest.fixture
 def restore_engine():
-    prev = accel.active_engine()
+    prev, port_prev = accel.active_engine(), port_accel.active_engine()
     yield
     runmat_tpu_torch.uninstall()
     accel.set_engine(prev)
+    port_accel.set_engine(port_prev)
 
 
 def _source(workload: str) -> str:
@@ -63,7 +67,7 @@ def _run_both(workload: str):
     js = Session(accelerate=True)
     jr = js.execute(src)
     ts = runmat_tpu_torch.session("cpu", **OFFLOAD)
-    teng = accel.active_engine()
+    teng = port_accel.active_engine()
     tr = ts.execute(src)
     runmat_tpu_torch.uninstall()
     assert jr.error is None and tr.error is None, (jr.error, tr.error)
@@ -87,7 +91,7 @@ def test_workspace_arrays_match_and_stay_on_device(restore_engine, workload):
     (js, _, _), (ts, _, _) = _run_both(workload)
     rtol = RESULT[workload][2]
     names = [k for k, v in ts.base_frame.vars.items()
-             if isinstance(v, MatArray) and v.size > 1]
+             if isinstance(v, PortMatArray) and v.size > 1]
     assert names
     for k in names:
         v = ts.get(k)
@@ -123,7 +127,7 @@ def _run_hist():
     js = Session(accelerate=True)
     jr = js.execute(HIST_SRC)
     ts = runmat_tpu_torch.session("cpu", **OFFLOAD)
-    teng = accel.active_engine()
+    teng = port_accel.active_engine()
     tr = ts.execute(HIST_SRC)
     runmat_tpu_torch.uninstall()
     assert jr.error is None and tr.error is None, (jr.error, tr.error)
@@ -165,11 +169,15 @@ def test_histogram_stats_matches_jax_engine(restore_engine):
 
 
 def test_histogram_stats_device_arrays(restore_engine):
-    (js, _, _), (ts, _, _) = _run_hist()
-    # u and z come back to the host inside histcounts (the shared builtin
-    # gathers its input first), in both engines; the rest stays on device
+    (js, _, _), (ts, _, teng) = _run_hist()
+    # the JAX package's histcounts gathers its input before it routes, so u
+    # and z come back to the host there; the port's routes first and keeps
+    # them on the device, copying only scalars and edges
+    assert not js.get("u").on_device and not js.get("z").on_device
+    assert ts.get("u").on_device and ts.get("z").on_device
+    assert teng.stats["gather_bytes"] < 1024
+    assert teng.stats["upload_bytes"] < 4096
     for s in (js, ts):
-        assert not s.get("u").on_device and not s.get("z").on_device
         for k in ("cu", "cz", "cq", "pz", "Fz", "sm", "dF"):
             assert s.get(k).on_device, k
     for k in ("pz", "Fz", "sm", "dF", "area", "chi2"):

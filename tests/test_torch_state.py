@@ -1,5 +1,7 @@
-"""carry_session: a session started under JaxEngine and continued in the port
-draws the same continuation of the RNG stream.
+"""carry_session: a session of the JAX package started under JaxEngine and
+continued in the port draws the same continuation of the RNG stream; the
+port's state module converts values of either package and numpy arrays
+without importing the JAX package.
 
 Tolerances: carried arrays exact; the f32 normals of the continuation
 atol=rtol=2e-6 (libm); RNG counters equal."""
@@ -11,17 +13,21 @@ import runmat_tpu_torch
 from runmat_tpu import accel
 from runmat_tpu.accel.engine import JaxEngine
 from runmat_tpu.session import Session
-from runmat_tpu_torch.state import carry_session
+from runmat_tpu.values import MatArray as JaxMatArray
+from runmat_tpu_torch import accel as port_accel
+from runmat_tpu_torch.state import carry_session, to_matarray, to_numpy
+from runmat_tpu_torch.values import MatArray
 
 OFFLOAD = dict(auto_offload=True, offload_threshold=1)
 
 
 @pytest.fixture
 def restore_engine():
-    prev = accel.active_engine()
+    prev, port_prev = accel.active_engine(), port_accel.active_engine()
     yield
     runmat_tpu_torch.uninstall()
     accel.set_engine(prev)
+    port_accel.set_engine(port_prev)
 
 
 def test_port_continues_the_jax_sessions_stream(restore_engine):
@@ -41,7 +47,22 @@ def test_port_continues_the_jax_sessions_stream(restore_engine):
     runmat_tpu_torch.uninstall()
 
     assert accel.active_engine() is jeng
+    assert port_accel.active_engine() is None
     assert js.execute(nxt).error is None
     assert ts.rng.counter == js.rng.counter
     np.testing.assert_allclose(ts.get("c").host(), js.get("c").host(),
                                rtol=2e-6, atol=2e-6)
+
+
+def test_values_cross_as_the_ports_own():
+    h = np.arange(6, dtype=np.float32).reshape(2, 3)
+    for src in (h, JaxMatArray(h.copy(), "single"), MatArray(h.copy(),
+                                                               "single")):
+        v = to_matarray(src)
+        assert type(v) is MatArray and v.mclass == "single"
+        assert np.array_equal(to_numpy(v), h)
+    # a copy: writing the carried array leaves the source alone
+    out = to_numpy(to_matarray(h))
+    out[0, 0] = 99
+    assert h[0, 0] == 0
+    assert to_matarray(np.array([[True]])).mclass == "logical"
