@@ -10,10 +10,16 @@ line is printed:
      source, all started together);
   3. kernels against plain: the Threefry kernel against its plain PyTorch
      version on the card and the port's host numpy stream, at the main
-     path's shapes and more, with the time of both for 10^7 values of each
-     kind; the histogram kernel against its plain versions, exactly, in its
-     three modes over sizes up to 2^26 and 1 to 256 bins, and up to 2^20+1
-     values at 257 to 65536 bins, which cross its shared-memory layouts
+     path's shapes and more; the normal kernels' Box-Muller transform
+     against its numpy model (runmat_tpu_torch/ops/boxmuller.py) over every
+     float32 (u1, u2) and 2^20 float64 pairs; the time of the kernel and of
+     the plain version at the main path's draws (runmat_tpu_torch/
+     rngbench.py: normals f32 at 10^6, 10^7 and 2^26, f64 at 10^7,
+     uniforms f32 at 10^7 and 2^26, f64 at 10^7), each beside its bound
+     and its kernel's registers; the histogram kernel against its plain
+     versions, exactly, in its three modes over sizes up to 2^26 and 1 to
+     256 bins, and up to 2^20+1 values at 257 to 65536 bins, which cross
+     its shared-memory layouts
      (and against np.histogram up to 2^20+1 values), with the time of the
      kernel, the plain version and `torch.histc` (direct mode) at 2^26 and
      of the kernel alone at many bins (runmat_tpu_torch/histbench.py);
@@ -33,7 +39,10 @@ line is printed:
 Each kernel's `launches` is read from the runs of phases 4 and 5, with the
 counts set to 0 just before each run. `bound_ms` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over the card's rate
-for them (BOUND_* below). Imports nothing of jax and nothing of runmat_tpu.
+for them (runmat_tpu_torch/sass.py: for Threefry, the warp cycles of the
+kernel's own loop read from its machine code, which holds no call and no
+local memory, so it is what runs). Imports nothing of jax and nothing of
+runmat_tpu.
 """
 
 from __future__ import annotations
@@ -54,10 +63,15 @@ RESULT_KEY = {"elementwise_math": ("CHECK", "checksum"),
               "image_normalize": ("MSE", "mse")}
 PARITY_RTOL = 1e-4       # f32 reductions and T compounding steps of exp
 SIZES = (1, 2, 3, 1023, (1 << 20) + 1, 10 ** 7)
-MAIN_PATH_DRAWS = (("rand", 16 * 2160 * 3840), ("randn", 1_000_000))
-KEY = (0x2C4A_9E11, 0x51D3_07BF)
+# image_normalize.m, monte_carlo.m (256 a run) and histogram_stats.m
+MAIN_PATH_DRAWS = (("rand", 16 * 2160 * 3840), ("randn", 1_000_000),
+                   ("rand", 1 << 26), ("randn", 1 << 26))
+# the kernel JSON line's Threefry rows: the main path's most-launched
+# normal draw and its uniform draw of histogram_stats.m
+REPORTED_DRAWS = {"rand": 1 << 26, "randn": 10 ** 6}
+# the draws' key and the normals' tolerance are rngbench.KEY and
+# rngbench.NORMAL_TOL, which also check the timed draws
 COUNTERS = (12345, (0xFFFFFFFD, 7))   # the second carries lo into hi
-NORMAL_TOL = {"float32": 2e-6, "float64": 1e-13}   # atol = rtol
 HIST_SIZES = (1, 2, 3, 1023, (1 << 20) + 1, 10 ** 7, 1 << 26)
 HIST_BINS = (1, 2, 3, 4, 5, 6, 7, 8, 64, 80, 128, 256)
 # per-warp, per-block and global counts in the kernel (histogram.cu); the
@@ -78,18 +92,7 @@ HIST_MAIN_CALLS = {"direct f32": ("cu, 128 bins", "67"),
 # the card
 HIST_TRANSFER_LIMIT = 1 << 20
 TIMING_REPS = 50
-# the least time the card could take (NVIDIA H100 SXM data sheet): HBM3 at
-# 3.35 TB/s; for operations, the cycles a warp spends in a kernel's loop
-# (runmat_tpu_torch/sass.py, from the built machine code) on 4 sub-
-# partitions of each of 132 SMs at the 1.98 GHz boost clock
-BOUND_BYTES_PER_S = 3.35e12
-BOUND_WARP_CYCLES_PER_S = 4 * 132 * 1.98e9
-# A Threefry draw's operations: its counter blocks, each one iteration of
-# the uniform kernel's loop of its width. The normal kernels' loops also
-# hold the cold paths of sinf/cosf's argument reduction, so their static
-# count would overstate the work; counting the counter blocks alone keeps
-# the bound a floor.
-THREEFRY_LOOPS = {"float32": "uniform_f32", "float64": "uniform_f64"}
+F64_SWEEP = 1 << 20       # float64 word sets through the device transform
 
 
 class SmokeFailure(Exception):
@@ -125,21 +128,10 @@ def phase_build():
             print(f"  ptxas: {line.strip()}")
 
 
-def _bound(nbytes: float, warp_cycles: float = 0.0) -> tuple:
-    """(bound_ms, bound_by): bytes over the memory rate against the warp
-    cycles of the work over the card's rate for them, whichever is
-    larger."""
-    by_bytes = nbytes / BOUND_BYTES_PER_S * 1e3
-    by_ops = warp_cycles / BOUND_WARP_CYCLES_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
-
-
 def phase_kernel() -> list:
     import torch
 
-    from runmat_tpu_torch import sass
-    from runmat_tpu_torch.histbench import time_ms
+    from runmat_tpu_torch import rngbench, sass
     from runmat_tpu_torch.ops import ctrng, threefry
 
     dev = torch.device("cuda")
@@ -150,8 +142,8 @@ def phase_kernel() -> list:
     cases += [(kind, n, torch.float32, COUNTERS[0])
               for kind, n in MAIN_PATH_DRAWS]
     for kind, n, dt, ctr in cases:
-        got = threefry.rng_draw(kind, KEY, ctr, n, dt, dev)
-        want = threefry.plain_draw(kind, KEY, ctr, n, dt, dev)
+        got = threefry.rng_draw(kind, rngbench.KEY, ctr, n, dt, dev)
+        want = threefry.plain_draw(kind, rngbench.KEY, ctr, n, dt, dev)
         torch.cuda.synchronize()
         check(got.shape == (n,) and got.dtype == dt,
               f"{kind} {dt} n={n}: shape {tuple(got.shape)} {got.dtype}")
@@ -163,56 +155,84 @@ def phase_kernel() -> list:
                   f"against plain (max err {err:g})")
             if n <= 10 ** 7:
                 c = ctr if isinstance(ctr, int) else ctr[0] | (ctr[1] << 32)
-                ref, _ = ctrng.np_uniform(KEY, c, n, np.dtype(name))
+                ref, _ = ctrng.np_uniform(rngbench.KEY, c, n,
+                                          np.dtype(name))
                 check(np.array_equal(got.cpu().numpy(), ref),
                       f"rand {name} n={n} ctr={ctr}: not bit-exact "
                       f"against the host stream")
         else:
-            tol = NORMAL_TOL[name]
+            tol = rngbench.NORMAL_TOL[name]
             check(bool(torch.isfinite(got).all()) and torch.allclose(
                 got, want, rtol=tol, atol=tol),
                 f"randn {name} n={n} ctr={ctr}: max err {err:g} > {tol:g}")
         worst[kind] = max(worst[kind], err)
         print(f"kernel {kind} {name} n={n} ctr={ctr}: max_abs_err={err:g}")
 
-    mixes = sass.loop_mixes()
-    timings = {}
-    n = 10 ** 7
-    for kind in ("rand", "randn"):
-        for dt in (torch.float32, torch.float64):
-            k_ms = time_ms(lambda: threefry.rng_draw(kind, KEY, 0, n, dt, dev),
-                           TIMING_REPS)
-            p_ms = time_ms(lambda: threefry.plain_draw(kind, KEY, 0, n, dt,
-                                                       dev), TIMING_REPS)
-            name = str(dt).split(".")[-1]
-            # counter blocks: f32 two values each; f64 uniform one value
-            # each, f64 normal two blocks per pair of values
-            blocks = (n + 1) // 2 if dt == torch.float32 else \
-                (n if kind == "rand" else 2 * ((n + 1) // 2))
-            (mixed,) = [m for k, m in mixes.items()
-                        if THREEFRY_LOOPS[name] in k]
-            bound = _bound(n * (4 if dt == torch.float32 else 8),
-                           blocks / 32 * mixed["loop_cycles"])
-            timings[(kind, name)] = (k_ms, p_ms, bound)
-            print(f"time {kind} {name} n=1e7: kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
-                  f"({bound[1]}), share of bound {bound[0] / k_ms:.2f}; "
-                  f"loop {json.dumps(mixed)}")
+    _transform_sweep(threefry)
+
+    rows = rngbench.measure(threefry, sass, rngbench.DRAWS, TIMING_REPS,
+                            plain_reps=TIMING_REPS)
+    for r in rows:
+        check(r["ok"], f"{r['kind']} {r['dtype']} n={r['n']}: differs from "
+              f"plain by {r['max_abs_err']:g}")
+        philox = f", torch.randn (Philox, another stream) " \
+            f"{r['philox_ms']:.4f} ms" if "philox_ms" in r else ""
+        print(f"time {r['kind']} {r['dtype']} n={r['n']}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+              f"{r['share']:.3f}{philox}; {r['registers']} registers, "
+              f"{r['stack_bytes']} bytes of stack, {r['resident_warps']} "
+              f"warps a SM; loop {json.dumps(r['loop'])}")
     out = []
     for kind, label in (("rand", "uniform"), ("randn", "normal")):
-        k_ms, p_ms, bound = timings[(kind, "float32")]
+        (r,) = [r for r in rows if r["kind"] == kind
+                and r["dtype"] == "float32" and r["n"] == REPORTED_DRAWS[kind]]
         out.append({
             "name": f"threefry2x32_{label}_f32", "route": "cuda",
             "source": "runmat_tpu_torch/csrc/threefry.cu",
             "replaces": "runmat_tpu/ops/pallas/threefry.py:"
                         + ("134" if kind == "rand" else "114"),
             "launches": 0, "launch_key": f"{kind} float32",
-            "max_abs_err": worst[kind], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound[0], "bound_by": bound[1],
+            "max_abs_err": worst[kind], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
             # torch.rand draws Philox, another stream: no library call
             # computes these values
             "library_ms": None})
     return out
+
+
+def _transform_sweep(threefry) -> None:
+    """The normal kernels' device transform against its numpy model:
+    float32 over every (u1, u2) (words k << 8, k < 2^24), equal bit for
+    bit; float64 over F64_SWEEP word sets from a seed, within one ulp (the
+    model's square root is correctly rounded, the kernel's a Goldschmidt
+    iteration)."""
+    import torch
+
+    from runmat_tpu_torch.ops import boxmuller
+    dev = torch.device("cuda")
+    k = torch.arange(1 << 24, dtype=torch.int64, device=dev) << 8
+    got = threefry.device_transform(torch.stack([k, k]), torch.float32)
+    words = np.arange(1 << 24, dtype=np.uint32) << 8
+    want = np.stack(boxmuller.box_muller_f32(words, words))
+    bad = int((got.cpu().numpy() != want).sum())
+    check(bad == 0, f"float32 transform: {bad} of {want.size} values differ "
+          f"from the model")
+    print(f"kernel transform float32: all {want.size} values of 2^24 (u1, "
+          f"u2) equal the model")
+    w = np.random.default_rng(5).integers(0, 1 << 32, (4, F64_SWEEP),
+                                          dtype=np.uint64).astype(np.uint32)
+    w[:, :2] = [[0, 0xFFFFFFFF]] * 4
+    got = threefry.device_transform(torch.from_numpy(w.astype(np.int64)).to(
+        dev), torch.float64).cpu().numpy()
+    want = np.stack(boxmuller.box_muller_f64(*w))
+    ulps = np.abs(got - want) / np.spacing(np.abs(want))
+    check(float(ulps.max()) <= 1.0, f"float64 transform: {ulps.max()} ulp "
+          f"from the model")
+    print(f"kernel transform float64: {want.size} values, "
+          f"{int((got != want).sum())} differ from the model, at most "
+          f"{float(ulps.max()):g} ulp")
 
 
 def _hist_inputs(base, n: int, nb: int, dtype, affine, seed: int):
@@ -251,7 +271,7 @@ def _hist_inputs(base, n: int, nb: int, dtype, affine, seed: int):
 def phase_histogram_kernel() -> list:
     import torch
 
-    from runmat_tpu_torch import histbench
+    from runmat_tpu_torch import histbench, sass
     from runmat_tpu_torch.ops import histogram
 
     dev = torch.device("cuda")
@@ -306,7 +326,7 @@ def phase_histogram_kernel() -> list:
             check(r["library_equal"],
                   f"torch.histc differs from the kernel ({call})")
         x, e, _ = calls[mode]
-        bound = _bound(x.numel() * x.element_size()
+        bound = sass.bound(x.numel() * x.element_size()
                        + e.numel() * e.element_size() + (e.numel() - 1) * 8)
         k_ms, lib_ms = r["ms"], r["library_ms"]
         gbs = x.numel() * x.element_size() / (k_ms * 1e-3) / 1e9

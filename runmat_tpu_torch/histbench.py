@@ -7,11 +7,12 @@ Run as a script, this file imports `runmat_tpu_torch` from DIR (default: the
 checkout holding this file), so two checkouts can be timed in turns in one
 process each on one card: unpack the other one with `git archive` under
 `build/` and run parent, change, change, parent. On 2^26 values made on the
-card from a seed, it times (CUDA events, mean of `--reps` after a warm-up)
-the three calls of `runmat_tpu_torch/workloads/histogram_stats.m` (direct
-f32 over 128 affine bins of uniforms, search f32 over 80 bins of normals,
-search f64 over 7 bins of their squares), search f32 over normals at 257 to
-65536 bins, and `torch.histc` over the direct call's inputs. Every kernel
+card from a seed, it times (CUDA events, mean of `--reps` after a warm-up,
+the card spinning first while the host enqueues: `time_ms`) the three
+calls of `runmat_tpu_torch/workloads/histogram_stats.m` (direct f32 over
+128 affine bins of uniforms, search f32 over 80 bins of normals, search f64
+over 7 bins of their squares), search f32 over normals at 257 to 65536
+bins, and `torch.histc` over the direct call's inputs. Every kernel
 result is held to the plain version, and `torch.histc`'s counts to the
 kernel's. Prints the card's name and power limit, then one JSON line.
 Needs a CUDA card.
@@ -27,15 +28,23 @@ import sys
 
 N = 1 << 26
 MANY_BINS = (257, 1000, 4096, 30000, 65536)
+# clock cycles the card spins per timed call before the timed calls start,
+# about 0.5 ms at the boost clock: more than the host takes to enqueue one
+SPIN_CYCLES_PER_CALL = 10 ** 6
 
 
 def time_ms(fn, reps: int) -> float:
-    """CUDA-event time of one call of `fn`, mean of `reps` after a warm-up."""
+    """CUDA-event time of one call of `fn` on the card, mean of `reps` after
+    a warm-up. The card first spins while the host enqueues the calls, so
+    they run back to back and a call shorter than the host's time to
+    launch it is timed by the card, not by the host. `rngbench.py` times
+    with this function too."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()

@@ -1,5 +1,6 @@
 """The port on an NVIDIA card: the Threefry and histogram kernels against
-their plain PyTorch versions, and the slices against the port's host
+their plain PyTorch versions, the normal kernels' transform against its
+numpy model (`ops/boxmuller.py`), and the slices against the port's host
 engine (its `Session(accelerate=False)`). Marked `cuda`; each test skips
 without a card. On a card machine without jax, run them with
 
@@ -8,7 +9,10 @@ without a card. On a card machine without jax, run them with
 (`tests/conftest.py` imports jax). This file imports neither jax nor the
 JAX package.
 Tolerances: uniforms bit-exact; normals f32 atol=rtol=2e-6, f64
-atol=rtol=1e-13; histogram counts exact; workload results rtol=1e-4.
+atol=rtol=1e-13; the transform equal to its model in f32 and within one
+ulp in f64 (the model's square root is correctly rounded, the kernel's a
+Goldschmidt iteration); histogram counts exact; workload results
+rtol=1e-4.
 """
 
 import io
@@ -30,8 +34,14 @@ def card():
     return torch.device("cuda")
 
 
+# the normal kernels take two values' blocks a thread per iteration and
+# leave the last one to a tail: n = 4 and 6 end on a whole unit (m even
+# and odd), 5 and 7 drop the last sine (m odd and even), 10^6 + 1..3 do
+# the same at monte_carlo.m's size, which fills one wave; 2^26 is
+# histogram_stats.m's draw, several units a thread
 @pytest.mark.parametrize("ctr", [0, (0xFFFFFFFE, 1)])
-@pytest.mark.parametrize("n", [1, 2, 3, 1023, 65537])
+@pytest.mark.parametrize("n", [1, 2, 3, 1023, 65537, 4, 5, 6, 7, 10 ** 6,
+                               10 ** 6 + 1, 10 ** 6 + 2, 10 ** 6 + 3, 1 << 26])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", ["rand", "randn"])
 def test_kernel_matches_plain(card, kind, dtype, n, ctr):
@@ -47,6 +57,28 @@ def test_kernel_matches_plain(card, kind, dtype, n, ctr):
     else:
         tol = 2e-6 if dtype == torch.float32 else 1e-13
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_float32_transform_equals_its_model_everywhere(card):
+    # every (u1, u2) of the float32 stream, bit for bit
+    from runmat_tpu_torch.ops import boxmuller, threefry
+    k = torch.arange(1 << 24, dtype=torch.int64, device=card) << 8
+    got = threefry.device_transform(torch.stack([k, k]), torch.float32)
+    w = np.arange(1 << 24, dtype=np.uint32) << 8
+    assert np.array_equal(got.cpu().numpy(),
+                          np.stack(boxmuller.box_muller_f32(w, w)))
+
+
+def test_float64_transform_within_an_ulp_of_its_model(card):
+    from runmat_tpu_torch.ops import boxmuller, threefry
+    w = np.random.default_rng(17).integers(0, 1 << 32, (4, 1 << 20),
+                                           dtype=np.uint64).astype(np.uint32)
+    w[:, :2] = [[0, 0xFFFFFFFF]] * 4
+    got = threefry.device_transform(
+        torch.from_numpy(w.astype(np.int64)).to(card), torch.float64)
+    want = np.stack(boxmuller.box_muller_f64(*w))
+    got = got.cpu().numpy()
+    assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()
 
 
 @pytest.mark.parametrize("name,pre,label,var", [

@@ -19,7 +19,10 @@ sys.modules["jaxlib"] = None
 sys.modules["runmat_tpu"] = None
 import runmat_tpu_torch
 import runmat_tpu_torch.histbench
+import runmat_tpu_torch.ops.boxmuller
 import runmat_tpu_torch.profile
+import runmat_tpu_torch.rngbench
+import runmat_tpu_torch.sass
 from runmat_tpu_torch import accel
 from runmat_tpu_torch.session import Session
 
