@@ -34,9 +34,18 @@ line is printed:
      Session.execute, HIST against the host engine, the three histograms
      against np.histogram of the port's own data, the histogram kernel's
      launches, the bytes copied to and from the card, and the warm walls;
-  6. one JSON line of kernel results, then the result line
+  6. indexing path: runmat_tpu_torch/workloads/index_sets.m (indexed reads
+     and writes, structural ops, sort, unique, set ops, median, mode,
+     accumarray, a folded `for` and a folded `while`) at N = 2^20 against
+     the host engine for RANK, then at its default N = 2^26 through
+     Session.run_source and once through Session.execute: no host fallback,
+     no RunMat:notPorted, one `for` fold and one `while` fold, under 1 MB
+     each way, and its sort, unique, counts, median, membership and column
+     writes against numpy of the port's own gathered data; with the warm
+     walls;
+  7. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
-Each kernel's `launches` is read from the runs of phases 4 and 5, with the
+Each kernel's `launches` is read from the runs of phases 4 to 6, with the
 counts set to 0 just before each run. `bound_ms` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over the card's rate
 for them (runmat_tpu_torch/sass.py: for Threefry, the warp cycles of the
@@ -91,6 +100,10 @@ HIST_MAIN_CALLS = {"direct f32": ("cu, 128 bins", "67"),
 # the statistics path copies only scalars and edges: u, z and z.*z stay on
 # the card
 HIST_TRANSFER_LIMIT = 1 << 20
+INDEX_WORKLOAD = "runmat_tpu_torch/workloads/index_sets.m"
+INDEX_REFERENCE_N = "N = 2^20;\n"     # the host engine's unique is a Python loop
+# index_sets.m copies the result, unique's count and the while conditions
+INDEX_TRANSFER_LIMIT = 1 << 20
 TIMING_REPS = 50
 F64_SWEEP = 1 << 20       # float64 word sets through the device transform
 
@@ -621,6 +634,142 @@ def phase_statistics_path() -> dict:
     return launches
 
 
+def _stable_descend(x: np.ndarray) -> np.ndarray:
+    """numpy's stable descending sort: the ascending sort of the reversed
+    vector, mapped back (NaN first, ties in order)."""
+    n = x.size
+    ia = np.argsort(x[::-1], kind="stable")
+    return ((n - 1) - ia)[::-1]
+
+
+def _index_sets_against_numpy(s) -> None:
+    """index_sets.m's results at 2^26 against numpy of the port's own
+    gathered x and q."""
+    x = s.get("x").host().reshape(-1)
+    i = _stable_descend(x)
+    check(np.array_equal(s.get("i").host().reshape(-1), i + 1),
+          "index_sets: i is not numpy's stable descending order")
+    check(np.array_equal(s.get("s").host().reshape(-1), x[i]),
+          "index_sets: s is not x sorted")
+    del i
+    med = float(s.get("med").host().reshape(-1)[0])
+    check(med == float(np.median(x)),
+          f"index_sets: median {med!r} against np.median {np.median(x)!r}")
+    A = x.reshape(4096, -1, order="F").copy()
+    A[:, 1::2] = -A[:, 1::2]
+    B = np.roll(np.flip(A, 0), 7, axis=1)[:, :16]
+    B = B * np.arange(1, 17, dtype=np.float32)
+    check(np.array_equal(s.get("B").host()[:, :16], B),
+          "index_sets: B(:, 1:16) differs from numpy")
+    del x, A, B
+    q = s.get("q").host().reshape(-1)
+    u, ia, ic, cnt = np.unique(q, return_index=True, return_inverse=True,
+                               return_counts=True)
+    for name, want in (("u", u), ("ia", ia + 1), ("ic", ic.reshape(-1) + 1),
+                       ("cnt", cnt)):
+        got = s.get(name).host().reshape(-1)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"index_sets: {name} differs from np.unique")
+    lv = np.arange(-8, 9, 2, dtype=np.float32)
+    tf = int(s.get("tf").host().sum())
+    check(tf == int(np.isin(q, lv).sum()),
+          f"index_sets: sum(tf) {tf} against np.isin")
+    print(f"port index_sets: s, i, med, B(:, 1:16), u, ia, ic, cnt and "
+          f"sum(tf) equal numpy of the port's own data ({u.size} levels, "
+          f"sum(tf) = {tf})")
+
+
+def phase_indexing_path() -> dict:
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.errors import MatError
+
+    src = open(INDEX_WORKLOAD).read()
+    t0 = time.perf_counter()
+    out, host = _host_reference(INDEX_REFERENCE_N + src)
+    ref = _result_value(out, "RANK")
+    print(f"host index_sets N=2^20: {out.strip()} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del host
+    s = runmat_tpu_torch.session("cuda")
+    try:
+        got = _result_value(_run_source(s, INDEX_REFERENCE_N + src), "RANK")
+    except MatError as e:
+        raise SmokeFailure(f"index_sets N=2^20: {e}") from e
+    finally:
+        runmat_tpu_torch.uninstall()
+    check(abs(got - ref) <= PARITY_RTOL * abs(ref),
+          f"index_sets N=2^20: RANK={got!r} against host {ref!r}")
+    print(f"port index_sets N=2^20: RANK={got!r} (host {ref!r}, rel err "
+          f"{abs(got - ref) / abs(ref):.3g})")
+    del s
+
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        output = _run_source(s, src)
+    except MatError as e:
+        raise SmokeFailure(f"index_sets: {e}") from e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    st = dict(eng.stats)
+    log = list(eng.launch_log)
+    runmat_tpu_torch.uninstall()
+    check(st["host_fallbacks"] == 0,
+          f"index_sets: {st['host_fallbacks']} host fallbacks "
+          f"{[e for e in log if e['cat'] == 'host_fallback']}")
+    check(st["loop_folds"] == 1 and st["loop_bails"] == 0,
+          f"index_sets: loop_folds={st['loop_folds']} "
+          f"loop_bails={st['loop_bails']}")
+    whiles = [e for e in log if e["cat"] == "device_while"]
+    check(st["while_folds"] == 1 and len(whiles) == 1,
+          f"index_sets: while_folds={st['while_folds']}")
+    back = st["gather_bytes"] + st["sync_bytes"]
+    check(back < INDEX_TRANSFER_LIMIT and
+          st["upload_bytes"] < INDEX_TRANSFER_LIMIT,
+          f"index_sets: {back} bytes back, {st['upload_bytes']} up")
+    check(launches["threefry"].get("randn float32") == 1,
+          f"index_sets: threefry launches {launches['threefry']}")
+    for k in ("x", "s", "i", "u", "ic", "cnt", "tf", "B", "P", "y"):
+        v = s.get(k)
+        check(v.on_device and eng.materialize(v.dev).is_cuda,
+              f"index_sets: {k} is not a CUDA tensor")
+    rank = _result_value(output, "RANK")
+    print(f"port index_sets: {output.strip()}; the while fold ran "
+          f"{whiles[0]['iterations']} iterations; {st['gathers']} gathers "
+          f"({st['gather_bytes']} bytes), {st['syncs']} reads of a count or "
+          f"condition ({st['sync_bytes']} bytes), {st['uploads']} uploads "
+          f"({st['upload_bytes']} bytes); launches {launches}; stats "
+          f"{json.dumps({k: v for k, v in st.items() if v})}; first run "
+          f"{wall * 1e3:.1f} ms")
+    _index_sets_against_numpy(s)
+    del s
+
+    # once through Session.execute
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    r = s.execute(src)
+    torch.cuda.synchronize()
+    runmat_tpu_torch.uninstall()
+    check(r.error is None, f"index_sets (execute): {r.error}")
+    check(_result_value(r.output, "RANK") == rank,
+          f"index_sets (execute): {r.output.strip()} against {rank!r}")
+    back = eng.stats["gather_bytes"] + eng.stats["sync_bytes"]
+    check(back < INDEX_TRANSFER_LIMIT and eng.stats["host_fallbacks"] == 0,
+          f"index_sets (execute): {back} bytes back, "
+          f"{eng.stats['host_fallbacks']} host fallbacks")
+    print(f"port index_sets (execute): {r.output.strip()}; {back} bytes back")
+    del s
+    _walls(src, "index_sets", preview=False)
+    _walls(src, "index_sets", preview=True)
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -633,7 +782,8 @@ def main() -> int:
         phase(phase_device)
         phase(phase_build)
         kernels = phase(phase_kernel) + phase(phase_histogram_kernel)
-        paths = [phase(phase_main_path), phase(phase_statistics_path)]
+        paths = [phase(phase_main_path), phase(phase_statistics_path),
+                 phase(phase_indexing_path)]
         for k in kernels:
             group = "threefry" if k["name"].startswith("threefry") \
                 else "histogram"

@@ -11,9 +11,18 @@ A kind without a builder here returns None before it touches an operand, so
 the builtin takes its host path; that is counted as a host fallback when an
 operand is on the device. Complex work returns None the same way (A8).
 
-Builders (kind -> (engine, opts) -> fn(*tensors)): `diff`, `trapz` and
-`movwin` are plain torch, as the JAX package leaves them to XLA;
-`histcounts` runs on the hand-written kernel of `ops/histogram.py`.
+Builders (kind -> (engine, opts) -> fn(*tensors)): `diff`, `trapz`,
+`movwin`, `sort`, `unique`, `setop`, `mode`, `accumarray` and `ismember` are
+plain torch, as the JAX package leaves them to XLA; `histcounts` runs on the
+hand-written kernel of `ops/histogram.py`.
+
+The sort family keeps the JAX builders' semantics (`dense.py:534-559`,
+755-943), not their padded static shapes: each NaN is its own value and
+sorts last ascending, -0 equals 0, ties keep their order, indices come back
+1-based in double. The one value read back is a result's length
+(`TorchEngine.read_scalar`; accumarray's `bincount` reads its largest
+subscript, `count_sync`); the keys are made canonical (one NaN, +0)
+first, because a card's radix sort orders by bit pattern.
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ from .lazy import LazyNode
 
 _WORK = {np.dtype(np.float32): torch.float32,
          np.dtype(np.float64): torch.float64}
-_NUMPY = {v: k for k, v in _WORK.items()}
+_NUMPY = {torch.float32: np.dtype(np.float32),
+          torch.float64: np.dtype(np.float64),
+          torch.int64: np.dtype(np.int64), torch.bool: np.dtype(np.bool_)}
 
 
 class DenseOps:
@@ -170,5 +181,157 @@ def _b_histcounts(eng, opts):
     return f
 
 
+def _key(v):
+    """Sort and membership key: one NaN (it sorts last) and +0 for -0,
+    so that a radix sort and `torch.isin` see MATLAB's equalities."""
+    return torch.where(torch.isnan(v), torch.full_like(v, float("nan")),
+                       v + 0.0)
+
+
+def _fvec(a):
+    """F-order sequence of a logical-shape tensor."""
+    return a.permute(*reversed(range(a.ndim))).reshape(-1) if a.ndim > 1 \
+        else a.reshape(-1)
+
+
+def _compact(eng, keep, *vals):
+    """The entries of each of `vals` where `keep` holds, in order. Their
+    count is read back once; the gather itself needs no further sync."""
+    n = int(eng.read_scalar(keep.sum()))
+    pos = torch.cumsum(keep, 0) - 1
+    dest = torch.where(keep, pos, torch.full_like(pos, n))
+    src = torch.arange(keep.numel(), device=keep.device)
+    at = torch.empty(n + 1, dtype=torch.int64, device=keep.device)
+    at = at.scatter(0, dest, src)[:n]
+    return [v[at] for v in vals]
+
+
+def _groups(v):
+    """Stable sort of v by key: (sorted order, first-of-group mask, group
+    id per sorted element)."""
+    sk, si = torch.sort(_key(v), stable=True)
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[1:] = sk[1:] != sk[:-1]          # NaN != NaN: each its own group
+    return si, first, torch.cumsum(first, 0) - 1
+
+
+def _unique_core(eng, v, stable: bool):
+    """(u, ia, ic) of a flat vector, 0-based: u sorted (or by first
+    appearance), ia first occurrences, ic with v == u[ic]."""
+    si, first, g = _groups(v)
+    (ia,) = _compact(eng, first, si)
+    ic = torch.empty_like(si).scatter(0, si, g)
+    if stable:
+        order = torch.argsort(ia)
+        ia = ia[order]
+        rank = torch.empty_like(order).scatter(
+            0, order, torch.arange(order.numel(), device=order.device))
+        ic = rank[ic]
+    return v[ia], ia, ic
+
+
+def _b_sort(eng, opts):
+    """Stable sort along an axis (`dense.py:534`): descending is the
+    ascending sort of the axis-reversed array, mapped back, so NaN comes
+    first and ties keep their order."""
+    axis, descend, want_idx = opts
+
+    def f(a):
+        n = a.shape[axis]
+        b = torch.flip(a, (axis,)) if descend else a
+        _, idx = torch.sort(_key(b), dim=axis, stable=True)
+        if descend:
+            idx = torch.flip((n - 1) - idx, (axis,))
+        vals = torch.take_along_dim(a, idx, dim=axis)
+        if want_idx:
+            return vals, (idx + 1).to(torch.float64)
+        return vals
+    return f
+
+
+def _b_unique(eng, opts):
+    """unique with [U, ia, ic], 1-based indices in double (`dense.py:789`)."""
+    (stable,) = opts
+
+    def f(a):
+        u, ia, ic = _unique_core(eng, _fvec(a), stable)
+        return u, (ia + 1).to(torch.float64), (ic + 1).to(torch.float64)
+    return f
+
+
+def _b_setop(eng, opts):
+    """union/intersect/setdiff/setxor (`dense.py:803`): unique passes and
+    membership. NaN is never a member of anything, so it stays in setdiff
+    and setxor and leaves intersect. Returns (values,) or (values, ia)."""
+    op, stable = opts
+
+    def f(a, b):
+        va, vb = _fvec(a), _fvec(b)
+        if op in ("union", "setxor"):
+            u, _, _ = _unique_core(eng, torch.cat([va, vb]),
+                                   stable and op == "union")
+            if op == "union":
+                return (u,)
+            ku = _key(u)
+            keep = torch.isnan(u) | (torch.isin(ku, _key(va))
+                                     ^ torch.isin(ku, _key(vb)))
+            return tuple(_compact(eng, keep, u))
+        ua, ia, _ = _unique_core(eng, va, stable)
+        member = torch.isin(_key(ua), _key(vb))
+        keep = member if op == "intersect" else ~member
+        return tuple(_compact(eng, keep, ua, (ia + 1).to(torch.float64)))
+    return f
+
+
+def _b_mode(eng, opts):
+    """Vector mode (`dense.py:895`): the most frequent non-NaN value, the
+    smallest of a tie (the first group in sorted order); NaN when there is
+    none. A group's count is found by a binary search for its end among the
+    sorted group ids: a scatter-add puts every atomic on one of a few
+    addresses when there are few groups, and a running minimum over 2^26
+    values is one slow sequential scan on a card."""
+    def f(a):
+        v = _fvec(a)
+        si, first, g = _groups(v)
+        pos = torch.arange(v.numel(), device=v.device)
+        count = torch.searchsorted(g, g, right=True) - pos
+        sv = v[si]
+        score = torch.where(first & ~torch.isnan(sv), count,
+                            torch.full_like(pos, -1))
+        return sv[torch.argmax(score)]
+    return f
+
+
+def _b_accumarray(eng, opts):
+    """accumarray(subs, vals, [n 1]) with @sum (`dense.py:917`): one
+    weighted bincount (per-block counts in shared memory on a card, where
+    a scatter-add would queue its atomics on the few output addresses). A
+    subscript outside 1..n adds nothing, as the JAX scatter drops it (and a
+    card would fault on it)."""
+    (out_n,) = opts
+
+    def f(subs, vals):
+        idx = subs.reshape(-1).to(torch.int64) - 1
+        v = vals.reshape(-1)
+        if v.shape[0] == 1:
+            v = v.expand(idx.shape)
+        ok = (idx >= 0) & (idx < out_n)
+        v = torch.where(ok, v, torch.zeros_like(v))
+        idx = torch.where(ok, idx, torch.zeros_like(idx))
+        # bincount reads its largest subscript back to size its output
+        eng.count_sync(idx.element_size())
+        return torch.bincount(idx, weights=v, minlength=out_n).to(v.dtype)
+    return f
+
+
+def _b_ismember(eng, opts):
+    """The membership mask of a in b (`dense.py:932`), in a's shape."""
+    def f(a, b):
+        return torch.isin(_key(a), _key(b.reshape(-1)))
+    return f
+
+
 _BUILDERS = {"diff": _b_diff, "trapz": _b_trapz, "movwin": _b_movwin,
-             "histcounts": _b_histcounts}
+             "histcounts": _b_histcounts, "sort": _b_sort,
+             "unique": _b_unique, "setop": _b_setop, "mode": _b_mode,
+             "accumarray": _b_accumarray, "ismember": _b_ismember}

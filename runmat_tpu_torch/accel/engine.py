@@ -14,19 +14,29 @@ torch tensors on an explicit `torch.device`:
   * random draws go through `ops.threefry.rng_draw`: the hand-written CUDA
     kernel on a card, its plain PyTorch version on the CPU;
   * `linalg` goes through `DenseOps` (`accel/dense.py`), whose `histcounts`
-    runs on the hand-written histogram kernel (`ops/histogram.py`).
+    runs on the hand-written histogram kernel (`ops/histogram.py`); `sort`,
+    `unique` and `setop` go through it too, as under `JaxEngine`;
+  * indexed reads and writes, the structural L-ops and `median` are DAG
+    ops like the others, run by `_exec` in plain torch (`index_select`,
+    `index_put_`, `torch.where`, `flip`/`roll`/`repeat`/`permute`/...).
 
 Values are stored in their physical shape (`phys_shape`: scalars rank-0,
 vectors rank-1) and in torch's row-major layout; the MATLAB column-major
-order is applied where it is observable (`reshape_f`).
+order is applied where it is observable (`reshape_f`): every linear
+(F-order) gather and scatter maps its indices onto the stored layout, and a
+write returns a new tensor, never one that writes through its input.
 
-Methods outside the ported slices either decline (`route_fft`, a `linalg`
-kind without a builder, complex operands), counted as host fallbacks when a
-device value has to come back, or raise `NotImplementedError`. None of them
-computes on the host while the value is claimed to be on the device.
+A gate that keeps work on the host (a repeated or out-of-range subscript, a
+growing write, complex operands, `route_fft`, a `linalg` kind without a
+builder) is counted as a host fallback, with its reason in the launch log,
+whenever a device value has to come back for it. None of the methods
+computes on the host while the value is claimed to be on the device. A
+device value read back only to steer the host (unique's count, a `while`
+condition) is counted in `syncs`/`sync_bytes`, not as a gather.
 
-`_categorize` and `phys_shape` are copied from `runmat_tpu/accel/engine.py`
-(48-90).
+`_categorize`, `phys_shape`, `_index_vec`, `index_read_general`,
+`index_write` and `structural` follow `runmat_tpu/accel/engine.py` (48-90,
+632-659, 987-1149).
 """
 
 from __future__ import annotations
@@ -52,10 +62,14 @@ from .dense import DenseOps
 from .lazy import DEFAULT_FUSE_CAP, LazyNode, topo_order
 from .residency import ResidencyPool
 
-# median is left out: torch.median takes the lower middle value
 _REDUCE_OPS = {"sum", "mean", "min", "max", "any", "all", "prod",
-               "std0", "std1", "var0", "var1", "nnz"}
+               "std0", "std1", "var0", "var1", "median", "nnz"}
 _SCAN_OPS = {"cumsum", "cumprod", "cummax", "cummin"}
+# structural ops over logical shapes (engine.py:1522-1546)
+_L_OPS = ("flipL", "rollL", "tileL", "rot90L", "permuteL", "trilL", "triuL",
+          "kronL")
+_INDEX_OPS = ("iota", "gather1", "gather1d", "gatherN", "scatter1",
+              "scatter1d", "scatterN", "fillall", "maskset")
 
 _DTYPES = {np.dtype(k): v for k, v in (
     (np.bool_, torch.bool), (np.int8, torch.int8), (np.int16, torch.int16),
@@ -79,6 +93,35 @@ def reshape_f(x: torch.Tensor, shape) -> torch.Tensor:
     if len(shape) <= 1:
         return flat.reshape(shape)
     return flat.reshape(shape[::-1]).permute(*reversed(range(len(shape))))
+
+
+def _fflat(x: torch.Tensor, lshape) -> torch.Tensor:
+    """The F-order sequence of a tensor stored in the physical shape of
+    `lshape` (a view where x is F-contiguous or rank 1)."""
+    if x.ndim <= 1:
+        return x.reshape(-1)
+    return reshape_f(x.reshape(tuple(lshape)), (x.numel(),))
+
+
+def _c_index(idx: torch.Tensor, shape) -> torch.Tensor:
+    """0-based F-order linear indices into an array of `shape` -> the
+    row-major linear indices of the same elements."""
+    out = torch.zeros_like(idx)
+    rest = idx
+    stride = 1
+    strides = []
+    for s in reversed(shape):
+        strides.append(stride)
+        stride *= s
+    for s, st in zip(shape, reversed(strides)):
+        out = out + (rest % s) * st
+        rest = rest // s
+    return out
+
+
+def _integral(h: np.ndarray) -> bool:
+    """Every subscript value is an integer (NaN is not)."""
+    return h.dtype.kind in "biu" or bool(np.all(h == np.floor(h)))
 
 
 def _categorize(ops: list) -> str:
@@ -158,8 +201,8 @@ class TorchEngine:
         self.stats = {"dispatches": 0, "compiles": 0, "cache_hits": 0,
                       "uploads": 0, "gathers": 0, "upload_bytes": 0,
                       "gather_bytes": 0, "host_fallbacks": 0,
-                      "loop_folds": 0, "loop_bails": 0,
-                      "while_not_ported": 0}
+                      "loop_folds": 0, "loop_bails": 0, "while_folds": 0,
+                      "syncs": 0, "sync_bytes": 0}
         self.category_stats: dict = {}
         self.launch_log = collections.deque(maxlen=64)
         self.dispatch_seq = 0
@@ -439,7 +482,7 @@ class TorchEngine:
                         a.mclass == "logical":
                     return None
                 flat = a._host.reshape(-1)
-                if flat.size == 0:
+                if flat.size == 0 or not _integral(flat):
                     return None
                 start = int(flat[0]) - 1
                 stop = int(flat[-1])
@@ -468,7 +511,7 @@ class TorchEngine:
                     a.on_device or a._host is None:
                 return None
             flat = a._host.reshape(-1)
-            if flat.size == 0:
+            if flat.size == 0 or not _integral(flat):
                 return None
             start = int(flat[0]) - 1
             stop = int(flat[-1])
@@ -482,25 +525,277 @@ class TorchEngine:
                         normalize_shape(out_shape), nb.dtype)
         return MatArray.from_device(node, base.mclass)
 
+    # ------------------------------------------ general indexing (lazy)
+
+    def _host_path(self, op: str, reason: str, *xs) -> None:
+        """A None that sends a builtin or subscript to its host path,
+        counted when a device value comes back for it."""
+        self._declines(op, reason, *xs)
+        return None
+
+    @staticmethod
+    def _subscript_reason(a) -> str:
+        if not isinstance(a, MatArray):
+            return f"{type(a).__name__} subscript"
+        if a.on_device:
+            return "subscript on the device"
+        if a.mclass == "logical":
+            return "logical subscript"
+        if a.is_complex or a.size == 0:
+            return "complex or empty subscript"
+        return "subscript out of range or repeated"
+
+    def _index_vec(self, a, extent: int, unique_required: bool = False
+                   ) -> Optional[np.ndarray]:
+        """Host numeric subscript -> validated 0-based index vector.
+        unique_required: writes with duplicate subscripts are MATLAB
+        last-wins, which `index_put_` on a card does not guarantee -> host
+        path. Out of range or not an integer -> host path, which raises the
+        MATLAB error (the JAX package truncates 1.5 to 1 here)."""
+        if not isinstance(a, MatArray) or a.on_device or \
+                a.mclass == "logical" or a.is_complex:
+            return None
+        h = a._host
+        if h is None or h.size == 0 or not _integral(h):
+            return None
+        flat = h.reshape(-1, order="F").astype(np.int64)
+        if np.any(flat < 1) or np.any(flat > extent):
+            return None
+        if unique_required and flat.size > 1 and \
+                np.unique(flat).size != flat.size:
+            return None
+        return flat - 1
+
+    def _idx_leaf(self, flat: np.ndarray) -> LazyNode:
+        """A 0-based index vector as an int64 node. An arithmetic
+        progression (a range subscript such as 1:64:N) is made on the device
+        from its start, step and length, so nothing is copied; any other
+        vector is uploaded."""
+        n = int(flat.size)
+        step = int(flat[1] - flat[0]) if n > 1 else 1
+        if n == 1 or bool(np.all(np.diff(flat) == step)):
+            return LazyNode(self, "iota", [], (int(flat[0]), step, n), (n,),
+                            np.dtype(np.int64))
+        iv = np.ascontiguousarray(flat, dtype=np.int64)
+        return LazyNode(self, "leaf", [], (), (n,), iv.dtype,
+                        value=self.to_device(iv))
+
+    def index_read_general(self, base: MatArray, args: list
+                           ) -> Optional[MatArray]:
+        """Arbitrary numeric-subscript gather, lazy on the device: one
+        subscript is an F-order linear gather (`gather1`), one per dimension
+        an `index_select` chain (`gatherN`)."""
+        nb = base.dev
+        shape = nb.shape
+        if len(args) == 1:
+            n = int(np.prod(shape))
+            a = args[0]
+            iv = self._index_vec(a, n)
+            if iv is None:
+                return self._host_path("index_read", self._subscript_reason(a),
+                                       base)
+            ih = a._host
+            base_is_vec = len(shape) == 2 and (shape[0] == 1 or shape[1] == 1)
+            idx_is_vec = ih.ndim == 2 and (ih.shape[0] == 1 or ih.shape[1] == 1)
+            if base_is_vec and idx_is_vec:
+                out_shape = (1, iv.size) if shape[0] == 1 else (iv.size, 1)
+            else:
+                out_shape = normalize_shape(ih.shape)
+            node = self._op("gather1", [nb, self._idx_leaf(iv)], (),
+                            out_shape, nb.dtype)
+            return MatArray.from_device(node, base.mclass)
+        if len(args) != len(shape):
+            return self._host_path("index_read", f"{len(args)} subscripts of "
+                                   f"a {len(shape)}-D array", base)
+        inputs = [nb]
+        spec = []
+        out_shape = []
+        for k, a in enumerate(args):
+            if isinstance(a, ColonMark):
+                spec.append("colon")
+                out_shape.append(shape[k])
+                continue
+            iv = self._index_vec(a, shape[k])
+            if iv is None:
+                return self._host_path("index_read", self._subscript_reason(a),
+                                       base)
+            spec.append(("s", len(inputs)))
+            inputs.append(self._idx_leaf(iv))
+            out_shape.append(iv.size)
+        node = self._op("gatherN", inputs, (tuple(spec),),
+                        normalize_shape(out_shape), nb.dtype)
+        return MatArray.from_device(node, base.mclass)
+
+    def index_write(self, base: MatArray, args: list, rhs: MatArray
+                    ) -> Optional[MatArray]:
+        """A lazy device write: colon fill, logical-mask write of a scalar,
+        linear and N-subscript scatters. Growth, class changes, deletion,
+        repeated subscripts with an array right-hand side and complex values
+        stay on the host path."""
+        def host(reason):
+            return self._host_path("index_write", reason, base, rhs)
+
+        if not isinstance(base, MatArray) or not base.on_device:
+            return host("the base is on the host")
+        nb = base.dev
+        shape = nb.shape
+        if base.mclass not in ("double", "single", "logical"):
+            return host(f"{base.mclass} base")
+        if rhs.is_complex or base.is_complex:
+            return host("complex not ported (A8)")
+        if rhs.mclass not in ("double", "single", "logical"):
+            return host(f"{rhs.mclass} right-hand side")
+        if rhs.mclass != base.mclass and base.mclass == "logical":
+            return host("numeric into logical changes the class")
+        if rhs.size == 1 and not rhs.on_device:
+            rn = self._scalar_node(rhs._host.reshape(-1)[0], nb.dtype)
+        else:
+            rn = self._lift(rhs, nb.dtype)
+
+        if len(args) == 1:
+            a = args[0]
+            n = int(np.prod(shape))
+            if isinstance(a, ColonMark):
+                if rhs.size not in (1, n):
+                    return host("A(:) = B with numel(B) ~= numel(A)")
+                node = self._op("fillall", [nb, rn], (), shape, nb.dtype)
+                return MatArray.from_device(node, base.mclass)
+            if isinstance(a, MatArray) and a.mclass == "logical":
+                if rhs.size != 1 or a.size != n:
+                    return host("mask write of an array or a mask of "
+                                "another size")
+                if a.on_device:
+                    mnode = a.dev
+                else:
+                    mask = np.ascontiguousarray(a._host.reshape(-1, order="F"))
+                    mnode = LazyNode(self, "leaf", [], (), (n,),
+                                     np.dtype(np.bool_),
+                                     value=self.to_device(mask))
+                node = self._op("maskset", [nb, mnode, rn], (), shape,
+                                nb.dtype)
+                return MatArray.from_device(node, base.mclass)
+            iv = self._index_vec(a, n, unique_required=rhs.size != 1)
+            if iv is None or rhs.size not in (1, iv.size):
+                return host(self._subscript_reason(a) if iv is None
+                            else "numel(B) ~= number of subscripts")
+            node = self._op("scatter1", [nb, self._idx_leaf(iv), rn],
+                            (rhs.size == 1,), shape, nb.dtype)
+            return MatArray.from_device(node, base.mclass)
+
+        if len(args) != len(shape):
+            return host(f"{len(args)} subscripts of a {len(shape)}-D array")
+        inputs = [nb]
+        spec = []
+        sel_shape = []
+        for k, a in enumerate(args):
+            if isinstance(a, ColonMark):
+                spec.append("colon")
+                sel_shape.append(shape[k])
+                continue
+            iv = self._index_vec(a, shape[k], unique_required=True)
+            if iv is None:
+                return host(self._subscript_reason(a))
+            spec.append(("s", len(inputs)))
+            inputs.append(self._idx_leaf(iv))
+            sel_shape.append(iv.size)
+        if rhs.size not in (1, int(np.prod(sel_shape))):
+            return host("right-hand side of another size")
+        inputs.append(rn)
+        node = self._op("scatterN", inputs,
+                        (tuple(spec), tuple(sel_shape), rhs.size == 1),
+                        shape, nb.dtype)
+        return MatArray.from_device(node, base.mclass)
+
+    # -------------------------------------------- structural ops (lazy)
+
+    def structural(self, op: str, xs: list, static: tuple,
+                   out_shape) -> Optional[MatArray]:
+        """flip/roll/tile/rot90/permute/tril/triu/kron over logical shapes,
+        as DAG nodes. None when no operand is on the device (numpy does
+        it then)."""
+        if not any(x.on_device for x in xs):
+            return None
+        if any(x.is_complex for x in xs):
+            return self._host_path(op, "complex not ported (A8)", *xs)
+        nodes = []
+        dt = None
+        for x in xs:
+            n = x.dev if x.on_device else self._lift(x, x.host().dtype)
+            nodes.append(n)
+            dt = np.result_type(dt, n.dtype) if dt is not None else n.dtype
+        node = self._op(op, nodes, static, normalize_shape(out_shape),
+                        np.dtype(dt))
+        out_class = xs[0].mclass
+        if len(xs) == 2 and xs[0].mclass != xs[1].mclass:
+            out_class = "double"
+        return MatArray.from_device(node, out_class)
+
+    # ------------------------------------ sort, unique, set ops (eager)
+
+    def read_scalar(self, t: torch.Tensor):
+        """A device scalar read back to steer the host (unique's count, a
+        `while` condition): counted in `syncs` and `sync_bytes`."""
+        self.count_sync(int(t.element_size()))
+        return t.item()
+
+    def count_sync(self, nbytes: int) -> None:
+        self.stats["syncs"] += 1
+        self.stats["sync_bytes"] += nbytes
+
+    def sort(self, x: MatArray, axis: int, descend: bool, want_idx: bool
+             ) -> Optional[list]:
+        """Device sort (values [+ 1-based double indices]); NaN last
+        ascending, first descending, stable both ways (engine.py:729)."""
+        if x.is_complex or x.mclass not in ("double", "single"):
+            return self._host_path("sort", f"sort of a {x.mclass} array", x)
+        out = self.dense.call("sort", [x], (int(axis), bool(descend),
+                                            bool(want_idx)))
+        if out is None:
+            return None
+        res = [self.dense._leaf(out[0], x.mclass)]
+        if want_idx:
+            res.append(self.dense._leaf(out[1], "double"))
+        return res
+
+    def unique(self, x: MatArray, stable: bool, want_idx: bool
+               ) -> Optional[list]:
+        """Device unique: [U, ia, ic] (ia, ic 1-based double columns); the
+        unique count is the one value read back (engine.py:754)."""
+        if x.is_complex or x.mclass not in ("double", "single"):
+            return self._host_path("unique", f"unique of a {x.mclass} array",
+                                   x)
+        out = self.dense.call("unique", [x], (bool(stable),))
+        if out is None:
+            return None
+        u, ia, ic = out
+        row = len(x.shape) == 2 and x.shape[0] == 1 and x.shape[1] > 1
+        n = int(u.shape[0])
+        res = [self.dense._leaf(u, x.mclass, (1, n) if row else (n, 1))]
+        if want_idx:
+            res.append(self.dense._leaf(ia, "double", (n, 1)))
+            res.append(self.dense._leaf(ic, "double", (int(ic.shape[0]), 1)))
+        return res
+
+    def setop(self, op: str, a: MatArray, b: MatArray, stable: bool = False,
+              want_idx: bool = False) -> Optional[list]:
+        """Device union/intersect/setdiff/setxor (engine.py:774)."""
+        for x in (a, b):
+            if x.is_complex or x.mclass not in ("double", "single"):
+                return self._host_path(op, f"{op} of a {x.mclass} array",
+                                       a, b)
+        out = self.dense.call("setop", [a, b], (op, bool(stable)))
+        if out is None:
+            return None
+        mclass = a.mclass if a.mclass == b.mclass else "double"
+        ha = a.shape
+        row = not (len(ha) == 2 and ha[1] == 1 and ha[0] > 1)
+        n = int(out[0].shape[0])
+        res = [self.dense._leaf(out[0], mclass, (1, n) if row else (n, 1))]
+        if want_idx and len(out) > 1:
+            res.append(self.dense._leaf(out[1], "double", (n, 1)))
+        return res
+
     # ------------------------------------------------- outside this slice
-
-    def index_read_general(self, base, args):
-        not_ported("index_read_general", "A6")
-
-    def index_write(self, base, args, rhs):
-        not_ported("index_write", "A6")
-
-    def structural(self, op, xs, static, out_shape):
-        not_ported(f"structural {op}", "A6")
-
-    def sort(self, x, axis, descend, want_idx):
-        not_ported("sort", "A6")
-
-    def unique(self, x, stable, want_idx):
-        not_ported("unique", "A6")
-
-    def setop(self, op, a, b, stable=False, want_idx=False):
-        not_ported(f"setop {op}", "A6")
 
     def fft(self, x, n, dim, inverse):
         not_ported("fft", "A7")
@@ -577,7 +872,7 @@ class TorchEngine:
     # --------------------------------------------------------------- executor
 
     _OPS = ("cast", "reshapeF", "transpose", "slice", "slice1", "c:full",
-            "c:linspace", "matmul")
+            "c:linspace", "matmul") + _L_OPS + _INDEX_OPS
 
     def supports_op(self, op: str) -> bool:
         if op.startswith("b:"):
@@ -679,7 +974,124 @@ class TorchEngine:
             return v.expand(phys_shape(tuple(shape))).contiguous()
         if op == "c:linspace":
             return self._linspace(args[0], args[1], static[0], dt)
+        if op in _L_OPS:
+            return self._exec_structural(op, static, tdt, args, in_shapes,
+                                         out_shape)
+        if op in _INDEX_OPS:
+            return self._exec_index(op, static, args, in_shapes, out_shape)
         raise MatError("MATLAB:internal", f"Unknown device op '{op}'.")
+
+    def _exec_structural(self, op: str, static: tuple, tdt: torch.dtype,
+                         args: list, in_shapes: tuple, out_shape: tuple):
+        """The L-ops (engine.py:1522-1546) on the logical-shape view."""
+        a = args[0].reshape(in_shapes[0])
+        if op == "flipL":
+            r = torch.flip(a, (static[0],))
+        elif op == "rollL":
+            r = torch.roll(a, static[0], static[1])
+        elif op == "tileL":
+            r = a.reshape(static[1]).repeat(*static[0])
+        elif op == "rot90L":
+            r = torch.rot90(a, static[0], (0, 1))
+        elif op == "permuteL":
+            r = a.reshape(static[1]).permute(*static[0])
+        elif op == "trilL":
+            r = torch.tril(a, static[0])
+        elif op == "triuL":
+            r = torch.triu(a, static[0])
+        else:
+            r = torch.kron(a.to(tdt), args[1].reshape(in_shapes[1]).to(tdt))
+        return self._to_phys(r, out_shape)
+
+    def _exec_index(self, op: str, static: tuple, args: list,
+                    in_shapes: tuple, out_shape: tuple):
+        """Indexed reads and writes (engine.py:1583-1703). Linear ops take
+        0-based F-order indices; a write returns a new tensor."""
+        if op == "iota":
+            start, step, n = static
+            return torch.arange(n, dtype=torch.int64,
+                                device=self.device) * step + start
+        x = args[0]
+        la = tuple(in_shapes[0])
+        if op in ("gather1", "gather1d", "scatter1", "scatter1d"):
+            if op.endswith("1d"):           # the loop variable, 1-based
+                idx = args[1].reshape(()).to(torch.int64) - 1
+            else:
+                idx = args[1]
+            if op.startswith("gather"):
+                if x.ndim > 1 and x.is_contiguous():
+                    taken = x.reshape(-1)[_c_index(idx, la)]
+                else:
+                    taken = _fflat(x, la)[idx]
+                return reshape_f(taken, phys_shape(tuple(out_shape)))
+            r = args[2]
+            if op == "scatter1d" or static[0]:
+                val = r.reshape(()).to(x.dtype)
+            else:
+                val = _fflat(r, in_shapes[2]).to(x.dtype)
+            if x.ndim <= 1:
+                out = x.reshape(-1).clone()
+                out[idx] = val
+                return out.reshape(x.shape)
+            out = x.clone(memory_format=torch.contiguous_format)
+            out.view(-1)[_c_index(idx, la)] = val
+            return out
+        if op == "gatherN":
+            x = x.reshape(la)
+            for k, s in enumerate(static[0]):
+                if s != "colon":
+                    x = torch.index_select(x, k, self._subscript(args, s))
+            return self._to_phys(x, out_shape)
+        if op == "fillall":
+            r = args[1]
+            if r.ndim == 0:
+                return r.to(x.dtype).expand(x.shape).contiguous()
+            return reshape_f(_fflat(r, in_shapes[1]).to(x.dtype),
+                             tuple(x.shape))
+        if op == "maskset":
+            m, r = args[1], args[2]
+            val = r.reshape(()).to(x.dtype)
+            if x.ndim > 1 and tuple(in_shapes[1]) == la:
+                m = m.reshape(la)
+            else:   # F-order sequence of the mask, laid out as the base
+                m = reshape_f(_fflat(m, in_shapes[1]), tuple(x.shape))
+            return torch.where(m, val, x)
+        # scatterN: one index tensor per dimension, broadcast as jnp.ix_
+        spec, sel_shape, scalar_rhs = static
+        r = args[-1]
+        if scalar_rhs:
+            val = r.reshape(()).to(x.dtype)
+        else:
+            val = reshape_f(_fflat(r, in_shapes[-1]).to(x.dtype),
+                            tuple(sel_shape))
+        out = x.reshape(la).clone(memory_format=torch.contiguous_format)
+        picked = [k for k, s in enumerate(spec) if s != "colon"]
+        if len(picked) == 1:
+            k = picked[0]
+            idx = self._subscript(args, spec[k])
+            if scalar_rhs:
+                out.index_fill_(k, idx, val)
+            else:
+                out.index_copy_(k, idx, val.expand(tuple(sel_shape)))
+        else:
+            idxs = []
+            for k, s in enumerate(spec):
+                i = torch.arange(la[k], device=self.device) if s == "colon" \
+                    else self._subscript(args, s)
+                view = [1] * len(la)
+                view[k] = -1
+                idxs.append(i.reshape(view))
+            out[tuple(idxs)] = val
+        return self._to_phys(out, out_shape)
+
+    @staticmethod
+    def _subscript(args: list, s) -> torch.Tensor:
+        """The index tensor of one subscript slot: ("s", i) a 0-based index
+        vector, ("d", i) the 1-based loop variable."""
+        kind, slot = s
+        if kind == "s":
+            return args[slot]
+        return args[slot].reshape(1).to(torch.int64) - 1
 
     def _linspace(self, start, stop, n: int, dt: np.dtype) -> torch.Tensor:
         """jnp.linspace's formula: start*(1-s) + stop*s with s = i/(n-1),
@@ -755,6 +1167,8 @@ class TorchEngine:
             allnan = torch.all(nan, dim=axes, keepdim=True)
             return torch.where(allnan, torch.full_like(r, float("nan")),
                                r).to(tdt)
+        if name == "median":
+            return self._median(x, axes, omitnan, tdt)
         if name == "any":
             return torch.any(x != 0, dim=axes, keepdim=True)
         if name == "all":
@@ -782,6 +1196,35 @@ class TorchEngine:
                 r = (d * d).sum(dim=axes, keepdim=True) / (n - ddof)
             return (torch.sqrt(r) if name.startswith("std") else r).to(tdt)
         raise MatError("MATLAB:internal", f"Unknown reduce '{name}'.")
+
+    @staticmethod
+    def _median(x: torch.Tensor, axes: tuple, omitnan: bool,
+                tdt: torch.dtype) -> torch.Tensor:
+        """jnp.median/nanmedian: the mean (a + b) * 0.5 of the two middle
+        values of each slice, in integer positions (torch.median would take
+        the lower one). NaN poisons a slice unless omitted; an all-NaN slice
+        is NaN."""
+        xf = x.to(tdt) if tdt.is_floating_point else x.to(torch.float64)
+        rest = [i for i in range(xf.ndim) if i not in axes]
+        kept = tuple(1 if i in axes else s for i, s in enumerate(xf.shape))
+        merged = xf.permute(*rest, *axes).reshape(
+            *(xf.shape[i] for i in rest), -1)
+        nan = torch.isnan(merged)
+        # one NaN, so that the card's radix sort puts each of them last
+        srt = torch.sort(torch.where(nan, torch.full_like(merged, float(
+            "nan")), merged), dim=-1).values
+        if omitnan:
+            cnt = (~nan).sum(-1, keepdim=True)
+            lo = torch.gather(srt, -1, ((cnt - 1) // 2).clamp(min=0))
+            hi = torch.gather(srt, -1, cnt // 2)
+            r = (lo + hi) * 0.5
+        else:
+            n = merged.shape[-1]
+            r = (srt[..., (n - 1) // 2:(n - 1) // 2 + 1]
+                 + srt[..., n // 2:n // 2 + 1]) * 0.5
+            r = torch.where(nan.any(-1, keepdim=True),
+                            torch.full_like(r, float("nan")), r)
+        return r.reshape(kept).to(tdt)
 
     def _exec_scan(self, name: str, static: tuple, dt: np.dtype, x,
                    lshape: tuple, out_shape: tuple) -> torch.Tensor:

@@ -1,19 +1,30 @@
-"""The `for`-loop fold of the port, on `TorchEngine`.
+"""The `for` and `while` folds of the port, on `TorchEngine`.
 
 The interpreter (`vm/interp.py`) calls `try_device_loop` and
-`try_device_while` at each loop entry. A `for` loop whose body is pure
-device math is traced once by `_Trace` (it only builds DAG nodes) into a
-loop program, which then runs eagerly T times through
-`TorchEngine.run_program`. Iteration t draws from counter block
-`start + t*BPI + offset` (BPI: blocks one iteration draws), computed on the
-host with the 64-bit carry into the high word, and the session state
-advances by `T*BPI` afterwards: the same values the interpreter would draw.
+`try_device_while` at each loop entry. A loop whose body is pure device math
+is traced once by `_Trace` (it only builds DAG nodes) into programs in the
+engine's format (`_program`), which then run eagerly through
+`TorchEngine.run_program`:
+
+  * `for`: the body program T times. Iteration t draws from counter block
+    `start + t*BPI + offset` (BPI: blocks one iteration draws), computed on
+    the host with the 64-bit carry into the high word, and the session
+    state advances by `T*BPI` afterwards: the same values the interpreter
+    would draw.
+  * `while`: a condition program and a body program, as the JAX package's
+    `lax.while_loop` (`make_while_fn`, `_build_and_run_while`): the
+    condition runs on the device and its one value is read back each
+    iteration (`read_scalar`, one byte), then the body. Its eligibility is
+    the JAX package's: no RNG in the loop, and every variable it writes is
+    defined before it and read before it is written, so a loop that runs
+    zero times leaves the workspace as the interpreter would. The launch log gets a "device_while" entry
+    with the iteration count; `stats["while_folds"]` counts the folds.
 
 `_Bail`, `_Marker`, `_bc`, `_note_bail`, `_scan_window` and `_Trace` are
-copied from `runmat_tpu/accel/loops.py` (31-57, 214-686); `_Trace._load`
-copies a host-resident carried variable to the device with the engine's
-`to_device` in place of `jax.device_put`. The JAX package's fold builders
-(`make_loop_fn`, `make_while_fn`) are not copied.
+copied from `runmat_tpu/accel/loops.py` (31-57, 214-686), and the `while`
+gate from its `try_device_while` (850-946); `_Trace._load` copies a
+host-resident carried variable to the device with the engine's `to_device`
+in place of `jax.device_put`.
 
 A fold that fails is not silent: `stats["loop_bails"]` counts it and the
 launch log keeps the exception text. The interpreter then runs the loop.
@@ -25,8 +36,9 @@ import time
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
-from ..unported import not_ported
+from ..errors import MatError
 from ..values import MatArray
 from . import active_engine
 from .engine import phys_shape
@@ -57,13 +69,6 @@ class _Marker:
     def __init__(self, tag: str, arg: int = 0):
         self.tag = tag      # "rng_lo" | "rng_hi" | "loopvar"
         self.arg = arg      # rng: block offset within one iteration
-
-
-def try_device_while(interp, frame, code, marker_pc, jf_pc, end_pc):
-    eng = active_engine()
-    if eng is not None:
-        eng.stats["while_not_ported"] += 1
-    return None
 
 
 def try_device_loop(interp, frame, code, for_next_pc: int, iterable):
@@ -115,10 +120,7 @@ def try_device_loop(interp, frame, code, for_next_pc: int, iterable):
     except Exception as e:
         # boundary: the interpreter runs the loop instead; the fold's
         # failure is counted and its reason kept
-        _note_bail(code, for_next_pc)
-        eng.stats["loop_bails"] += 1
-        eng.launch_log.append({"cat": "loop_bail", "ops": [], "n_ops": 0,
-                               "reason": f"{type(e).__name__}: {e}"[:160]})
+        _record_bail(eng, code, for_next_pc, e)
         return None
     finally:
         eng.fuse_cap = old_cap
@@ -603,37 +605,35 @@ class _Trace:
                 raise _Bail()
 
 
-def _build_and_run(eng, tr: _Trace, T: int, state,
-                   iter_host: np.ndarray) -> dict:
-    names = sorted(tr.written)
-    finals = {}
-    for name in names:
-        v = tr.shadow.get(name)
-        if not (isinstance(v, MatArray) and v.on_device):
-            raise _Bail()
-        finals[name] = v
+def _record_bail(eng, code, pc: int, e: Exception) -> None:
+    """A fold that failed: counted, with its reason in the launch log."""
+    _note_bail(code, pc)
+    eng.stats["loop_bails"] += 1
+    eng.launch_log.append({"cat": "loop_bail", "ops": [], "n_ops": 0,
+                           "reason": f"{type(e).__name__}: {e}"[:160]})
 
+
+def _program(eng, roots: list, carried_leaf: dict, markers: bool):
+    """The DAG under `roots` as program entries in the engine's format, and
+    for each entry where its value comes from in each iteration: ("op",),
+    ("carry", slot), ("fixed", value) or a marker (loop variable, RNG
+    counter words) when `markers` allows them."""
     order: list = []
     seen: set = set()
-    for name in names:
-        for n in topo_order(finals[name].dev):
+    for r in roots:
+        for n in topo_order(r):
             if id(n) not in seen:
                 seen.add(id(n))
                 order.append(n)
     index = {id(n): i for i, n in enumerate(order)}
-    carry_slot = {name: k for k, name in enumerate(names)}
-    carried_leaf = {id(node): carry_slot[name]
-                    for name, node in tr.carry_in.items()
-                    if name in carry_slot}
-
-    # one program in the engine's format; `sources[i]` says where entry i's
-    # value comes from in each iteration
     program = []
     sources = []
     for n in order:
         if n.op == "scalar":
             program.append(("scalar", (), n.dtype, (), (), n.shape))
             if isinstance(n.value, _Marker):
+                if not markers:
+                    raise _Bail()    # loopvar/rng markers: not in a while
                 sources.append((n.value.tag, n.value.arg))
             else:
                 sources.append(("fixed", eng._tensor(
@@ -646,15 +646,21 @@ def _build_and_run(eng, tr: _Trace, T: int, state,
                 sources.append(("fixed", n.value))
         else:
             if not eng.supports_op(n.op):
-                not_ported(f"op {n.op} in a loop body", "A6")
+                raise MatError("MATLAB:internal",
+                               f"no device op {n.op} for a loop body")
             program.append((n.op, n.static, n.dtype,
                             tuple(index[id(i)] for i in n.inputs),
                             tuple(i.shape for i in n.inputs), n.shape))
             sources.append(("op", None))
-    roots = [index[id(finals[name].dev)] for name in names]
+    return program, sources, [index[id(r)] for r in roots]
 
-    # read-carried variables start from their live values and must keep
-    # their shape and type; write-before-read ones are never read
+
+def _carry(tr: _Trace, names: list, finals: dict) -> tuple:
+    """The carry slots of the written variables and their initial values.
+    A read-carried variable keeps its shape and type across iterations;
+    a write-before-read one (no initial value) is never read."""
+    carried_leaf = {id(node): names.index(name)
+                    for name, node in tr.carry_in.items() if name in names}
     carry = []
     for name in names:
         init = tr.carry_init.get(name)
@@ -663,6 +669,38 @@ def _build_and_run(eng, tr: _Trace, T: int, state,
                                  or tr.carry_in[name].dtype != root.dtype):
             raise _Bail()
         carry.append(init)
+    return carried_leaf, carry
+
+
+def _finals(tr: _Trace) -> tuple:
+    names = sorted(tr.written)
+    finals = {}
+    for name in names:
+        v = tr.shadow.get(name)
+        if not (isinstance(v, MatArray) and v.on_device):
+            raise _Bail()
+        finals[name] = v
+    return names, finals
+
+
+def _bind(eng, names: list, finals: dict, carry: list) -> dict:
+    """The final carry as leaf MatArrays of the workspace."""
+    result = {}
+    for k, name in enumerate(names):
+        root = finals[name].dev
+        node = LazyNode(eng, "leaf", [], (), tuple(root.shape), root.dtype,
+                        value=carry[k])
+        node.dispatch_id = eng.dispatch_seq
+        result[name] = MatArray.from_device(node, finals[name].mclass)
+    return result
+
+
+def _build_and_run(eng, tr: _Trace, T: int, state,
+                   iter_host: np.ndarray) -> dict:
+    names, finals = _finals(tr)
+    carried_leaf, carry = _carry(tr, names, finals)
+    program, sources, roots = _program(
+        eng, [finals[name].dev for name in names], carried_leaf, True)
 
     it = iter_host.reshape(-1).astype(
         np.float64 if tr.iterable.mclass == "double" else np.float32)
@@ -691,12 +729,108 @@ def _build_and_run(eng, tr: _Trace, T: int, state,
                       [p[0] for p, s in zip(program, sources) if s[0] == "op"],
                       (time.perf_counter() - t0) * 1e3,
                       sum(int(c.nbytes) for c in carry))
+    return _bind(eng, names, finals, carry)
 
-    result = {}
-    for k, name in enumerate(names):
-        root = finals[name].dev
-        node = LazyNode(eng, "leaf", [], (), tuple(root.shape),
-                             root.dtype, value=carry[k])
-        node.dispatch_id = eng.dispatch_seq
-        result[name] = MatArray.from_device(node, finals[name].mclass)
-    return result
+
+# --------------------------------------------------------------------------- #
+# the while fold
+# --------------------------------------------------------------------------- #
+
+
+def try_device_while(interp, frame, code, marker_pc: int, jf_pc: int,
+                     end_pc: int):
+    """Run the whole `while` loop at `marker_pc` on the device. Returns the
+    pc to resume at, or None for the interpreter to run the loop."""
+    from ..runtime import registry
+    from ..vm.interp import NOVALUE
+
+    eng = active_engine()
+    if eng is None or jf_pc is None or end_pc is None:
+        return None
+    B = _bc()
+    instrs = code.instrs
+    if code.loop_hints.get(marker_pc) == "never":
+        return None
+    if instrs[end_pc - 1][0] != B.JMP or \
+            instrs[end_pc - 2][0] != B.CHECK_INTERRUPT:
+        return None
+    cond_lo, cond_hi = marker_pc + 1, jf_pc
+    body_lo, body_hi = jf_pc + 1, end_pc - 2
+    written: set = set()
+    if _scan_window(B, instrs, range(cond_lo, cond_hi), written,
+                    allow_store=False) is None or \
+            _scan_window(B, instrs, range(body_lo, body_hi), written) is None:
+        code.loop_hints[marker_pc] = "never"
+        return None
+    for i in [*range(cond_lo, cond_hi), *range(body_lo, body_hi)]:
+        op, a = instrs[i][:2]
+        if op == B.RESOLVE_CALL and a in _RNG_BUILTINS:
+            code.loop_hints[marker_pc] = "never"
+            return None          # no data-dependent RNG counters
+    if not written:
+        return None
+    # zero-trip safety: every written variable exists with a carried type
+    for name in written:
+        v = interp._load_name(frame, name)
+        if v is NOVALUE or not isinstance(v, MatArray) or \
+                v.mclass not in ("double", "single", "logical"):
+            return None
+
+    old_cap = eng.fuse_cap
+    eng.fuse_cap = 1 << 60
+    try:
+        tr = _Trace(interp, frame, eng, registry, interp.session.rng, None,
+                    written, None)
+        cond_stack = tr.run_window(instrs, code.consts, cond_lo, cond_hi)
+        if len(cond_stack) != 1:
+            raise _Bail()
+        cond_v = cond_stack[0]
+        if not (isinstance(cond_v, MatArray) and cond_v.on_device
+                and cond_v.size == 1):
+            raise _Bail()        # host-computed condition: nothing to gain
+        tr.run(instrs, code.consts, body_lo, body_hi)
+        if tr.rng_blocks:
+            raise _Bail()
+        result = _build_and_run_while(eng, tr, cond_v)
+    except Exception as e:
+        # boundary: the interpreter runs the loop instead, on record
+        _record_bail(eng, code, marker_pc, e)
+        return None
+    finally:
+        eng.fuse_cap = old_cap
+    for name, val in result.items():
+        interp._store_name(frame, name, val)
+    eng.stats["while_folds"] += 1
+    return end_pc
+
+
+def _build_and_run_while(eng, tr: _Trace, cond_v: MatArray) -> dict:
+    names, finals = _finals(tr)
+    if any(name not in tr.carry_init for name in names):
+        raise _Bail()            # zero-trip safety (checked above too)
+    carried_leaf, carry = _carry(tr, names, finals)
+    cond_prog, cond_src, (cond_root,) = _program(eng, [cond_v.dev],
+                                                 carried_leaf, False)
+    body_prog, body_src, roots = _program(
+        eng, [finals[name].dev for name in names], carried_leaf, False)
+
+    def values(sources):
+        return [carry[p] if kind == "carry" else p for kind, p in sources]
+
+    t0 = time.perf_counter()
+    trips = 0
+    while True:
+        (c,) = eng.run_program(cond_prog, values(cond_src), [cond_root])
+        if not eng.read_scalar(c.reshape(()).to(torch.bool)):
+            break
+        carry = eng.run_program(body_prog, values(body_src), roots)
+        trips += 1
+    eng.stats["dispatches"] += 1
+    eng.dispatch_seq += 1
+    eng.record_launch("device_while",
+                      [p[0] for p, s in zip(body_prog, body_src)
+                       if s[0] == "op"],
+                      (time.perf_counter() - t0) * 1e3,
+                      sum(int(c.nbytes) for c in carry))
+    eng.launch_log[-1]["iterations"] = trips
+    return _bind(eng, names, finals, carry)

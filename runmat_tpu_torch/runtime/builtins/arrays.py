@@ -1,5 +1,15 @@
 """Copy of runmat_tpu/runtime/builtins/arrays.py in the PyTorch port.
 
+Two things differ from the source:
+* `_dev_structural` reports an exception of the device route to the engine
+  (`note_fallback`, counted in `host_fallbacks` with its reason in the
+  launch log) before the host path gathers the operand, where the source
+  drops it silently;
+* the host `reshape` and `squeeze` return a copy where numpy would return a
+  view of the input (`_unshared`): the source's view let a later indexed
+  write into the result change the input too (`A = reshape(x, 4, 2);
+  A(1) = 99` changed x).
+
 Array shape/manipulation builtins: size/reshape/permute/cat/repmat/find/...
 
 Reference parity: runmat-runtime/src/builtins/array/{indexing,reshape,...}.
@@ -39,6 +49,12 @@ def _rewrap(x, d: np.ndarray):
     raise AssertionError
 
 
+def _unshared(r: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """r, or a copy of it where it is a view of d's buffer: MATLAB values
+    never share storage, and the VM writes in place into unshared ones."""
+    return r.copy() if np.may_share_memory(r, d) else r
+
+
 def _dev_structural(op, xs, static, out_shape):
     """Device route for structural array ops: stays in the lazy DAG (no
     gather) when any operand is device-resident."""
@@ -52,7 +68,8 @@ def _dev_structural(op, xs, static, out_shape):
         return None
     try:
         return eng.structural(op, xs, static, out_shape)
-    except Exception:
+    except Exception as e:
+        eng.note_fallback(op, f"{type(e).__name__}: {e}")
         return None
 
 
@@ -135,7 +152,7 @@ def m_reshape(x, *dims):
         if eng is not None:
             return eng.reshape(x, tuple(sizes))
     d = _data_like(x)
-    return _rewrap(x, fortran_reshape(d, normalize_shape(sizes)))
+    return _rewrap(x, _unshared(fortran_reshape(d, normalize_shape(sizes)), d))
 
 
 @builtin("permute", category="array", min_in=2, max_in=2)
@@ -181,7 +198,7 @@ def m_squeeze(x):
     if d.ndim <= 2:
         return x
     new_shape = tuple(s for s in d.shape if s != 1)
-    return _rewrap(x, d.reshape(normalize_shape(new_shape)))
+    return _rewrap(x, _unshared(d.reshape(normalize_shape(new_shape)), d))
 
 
 @builtin("repmat", category="array", min_in=2)

@@ -92,7 +92,8 @@ def ensure_loaded() -> None:
     _LOADED = True
     from .builtins import (  # noqa: F401
         elementwise, creation, reductions, arrays, rng, strings,
-        io_console, introspection, control, gpu, stats,
+        io_console, introspection, control, cells_structs, gpu, stats,
+        sets_sort, logical_ops, handles,
     )
     # In the JAX package a later module, not carried yet, registers these
     # names over the carried definition; they stay undefined here until it
@@ -103,4 +104,5 @@ def ensure_loaded() -> None:
 
 # name -> the JAX package's builtin module that defines it last
 _REGISTERED_LATER = {"isobject": "oop_builtins", "hold": "plotting",
-                     "addpath": "file_io", "wait": "async_builtins"}
+                     "addpath": "file_io", "wait": "async_builtins",
+                     "sortrows": "table_builtins"}

@@ -281,3 +281,238 @@ def test_search_mode_without_a_usable_table(card, ends):
     xt, et = torch.from_numpy(x).to(card), torch.from_numpy(e).to(card)
     assert torch.equal(histogram.histcounts(xt, et),
                        histogram.plain_histcounts(xt, et))
+
+
+# ------------------------------------- indexing, structural ops, sort, sets
+# Each op of the indexing slice on the card against the same op on CPU
+# tensors, for the same inputs, exactly: plain torch both ways, so the card
+# must give the same elements, the same order and the same NaN and +-0
+# placement (its sorts are radix sorts; the keys are made canonical).
+
+def _engines():
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    kw = dict(auto_offload=True, offload_threshold=1)
+    return TorchEngine("cuda", **kw), TorchEngine("cpu", **kw)
+
+
+def _values(shape, dtype, seed):
+    """Values on a 0.25 grid (many repeats) with NaN, -NaN, +-0 and +-Inf."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.uniform(-8, 8, size=shape) * 4) / 4
+    flat = x.reshape(-1)
+    k = min(flat.size, 9)
+    flat[rng.choice(flat.size, k, replace=False)] = \
+        [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, -0.0, np.nan, 0.0][:k]
+    return x.astype(dtype)
+
+
+def _exact(build):
+    """build(engine, MatArray) -> MatArray or list, on the card and on the
+    CPU; every output equal in shape, dtype and value."""
+    from runmat_tpu_torch.values import MatArray
+    outs = []
+    for eng in _engines():
+        r = build(eng, MatArray)
+        r = r if isinstance(r, (list, tuple)) else [r]
+        outs.append([np.asarray(v.host()) for v in r])
+    got, want = outs
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert np.array_equal(g, w, equal_nan=True)
+
+
+def _sub(M, idx):
+    return M(np.asarray(idx, np.float64).reshape(1, -1) + 1, "double")
+
+
+@pytest.mark.parametrize("shape", [(40, 25), (4096, 1 << 12)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_index_ops_on_card_match_cpu(card, shape, dtype):
+    from runmat_tpu_torch.vm.indexing import COLON
+    x = _values(shape, dtype, 1)
+    mclass = "single" if dtype == np.float32 else "double"
+    rng = np.random.default_rng(2)
+    n = x.size
+    lin = rng.permutation(n)[: n // 7]
+    rows = rng.permutation(shape[0])[: shape[0] // 3]
+    cols = rng.permutation(shape[1])[: shape[1] // 2]
+    mask = rng.random(shape) < 0.3
+    cases = [
+        lambda e, M, d: e.index_read_general(d, [_sub(M, lin)]),
+        lambda e, M, d: e.index_read_general(d, [_sub(M, np.arange(3, n, 5))]),
+        lambda e, M, d: e.index_read_general(d, [_sub(M, rows), COLON]),
+        lambda e, M, d: e.index_read_general(d, [_sub(M, rows), _sub(M, cols)]),
+        lambda e, M, d: e.index_write(d, [_sub(M, lin)], M(np.array([[2.5]]),
+                                                           "double")),
+        lambda e, M, d: e.index_write(d, [_sub(M, lin)], e.upload(M(
+            np.arange(lin.size, dtype=dtype).reshape(-1, 1), mclass))),
+        lambda e, M, d: e.index_write(d, [COLON, _sub(M, cols)],
+                                      M(np.array([[-1.0]]), "double")),
+        lambda e, M, d: e.index_write(d, [_sub(M, rows), COLON], e.upload(M(
+            np.ones((rows.size, shape[1]), dtype), mclass))),
+        lambda e, M, d: e.index_write(d, [_sub(M, rows), _sub(M, cols)],
+                                      e.upload(M(np.full(
+                                          (rows.size, cols.size), 3, dtype),
+                                          mclass))),
+        lambda e, M, d: e.index_write(d, [COLON], M(np.array([[7.0]]),
+                                                    "double")),
+        lambda e, M, d: e.index_write(d, [COLON], e.upload(M(
+            x[::-1].copy(), mclass))),
+        lambda e, M, d: e.index_write(d, [M(mask, "logical")],
+                                      M(np.array([[0.0]]), "double")),
+        lambda e, M, d: e.index_write(d, [e.upload(M(mask.T.copy(),
+                                                     "logical"))],
+                                      M(np.array([[4.0]]), "double")),
+    ]
+    for k, case in enumerate(cases):
+        def build(e, M):
+            d = e.upload(M(x.copy(), mclass))
+            out = case(e, M, d)
+            assert out is not None and out.on_device, k
+            return [out, d]         # the input is never written through
+        _exact(build)
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 24])
+def test_vector_index_ops_on_card_match_cpu(card, n):
+    from runmat_tpu_torch.vm.indexing import COLON
+    x = _values((n, 1), np.float32, 3)
+    rng = np.random.default_rng(4)
+    sub = rng.permutation(n)[: n // 3]
+
+    def build(e, M):
+        d = e.upload(M(x.copy(), "single"))
+        r1 = e.index_read_general(d, [_sub(M, sub)])
+        r2 = e.index_read_general(d, [_sub(M, np.arange(0, n, 1024))])
+        w1 = e.index_write(d, [_sub(M, np.arange(0, n, 64))],
+                           M(np.array([[0.0]]), "double"))
+        w2 = e.index_write(d, [e.upload(M(np.abs(x) > 3, "logical"))],
+                           M(np.array([[3.0]]), "double"))
+        w3 = e.index_write(d, [_sub(M, sub)], e.upload(M(
+            np.arange(sub.size, dtype=np.float32).reshape(-1, 1), "single")))
+        w4 = e.index_write(d, [COLON], M(np.array([[1.0]]), "double"))
+        return [r1, r2, w1, w2, w3, w4, d]
+    _exact(build)
+
+
+L_OPS = [("flipL", (0,)), ("flipL", (1,)), ("rollL", (7, 1)),
+         ("rollL", ((1, -3), (0, 1))), ("tileL", ((2, 3), None)),
+         ("rot90L", (1,)), ("rot90L", (3,)), ("permuteL", ((1, 0), None)),
+         ("trilL", (0,)), ("trilL", (-2,)), ("triuL", (1,)), ("kronL", ())]
+
+
+@pytest.mark.parametrize("shape", [(6, 5), (4096, 1 << 12)])
+@pytest.mark.parametrize("op,static", L_OPS,
+                         ids=[f"{o}{s}" for o, s in L_OPS])
+def test_l_ops_on_card_match_cpu(card, op, static, shape):
+    if op == "kronL" and shape[0] > 6:
+        shape = (64, 64)
+    x = _values(shape, np.float64, 5)
+    r, c = shape
+    out_shape = {"tileL": (2 * r, 3 * c), "rot90L": (c, r),
+                 "permuteL": (c, r), "kronL": (r * 2, c * 3)}.get(op, shape)
+    if op in ("tileL", "permuteL"):
+        static = (static[0], shape)
+
+    def build(e, M):
+        xs = [e.upload(M(x.copy(), "double"))]
+        if op == "kronL":
+            xs.append(e.upload(M(np.arange(6.0).reshape(2, 3), "double")))
+        return e.structural(op, xs, static, out_shape)
+    _exact(build)
+
+
+def test_permute_3d_on_card_matches_cpu(card):
+    x = _values((64, 64, 8), np.float32, 6)
+    for p in ((2, 0, 1), (1, 2, 0), (0, 2, 1)):
+        out = tuple(x.shape[i] for i in p)
+        _exact(lambda e, M: e.structural("permuteL", [e.upload(M(
+            x.copy(), "single"))], (p, x.shape), out))
+
+
+@pytest.mark.parametrize("n", [12, 1000, 1 << 24])
+@pytest.mark.parametrize("descend", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sort_on_card_matches_cpu(card, dtype, descend, n):
+    x = _values((n, 1), dtype, 7)
+    mclass = "single" if dtype == np.float32 else "double"
+    _exact(lambda e, M: e.sort(e.upload(M(x.copy(), mclass)), 0, descend,
+                               True))
+    if n == 12:
+        return
+    m = _values((1024, n // 1024), dtype, 8)
+    _exact(lambda e, M: e.sort(e.upload(M(m.copy(), mclass)), 1, descend,
+                               True))
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 24])
+@pytest.mark.parametrize("stable", [False, True])
+def test_unique_and_sets_on_card_match_cpu(card, stable, n):
+    x = _values((n, 1), np.float32, 9)
+    lv = np.arange(-8, 9, 2, dtype=np.float32).reshape(1, -1)
+    lv[0, 0] = np.nan
+
+    def build(e, M):
+        d = e.upload(M(x.copy(), "single"))
+        h = e.upload(M(lv.copy(), "single"))
+        out = list(e.unique(d, stable, True))
+        for op in ("union", "intersect", "setdiff", "setxor"):
+            out += e.setop(op, d, h)
+            out += e.setop(op, h, d)
+        out += e.linalg("ismember", [d, h], out_class="logical")
+        out += e.linalg("mode", [d], (), out_class="single")
+        return out
+    _exact(build)
+
+
+@pytest.mark.parametrize("n", [1000, (1 << 24) + 1])
+def test_median_mode_accumarray_on_card_match_cpu(card, n):
+    x = _values((n, 1), np.float32, 10)
+    m = _values((1000, 16), np.float64, 11)
+    subs = np.random.default_rng(12).integers(1, 50, (n, 1)).astype(np.float64)
+
+    def build(e, M):
+        out = []
+        for nan_mode in ("", "omitnan"):
+            out.append(e.reduce("median", e.upload(M(x.copy(), "single")),
+                                (0,), "single", nan_mode))
+            for axes in ((0,), (1,), (0, 1)):
+                out.append(e.reduce("median", e.upload(M(m.copy(), "double")),
+                                    axes, "double", nan_mode))
+        out += e.linalg("mode", [e.upload(M(x.copy(), "single"))], (),
+                        out_class="single")
+        out += e.linalg("accumarray", [e.upload(M(subs, "double")),
+                                       e.upload(M(np.ones((n, 1), np.float32),
+                                                  "single"))], (49,),
+                        out_class="double")
+        return out
+    _exact(build)
+
+
+def test_index_sets_on_card_matches_host(card):
+    """index_sets.m at N = 2^20 on the card against the port's host engine:
+    RANK within 1e-4, one for fold and one while fold, no host fallback."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.session import Session
+
+    src = "N = 2^20;\n" + open("runmat_tpu_torch/workloads/index_sets.m").read()
+    prev = accel.active_engine()
+    accel.set_engine(None)
+    host = Session(accelerate=False, stdout=io.StringIO())
+    host.run_source(src)
+    try:
+        s = runmat_tpu_torch.session("cuda")
+        eng = accel.active_engine()
+        r = s.execute(src)
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+    assert r.error is None, r.error
+    want = float(host.get("res").host().reshape(-1)[0])
+    got = float(s.get("res").host().reshape(-1)[0])
+    assert abs(got - want) <= 1e-4 * abs(want)
+    st = eng.stats
+    assert st["host_fallbacks"] == 0 and st["loop_folds"] == 1
+    assert st["while_folds"] == 1

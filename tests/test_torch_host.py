@@ -9,8 +9,8 @@ engine registry they run on.
   naming its ROADMAP item.
 * `install`/`uninstall`/`session` touch only the port's engine registry;
   `init_engine` needs a card and a session that does not require one runs
-  on the host without it; the loop fold leaves `while` to the interpreter
-  and counts a failed `for` fold with its reason.
+  on the host without it; a `while` loop of device math folds, and a
+  failed `for` fold is counted with its reason.
 * The config loader reads RUNMAT_CONFIG or a file in the working directory,
   never one in a directory above it.
 Counts are exact; values are compared with the port's host session exactly.
@@ -156,35 +156,46 @@ def test_init_engine_needs_a_card(restore_engine):
         Session(accelerate=True)
 
 
-WHILE = "x = ones(64, 1); k = 0; while sum(x) > 1, x = x / 2; k = k + 1; end"
+# `x ./ 2`: `x / 2` compiles to a matrix divide, which no fold traces
+WHILE = "x = ones(64, 1); k = 0; while sum(x) > 1, x = x ./ 2; k = k + 1; end"
 
 
 def test_while_loop_is_left_to_the_interpreter(restore_engine):
+    # the name stays; since the while fold is ported the loop runs on the
+    # device as one fold, with the interpreter's x and k
     host = _host(WHILE)
     s = runmat_tpu_torch.session("cpu", **OFFLOAD)
     eng = accel.active_engine()
     r = s.execute(WHILE)
     assert r.error is None
-    assert eng.stats["while_not_ported"] == 1
+    assert eng.stats["while_folds"] == 1
+    assert "while_not_ported" not in eng.stats
     assert eng.stats["loop_bails"] == 0
+    (entry,) = [e for e in eng.launch_log if e["cat"] == "device_while"]
+    assert entry["iterations"] == 6
+    assert s.get("x").on_device and s.get("k").on_device
     assert np.array_equal(s.get("x").host(), host.get("x").host())
     assert s.get("k").host().item() == host.get("k").host().item() == 6
 
 
 def test_a_failed_fold_is_counted_with_its_reason(restore_engine):
-    # an indexed write into a device array needs index_write, not ported
-    # yet: the fold bails on record, and the interpreter's own write raises
-    # the not-ported error rather than computing on the host
-    src = "x = zeros(1, 16); for t = 1:16, x(t) = t * 2; end"
+    # complex values are not ported yet (ROADMAP A8): the body's complex
+    # add declines on record, the fold bails on record with its reason,
+    # and the interpreter runs the loop to the host engine's result
+    src = "x = zeros(1, 16); for t = 1:16, x(t) = abs(t + 2i); end"
+    host = _host(src)
     s = runmat_tpu_torch.session("cpu", **OFFLOAD)
     eng = accel.active_engine()
     r = s.execute(src)
-    assert r.error is not None and r.error.identifier == "RunMat:notPorted"
-    assert "index_write" in r.error.message
+    assert r.error is None
     assert eng.stats["loop_bails"] == 1
     assert eng.stats["loop_folds"] == 0
     reasons = [e["reason"] for e in eng.launch_log if e["cat"] == "loop_bail"]
-    assert reasons and "not yet ported" in reasons[0]
+    assert reasons and reasons[0]
+    declined = [e["reason"] for e in eng.launch_log
+                if e["cat"] == "host_fallback"]
+    assert "complex not ported (A8)" in declined
+    assert np.array_equal(s.get("x").host(), host.get("x").host())
 
 
 @pytest.mark.parametrize("name", ["runmat.toml", "runmat.json"])
@@ -204,3 +215,20 @@ def test_a_config_file_above_the_working_directory_is_ignored(
     monkeypatch.chdir(tmp_path)
     assert config.load().source == str(tmp_path / name)
     assert config.load().get("accelerate", "provider") == "none"
+
+
+@pytest.mark.parametrize("src", [
+    "x = (1:8)'; A = reshape(x, 4, 2); A(1) = 99;",
+    "x = reshape(1:8, 1, 2, 4); A = squeeze(x); A(1) = 99;"])
+def test_a_reshaped_copy_is_its_own_value(restore_engine, src):
+    # ROADMAP Queue C: the JAX package's host reshape and squeeze return a
+    # numpy view, so an indexed write into the result changes x too; the
+    # port's copies return their own buffer, as MATLAB's values are
+    from runmat_tpu.session import Session as JaxSession
+    jax_accel.set_engine(None)
+    jax = JaxSession(accelerate=False)
+    assert jax.execute(src).error is None
+    assert jax.get("x").host().reshape(-1, order="F")[0] == 99
+    port = _host(src)
+    assert port.get("x").host().reshape(-1, order="F")[0] == 1
+    assert port.get("A").host().reshape(-1, order="F")[0] == 99

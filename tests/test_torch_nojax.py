@@ -1,7 +1,7 @@
 """The port runs where neither jax nor the JAX package can be imported: a
 subprocess with `jax` and `runmat_tpu` blocked in `sys.modules` imports
-runmat_tpu_torch and runs the three workloads and the statistics script
-(`runmat_tpu_torch/workloads/histogram_stats.m`) at small size on
+runmat_tpu_torch and runs the three workloads and the statistics and indexing scripts
+(`runmat_tpu_torch/workloads/{histogram_stats,index_sets}.m`) at small size on
 TorchEngine(device="cpu"), and a host session without an engine; the
 profiling and benchmark tools import there too. No module of the JAX
 package is loaded at the end."""
@@ -47,6 +47,15 @@ assert r.error is None, r.error
 print(r.output.strip())
 print("histogram_stats fallbacks", eng.stats["host_fallbacks"])
 runmat_tpu_torch.uninstall()
+s = runmat_tpu_torch.session("cpu", auto_offload=True, offload_threshold=1)
+eng = accel.active_engine()
+r = s.execute("N = 65536;\n" +
+              open("runmat_tpu_torch/workloads/index_sets.m").read())
+assert r.error is None, r.error
+print(r.output.strip())
+print("index_sets folds", eng.stats["loop_folds"], eng.stats["while_folds"],
+      "fallbacks", eng.stats["host_fallbacks"])
+runmat_tpu_torch.uninstall()
 h = Session(accelerate=False)
 r = h.execute("x = rand(1, 5); fprintf('HOST_ok %d\\n', numel(x));")
 assert r.error is None, r.error
@@ -66,10 +75,11 @@ def test_port_runs_without_jax():
                        capture_output=True, text=True, timeout=600)
     assert p.returncode == 0, p.stderr[-3000:]
     out = p.stdout
-    for label in ("CHECK", "PRICE", "MSE", "HIST"):
+    for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK"):
         assert f"RESULT_ok {label}=" in out, out
     assert "monte_carlo folds 1 fallbacks 0" in out, out
     assert "histogram_stats fallbacks 0" in out, out
+    assert "index_sets folds 1 1 fallbacks 0" in out, out
     assert "HOST_ok 5" in out, out
     assert "jax blocked: True" in out, out
     assert "runmat_tpu modules: []" in out, out

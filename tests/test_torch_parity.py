@@ -97,6 +97,20 @@ SNIPPETS = [
     ("cells-structs", "s.a = 1; s.b = 'text'; c = {1, 'two', [3 4]};"
                       " n = numel(c); w = c{3};", EXACT),
     ("undefined", "y = no_such_function(3);", EXACT),
+    ("cellfun", "c = cellfun(@numel, {[1 2], 'abc', []});"
+                " d = cellfun(@(v) v * 2, {1, 2}, 'UniformOutput', false);"
+                " n = num2cell([1 2 3]); s.a = 1; s.b = 'x';"
+                " v = struct2cell(s); m = cell2mat({[1 2], [3]});", EXACT),
+    ("logical-ops", "a = xor([1 0 1], [1 1 0]); b = bitand(uint8(12), 10);"
+                    " c = bitor(5, 3); d = bitshift(1, 4);", EXACT),
+    ("handles", "f = str2func('@(x) x + 1'); y = f(2); s = func2str(f);"
+                " g = func2str(@sin); h = str2func('cos'); z = h(0);", EXACT),
+    ("sets-sort", "[s, i] = sort([3 NaN 1 2 1 -0 0], 'descend');"
+                  " [a, j] = sort([2; NaN; 1]); [u, ia, ic] = unique([4 2 4 9 2]);"
+                  " us = unique([3 1 3 NaN 2 NaN], 'stable');"
+                  " tf = ismember([1 5 2 NaN], [2 3 NaN]); un = union([3 1], [2 1]);"
+                  " in = intersect([5 1 3 3], [3 5 8]); d = setdiff([5 1 3], 3);"
+                  " x = setxor([NaN 1 2], [2 3]);", EXACT),
 ]
 
 

@@ -17,6 +17,11 @@ The statistics slice, `runmat_tpu_torch/workloads/histogram_stats.m` at N =
 engines `cz` and `cq` may differ by 1 per bin, because normals agree across
 backends only to a few ulp and a draw within an ulp of an edge may land on
 either side.
+
+The indexing slice, `runmat_tpu_torch/workloads/index_sets.m` at N = 65536:
+RANK rtol=1e-5; one `for` fold and one `while` fold, no host fallback;
+sort, unique, counts, membership and the column writes equal numpy of each
+package's own data exactly, and each other's where the data are equal.
 """
 
 import re
@@ -28,6 +33,7 @@ import runmat_tpu_torch
 from runmat_tpu import accel
 from runmat_tpu.accel.engine import JaxEngine
 from runmat_tpu.session import Session
+from runmat_tpu.values import MatArray as JaxMatArray
 from runmat_tpu_torch import accel as port_accel
 from runmat_tpu_torch.values import MatArray as PortMatArray
 
@@ -186,3 +192,77 @@ def test_histogram_stats_device_arrays(restore_engine):
         scale = float(np.max(np.abs(want)))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale,
                                    err_msg=k)
+
+
+INDEX_SRC = "N = 65536;\n" + open(
+    "runmat_tpu_torch/workloads/index_sets.m").read()
+
+
+def _stable_descend(x):
+    """numpy's stable descending sort: the ascending sort of the reversed
+    vector, mapped back (NaN first, ties in order)."""
+    n = x.size
+    ia = np.argsort(x[::-1], kind="stable")
+    return ((n - 1) - ia)[::-1]
+
+
+def test_index_sets_matches_jax_engine(restore_engine):
+    """index_sets.m at N = 65536: RANK within rtol 1e-5; the normals agree
+    across the packages to an ulp, so s and B are held to rtol 1e-5 between
+    them and exactly to numpy of each package's own x; the integer results
+    (q's levels, their counts, the membership mask) are equal exactly."""
+    jeng = JaxEngine(platform="cpu", **OFFLOAD)
+    accel.set_engine(jeng)
+    js = Session(accelerate=True)
+    jr = js.execute(INDEX_SRC)
+    ts = runmat_tpu_torch.session("cpu", **OFFLOAD)
+    teng = port_accel.active_engine()
+    tr = ts.execute(INDEX_SRC)
+    runmat_tpu_torch.uninstall()
+    assert jr.error is None and tr.error is None, (jr.error, tr.error)
+    st = teng.stats
+    assert st["loop_folds"] == 1 and st["while_folds"] == 1
+    assert st["loop_bails"] == 0 and st["host_fallbacks"] == 0
+    assert jeng.stats["host_fallbacks"] == 0
+    assert any(k[0] == "device_loop" for k in jeng._jit_cache)
+    assert any(k[0] == "device_while" for k in jeng._jit_cache)
+    (w,) = [e for e in teng.launch_log if e["cat"] == "device_while"]
+    assert w["iterations"] > 0
+    names = [k for k, v in js.base_frame.vars.items()
+             if isinstance(v, JaxMatArray) and v.size > 1]
+    assert {"s", "i", "u", "ic", "cnt", "tf", "B", "P", "L", "R"} <= set(names)
+    for k in names:
+        assert ts.get(k).on_device == js.get(k).on_device, k
+    np.testing.assert_allclose(_printed(tr.output, "RANK"),
+                               _printed(jr.output, "RANK"), rtol=1e-5)
+    np.testing.assert_allclose(ts.get("res").host(), js.get("res").host(),
+                               rtol=1e-5)
+    for s in (js, ts):
+        x = s.get("x").host().reshape(-1)
+        i = _stable_descend(x)
+        assert np.array_equal(s.get("i").host().reshape(-1), i + 1)
+        assert np.array_equal(s.get("s").host().reshape(-1), x[i])
+        q = s.get("q").host().reshape(-1)
+        u, ia, ic, cnt = np.unique(q, return_index=True, return_inverse=True,
+                                   return_counts=True)
+        assert np.array_equal(s.get("u").host().reshape(-1), u)
+        assert np.array_equal(s.get("ia").host().reshape(-1), ia + 1)
+        assert np.array_equal(s.get("ic").host().reshape(-1),
+                              ic.reshape(-1) + 1)
+        assert np.array_equal(s.get("cnt").host().reshape(-1), cnt)
+        lv = np.arange(-8, 9, 2, dtype=np.float32)
+        assert np.array_equal(s.get("tf").host().reshape(-1), np.isin(q, lv))
+        A = x.reshape(4096, -1, order="F").copy()
+        A[:, 1::2] = -A[:, 1::2]
+        B = np.roll(np.flip(A, 0), 7, axis=1)[:, :16]
+        B = B * np.arange(1, 17, dtype=np.float32)
+        assert np.array_equal(s.get("B").host()[:, :16], B)
+    np.testing.assert_allclose(ts.get("s").host(), js.get("s").host(),
+                               rtol=1e-5, atol=1e-6)
+    for k in ("u", "ia", "ic", "cnt", "tf", "both", "only", "un", "med",
+              "mo", "q"):
+        g, w = ts.get(k).host(), js.get(k).host()
+        assert g.dtype == w.dtype and np.array_equal(g, w), k
+    scale = float(np.max(np.abs(js.get("B").host())))
+    np.testing.assert_allclose(ts.get("B").host(), js.get("B").host(),
+                               rtol=1e-5, atol=1e-5 * scale)
