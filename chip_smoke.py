@@ -22,13 +22,22 @@ line is printed:
      its shared-memory layouts
      (and against np.histogram up to 2^20+1 values), with the time of the
      kernel, the plain version and `torch.histc` (direct mode) at 2^26 and
-     of the kernel alone at many bins (runmat_tpu_torch/histbench.py);
+     of the kernel alone at many bins (runmat_tpu_torch/histbench.py); the
+     Threefry entry that reads its counter from device memory (the one a
+     captured loop replays) against the launch-argument entry, bit for
+     bit, in its four modes at COUNTERS and the main path's draw sizes,
+     and both timed at monte_carlo's draw (normal f32, 10^6);
   4. main path: benchmarks/{elementwise_math,monte_carlo,image_normalize}.m
      at their default sizes through runmat_tpu_torch.session("cuda"),
-     against the port's host engine (Session(accelerate=False)) for CHECK
-     and PRICE, and for MSE against a float64 evaluation of the script on
-     the frames the host engine drew; with the kernel's launch count, the
-     loop fold and the warm wall times;
+     against the port's host engine (Session(accelerate=False)) for CHECK,
+     PRICE and MSE, and MSE also against a float64 evaluation of the script
+     on the frames the host engine drew; with the kernel's launch count,
+     the loop fold and the warm wall times. monte_carlo's fold runs as a
+     captured CUDA graph: no decline, at least 255 replays and 256 normal
+     draws a run, at most one capture over the four runs of its timed
+     session. Each script's stream syncs under torch's sync debug mode
+     equal what the engine counts (runmat_tpu_torch/syncs.py), here and in
+     phases 5 and 6;
   5. statistics path: runmat_tpu_torch/workloads/histogram_stats.m at its
      default N = 2^26 through Session.run_source and once through
      Session.execute, HIST against the host engine, the three histograms
@@ -39,10 +48,10 @@ line is printed:
      accumarray, a folded `for` and a folded `while`) at N = 2^20 against
      the host engine for RANK, then at its default N = 2^26 through
      Session.run_source and once through Session.execute: no host fallback,
-     no RunMat:notPorted, one `for` fold and one `while` fold, under 1 MB
-     each way, and its sort, unique, counts, median, membership and column
-     writes against numpy of the port's own gathered data; with the warm
-     walls;
+     no RunMat:notPorted, one `for` fold (captured as a CUDA graph) and
+     one `while` fold, under 1 MB each way, and its sort, unique, counts,
+     median, membership and column writes against numpy of the port's own
+     gathered data; with the warm walls;
   7. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Each kernel's `launches` is read from the runs of phases 4 to 6, with the
@@ -81,6 +90,7 @@ REPORTED_DRAWS = {"rand": 1 << 26, "randn": 10 ** 6}
 # the draws' key and the normals' tolerance are rngbench.KEY and
 # rngbench.NORMAL_TOL, which also check the timed draws
 COUNTERS = (12345, (0xFFFFFFFD, 7))   # the second carries lo into hi
+MC_STEPS = 256                        # monte_carlo.m's T: one draw a step
 HIST_SIZES = (1, 2, 3, 1023, (1 << 20) + 1, 10 ** 7, 1 << 26)
 HIST_BINS = (1, 2, 3, 4, 5, 6, 7, 8, 64, 80, 128, 256)
 # per-warp, per-block and global counts in the kernel (histogram.cu); the
@@ -182,6 +192,7 @@ def phase_kernel() -> list:
         print(f"kernel {kind} {name} n={n} ctr={ctr}: max_abs_err={err:g}")
 
     _transform_sweep(threefry)
+    device_counter = _device_counter_entry(threefry, rngbench)
 
     rows = rngbench.measure(threefry, sass, rngbench.DRAWS, TIMING_REPS,
                             plain_reps=TIMING_REPS)
@@ -212,7 +223,62 @@ def phase_kernel() -> list:
             # torch.rand draws Philox, another stream: no library call
             # computes these values
             "library_ms": None})
+        if kind == "randn":
+            out.append({**out[-1], **device_counter,
+                        "bound_ms": r["bound_ms"]})
     return out
+
+
+def _device_counter_entry(threefry, rngbench) -> dict:
+    """The entry that reads its counter from device memory
+    (runmat_threefry_draw_at) against the launch-argument entry: equal bit
+    for bit in its four modes at COUNTERS (the carry case included) and the
+    main path's draw sizes; then both timed at monte_carlo's draw, normal
+    f32 at 10^6, with the plain version on the same tensor counter.
+    Returns the fields of its kernel row."""
+    import torch
+
+    from runmat_tpu_torch import histbench
+    from runmat_tpu_torch.accel.engine import counter_value
+    dev = torch.device("cuda")
+    cases = [(kind, n, dt, ctr) for kind in ("rand", "randn")
+             for dt in (torch.float32, torch.float64)
+             for n in SIZES for ctr in COUNTERS]
+    cases += [(kind, n, torch.float32, ctr) for kind, n in MAIN_PATH_DRAWS
+              for ctr in COUNTERS]
+    for kind, n, dt, ctr in cases:
+        c = ctr if isinstance(ctr, int) else ctr[0] | (ctr[1] << 32)
+        at = torch.full((), counter_value(c), dtype=torch.int64, device=dev)
+        got = threefry.rng_draw(kind, rngbench.KEY, at, n, dt, dev)
+        want = threefry.rng_draw(kind, rngbench.KEY, c, n, dt, dev)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"{kind} {dt} n={n} ctr={ctr}: the device-counter entry "
+              f"differs from the launch-argument entry")
+    print(f"kernel device counter: {len(cases)} draws equal the "
+          f"launch-argument entry bit for bit")
+    n = MAIN_PATH_DRAWS[1][1]
+    at = torch.zeros((), dtype=torch.int64, device=dev)
+    got = threefry.rng_draw("randn", rngbench.KEY, at, n, torch.float32, dev)
+    want = threefry.plain_draw("randn", rngbench.KEY, at, n, torch.float32,
+                               dev)
+    err = float((got - want).abs().max())
+    tol = rngbench.NORMAL_TOL["float32"]
+    check(torch.allclose(got, want, rtol=tol, atol=tol),
+          f"randn float32 (device counter): max err {err:g} > {tol:g}")
+    ms = {name: histbench.time_ms(fn, TIMING_REPS) for name, fn in (
+        ("at", lambda: threefry.rng_draw("randn", rngbench.KEY, at, n,
+                                         torch.float32, dev)),
+        ("args", lambda: threefry.rng_draw("randn", rngbench.KEY, 0, n,
+                                           torch.float32, dev)),
+        ("plain", lambda: threefry.plain_draw("randn", rngbench.KEY, at, n,
+                                              torch.float32, dev)))}
+    print(f"time randn float32 n={n}: device-counter entry {ms['at']:.4f} "
+          f"ms, launch-argument entry {ms['args']:.4f} ms, plain "
+          f"{ms['plain']:.4f} ms")
+    return {"name": "threefry2x32_normal_f32_device_counter",
+            "launch_key": "randn float32" + threefry.DEVICE_COUNTER,
+            "max_abs_err": err, "ms": ms["at"], "plain_ms": ms["plain"]}
 
 
 def _transform_sweep(threefry) -> None:
@@ -382,9 +448,9 @@ def _host_reference(src: str) -> tuple:
 
 def _image_normalize_f64(imgs) -> float:
     """MSE of image_normalize.m evaluated in float64, frame by frame, on the
-    frames the host engine drew (the same Threefry stream as the port's).
-    The host engine's own single-precision means over dims [2 3] lose
-    accuracy at 2160 x 3840 frames, so MSE is held to this evaluation."""
+    frames the host engine drew (the same Threefry stream as the port's):
+    a second check beside the host engine, whose single means over dims
+    [2 3] accumulate in double and round once."""
     gain, bias, gamma0, eps0 = (float(np.float32(v))
                                 for v in (1.0123, -0.02, 1.8, 1e-6))
     total = 0.0
@@ -401,6 +467,19 @@ def _result_value(output: str, label: str) -> float:
     m = re.search(rf"RESULT_ok {label}=(\S+)", output)
     check(m is not None, f"no 'RESULT_ok {label}=' line in {output!r}")
     return float(m.group(1))
+
+
+def _sync_check(src: str, label: str) -> None:
+    """The script's stream syncs, one warm run under torch's sync debug
+    mode, equal the engine's counted reads (syncs plus gathers)."""
+    from runmat_tpu_torch import syncs
+    r = syncs.script_syncs(src)
+    check(r["warnings"] == r["counted"],
+          f"{label}: {r['warnings']} synchronizing calls, the engine counted "
+          f"{r['counted']}: {r['sites']}")
+    print(f"syncs {label}: {r['warnings']} synchronizing calls, the engine "
+          f"counted {r['counted']} ({r['syncs']} syncs, {r['gathers']} "
+          f"gathers)")
 
 
 def _zero_launches() -> None:
@@ -434,10 +513,12 @@ def phase_main_path() -> dict:
         print(f"host {w}: {out.strip()} ({time.perf_counter() - t0:.1f} s)")
         if w == "image_normalize":
             exact = _image_normalize_f64(s.get("imgs").host())
+            rel = abs(refs[w][1] - exact) / exact
             print(f"host {w}: float64 evaluation MSE={exact!r}; the host "
-                  f"engine's single MSE is off by "
-                  f"{abs(refs[w][1] - exact) / exact:.3g} (relative)")
-            refs[w] = (exact, exact)
+                  f"engine's single MSE is off by {rel:.3g} (relative)")
+            check(rel <= PARITY_RTOL, f"{w}: the host engine's MSE is "
+                  f"{rel:.3g} off the float64 evaluation")
+            mse_f64 = exact
         del s
 
     runs = {}
@@ -465,6 +546,10 @@ def phase_main_path() -> dict:
         check(abs(printed - ref_printed) <= PARITY_RTOL * abs(ref_printed),
               f"{w}: printed {label}={printed!r} against host "
               f"{ref_printed!r}")
+        if w == "image_normalize":
+            check(abs(value - mse_f64) <= PARITY_RTOL * mse_f64,
+                  f"{w}: MSE={value!r} against the float64 evaluation "
+                  f"{mse_f64!r}")
         arrays = sorted(k for k, v in s.base_frame.vars.items()
                         if isinstance(v, MatArray) and v.size > 1)
         for k in arrays:
@@ -477,11 +562,7 @@ def phase_main_path() -> dict:
         check(st["host_fallbacks"] == 0,
               f"{w}: {st['host_fallbacks']} host fallbacks")
         if w == "monte_carlo":
-            check(st["loop_folds"] == 1 and st["loop_bails"] == 0,
-                  f"monte_carlo: loop_folds={st['loop_folds']} "
-                  f"loop_bails={st['loop_bails']}")
-            check(draws.get("randn float32", 0) >= 256,
-                  f"monte_carlo: {draws} launches")
+            _check_mc_fold(st, draws, st["graph_captures"])
         if w == "image_normalize":
             check(draws.get("rand float32", 0) >= 1,
                   f"image_normalize: {draws} launches")
@@ -492,8 +573,35 @@ def phase_main_path() -> dict:
     runs.clear()
 
     for w in WORKLOADS:
-        _walls(sources[w], w)
+        _sync_check(sources[w], w)
+    for w in WORKLOADS:
+        runs = _walls(sources[w], w)
+        if w == "monte_carlo":
+            captures = 0
+            for st, draws in runs:
+                captures += st["graph_captures"]
+                _check_mc_fold(st, draws, captures)
+            print(f"port monte_carlo (timed session): {captures} capture, "
+                  f"graph replays {[st['graph_replays'] for st, _ in runs]}"
+                  f" over its four runs")
     return launches
+
+
+def _check_mc_fold(st: dict, draws: dict, captures: int) -> None:
+    """monte_carlo.m's one fold in one run: a captured or cached CUDA graph
+    (no decline; at least T - 1 replays, T once cached), T normal draws
+    through the device-counter entry, at most one capture so far."""
+    from runmat_tpu_torch.ops import threefry
+    check(st["loop_folds"] == 1 and st["loop_bails"] == 0,
+          f"monte_carlo: loop_folds={st['loop_folds']} "
+          f"loop_bails={st['loop_bails']}")
+    check(st["graph_declines"] == 0 and captures <= 1 and
+          st["graph_replays"] >= MC_STEPS - 1,
+          f"monte_carlo: graph declines {st['graph_declines']}, captures "
+          f"{captures}, replays {st['graph_replays']}")
+    got = draws.get("randn float32" + threefry.DEVICE_COUNTER, 0)
+    check(got == MC_STEPS and sum(draws.values()) == MC_STEPS,
+          f"monte_carlo: {draws} launches")
 
 
 def _run_source(s, src: str) -> str:
@@ -503,16 +611,23 @@ def _run_source(s, src: str) -> str:
     return s.stdout.getvalue()
 
 
-def _walls(src: str, label: str, preview: bool = True) -> None:
+def _walls(src: str, label: str, preview: bool = True) -> list:
     """First run, then the median of 3 warm runs, in one fresh session;
     through Session.execute (which builds the workspace preview), or
-    Session.run_source."""
+    Session.run_source. Returns each run's engine counters and Threefry
+    launches, moved by that run."""
     import torch
 
     import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.ops import threefry
     s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
     walls = []
+    runs = []
     for _ in range(4):
+        before = dict(eng.stats)
+        draws = dict(threefry.launches_by)
         t0 = time.perf_counter()
         if preview:
             r = s.execute(src)
@@ -521,11 +636,16 @@ def _walls(src: str, label: str, preview: bool = True) -> None:
             _run_source(s, src)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        runs.append(({k: v - before[k] for k, v in eng.stats.items()},
+                     {k: v - draws.get(k, 0)
+                      for k, v in threefry.launches_by.items()
+                      if v != draws.get(k, 0)}))
     runmat_tpu_torch.uninstall()
     how = "execute" if preview else "run_source"
     print(f"wall {label} ({how}): first {walls[0] * 1e3:.1f} ms, warm median "
           f"of 3 {statistics.median(walls[1:]) * 1e3:.1f} ms "
           f"({', '.join(f'{x * 1e3:.1f}' for x in walls[1:])})")
+    return runs
 
 
 def phase_statistics_path() -> dict:
@@ -629,6 +749,7 @@ def phase_statistics_path() -> dict:
     print(f"port histogram_stats (execute): {r.output.strip()}; gathers "
           f"{eng.stats['gathers']} ({eng.stats['gather_bytes']} bytes)")
     del s
+    _sync_check(src, "histogram_stats")
     _walls(src, "histogram_stats", preview=False)
     _walls(src, "histogram_stats", preview=True)
     return launches
@@ -729,6 +850,10 @@ def phase_indexing_path() -> dict:
     whiles = [e for e in log if e["cat"] == "device_while"]
     check(st["while_folds"] == 1 and len(whiles) == 1,
           f"index_sets: while_folds={st['while_folds']}")
+    (fold,) = [e for e in log if e["cat"] == "device_loop"]
+    check(fold["graph"] == "captured" and st["graph_declines"] == 0 and
+          fold["replays"] == fold["iterations"] - 1,
+          f"index_sets: the for fold was not captured: {fold}")
     back = st["gather_bytes"] + st["sync_bytes"]
     check(back < INDEX_TRANSFER_LIMIT and
           st["upload_bytes"] < INDEX_TRANSFER_LIMIT,
@@ -740,8 +865,11 @@ def phase_indexing_path() -> dict:
         check(v.on_device and eng.materialize(v.dev).is_cuda,
               f"index_sets: {k} is not a CUDA tensor")
     rank = _result_value(output, "RANK")
-    print(f"port index_sets: {output.strip()}; the while fold ran "
-          f"{whiles[0]['iterations']} iterations; {st['gathers']} gathers "
+    print(f"port index_sets: {output.strip()}; the for fold ran "
+          f"{fold['iterations']} iterations, {fold['graph']}, "
+          f"{fold['replays']} graph replays; the while fold ran "
+          f"{whiles[0]['iterations']} iterations ({whiles[0]['graph']}, "
+          f"{whiles[0]['replays']} replays); {st['gathers']} gathers "
           f"({st['gather_bytes']} bytes), {st['syncs']} reads of a count or "
           f"condition ({st['sync_bytes']} bytes), {st['uploads']} uploads "
           f"({st['upload_bytes']} bytes); launches {launches}; stats "
@@ -765,6 +893,7 @@ def phase_indexing_path() -> dict:
           f"{eng.stats['host_fallbacks']} host fallbacks")
     print(f"port index_sets (execute): {r.output.strip()}; {back} bytes back")
     del s
+    _sync_check(src, "index_sets")
     _walls(src, "index_sets", preview=False)
     _walls(src, "index_sets", preview=True)
     return launches

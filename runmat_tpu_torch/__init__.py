@@ -36,8 +36,12 @@ def install(device="cuda", **engine_kw) -> TorchEngine:
 
 
 def uninstall() -> None:
-    """Restore the previously active engine."""
+    """Restore the previously active engine; the uninstalled one drops its
+    captured graphs."""
     if _previous:
+        eng = _accel.active_engine()
+        if eng is not None:
+            eng.release()
         _accel.set_engine(_previous.pop())
 
 

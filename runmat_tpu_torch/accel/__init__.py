@@ -21,15 +21,17 @@ def set_engine(engine) -> None:
     _ENGINE = engine
 
 
-def init_engine(auto_offload=None, offload_threshold=None, **_ignored):
+def init_engine(auto_offload=None, offload_threshold=None,
+                matmul_precision=None, **_ignored):
     """Create and activate a `TorchEngine` on "cuda" (idempotent). The
-    JAX engine's other options (platform, matmul precision) have no meaning
-    here and are ignored."""
+    JAX engine's other options (platform, required) have no meaning here
+    and are ignored."""
     global _ENGINE
     if _ENGINE is None:
         from .engine import TorchEngine
         _ENGINE = TorchEngine("cuda", auto_offload=auto_offload,
-                              offload_threshold=offload_threshold)
+                              offload_threshold=offload_threshold,
+                              matmul_precision=matmul_precision)
     return _ENGINE
 
 

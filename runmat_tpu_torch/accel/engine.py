@@ -10,9 +10,16 @@ torch tensors on an explicit `torch.device`:
     `JaxEngine`;
   * `materialize` turns the DAG into the same program tuples
     (`_build_program`) and runs them eagerly, op by op, freeing each
-    intermediate after its last use;
+    intermediate after its last use. Nothing in a program waits for the
+    card: a scalar parameter becomes a 0-d tensor filled on the device once
+    per program (`_scalar`, a fill kernel with the value as its launch
+    argument), an upload is an asynchronous copy from pinned memory, and no
+    op reads a device value back inside torch (`index_fill_` and indexing
+    with a 0-d index tensor would, so neither is used);
   * random draws go through `ops.threefry.rng_draw`: the hand-written CUDA
-    kernel on a card, its plain PyTorch version on the CPU;
+    kernel on a card, its plain PyTorch version on the CPU. A draw's counter
+    is one int64 scalar node: a host int in `materialize`, a device tensor
+    computed on the card in a folded loop (`accel/loops.py`);
   * `linalg` goes through `DenseOps` (`accel/dense.py`), whose `histcounts`
     runs on the hand-written histogram kernel (`ops/histogram.py`); `sort`,
     `unique` and `setop` go through it too, as under `JaxEngine`;
@@ -32,7 +39,15 @@ builder) is counted as a host fallback, with its reason in the launch log,
 whenever a device value has to come back for it. None of the methods
 computes on the host while the value is claimed to be on the device. A
 device value read back only to steer the host (unique's count, a `while`
-condition) is counted in `syncs`/`sync_bytes`, not as a gather.
+condition) is counted in `syncs`/`sync_bytes`, not as a gather. Those
+reads and the gathers are the only points where the host waits for the
+card (`runmat_tpu_torch/syncs.py` checks that on a card).
+
+`matmul` stamps the session's precision policy into the op's static, as the
+JAX engine does (`_mm_policy`, engine.py:199-203, 264): "highest" and
+"native" multiply single in true FP32, "high" in TF32, "bf16" and "default"
+round the operands to bf16 and accumulate in FP32. The TF32 switch is set
+around the one product and restored after it.
 
 `_categorize`, `phys_shape`, `_index_vec`, `index_read_general`,
 `index_write` and `structural` follow `runmat_tpu/accel/engine.py` (48-90,
@@ -42,6 +57,7 @@ condition) is counted in `syncs`/`sync_bytes`, not as a gather.
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import time
 from typing import Optional
@@ -146,6 +162,46 @@ def _categorize(ops: list) -> str:
     return "elementwise"
 
 
+def counter_value(counter: int) -> int:
+    """A 64-bit counter block index as the int64 that holds its bits."""
+    counter &= (1 << 64) - 1
+    return counter - (1 << 64) if counter >= 1 << 63 else counter
+
+
+@contextlib.contextmanager
+def _tf32(on: bool):
+    """TF32 for float32 products on the card inside the block only."""
+    m = torch.backends.cuda.matmul
+    if hasattr(m, "fp32_precision"):
+        attr, value = "fp32_precision", "tf32" if on else "ieee"
+    else:
+        attr, value = "allow_tf32", on
+    prev = getattr(m, attr)
+    setattr(m, attr, value)
+    try:
+        yield
+    finally:
+        setattr(m, attr, prev)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, policy: str) -> torch.Tensor:
+    """A product under a precision policy. Only float32 on a card is
+    affected: "high" runs in TF32; "bf16"/"default" round the operands to
+    bf16 and accumulate in float32 (the rounded operands are exact in TF32,
+    so the card's TF32 units give bf16 products with float32 sums); every
+    other policy is true FP32."""
+    if a.dtype != torch.float32:
+        return torch.matmul(a, b)
+    low = policy in ("bf16", "default")
+    if low:
+        a = a.to(torch.bfloat16).to(torch.float32)
+        b = b.to(torch.bfloat16).to(torch.float32)
+    if not a.is_cuda:
+        return torch.matmul(a, b)
+    with _tf32(low or policy == "high"):
+        return torch.matmul(a, b)
+
+
 def phys_shape(shape: tuple) -> tuple:
     """Logical MATLAB shape -> physical on-device shape: scalars (), vectors
     rank-1, everything else in its logical shape. The logical shape lives
@@ -165,7 +221,8 @@ def phys_shape(shape: tuple) -> tuple:
 
 class TorchEngine:
     def __init__(self, device="cuda", auto_offload: Optional[bool] = None,
-                 offload_threshold: Optional[int] = None):
+                 offload_threshold: Optional[int] = None,
+                 matmul_precision: Optional[str] = None):
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available() or \
@@ -192,17 +249,25 @@ class TorchEngine:
             env_thr = os.environ.get("RUNMAT_TPU_OFFLOAD_THRESHOLD")
             offload_threshold = int(env_thr) if env_thr is not None else None
         self.offload_threshold = offload_threshold or 32768
+        # the JAX engine's resolution (engine.py:199-203)
+        mm = os.environ.get("RUNMAT_TPU_MATMUL_PRECISION") or matmul_precision
+        if mm is None and \
+                os.environ.get("RUNMAT_TPU_ALLOW_PRECISION_DOWNCAST") == "1":
+            mm = "bf16"
+        self.matmul_precision = (mm or "highest").lower()
         self.mesh = None
         self.supports_complex = False
         self.fuse_cap = int(os.environ.get("RUNMAT_TPU_FUSE_CAP",
                                            str(DEFAULT_FUSE_CAP)))
-        # reset(gpuDevice) clears this; the eager executor caches nothing
+        # the captured CUDA graphs of folded loops (accel/loops.py), by
+        # program structure; reset(gpuDevice) and `release` clear it
         self._jit_cache: dict = {}
         self.stats = {"dispatches": 0, "compiles": 0, "cache_hits": 0,
                       "uploads": 0, "gathers": 0, "upload_bytes": 0,
                       "gather_bytes": 0, "host_fallbacks": 0,
                       "loop_folds": 0, "loop_bails": 0, "while_folds": 0,
-                      "syncs": 0, "sync_bytes": 0}
+                      "syncs": 0, "sync_bytes": 0, "graph_captures": 0,
+                      "graph_replays": 0, "graph_declines": 0}
         self.category_stats: dict = {}
         self.launch_log = collections.deque(maxlen=64)
         self.dispatch_seq = 0
@@ -217,13 +282,22 @@ class TorchEngine:
 
     # ------------------------------------------------------------ residency ops
 
+    def release(self) -> None:
+        """Drop the captured graphs and their private memory pools."""
+        self._jit_cache.clear()
+
     def to_device(self, h: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor in physical shape (always a copy)."""
+        """Host array -> device tensor in physical shape (always a copy). To
+        a card, through pinned memory and an asynchronous copy: a copy from
+        pageable memory would wait for the card's queue."""
         ps = phys_shape(h.shape)
-        t = torch.from_numpy(np.array(h.reshape(ps), order="C"))
         self.stats["uploads"] += 1
         self.stats["upload_bytes"] += h.nbytes
-        return t.to(self.device)
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.array(h.reshape(ps), order="C"))
+        buf = torch.empty(ps, dtype=torch_dtype(h.dtype), pin_memory=True)
+        buf.numpy()[...] = h.reshape(ps)
+        return buf.to(self.device, non_blocking=True)
 
     def upload(self, x: MatArray, force_shard: bool = False) -> MatArray:
         if x.is_complex:
@@ -362,7 +436,7 @@ class TorchEngine:
                 na.shape[1] != nb.shape[0]:
             raise MatError("MATLAB:innerdim",
                            "Incorrect dimensions for matrix multiplication.")
-        node = self._op("matmul", [na, nb], (str(dt), "highest"),
+        node = self._op("matmul", [na, nb], (str(dt), self.matmul_precision),
                         (na.shape[0], nb.shape[1]), dt)
         return MatArray.from_device(node, out_class)
 
@@ -406,11 +480,8 @@ class TorchEngine:
         for d in dims:
             n *= d
         start = state.advance(philox.blocks_for(kind, n, mclass))
-        lo = self._scalar_node(np.uint32(start & 0xFFFFFFFF),
-                               np.dtype(np.uint32))
-        hi = self._scalar_node(np.uint32((start >> 32) & 0xFFFFFFFF),
-                               np.dtype(np.uint32))
-        node = self._op("rng:" + kind, [lo, hi],
+        ctr = self._scalar_node(counter_value(start), np.dtype(np.int64))
+        node = self._op("rng:" + kind, [ctr],
                         (state.key, n, tuple(normalize_shape(dims)), mclass),
                         normalize_shape(dims), self.dtype_for(mclass))
         return MatArray.from_device(node, mclass)
@@ -813,8 +884,7 @@ class TorchEngine:
         program = self._build_program(order)
         index = {id(n): i for i, n in enumerate(order)}
         out_idx = [index[id(node)]] + [index[id(n)] for n in extra]
-        values = [np.asarray(n.value, dtype=n.dtype) if n.op == "scalar"
-                  else n.value for n in order]
+        values = self._program_values(order)
         t0 = time.perf_counter()
         results = self.run_program(program, values, out_idx)
         ms = (time.perf_counter() - t0) * 1e3
@@ -830,6 +900,19 @@ class TorchEngine:
             n.n_ops = 0
             n.dispatch_id = self.dispatch_seq
         return results[0]
+
+    def _program_values(self, order: list) -> list:
+        """The payloads of a program's leaves and scalars: each scalar
+        parameter becomes one 0-d tensor on this device, however many ops
+        read it; a draw's counter stays a host int, its kernel's launch
+        argument."""
+        on_card = set()
+        for n in order:
+            if n.value is None and not n.op.startswith("rng:"):
+                on_card.update(id(i) for i in n.inputs)
+        return [(self._scalar(n.value, n.dtype) if id(n) in on_card
+                 else int(n.value)) if n.op == "scalar" else n.value
+                for n in order]
 
     def _build_program(self, order: list) -> list:
         """Program entries (op, static, dt, in_idx, in_shapes, out_shape),
@@ -887,13 +970,19 @@ class TorchEngine:
             return op[2:] in _SCAN_OPS
         return op in self._OPS
 
-    def _tensor(self, a, dt: np.dtype) -> torch.Tensor:
-        """Operand as a tensor of `dt` on this device; scalar parameters
-        arrive as host numpy values."""
+    def _scalar(self, value, dt: np.dtype) -> torch.Tensor:
+        """A host scalar as a 0-d tensor of `dt` on this device: cast with
+        numpy first (so f32 rounding is numpy's), then filled on the device
+        with the value as the fill kernel's argument; nothing is copied and
+        nothing waits."""
+        v = np.asarray(value).astype(dt).item()
+        return torch.full((), v, dtype=torch_dtype(dt), device=self.device)
+
+    @staticmethod
+    def _tensor(a: torch.Tensor, dt: np.dtype) -> torch.Tensor:
+        """Operand in `dt`."""
         tdt = torch_dtype(dt)
-        if isinstance(a, torch.Tensor):
-            return a if a.dtype == tdt else a.to(tdt)
-        return torch.tensor(np.asarray(a).astype(dt), device=self.device)
+        return a if a.dtype == tdt else a.to(tdt)
 
     def _to_phys(self, x: torch.Tensor, lshape: tuple) -> torch.Tensor:
         ps = phys_shape(tuple(lshape))
@@ -906,9 +995,6 @@ class TorchEngine:
         tdt = torch_dtype(dt)
         if op.startswith("rng:"):
             return self._exec_rng(op[4:], static, dt, args)
-        # scalar parameters (host numpy values) become 0-d device tensors
-        args = [a if isinstance(a, torch.Tensor)
-                else self._tensor(a, np.asarray(a).dtype) for a in args]
         if op.startswith("b:"):
             name = op[2:]
             work_dt = np.dtype(static[0])
@@ -951,7 +1037,8 @@ class TorchEngine:
             la, lb = in_shapes
             a = self._tensor(args[0], dt).reshape(la)
             b = self._tensor(args[1], dt).reshape(lb)
-            return self._to_phys(torch.matmul(a, b), out_shape)
+            pol = static[1] if len(static) > 1 else self.matmul_precision
+            return self._to_phys(_matmul(a, b, pol), out_shape)
         if op == "transpose":
             la = in_shapes[0]
             a = args[0]
@@ -1014,8 +1101,10 @@ class TorchEngine:
         x = args[0]
         la = tuple(in_shapes[0])
         if op in ("gather1", "gather1d", "scatter1", "scatter1d"):
-            if op.endswith("1d"):           # the loop variable, 1-based
-                idx = args[1].reshape(()).to(torch.int64) - 1
+            if op.endswith("1d"):
+                # the loop variable, 1-based, as a one-element index (a 0-d
+                # index tensor is read back to the host by torch)
+                idx = args[1].reshape(1).to(torch.int64) - 1
             else:
                 idx = args[1]
             if op.startswith("gather"):
@@ -1067,12 +1156,11 @@ class TorchEngine:
         out = x.reshape(la).clone(memory_format=torch.contiguous_format)
         picked = [k for k, s in enumerate(spec) if s != "colon"]
         if len(picked) == 1:
+            # a scalar rhs is expanded too: index_fill_ with a tensor value
+            # reads it back to the host
             k = picked[0]
-            idx = self._subscript(args, spec[k])
-            if scalar_rhs:
-                out.index_fill_(k, idx, val)
-            else:
-                out.index_copy_(k, idx, val.expand(tuple(sel_shape)))
+            out.index_copy_(k, self._subscript(args, spec[k]),
+                            val.expand(tuple(sel_shape)))
         else:
             idxs = []
             for k, s in enumerate(spec):
@@ -1273,10 +1361,12 @@ class TorchEngine:
         return self._to_phys(r.to(tdt), out_shape)
 
     def _exec_rng(self, kind: str, static: tuple, dt: np.dtype, args: list):
+        """A draw from its counter: a host int (materialize) or a 0-d int64
+        tensor on this device (a folded loop's), passed on as it is."""
         key, n, shape, mclass = static
-        lo, hi = (int(np.asarray(a)) for a in args)
+        (ctr,) = args
         prec = torch.float32 if mclass == "single" else torch.float64
-        vals = rng_draw(kind, key, (lo, hi), n, prec, self.device)
+        vals = rng_draw(kind, key, ctr, n, prec, self.device)
         tdt = torch_dtype(dt)
         if vals.dtype != tdt:
             vals = vals.to(tdt)

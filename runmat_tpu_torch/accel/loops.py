@@ -3,22 +3,62 @@
 The interpreter (`vm/interp.py`) calls `try_device_loop` and
 `try_device_while` at each loop entry. A loop whose body is pure device math
 is traced once by `_Trace` (it only builds DAG nodes) into programs in the
-engine's format (`_program`), which then run eagerly through
-`TorchEngine.run_program`:
+engine's format (`_program`). As the JAX package runs a fold as one compiled
+`lax.fori_loop` (`make_loop_fn`, `_build_and_run`), the port runs it as one
+captured CUDA graph:
 
-  * `for`: the body program T times. Iteration t draws from counter block
-    `start + t*BPI + offset` (BPI: blocks one iteration draws), computed on
-    the host with the 64-bit carry into the high word, and the session
-    state advances by `T*BPI` afterwards: the same values the interpreter
-    would draw.
+  * Device loop state (`_Step`). The step index `t` is a 0-d int64 on the
+    device; the loop variable is `it[t]` of the iterable, uploaded once per
+    fold when the body reads it; draw k of an iteration takes the counter
+    `c0 + offset_k + t*BPI` (BPI: blocks one iteration draws), computed on
+    the device in int64, so it stays exact past 2^32 (the JAX package bails
+    at T*BPI >= 2^31; the port does not need to); the Threefry kernel reads
+    it from device memory. The program's scalars are filled on the device
+    once per fold, and each `c0 + offset_k` and `t` are written with
+    `fill_`, so nothing is copied from the host and nothing in an iteration
+    reads the device back.
+  * `for` on a card: iteration 0 runs eagerly through `run_program` with
+    those sources, with torch's sync debug mode set to raise, which warms
+    the allocator, cuBLAS and the kernels' occupancy queries and finds any
+    op that would wait for the card. Such an op declines the capture before
+    it starts (`stats["graph_declines"]`, the reason in the launch log) and
+    the fold runs as a host loop of the same step. Otherwise one iteration
+    is captured as a `torch.cuda.CUDAGraph` (`_Graph`), `t.add_(1)` its last
+    node, and replayed T-1 times. The graph is cached in the engine's
+    `_jit_cache` by program structure, shapes, dtypes and the RNG key (T,
+    `c0` and the scalars' values are not in the key): a later fold of the
+    same loop loads its sources into the graph's buffers and replays it T
+    times. An error during a capture or a replay raises (`GraphFault`); it
+    is not turned into a bail.
+  * Carries at fixed addresses: each read-carried output is copied into its
+    carry buffer at the end of the graph. Two graphs alternating input and
+    output buffers would save the copy only if the program could choose
+    where its last op writes; torch's allocator chooses, so they would still
+    end in a copy. The copy moves the carry twice a step: 8 MB in
+    monte_carlo.m (S, 4 MB), 512 MB in index_sets.m's loop (B, 256 MB, 16
+    steps), beside the 256 MB copy its column write already makes. An
+    output written before it is read (monte_carlo's Z) is not copied: the
+    graph's own output holds its last value. The final carry is cloned once
+    out of the cache's buffers into the workspace.
   * `while`: a condition program and a body program, as the JAX package's
     `lax.while_loop` (`make_while_fn`, `_build_and_run_while`): the
-    condition runs on the device and its one value is read back each
-    iteration (`read_scalar`, one byte), then the body. Its eligibility is
-    the JAX package's: no RNG in the loop, and every variable it writes is
-    defined before it and read before it is written, so a loop that runs
-    zero times leaves the workspace as the interpreter would. The launch log gets a "device_while" entry
-    with the iteration count; `stats["while_folds"]` counts the folds.
+    condition runs eagerly on the device and its one value is read back
+    each iteration (`read_scalar`, one byte), then the body, through the
+    same capture as the `for` body from its second iteration (or at once
+    when cached). Its eligibility is the JAX package's: no RNG in the loop,
+    and every variable it writes is defined before it and read before it is
+    written, so a loop that runs zero times leaves the workspace as the
+    interpreter would. The launch log gets a "device_while" entry with the
+    iteration count; `stats["while_folds"]` counts the folds.
+  * On the CPU (the tests) the same device-state step runs eagerly, T
+    times, with CPU tensors as its sources and no graph.
+
+Accounting: `stats["graph_captures"]`, `["graph_replays"]` and
+`["graph_declines"]`; one "device_loop" launch-log entry per fold with its
+`iterations`, its `graph` ("captured", "cached", "declined" or "eager") and
+its `replays`; the Threefry kernel's `launches` count the draws each replay
+runs (`threefry.replayed`). The cache and its graphs' private memory pools
+are freed by `TorchEngine.release` (on uninstall and `reset(gpuDevice)`).
 
 `_Bail`, `_Marker`, `_bc`, `_note_bail`, `_scan_window` and `_Trace` are
 copied from `runmat_tpu/accel/loops.py` (31-57, 214-686), and the `while`
@@ -32,6 +72,8 @@ launch log keeps the exception text. The interpreter then runs the loop.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import time
 from typing import Any, Optional
 
@@ -39,9 +81,10 @@ import numpy as np
 import torch
 
 from ..errors import MatError
+from ..ops import threefry
 from ..values import MatArray
 from . import active_engine
-from .engine import phys_shape
+from .engine import counter_value, phys_shape
 from .lazy import LazyNode, topo_order
 
 # builtins that are safe to call during the trace: elementwise/broadcast math,
@@ -61,13 +104,17 @@ class _Bail(Exception):
     pass
 
 
+class GraphFault(RuntimeError):
+    """A capture or a replay of a folded loop's CUDA graph failed."""
+
+
 class _Marker:
     """Payload for scalar LazyNodes whose value is loop-iteration-dependent."""
 
     __slots__ = ("tag", "arg")
 
     def __init__(self, tag: str, arg: int = 0):
-        self.tag = tag      # "rng_lo" | "rng_hi" | "loopvar"
+        self.tag = tag      # "rng" (a draw's int64 counter) | "loopvar"
         self.arg = arg      # rng: block offset within one iteration
 
 
@@ -117,6 +164,8 @@ def try_device_loop(interp, frame, code, for_next_pc: int, iterable):
                     iterable)
         tr.run(instrs, code.consts, lo_pc, hi_pc)
         result = _build_and_run(eng, tr, T, state, h)
+    except GraphFault:
+        raise
     except Exception as e:
         # boundary: the interpreter runs the loop instead; the fold's
         # failure is counted and its reason kept
@@ -290,13 +339,11 @@ class _Trace:
         from ..ops import ctrng
         off = self.rng_blocks
         self.rng_blocks += ctrng.blocks_for(kind, n, mclass)
-        lo = LazyNode(self.eng, "scalar", [], (), (1, 1), np.dtype(np.uint32),
-                      value=_Marker("rng_lo", off))
-        hi = LazyNode(self.eng, "scalar", [], (), (1, 1), np.dtype(np.uint32),
-                      value=_Marker("rng_hi", off))
-        self.marker_nodes += [lo, hi]
+        ctr = LazyNode(self.eng, "scalar", [], (), (1, 1), np.dtype(np.int64),
+                       value=_Marker("rng", off))
+        self.marker_nodes.append(ctr)
         dt = self.eng.dtype_for(mclass)
-        node = self.eng._op("rng:" + kind, [lo, hi],
+        node = self.eng._op("rng:" + kind, [ctr],
                             (self.state.key, n, shape, mclass), shape, dt)
         return MatArray.from_device(node, mclass)
 
@@ -615,9 +662,10 @@ def _record_bail(eng, code, pc: int, e: Exception) -> None:
 
 def _program(eng, roots: list, carried_leaf: dict, markers: bool):
     """The DAG under `roots` as program entries in the engine's format, and
-    for each entry where its value comes from in each iteration: ("op",),
-    ("carry", slot), ("fixed", value) or a marker (loop variable, RNG
-    counter words) when `markers` allows them."""
+    for each entry where its value comes from in each iteration: ("op",
+    None), ("carry", slot), ("fixed", tensor) for a loop-invariant leaf,
+    ("const", (value, dtype)) for a host scalar, or a marker ("loopvar", 0),
+    ("rng", offset) when `markers` allows them."""
     order: list = []
     seen: set = set()
     for r in roots:
@@ -636,8 +684,8 @@ def _program(eng, roots: list, carried_leaf: dict, markers: bool):
                     raise _Bail()    # loopvar/rng markers: not in a while
                 sources.append((n.value.tag, n.value.arg))
             else:
-                sources.append(("fixed", eng._tensor(
-                    np.asarray(n.value, dtype=n.dtype), n.dtype)))
+                sources.append(("const", (
+                    np.asarray(n.value).astype(n.dtype).item(), n.dtype)))
         elif n.value is not None:
             program.append(("__leaf__", (), n.dtype, (), (), n.shape))
             if id(n) in carried_leaf:
@@ -695,40 +743,231 @@ def _bind(eng, names: list, finals: dict, carry: list) -> dict:
     return result
 
 
+def _key(kind: str, program: list, sources: list, roots: list,
+         *extra) -> tuple:
+    """A fold's graph-cache key: its program and where each entry's value
+    comes from, with the shapes and dtypes of its invariant leaves; not the
+    scalars' values, T or the counter (the JAX package's `key_parts`)."""
+    parts = []
+    for entry, (kind_i, p) in zip(program, sources):
+        if kind_i == "fixed":
+            p = (tuple(p.shape), str(p.dtype))
+        elif kind_i == "const":
+            p = str(p[1])
+        parts.append((entry, kind_i, p))
+    return (kind, tuple(parts), tuple(roots)) + extra
+
+
+@contextlib.contextmanager
+def _syncs_raise():
+    """Any call that waits for the card raises inside the block."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _waits(e: RuntimeError) -> bool:
+    return "synchronizing CUDA operation" in str(e)
+
+
+class _Step:
+    """One iteration of a folded loop with its sources in device memory: the
+    step index `t`; for each draw its counter base `c0 + offset`, to which
+    an iteration adds `t*BPI` (one kernel); the iterable `it` (or None);
+    the program's scalars, filled on the device once; its invariant leaves.
+    `run` enqueues one iteration and nothing in it waits for the card, so
+    it can be captured."""
+
+    def __init__(self, eng, program: list, sources: list, roots: list,
+                 bpi: int = 0, c0: int = 0, it=None):
+        self.eng, self.program, self.roots, self.bpi = eng, program, roots, bpi
+        self.kinds = [kind for kind, _ in sources]
+        self.t = torch.zeros((), dtype=torch.int64, device=eng.device)
+        self.it = it
+        self.slots = [self._slot(kind, p, c0) for kind, p in sources]
+
+    def _slot(self, kind: str, p, c0: int):
+        if kind == "const":
+            return self.eng._scalar(*p)
+        if kind == "rng":
+            return torch.full((), counter_value(c0 + p), dtype=torch.int64,
+                              device=self.eng.device)
+        return p
+
+    def values(self, carry: list) -> list:
+        out = []
+        for kind, s in zip(self.kinds, self.slots):
+            if kind == "carry":
+                out.append(carry[s])
+            elif kind == "loopvar":
+                out.append(self.it.index_select(0, self.t.reshape(1))
+                           .reshape(()))
+            elif kind == "rng":
+                out.append(torch.add(s, self.t, alpha=self.bpi))
+            else:
+                out.append(s)       # op: None; const and fixed: tensors
+        return out
+
+    def run(self, carry: list, advance: bool = True) -> list:
+        outs = self.eng.run_program(self.program, self.values(carry),
+                                    self.roots)
+        if advance:
+            self.t.add_(1)
+        return outs
+
+    def load(self, sources: list, c0: int, it) -> None:
+        """This fold's scalars, leaves, counter and iterable into the
+        buffers a captured graph reads; t back to 0."""
+        self.t.zero_()
+        if it is not None:
+            self.it[:it.numel()].copy_(it)
+        for slot, (kind, p) in zip(self.slots, sources):
+            if kind == "const":
+                slot.fill_(p[0])
+            elif kind == "rng":
+                slot.fill_(counter_value(c0 + p))
+            elif kind == "fixed" and not _same_storage(slot, p):
+                slot.copy_(p)
+
+
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+class _Graph:
+    """One `_Step` captured as a CUDA graph over carry buffers at fixed
+    addresses. The step's invariant leaves are cloned first, so a later
+    fold's `load` never writes into a workspace value. `copy_slots` are the
+    read-carried slots, copied into their buffers at the end of the graph;
+    any other output stays where the graph wrote it."""
+
+    def __init__(self, eng, step: _Step, carry: list, copy_slots: set):
+        self.eng, self.step = eng, step
+        self.copy_slots = copy_slots
+        step.slots = [s.clone() if kind == "fixed" else s
+                      for kind, s in zip(step.kinds, step.slots)]
+        self.bufs = [c.clone() if k in copy_slots else None
+                     for k, c in enumerate(carry)]
+        before = collections.Counter(threefry.captured)
+        self.graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(eng.device)
+        side = torch.cuda.Stream(device=eng.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                outs = step.run(self.bufs, advance=False)
+                # an output that is (a view of) a carry buffer is cloned
+                # before any buffer is written
+                owned = [b for b in self.bufs if b is not None]
+                outs = [o.clone() if any(_same_storage(o, b) for b in owned)
+                        else o for o in outs]
+                for k in sorted(copy_slots):
+                    self.bufs[k].copy_(outs[k])
+                step.t.add_(1)
+            except BaseException as e:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    pass            # the capture's first error is raised
+                raise GraphFault(f"capture of a folded loop failed: "
+                                 f"{type(e).__name__}: {e}") from e
+            self.graph.capture_end()
+        current.wait_stream(side)
+        self.outs = outs
+        self.draws = collections.Counter(threefry.captured) - before
+        eng.stats["graph_captures"] += 1
+
+    def fits(self, it) -> bool:
+        return it is None or self.step.it.numel() >= it.numel()
+
+    def load(self, sources: list, c0: int, it, carry: list) -> None:
+        self.step.load(sources, c0, it)
+        for k in self.copy_slots:
+            self.bufs[k].copy_(carry[k])
+
+    def replay(self, times: int) -> None:
+        try:
+            for _ in range(times):
+                self.graph.replay()
+        except RuntimeError as e:
+            raise GraphFault(f"replay of a folded loop failed: {e}") from e
+        self.eng.stats["graph_replays"] += times
+        threefry.replayed(self.draws, times)
+
+    def carry(self) -> list:
+        """The carry after the last replay."""
+        return [b if k in self.copy_slots else self.outs[k]
+                for k, b in enumerate(self.bufs)]
+
+    def results(self) -> list:
+        """The carry, out of the cache's buffers."""
+        return [c.clone() for c in self.carry()]
+
+
+def _decline(eng, e: RuntimeError) -> str:
+    eng.stats["graph_declines"] += 1
+    return f"declined: {e}"[:160]
+
+
+def _run_for(eng, key: tuple, make_step, sources: list, carry: list,
+             T: int, c0: int, it, copy_slots: set) -> tuple:
+    """T iterations; returns (final carry, how, graph replays)."""
+    if eng.device.type != "cuda":
+        step = make_step()
+        for _ in range(T):
+            carry = step.run(carry)
+        return carry, "eager", 0
+    graph = eng._jit_cache.get(key)
+    if graph is not None and graph.fits(it):
+        graph.load(sources, c0, it, carry)
+        graph.replay(T)
+        return graph.results(), "cached", T
+    step = make_step()
+    try:
+        with _syncs_raise():
+            first = step.run(carry)
+    except RuntimeError as e:
+        if not _waits(e):
+            raise
+        how = _decline(eng, e)
+        step.t.zero_()
+        for _ in range(T):
+            carry = step.run(carry)
+        return carry, how, 0
+    graph = _Graph(eng, step, first, copy_slots)
+    eng._jit_cache[key] = graph
+    graph.replay(T - 1)
+    return graph.results(), "captured", T - 1
+
+
 def _build_and_run(eng, tr: _Trace, T: int, state,
                    iter_host: np.ndarray) -> dict:
     names, finals = _finals(tr)
     carried_leaf, carry = _carry(tr, names, finals)
     program, sources, roots = _program(
         eng, [finals[name].dev for name in names], carried_leaf, True)
-
-    it = iter_host.reshape(-1).astype(
-        np.float64 if tr.iterable.mclass == "double" else np.float32)
-    c0 = state.counter
     bpi = tr.rng_blocks
-    mask = 0xFFFFFFFF
+    it = None
+    if any(kind == "loopvar" for kind, _ in sources):
+        it = eng.to_device(iter_host.reshape(-1).astype(
+            np.float64 if tr.iterable.mclass == "double" else np.float32))
+    key = _key("device_loop", program, sources, roots, bpi, it is not None)
     t0 = time.perf_counter()
-    for t in range(T):
-        base = c0 + t * bpi
-        values = []
-        for kind, payload in sources:
-            if kind == "carry":
-                values.append(carry[payload])
-            elif kind == "rng_lo":
-                values.append(np.uint32((base + payload) & mask))
-            elif kind == "rng_hi":
-                values.append(np.uint32(((base + payload) >> 32) & mask))
-            elif kind == "loopvar":
-                values.append(it[t])
-            else:
-                values.append(payload)
-        carry = eng.run_program(program, values, roots)
+    carry, how, replays = _run_for(
+        eng, key,
+        lambda: _Step(eng, program, sources, roots, bpi, state.counter, it),
+        sources, carry, T, state.counter, it, set(carried_leaf.values()))
     eng.stats["dispatches"] += 1
     eng.dispatch_seq += 1
     eng.record_launch("device_loop",
                       [p[0] for p, s in zip(program, sources) if s[0] == "op"],
                       (time.perf_counter() - t0) * 1e3,
                       sum(int(c.nbytes) for c in carry))
+    eng.launch_log[-1].update(iterations=T, graph=how, replays=replays)
     return _bind(eng, names, finals, carry)
 
 
@@ -792,6 +1031,8 @@ def try_device_while(interp, frame, code, marker_pc: int, jf_pc: int,
         if tr.rng_blocks:
             raise _Bail()
         result = _build_and_run_while(eng, tr, cond_v)
+    except GraphFault:
+        raise
     except Exception as e:
         # boundary: the interpreter runs the loop instead, on record
         _record_bail(eng, code, marker_pc, e)
@@ -813,18 +1054,46 @@ def _build_and_run_while(eng, tr: _Trace, cond_v: MatArray) -> dict:
                                                  carried_leaf, False)
     body_prog, body_src, roots = _program(
         eng, [finals[name].dev for name in names], carried_leaf, False)
-
-    def values(sources):
-        return [carry[p] if kind == "carry" else p for kind, p in sources]
+    cond = _Step(eng, cond_prog, cond_src, [cond_root])
+    on_card = eng.device.type == "cuda"
+    key = _key("device_while", body_prog, body_src, roots)
+    graph = eng._jit_cache.get(key) if on_card else None
+    how = "eager"
+    if graph is not None:
+        graph.load(body_src, 0, None, carry)
+        carry = graph.carry()
+        how = "cached"
+    else:
+        body = _Step(eng, body_prog, body_src, roots)
 
     t0 = time.perf_counter()
-    trips = 0
+    trips = replays = 0
     while True:
-        (c,) = eng.run_program(cond_prog, values(cond_src), [cond_root])
+        (c,) = cond.run(carry, advance=False)
         if not eng.read_scalar(c.reshape(()).to(torch.bool)):
             break
-        carry = eng.run_program(body_prog, values(body_src), roots)
+        if graph is None and on_card and trips == 1 and how == "eager":
+            graph = _Graph(eng, body, carry, set(range(len(carry))))
+            eng._jit_cache[key] = graph
+            how = "captured"
+        if graph is not None:
+            graph.replay(1)
+            replays += 1
+            carry = graph.carry()
+        elif on_card and trips == 0:
+            try:
+                with _syncs_raise():
+                    carry = body.run(carry, advance=False)
+            except RuntimeError as e:
+                if not _waits(e):
+                    raise
+                how = _decline(eng, e)
+                carry = body.run(carry, advance=False)
+        else:
+            carry = body.run(carry, advance=False)
         trips += 1
+    if graph is not None:
+        carry = graph.results()
     eng.stats["dispatches"] += 1
     eng.dispatch_seq += 1
     eng.record_launch("device_while",
@@ -832,5 +1101,5 @@ def _build_and_run_while(eng, tr: _Trace, cond_v: MatArray) -> dict:
                        if s[0] == "op"],
                       (time.perf_counter() - t0) * 1e3,
                       sum(int(c.nbytes) for c in carry))
-    eng.launch_log[-1]["iterations"] = trips
+    eng.launch_log[-1].update(iterations=trips, graph=how, replays=replays)
     return _bind(eng, names, finals, carry)

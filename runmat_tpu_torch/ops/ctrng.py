@@ -27,8 +27,13 @@ _PARITY = 0x1BD11BDA
 _MASK = 0xFFFFFFFF
 
 
-def split_counter(counter) -> tuple[int, int]:
-    """64-bit block index (int) or (lo, hi) u32 pair -> (lo, hi) ints."""
+def split_counter(counter):
+    """64-bit block index (an int, or a 0-d int64 tensor) or (lo, hi) u32
+    pair -> (lo, hi): ints, or int64 tensors on the counter's device (an
+    int64 holds the index's 64 bits, so `& _MASK` and `>> 32` give its
+    words whatever its sign)."""
+    if isinstance(counter, torch.Tensor):
+        return counter & _MASK, (counter >> 32) & _MASK
     if isinstance(counter, tuple):
         return int(counter[0]) & _MASK, int(counter[1]) & _MASK
     return int(counter) & _MASK, (int(counter) >> 32) & _MASK
@@ -52,7 +57,8 @@ def threefry2x32(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor,
 
 def raw_words(key: tuple, counter, n_blocks: int, device):
     """n_blocks counter blocks from `counter` (64-bit carry from lo into
-    hi) -> (w0, w1), int64 tensors of u32 values."""
+    hi) -> (w0, w1), int64 tensors of u32 values. A tensor counter stays
+    on its device: nothing is read back."""
     lo, hi = split_counter(counter)
     i = torch.arange(n_blocks, dtype=torch.int64, device=device)
     idx = lo + i
@@ -92,8 +98,11 @@ def normal(key, counter, n: int, dtype: torch.dtype, device) -> torch.Tensor:
         u1 = 1.0 - u[:m]
         u2 = u[m:]
     r = torch.sqrt(-2.0 * torch.log(u1))
-    # 2*pi rounded to the working type first, as the reference does
-    th = torch.tensor(2.0 * math.pi, dtype=dtype) * u2
+    # 2*pi rounded to the working type first, as the reference does (a
+    # Python float is cast to u2's type before the product)
+    two_pi = float(np.float32(2.0 * math.pi)) if dtype == torch.float32 \
+        else 2.0 * math.pi
+    th = u2 * two_pi
     return torch.cat([r * torch.cos(th), r * torch.sin(th)])[:n]
 
 

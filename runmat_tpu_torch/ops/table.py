@@ -319,7 +319,7 @@ def saturate_cast(r: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     if info.bits == 64:
         # f64 cannot hold the 64-bit limits exactly; repair the ends
         out = torch.where(rr >= float(info.max),
-                          torch.tensor(info.max, dtype=dt, device=r.device), out)
+                          torch.full_like(out, info.max), out)
         out = torch.where(rr <= float(info.min),
-                          torch.tensor(info.min, dtype=dt, device=r.device), out)
+                          torch.full_like(out, info.min), out)
     return out

@@ -2,9 +2,17 @@
 
 `rng_draw` is the single device RNG of the port. A CPU device takes the plain
 PyTorch stream (`ops/ctrng.py`); a CUDA device launches the hand-written
-kernel or raises. `launches` counts kernel launches and nothing else, so a
+kernel or raises. The counter is a host int (the kernel gets it as launch
+arguments) or a 0-d int64 tensor on the draw's device (the kernel reads it
+from device memory when it runs, `runmat_threefry_draw_at`; the plain
+stream does tensor arithmetic on it), which is what a captured CUDA graph
+needs. `launches` counts the draws the card executes and nothing else, so a
 run can show that its draws went through the kernel; `launches_by` splits
-the count by draw ("rand float32", "randn float64", ...).
+the count by draw ("rand float32", "randn float64", ...), with
+DEVICE_COUNTER appended for the entry that reads its counter from device
+memory ("randn float32 (device counter)"). A draw made while
+the stream is being captured runs only when its graph replays: it is
+counted in `captured`, and `replayed` adds a graph's draws once per replay.
 `device_transform` runs the normal kernels' Box-Muller transform alone over
 given words, so a check can hold it to its numpy model (`ops/boxmuller.py`);
 it is not a draw and is not counted.
@@ -23,10 +31,13 @@ from ._build import library
 
 launches = 0
 launches_by: collections.Counter = collections.Counter()
+captured: collections.Counter = collections.Counter()
+DEVICE_COUNTER = " (device counter)"
 
 _MODES = {("rand", torch.float32): 0, ("rand", torch.float64): 1,
           ("randn", torch.float32): 2, ("randn", torch.float64): 3}
 _entry = None
+_entry_at = None
 _transform_entry = None
 
 
@@ -40,6 +51,18 @@ def _kernel():
         fn.restype = ctypes.c_int
         _entry = fn
     return _entry
+
+
+def _kernel_at():
+    global _entry_at
+    if _entry_at is None:
+        fn = library().runmat_threefry_draw_at
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
+                       ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _entry_at = fn
+    return _entry_at
 
 
 def _transform_kernel():
@@ -69,11 +92,18 @@ def rng_draw(kind: str, key: tuple, counter, n: int, dtype: torch.dtype,
              device) -> torch.Tensor:
     """n values of `kind` ('rand' | 'randn') from the Threefry stream
     (key, counter) as a flat tensor of `dtype` (f32 | f64) on `device`.
-    counter: 64-bit block index or a (lo, hi) pair of u32 values."""
+    counter: 64-bit block index (an int, or a 0-d int64 tensor on `device`)
+    or a (lo, hi) pair of u32 values."""
     global launches
     if (kind, dtype) not in _MODES:
         raise ValueError(f"rng_draw: unsupported draw {kind!r} of {dtype}")
     device = torch.device(device)
+    on_card = isinstance(counter, torch.Tensor)
+    if on_card and (counter.dtype != torch.int64 or counter.dim() != 0
+                    or counter.device.type != device.type):
+        raise ValueError(f"rng_draw: a tensor counter is one int64 on the "
+                         f"draw's device, got {counter.dtype} "
+                         f"{tuple(counter.shape)} on {counter.device}")
     if device.type == "cpu":
         return plain_draw(kind, key, counter, n, dtype, device)
     if device.type != "cuda":
@@ -81,17 +111,35 @@ def rng_draw(kind: str, key: tuple, counter, n: int, dtype: torch.dtype,
     out = torch.empty(n, dtype=dtype, device=device)
     if n == 0:
         return out
-    lo, hi = ctrng.split_counter(counter)
     index = _device_index(device)
-    rc = _kernel()(_MODES[(kind, dtype)], out.data_ptr(),
-                   int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF,
-                   lo, hi, n, torch.cuda.current_stream(index).cuda_stream,
-                   index)
+    stream = torch.cuda.current_stream(index).cuda_stream
+    k0, k1 = int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF
+    mode = _MODES[(kind, dtype)]
+    if on_card:
+        rc = _kernel_at()(mode, out.data_ptr(), k0, k1, counter.data_ptr(), n,
+                          stream, index)
+    else:
+        lo, hi = ctrng.split_counter(counter)
+        rc = _kernel()(mode, out.data_ptr(), k0, k1, lo, hi, n, stream,
+                       index)
     if rc != 0:
         raise RuntimeError(f"threefry kernel launch failed: CUDA error {rc}")
-    launches += 1
-    launches_by[f"{kind} {str(dtype).split('.')[-1]}"] += 1
+    label = f"{kind} {str(dtype).split('.')[-1]}" + \
+        (DEVICE_COUNTER if on_card else "")
+    if torch.cuda.is_current_stream_capturing():
+        captured[label] += 1
+    else:
+        launches += 1
+        launches_by[label] += 1
     return out
+
+
+def replayed(draws: collections.Counter, times: int) -> None:
+    """A captured graph holding `draws` ran `times` times."""
+    global launches
+    for label, k in draws.items():
+        launches += k * times
+        launches_by[label] += k * times
 
 
 def device_transform(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

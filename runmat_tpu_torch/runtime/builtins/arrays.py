@@ -521,6 +521,11 @@ def m_accumarray(subs, vals, sz=None, fn=None):
     if sh.ndim == 2 and sh.shape[1] == 1:
         idx = sh.reshape(-1) - 1
         n = int(sz.host().reshape(-1)[0]) if sz is not None else (int(idx.max()) + 1 if idx.size else 0)
+        if idx.size:
+            # MATLAB's errors, on this path as on the device's (np.add.at
+            # would wrap 0 onto the last element); the port's repair
+            from ...accel.dense import _check_subs
+            _check_subs(int(idx.min()), int(idx.max()), n)
         v = vals.host().astype(np.float64).reshape(-1)
         out = np.zeros(n, dtype=np.float64)
         np.add.at(out, idx, v if v.size > 1 else np.full(idx.shape, v[0] if v.size else 0.0))

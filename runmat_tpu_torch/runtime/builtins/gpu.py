@@ -348,10 +348,11 @@ def m_gputimeit(f, ctx=None):
 
 @builtin("reset", category="acceleration", min_in=1, max_in=1)
 def m_reset(dev):
-    """reset(gpuDevice): drop cached executables (device arrays are
-    immutable jax values; there is no mutable device state to clear)."""
+    """reset(gpuDevice): drop the engine's captured loop graphs and their
+    memory pools (device arrays are immutable values; there is no other
+    mutable device state to clear)."""
     from ...accel import active_engine
     eng = active_engine()
     if eng is not None:
-        eng._jit_cache.clear()
+        eng.release()
     return None

@@ -183,14 +183,20 @@ def warp_cycles(m: dict, n: int, itemsize: int) -> float:
     return n * itemsize / m["store_bytes"] / 32 * m["loop_cycles"]
 
 
-def find(mixes: dict, name: str, even: bool | None = None) -> tuple:
+def find(mixes: dict, name: str, even: bool | None = None,
+         device_counter: bool = False) -> tuple:
     """(mangled name, mix) of the kernel whose name holds `name`; where
     its template has an even/odd variant (`<bool kEvenM>`), the one for
-    `even`."""
+    `even`; where it has a counter-source variant (`<int kFrom>`), the one
+    that reads its counter from device memory or not."""
     found = [(k, m) for k, m in mixes.items() if name in k]
-    if len(found) > 1 and even is not None:
+    if len(found) > 1 and even is not None and \
+            any("ILb" in k for k, _ in found):
         found = [(k, m) for k, m in found
                  if ("ILb1E" if even else "ILb0E") in k]
+    if len(found) > 1:
+        found = [(k, m) for k, m in found
+                 if f"Li{int(device_counter)}E" in k]
     if len(found) != 1:
         raise LookupError(f"sass: {len(found)} kernels match {name!r}")
     return found[0]

@@ -516,3 +516,153 @@ def test_index_sets_on_card_matches_host(card):
     st = eng.stats
     assert st["host_fallbacks"] == 0 and st["loop_folds"] == 1
     assert st["while_folds"] == 1
+
+
+# ------------------------------------------- the folded loop as a CUDA graph
+
+@pytest.mark.parametrize("ctr", [0, 12345, (0xFFFFFFFD, 7), (1 << 63) + 5])
+@pytest.mark.parametrize("n", [1, 4, 5, 1023, 10 ** 6, 10 ** 6 + 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["rand", "randn"])
+def test_device_counter_entry_equals_launch_arguments(card, kind, dtype, n,
+                                                      ctr):
+    from runmat_tpu_torch.accel.engine import counter_value
+    from runmat_tpu_torch.ops import threefry
+    c = ctr if isinstance(ctr, int) else ctr[0] | (ctr[1] << 32)
+    t = torch.full((), counter_value(c), dtype=torch.int64, device=card)
+    got = threefry.rng_draw(kind, KEY, t, n, dtype, card)
+    want = threefry.rng_draw(kind, KEY, c, n, dtype, card)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+LOOP = ("rng(0); X = gpuArray(zeros(4096, 1, 'single'));\n"
+        "for t = 1:24\n  U = rand(4096, 1, 'single');\n  X = X + U * t;\nend\n")
+
+
+def _fold_on(device, runs=1):
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.ops import threefry
+    prev = accel.active_engine()
+    try:
+        s = runmat_tpu_torch.session(device, auto_offload=True,
+                                     offload_threshold=1)
+        eng = accel.active_engine()
+        before = threefry.launches
+        outs = []
+        for _ in range(runs):
+            r = s.execute(LOOP)
+            assert r.error is None, r.error
+            outs.append((s.get("X").host().copy(), s.get("U").host().copy()))
+        launches = threefry.launches - before
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+    return outs, eng, launches
+
+
+def test_captured_fold_equals_eager_fold(card):
+    (got,), eng, launches = _fold_on("cuda")
+    (want,), cpu, _ = _fold_on("cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    st = eng.stats
+    assert st["loop_folds"] == 1 and st["graph_declines"] == 0
+    assert st["graph_captures"] == 1 and st["graph_replays"] == 23
+    assert launches == 24 and cpu.stats["graph_captures"] == 0
+    (e,) = [e for e in eng.launch_log if e["cat"] == "device_loop"]
+    assert e["graph"] == "captured" and e["replays"] == 23
+
+
+def test_three_warm_runs_make_one_capture(card):
+    outs, eng, launches = _fold_on("cuda", runs=4)
+    for x, u in outs[1:]:
+        assert np.array_equal(x, outs[0][0]) and np.array_equal(u, outs[0][1])
+    st = eng.stats
+    assert st["graph_captures"] == 1 and st["graph_declines"] == 0
+    assert st["graph_replays"] == 23 + 3 * 24 and launches == 4 * 24
+    graphs = [e["graph"] for e in eng.launch_log if e["cat"] == "device_loop"]
+    assert graphs == ["captured", "cached", "cached", "cached"]
+
+
+def test_a_body_that_waits_for_the_card_declines_the_capture(card,
+                                                             monkeypatch):
+    """A body op that reads the device back declines the capture before it
+    starts: counted, with its reason, and the loop runs as a host loop of
+    the same step, with the same values."""
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    real = TorchEngine._exec
+
+    def waits(self, op, *args, **kw):
+        out = real(self, op, *args, **kw)
+        if op == "b:add":
+            out.sum().item()
+        return out
+
+    monkeypatch.setattr(TorchEngine, "_exec", waits)
+    (got,), eng, launches = _fold_on("cuda")
+    monkeypatch.undo()
+    (want,), _, _ = _fold_on("cpu")
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    st = eng.stats
+    assert st["graph_declines"] == 1 and st["graph_captures"] == 0
+    (e,) = [e for e in eng.launch_log if e["cat"] == "device_loop"]
+    assert e["graph"].startswith("declined") and "synchroniz" in e["graph"]
+    assert launches == 25         # iteration 0 ran twice, then 23 more
+
+
+def test_while_body_is_captured(card):
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.session import Session
+    src = ("x = gpuArray(single(linspace(1, 2, 1000)'));"
+           " e = gpuArray(single(1)); k = 0;\nwhile e > 1e-5\n  x = 0.5 * (x + 2 ./ x);\n"
+           "  e = max(abs(x .* x - 2));\n  k = k + 1;\nend\nr = gather(x);")
+    prev = accel.active_engine()
+    try:
+        s = runmat_tpu_torch.session("cuda")
+        eng = accel.active_engine()
+        for _ in range(2):
+            r = s.execute(src)
+            assert r.error is None, r.error
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+    host = Session(accelerate=False)
+    host.execute(src.replace("gpuArray", ""))
+    assert np.array_equal(s.get("r").host(), host.get("r").host())
+    trips = int(s.get("k").host().item())
+    assert trips >= 3
+    st = eng.stats
+    assert st["while_folds"] == 2 and st["graph_captures"] == 1
+    assert st["graph_replays"] == (trips - 1) + trips
+    # the condition is still read once per iteration and once at the end
+    assert st["syncs"] == 2 * (trips + 1)
+
+
+@pytest.mark.parametrize("policy,limit", [("highest", 1e-5),
+                                          ("high", 5e-3), ("bf16", 5e-2)])
+def test_matmul_policy_on_card(card, policy, limit):
+    """"highest" is FP32 (a float64 product of the same operands within
+    FP32 accuracy); "high" (TF32) and "bf16" are coarser; no TF32 switch
+    is left changed after the op."""
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    from runmat_tpu_torch.values import MatArray
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((512, 1024)).astype(np.float32)
+    b = rng.standard_normal((1024, 256)).astype(np.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    eng = TorchEngine("cuda", matmul_precision=policy)
+    node = eng.matmul(eng.upload(MatArray(a, "single")),
+                      eng.upload(MatArray(b, "single")), "single").dev
+    got = eng.materialize(node).cpu().numpy().astype(np.float64)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= limit
+    if policy == "highest":
+        assert err <= 1e-5
+    else:
+        assert err > 1e-5
+    assert torch.backends.cuda.matmul.allow_tf32 == tf32

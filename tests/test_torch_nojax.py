@@ -1,10 +1,11 @@
 """The port runs where neither jax nor the JAX package can be imported: a
 subprocess with `jax` and `runmat_tpu` blocked in `sys.modules` imports
-runmat_tpu_torch and runs the three workloads and the statistics and indexing scripts
-(`runmat_tpu_torch/workloads/{histogram_stats,index_sets}.m`) at small size on
-TorchEngine(device="cpu"), and a host session without an engine; the
-profiling and benchmark tools import there too. No module of the JAX
-package is loaded at the end."""
+runmat_tpu_torch and runs the three workloads and the statistics and
+indexing scripts (`runmat_tpu_torch/workloads/{histogram_stats,
+index_sets}.m`) at small size on TorchEngine(device="cpu"), and a host
+session without an engine; the profiling, sync-counting, timing and
+benchmark tools import there too. No module of the JAX package is loaded
+at the end."""
 
 import os
 import subprocess
@@ -23,6 +24,8 @@ import runmat_tpu_torch.ops.boxmuller
 import runmat_tpu_torch.profile
 import runmat_tpu_torch.rngbench
 import runmat_tpu_torch.sass
+import runmat_tpu_torch.syncs
+import runmat_tpu_torch.walls
 from runmat_tpu_torch import accel
 from runmat_tpu_torch.session import Session
 

@@ -4,7 +4,8 @@
 `Session(accelerate=True)` on `JaxEngine("cpu")` and in the port's session
 on `TorchEngine("cpu")`, both taking every array (`auto_offload=True,
 offload_threshold=1`), and keeps each engine's counters from just before
-`src` to just after it. `same(both, names)` holds each named workspace
+`src` to just after it; `prepare(session)`, where given, runs on each
+session between the two (to set its RNG counter, say). `same(both, names)` holds each named workspace
 value of the port to the JAX package's: class, residency, shape, dtype and
 values, exactly unless a tolerance is given.
 """
@@ -34,7 +35,7 @@ def _delta(before: dict, after: dict) -> dict:
             if isinstance(after[k], int)}
 
 
-def run_both(setup: str, src: str = "") -> Both:
+def run_both(setup: str, src: str = "", prepare=None) -> Both:
     jprev, tprev = jaccel.active_engine(), taccel.active_engine()
     try:
         jeng = JaxEngine(platform="cpu", **OFFLOAD)
@@ -46,6 +47,8 @@ def run_both(setup: str, src: str = "") -> Both:
         for s, eng in ((js, jeng), (ts, teng)):
             r = s.execute(setup)
             assert r.error is None, r.error
+            if prepare is not None:
+                prepare(s)
             before = dict(eng.stats)
             r = s.execute(src) if src else r
             out += [r, _delta(before, eng.stats)]
