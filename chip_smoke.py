@@ -26,7 +26,16 @@ line is printed:
      Threefry entry that reads its counter from device memory (the one a
      captured loop replays) against the launch-argument entry, bit for
      bit, in its four modes at COUNTERS and the main path's draw sizes,
-     and both timed at monte_carlo's draw (normal f32, 10^6);
+     and both timed at monte_carlo's draw (normal f32, 10^6); the
+     generated Triton kernels (runmat_tpu_torch/ops/fused.py) against
+     their plain versions (runmat_tpu_torch/fusebench.py: every op of the
+     table in float32 and float64 over NaN, +-Inf, +-0, subnormals and the
+     pow identities, broadcast and strided inputs, linspace and casts, a
+     chain at sizes 1 to 10^7, sum and mean over 'all' and over 1, 16 and
+     4096 segments, with the tolerances fusebench states), then every
+     group the three benchmark scripts launch at their default sizes,
+     timed against its plain version, its bound and, where one PyTorch
+     call computes it, that call;
   4. main path: benchmarks/{elementwise_math,monte_carlo,image_normalize}.m
      at their default sizes through runmat_tpu_torch.session("cuda"),
      against the port's host engine (Session(accelerate=False)) for CHECK,
@@ -35,7 +44,10 @@ line is printed:
      the loop fold and the warm wall times. monte_carlo's fold runs as a
      captured CUDA graph: no decline, at least 255 replays and 256 normal
      draws a run, at most one capture over the four runs of its timed
-     session. Each script's stream syncs under torch's sync debug mode
+     session, its step's elementwise chain one generated kernel inside the
+     graph. elementwise_math and image_normalize run no b:/u:/r:/c: op
+     eagerly (every one is inside a generated kernel). Each script's stream
+     syncs under torch's sync debug mode
      equal what the engine counts (runmat_tpu_torch/syncs.py), here and in
      phases 5 and 6;
   5. statistics path: runmat_tpu_torch/workloads/histogram_stats.m at its
@@ -55,7 +67,8 @@ line is printed:
   7. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Each kernel's `launches` is read from the runs of phases 4 to 6, with the
-counts set to 0 just before each run. `bound_ms` is the larger of the bytes
+counts set to 0 just before each run (a generated map-reduce counts once
+for its pair of launches). `bound_ms` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over the card's rate
 for them (runmat_tpu_torch/sass.py: for Threefry, the warp cycles of the
 kernel's own loop read from its machine code, which holds no call and no
@@ -199,8 +212,8 @@ def phase_kernel() -> list:
     for r in rows:
         check(r["ok"], f"{r['kind']} {r['dtype']} n={r['n']}: differs from "
               f"plain by {r['max_abs_err']:g}")
-        philox = f", torch.randn (Philox, another stream) " \
-            f"{r['philox_ms']:.4f} ms" if "philox_ms" in r else ""
+        philox = f", torch.{r['kind']} (Philox, another stream) " \
+            f"{r['philox_ms']:.4f} ms"
         print(f"time {r['kind']} {r['dtype']} n={r['n']}: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
@@ -483,16 +496,63 @@ def _sync_check(src: str, label: str) -> None:
 
 
 def _zero_launches() -> None:
-    from runmat_tpu_torch.ops import histogram, threefry
-    for mod in (histogram, threefry):
+    from runmat_tpu_torch.ops import fused, histogram, threefry
+    for mod in (histogram, threefry, fused):
         mod.launches = 0
         mod.launches_by.clear()
 
 
 def _read_launches() -> dict:
-    from runmat_tpu_torch.ops import histogram, threefry
+    from runmat_tpu_torch.ops import fused, histogram, threefry
     return {"threefry": dict(threefry.launches_by),
-            "histogram": dict(histogram.launches_by)}
+            "histogram": dict(histogram.launches_by),
+            "fused": dict(fused.launches_by)}
+
+
+def _group(name: str) -> str:
+    """The launch counter a kernel row reads."""
+    return "threefry" if name.startswith("threefry") else \
+        "histogram" if name.startswith("histcounts") else "fused"
+
+
+def phase_fused_kernel() -> list:
+    """The generated kernels against their plain versions, then the
+    groups of the main path timed (runmat_tpu_torch/fusebench.py)."""
+    from runmat_tpu_torch import fusebench
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    eng = TorchEngine("cuda")
+    for name, build in fusebench.table_cases():
+        try:
+            r = fusebench.check(eng, name, build)
+        except AssertionError as e:
+            raise SmokeFailure(f"generated kernel: {e}") from e
+        print(f"kernel fused {name}: {r['groups']} kernel(s) equal plain, "
+              f"max_abs_err={r['max_abs_err']:g}")
+    try:
+        rows = fusebench.measure(eng, fusebench.record(), TIMING_REPS)
+    except AssertionError as e:
+        raise SmokeFailure(f"generated kernel on the main path: {e}") from e
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"time {r['label']} ({r['script']}, {'x'.join(map(str, r['shape']))}"
+              f", {len(r['ops'])} ops, {r['outputs']} outputs): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['bytes']} bytes), share of bound {r['share']:.2f}; "
+              f"{' '.join(r['ops'])}")
+    out = []
+    for label, r in sorted(fusebench.main_path_rows(rows).items()):
+        out.append({
+            "name": label, "route": "triton",
+            "source": "runmat_tpu_torch/ops/fused.py",
+            # no Pallas twin: XLA generated these from the jax.jit call
+            "replaces": "runmat_tpu/accel/engine.py:1201",
+            "launches": 0, "launch_key": label,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return out
 
 
 def phase_main_path() -> dict:
@@ -500,6 +560,7 @@ def phase_main_path() -> dict:
 
     import runmat_tpu_torch
     from runmat_tpu_torch import accel
+    from runmat_tpu_torch.accel import loops
     from runmat_tpu_torch.values import MatArray
 
     sources = {w: open(f"benchmarks/{w}.m").read() for w in WORKLOADS}
@@ -526,16 +587,20 @@ def phase_main_path() -> dict:
     for w in WORKLOADS:
         s = runmat_tpu_torch.session("cuda")
         eng = accel.active_engine()
-        before = dict(_read_launches()["threefry"])
+        before = _read_launches()
         r = s.execute(sources[w])
         torch.cuda.synchronize()
-        after = _read_launches()["threefry"]
-        runs[w] = (s, eng, r, {k: v - before.get(k, 0)
-                               for k, v in after.items()})
+        after = _read_launches()
+        graphs = [g for g in eng._jit_cache.values()
+                  if isinstance(g, loops._Graph)]
+        runs[w] = (s, eng, r, *({k: v - before[group].get(k, 0)
+                                 for k, v in after[group].items()}
+                                for group in ("threefry", "fused")),
+                   [dict(g.kernels) for g in graphs])
         runmat_tpu_torch.uninstall()
     launches = _read_launches()
 
-    for w, (s, eng, r, draws) in runs.items():
+    for w, (s, eng, r, draws, kernels, graphs) in runs.items():
         check(r.error is None, f"{w}: {r.error}")
         label, var = RESULT_KEY[w]
         printed = _result_value(r.output, label)
@@ -563,12 +628,24 @@ def phase_main_path() -> dict:
               f"{w}: {st['host_fallbacks']} host fallbacks")
         if w == "monte_carlo":
             _check_mc_fold(st, draws, st["graph_captures"])
+            check(graphs == [{"fused_map_f32": 1}] and
+                  kernels.get("fused_map_f32", 0) >= MC_STEPS,
+                  f"monte_carlo: the step's chain is not one generated "
+                  f"kernel in the graph: graphs {graphs}, launches {kernels}")
+        else:
+            eager = [op for op in eng.eager_by_op
+                     if op.startswith(("b:", "u:", "r:", "c:"))]
+            check(not eager and kernels,
+                  f"{w}: eager elementwise ops {dict(eng.eager_by_op)}, "
+                  f"generated launches {kernels}")
         if w == "image_normalize":
             check(draws.get("rand float32", 0) >= 1,
                   f"image_normalize: {draws} launches")
         print(f"port {w}: {r.output.strip()} (reference {ref_value!r}, rel err "
               f"{abs(value - ref_value) / abs(ref_value):.3g}); threefry "
-              f"launches {draws}; cuda arrays {arrays}; stats "
+              f"launches {draws}; generated kernels {kernels} (in graphs "
+              f"{graphs}); eager ops {dict(eng.eager_by_op)}; cuda arrays "
+              f"{arrays}; stats "
               f"{json.dumps({k: v for k, v in st.items() if v})}")
     runs.clear()
 
@@ -910,14 +987,14 @@ def main() -> int:
     try:
         phase(phase_device)
         phase(phase_build)
-        kernels = phase(phase_kernel) + phase(phase_histogram_kernel)
+        kernels = phase(phase_kernel) + phase(phase_histogram_kernel) + \
+            phase(phase_fused_kernel)
         paths = [phase(phase_main_path), phase(phase_statistics_path),
                  phase(phase_indexing_path)]
         for k in kernels:
-            group = "threefry" if k["name"].startswith("threefry") \
-                else "histogram"
             key = k.pop("launch_key")
-            k["launches"] = sum(p[group].get(key, 0) for p in paths)
+            k["launches"] = sum(p[_group(k["name"])].get(key, 0)
+                                for p in paths)
             check(k["launches"] > 0, f"{k['name']}: no launch on the paths")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -9,9 +9,19 @@ torch tensors on an explicit `torch.device`:
   * every call adds a node to the lazy DAG of `accel/lazy.py`, as under
     `JaxEngine`;
   * `materialize` turns the DAG into the same program tuples
-    (`_build_program`) and runs them eagerly, op by op, freeing each
-    intermediate after its last use. Nothing in a program waits for the
-    card: a scalar parameter becomes a 0-d tensor filled on the device once
+    (`_build_program`) and runs them through a fusion plan (`accel/fuse.py`),
+    cached in `_jit_cache` under the JAX package's key (the DAG's
+    `structure_key` and its output positions) and counted in
+    `stats["compiles"]`/`["cache_hits"]` as JaxEngine counts its `jax.jit`
+    executables: each group of elementwise ops, optionally ending in a
+    `sum`/`mean` and its epilogue, runs as one generated Triton kernel on a
+    card (`ops/fused.py`; its plain version, the same entries through
+    `_exec`, on the CPU), every other op eagerly through `_exec`
+    (`stats["eager_ops"]`, `eager_by_op`), each intermediate freed after
+    its last use. A materialize's launch-log entry names its generated
+    kernels (`kernels`) and its eager ops with their reasons (`eager`);
+    `fusion_snapshot` lists the cached plans. Nothing in a program waits for
+    the card: a scalar parameter becomes a 0-d tensor filled on the device once
     per program (`_scalar`, a fill kernel with the value as its launch
     argument), an upload is an asynchronous copy from pinned memory, and no
     op reads a device value back inside torch (`index_fill_` and indexing
@@ -75,7 +85,8 @@ from ..unported import not_ported
 from ..values import MatArray, normalize_shape
 from ..vm.indexing import ColonMark
 from .dense import DenseOps
-from .lazy import DEFAULT_FUSE_CAP, LazyNode, topo_order
+from . import fuse
+from .lazy import DEFAULT_FUSE_CAP, LazyNode, structure_key, topo_order
 from .residency import ResidencyPool
 
 _REDUCE_OPS = {"sum", "mean", "min", "max", "any", "all", "prod",
@@ -259,15 +270,19 @@ class TorchEngine:
         self.supports_complex = False
         self.fuse_cap = int(os.environ.get("RUNMAT_TPU_FUSE_CAP",
                                            str(DEFAULT_FUSE_CAP)))
-        # the captured CUDA graphs of folded loops (accel/loops.py), by
-        # program structure; reset(gpuDevice) and `release` clear it
+        # fusion plans by DAG structure (`materialize`) and folded loops by
+        # program structure (accel/loops.py: their captured CUDA graphs);
+        # reset(gpuDevice) and `release` clear it
         self._jit_cache: dict = {}
         self.stats = {"dispatches": 0, "compiles": 0, "cache_hits": 0,
                       "uploads": 0, "gathers": 0, "upload_bytes": 0,
                       "gather_bytes": 0, "host_fallbacks": 0,
                       "loop_folds": 0, "loop_bails": 0, "while_folds": 0,
                       "syncs": 0, "sync_bytes": 0, "graph_captures": 0,
-                      "graph_replays": 0, "graph_declines": 0}
+                      "graph_replays": 0, "graph_declines": 0,
+                      "eager_ops": 0}
+        # the ops run through `_exec` outside a generated kernel, by op
+        self.eager_by_op: collections.Counter = collections.Counter()
         self.category_stats: dict = {}
         self.launch_log = collections.deque(maxlen=64)
         self.dispatch_seq = 0
@@ -874,8 +889,9 @@ class TorchEngine:
     # ------------------------------------------------------------ materialize
 
     def materialize(self, node: LazyNode) -> torch.Tensor:
-        """Run the DAG reachable from `node` eagerly. Workspace-pinned nodes
-        of the same DAG get their values in the same pass."""
+        """Run the DAG reachable from `node` through its fusion plan.
+        Workspace-pinned nodes of the same DAG get their values in the same
+        pass, as extra outputs of the groups that compute them."""
         if node.value is not None:
             return node.value
         order = topo_order(node)
@@ -884,9 +900,17 @@ class TorchEngine:
         program = self._build_program(order)
         index = {id(n): i for i, n in enumerate(order)}
         out_idx = [index[id(node)]] + [index[id(n)] for n in extra]
+        key = (structure_key(node), tuple(sorted(out_idx)))
+        plan = self._jit_cache.get(key)
+        if plan is None:
+            plan = fuse.plan(program, out_idx)
+            self._jit_cache[key] = plan
+            self.stats["compiles"] += 1
+        else:
+            self.stats["cache_hits"] += 1
         values = self._program_values(order)
         t0 = time.perf_counter()
-        results = self.run_program(program, values, out_idx)
+        results = self.run_program(program, values, out_idx, plan)
         ms = (time.perf_counter() - t0) * 1e3
         self.stats["dispatches"] += 1
         self.dispatch_seq += 1
@@ -894,6 +918,9 @@ class TorchEngine:
                if n.value is None and n.op not in ("scalar", "leaf")]
         self.record_launch(_categorize(ops), ops, ms,
                            sum(int(r.nbytes) for r in results))
+        self.launch_log[-1].update(
+            kernels=plan.kernels,
+            eager=[f"{op}: {why}" for _, op, why in plan.eager][:16])
         for n, val in zip([node] + extra, results):
             n.value = val
             n.inputs = []
@@ -930,26 +957,32 @@ class TorchEngine:
                                 tuple(i.shape for i in n.inputs), n.shape))
         return program
 
-    def run_program(self, program: list, values: list, out_idx: list) -> list:
-        """Execute program entries in order. `values[i]` is the payload of a
-        leaf or scalar entry (unused for ops). Each intermediate is dropped
-        after its last consumer, so a long chain holds only what is live."""
-        last_use = list(range(len(program)))
-        for i, entry in enumerate(program):
-            for j in entry[3]:
-                last_use[j] = i
-        keep = set(out_idx)
+    def run_program(self, program: list, values: list, out_idx: list,
+                    plan: fuse.Plan) -> list:
+        """Execute program entries by `plan` (`fuse.plan(program,
+        out_idx)`): each group through `fuse.run_group` (a generated kernel
+        on a card), each other entry through `_exec`. `values[i]` is the
+        payload of a leaf or scalar entry (unused for ops). Each
+        intermediate is dropped after its last consumer, so a long chain
+        holds only what is live."""
         env: list = [None] * len(program)
-        for i, (op, static, dt, ins, in_shapes, out_shape) in \
-                enumerate(program):
-            if op in ("__leaf__", "scalar"):
+        for i, entry in enumerate(program):
+            if entry[0] in ("__leaf__", "scalar"):
                 env[i] = values[i]
-                continue
-            env[i] = self._exec(op, static, dt, [env[j] for j in ins],
-                                in_shapes, out_shape)
-            for j in ins:
-                if last_use[j] == i and j not in keep:
-                    env[j] = None
+        for step, (kind, unit) in enumerate(plan.steps):
+            if kind == "group":
+                outs = fuse.run_group(self, unit, program,
+                                      [env[j] for j in unit.inputs])
+                for j, t in zip(unit.outputs, outs):
+                    env[j] = t
+            else:
+                op, static, dt, ins, in_shapes, out_shape = program[unit]
+                env[unit] = self._exec(op, static, dt, [env[j] for j in ins],
+                                       in_shapes, out_shape)
+                self.stats["eager_ops"] += 1
+                self.eager_by_op[op] += 1
+            for j in plan.frees[step]:
+                env[j] = None
         return [env[j] for j in out_idx]
 
     # --------------------------------------------------------------- executor
@@ -1183,14 +1216,17 @@ class TorchEngine:
 
     def _linspace(self, start, stop, n: int, dt: np.dtype) -> torch.Tensor:
         """jnp.linspace's formula: start*(1-s) + stop*s with s = i/(n-1),
-        and the exact endpoint appended."""
+        and the exact endpoint appended. i/(n-1) is a true division on
+        every device (torch multiplies by a reciprocal on a card when the
+        divisor is a Python number), as the generated kernel divides."""
         tdt = torch_dtype(dt)
         s0 = self._tensor(start, dt).reshape(())
         s1 = self._tensor(stop, dt).reshape(())
         if n <= 1:
             return s0.reshape(1)[:n]
         div = n - 1
-        step = torch.arange(div, dtype=tdt, device=self.device) / div
+        step = torch.arange(div, dtype=tdt, device=self.device) / \
+            torch.full((), div, dtype=tdt, device=self.device)
         out = s0 * (1 - step) + s1 * step
         return torch.cat([out, s1.reshape(1)])
 
@@ -1413,7 +1449,11 @@ class TorchEngine:
         return dict(self.stats)
 
     def fusion_snapshot(self) -> list:
-        return []
+        """Every cached plan and folded loop, in JaxEngine's format
+        (`fuse.snapshot`)."""
+        return [snap for snap in (fuse.snapshot(k, v)
+                                  for k, v in self._jit_cache.items())
+                if snap is not None]
 
     def synchronize(self) -> None:
         if self.device.type == "cuda":

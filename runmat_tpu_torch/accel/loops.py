@@ -52,6 +52,16 @@ captured CUDA graph:
     iteration count; `stats["while_folds"]` counts the folds.
   * On the CPU (the tests) the same device-state step runs eagerly, T
     times, with CPU tensors as its sources and no graph.
+  * The body runs through its fusion plan (`accel/fuse.py`, made once a
+    `_Step`): on a card its elementwise chain is one generated Triton kernel
+    inside the graph. Iteration 0 compiles every kernel the body launches,
+    so nothing compiles inside the capture (`ops/fused.py` raises if a
+    launch would), and the kernels read the fold's scalars through pointers,
+    as the draw reads its counter.
+  * Each fold's key counts in `stats["compiles"]` the first time and in
+    `stats["cache_hits"]` after, as the JAX package counts its loop
+    executables; it stays in `_jit_cache` with its graph, or None where no
+    graph was captured (on the CPU, or after a decline).
 
 Accounting: `stats["graph_captures"]`, `["graph_replays"]` and
 `["graph_declines"]`; one "device_loop" launch-log entry per fold with its
@@ -81,9 +91,9 @@ import numpy as np
 import torch
 
 from ..errors import MatError
-from ..ops import threefry
+from ..ops import fused, threefry
 from ..values import MatArray
-from . import active_engine
+from . import active_engine, fuse
 from .engine import counter_value, phys_shape
 from .lazy import LazyNode, topo_order
 
@@ -788,6 +798,7 @@ class _Step:
         self.t = torch.zeros((), dtype=torch.int64, device=eng.device)
         self.it = it
         self.slots = [self._slot(kind, p, c0) for kind, p in sources]
+        self.plan = fuse.plan(program, roots, in_loop=True)
 
     def _slot(self, kind: str, p, c0: int):
         if kind == "const":
@@ -813,7 +824,7 @@ class _Step:
 
     def run(self, carry: list, advance: bool = True) -> list:
         outs = self.eng.run_program(self.program, self.values(carry),
-                                    self.roots)
+                                    self.roots, self.plan)
         if advance:
             self.t.add_(1)
         return outs
@@ -852,6 +863,7 @@ class _Graph:
         self.bufs = [c.clone() if k in copy_slots else None
                      for k, c in enumerate(carry)]
         before = collections.Counter(threefry.captured)
+        kernels = collections.Counter(fused.captured)
         self.graph = torch.cuda.CUDAGraph()
         current = torch.cuda.current_stream(eng.device)
         side = torch.cuda.Stream(device=eng.device)
@@ -879,6 +891,7 @@ class _Graph:
         current.wait_stream(side)
         self.outs = outs
         self.draws = collections.Counter(threefry.captured) - before
+        self.kernels = collections.Counter(fused.captured) - kernels
         eng.stats["graph_captures"] += 1
 
     def fits(self, it) -> bool:
@@ -897,6 +910,7 @@ class _Graph:
             raise GraphFault(f"replay of a folded loop failed: {e}") from e
         self.eng.stats["graph_replays"] += times
         threefry.replayed(self.draws, times)
+        fused.replayed(self.kernels, times)
 
     def carry(self) -> list:
         """The carry after the last replay."""
@@ -913,9 +927,19 @@ def _decline(eng, e: RuntimeError) -> str:
     return f"declined: {e}"[:160]
 
 
+def _count(eng, key: tuple) -> None:
+    """A fold's program compiled the first time, reused after."""
+    if key in eng._jit_cache:
+        eng.stats["cache_hits"] += 1
+    else:
+        eng.stats["compiles"] += 1
+        eng._jit_cache[key] = None
+
+
 def _run_for(eng, key: tuple, make_step, sources: list, carry: list,
              T: int, c0: int, it, copy_slots: set) -> tuple:
     """T iterations; returns (final carry, how, graph replays)."""
+    _count(eng, key)
     if eng.device.type != "cuda":
         step = make_step()
         for _ in range(T):
@@ -1057,6 +1081,7 @@ def _build_and_run_while(eng, tr: _Trace, cond_v: MatArray) -> dict:
     cond = _Step(eng, cond_prog, cond_src, [cond_root])
     on_card = eng.device.type == "cuda"
     key = _key("device_while", body_prog, body_src, roots)
+    _count(eng, key)
     graph = eng._jit_cache.get(key) if on_card else None
     how = "eager"
     if graph is not None:

@@ -12,9 +12,9 @@ warm-up, the card spinning first, so that a 10^6 draw is timed by the card
 and not by the host): normals in float32 at 10^6 values
 (`benchmarks/monte_carlo.m` draws one per step, 256 a run), 10^7 and 2^26
 (`runmat_tpu_torch/workloads/histogram_stats.m`), float64 normals at 10^7,
-and the uniforms as a guard. Beside the float32 normals at 10^6 and 10^7 it
-times `torch.randn` as a yardstick: Philox, another stream, which the port
-never calls. Each row has its bound, read with this file's `sass.py` from
+and the uniforms as a guard. Beside every draw it times `torch.rand` or
+`torch.randn` of the same size and type as a yardstick: Philox, another
+stream, which the port never calls. Each row has its bound, read with this file's `sass.py` from
 the machine code of DIR's kernels, and the registers and local-memory
 frame of its kernel.
 Every draw is first held to the plain version (uniforms bit-exact, normals
@@ -35,7 +35,6 @@ DRAWS = (("randn", "float32", 10 ** 6), ("randn", "float32", 10 ** 7),
          ("randn", "float32", 1 << 26), ("randn", "float64", 10 ** 7),
          ("rand", "float32", 10 ** 7), ("rand", "float32", 1 << 26),
          ("rand", "float64", 10 ** 7))
-PHILOX_AT = (10 ** 6, 10 ** 7)        # normal f32 sizes timed with torch.randn
 # the draws' key and the normals' tolerance against the plain stream, here
 # and in chip_smoke.py
 KEY = (0x2C4A_9E11, 0x51D3_07BF)
@@ -61,8 +60,8 @@ def row_bound(sass, mixes: dict, kind: str, dtype: str, n: int) -> dict:
 def measure(threefry, sass, draws=DRAWS, reps: int = 20,
             plain_reps: int = 0) -> list:
     """One row per draw (kind, dtype, n): the kernel's time, its bound and
-    share of it, the plain version's time (`plain_reps` > 0), torch.randn's
-    at PHILOX_AT, the kernel's registers and frame, and the largest
+    share of it, the plain version's time (`plain_reps` > 0), torch.rand's
+    or torch.randn's, the kernel's registers and frame, and the largest
     difference from the plain version (0 for uniforms, which must be
     equal)."""
     import torch
@@ -93,9 +92,9 @@ def measure(threefry, sass, draws=DRAWS, reps: int = 20,
             row["plain_ms"] = time_ms(
                 lambda: threefry.plain_draw(kind, KEY, 0, n, dt, dev),
                 plain_reps)
-        if kind == "randn" and dtype == "float32" and n in PHILOX_AT:
-            row["philox_ms"] = time_ms(
-                lambda: torch.randn(n, dtype=dt, device=dev), reps)
+        philox = torch.rand if kind == "rand" else torch.randn
+        row["philox_ms"] = time_ms(
+            lambda: philox(n, dtype=dt, device=dev), reps)
         r = res.get(row["kernel"], {})
         row["registers"] = r.get("REG")
         row["stack_bytes"] = r.get("STACK")
@@ -144,8 +143,8 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
               f"{r['share']:.3f}, {r['loop']['loop_cycles']} warp-cycles per "
               f"{r['loop']['store_bytes']} bytes, {r['registers']} registers"
-              + (f", torch.randn (Philox) {r['philox_ms']:.4f} ms"
-                 if "philox_ms" in r else ""))
+              + f", torch.{r['kind']} (Philox, another stream) "
+              f"{r['philox_ms']:.4f} ms")
     bad = [(r["kind"], r["dtype"], r["n"]) for r in rows if not r["ok"]]
     if bad:
         print(f"rngbench: {bad} differ from plain", file=sys.stderr)

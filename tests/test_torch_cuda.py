@@ -12,7 +12,10 @@ Tolerances: uniforms bit-exact; normals f32 atol=rtol=2e-6, f64
 atol=rtol=1e-13; the transform equal to its model in f32 and within one
 ulp in f64 (the model's square root is correctly rounded, the kernel's a
 Goldschmidt iteration); histogram counts exact; workload results
-rtol=1e-4.
+rtol=1e-4; the generated kernels (`ops/fused.py`) as
+`runmat_tpu_torch/fusebench.py` states (logical values, NaN patterns,
+infinities, linspace and casts exactly, other values float32 rtol=atol=1e-6,
+float64 1e-12, sums and means 1e-5 / 1e-12 of their largest magnitude).
 """
 
 import io
@@ -21,6 +24,8 @@ import re
 import numpy as np
 import pytest
 import torch
+
+from runmat_tpu_torch import fusebench
 
 pytestmark = pytest.mark.cuda
 
@@ -595,8 +600,10 @@ def test_a_body_that_waits_for_the_card_declines_the_capture(card,
     real = TorchEngine._exec
 
     def waits(self, op, *args, **kw):
+        # the draw: the body's elementwise ops run in a generated kernel,
+        # not through _exec
         out = real(self, op, *args, **kw)
-        if op == "b:add":
+        if op.startswith("rng:"):
             out.sum().item()
         return out
 
@@ -666,3 +673,73 @@ def test_matmul_policy_on_card(card, policy, limit):
     else:
         assert err > 1e-5
     assert torch.backends.cuda.matmul.allow_tf32 == tf32
+
+
+# ---------------------------------------------- the generated kernels
+
+
+@pytest.mark.parametrize("name", [name for name, _ in
+                                  fusebench.table_cases()])
+def test_generated_kernel_matches_plain(card, name):
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    from runmat_tpu_torch.ops import fused
+    build = dict(fusebench.table_cases())[name]
+    before = fused.launches
+    r = fusebench.check(TorchEngine("cuda"), name, build)
+    assert fused.launches - before == r["groups"] >= 1
+
+
+def test_a_kernel_that_fails_to_compile_raises(card, monkeypatch):
+    """A group the plan accepted whose kernel does not compile raises a
+    MatError; nothing runs eagerly in its place."""
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    from runmat_tpu_torch.errors import MatError
+    from runmat_tpu_torch.ops import fused
+    from runmat_tpu_torch.values import MatArray
+    real = fused.source
+
+    def broken(spec, big=False, sms=fused.SMS_DEFAULT):
+        return real(spec, big, sms).replace("tl.store(", "tl.no_such_op(")
+
+    monkeypatch.setattr(fused, "source", broken)
+    eng = TorchEngine("cuda")
+    x = eng.upload(MatArray(np.ones((64, 64), np.float32), "single"))
+    y = eng.unary("exp", x, "single")
+    with pytest.raises(MatError) as err:
+        eng.materialize(y.dev)
+    assert err.value.identifier == "RunMat:fusedKernel"
+    assert eng.stats["eager_ops"] == 0 and y.dev.value is None
+
+
+def test_a_fused_body_is_captured_without_compiling(card):
+    """monte_carlo.m's step: its elementwise chain is one generated kernel
+    inside the captured graph; the warm runs compile nothing and replay
+    the kernel once a step."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.accel import loops
+    from runmat_tpu_torch.ops import fused
+    src = "M = 65536; T = 16;\n" + open("benchmarks/monte_carlo.m").read()
+    prev = accel.active_engine()
+    try:
+        s = runmat_tpu_torch.session("cuda")
+        eng = accel.active_engine()
+        r = s.execute(src)
+        assert r.error is None, r.error
+        compiled = set(fused.compiled)
+        before = fused.launches_by["fused_map_f32"]
+        for _ in range(2):
+            r = s.execute(src)
+            assert r.error is None, r.error
+        graphs = [g for g in eng._jit_cache.values()
+                  if isinstance(g, loops._Graph)]
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+    st = eng.stats
+    assert st["graph_captures"] == 1 and st["graph_declines"] == 0
+    assert fused.compiled == compiled
+    (graph,) = graphs
+    assert graph.kernels == {"fused_map_f32": 1}
+    # two warm runs of 16 replayed steps, plus the payoff's setup kernels
+    assert fused.launches_by["fused_map_f32"] - before >= 2 * 16

@@ -19,8 +19,10 @@ sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["runmat_tpu"] = None
 import runmat_tpu_torch
+import runmat_tpu_torch.fusebench
 import runmat_tpu_torch.histbench
 import runmat_tpu_torch.ops.boxmuller
+import runmat_tpu_torch.ops.fused
 import runmat_tpu_torch.profile
 import runmat_tpu_torch.rngbench
 import runmat_tpu_torch.sass
@@ -40,7 +42,7 @@ for name, pre in small.items():
     assert r.error is None, r.error
     print(r.output.strip())
     print(name, "folds", eng.stats["loop_folds"], "fallbacks",
-          eng.stats["host_fallbacks"])
+          eng.stats["host_fallbacks"], "plans", len(eng.fusion_snapshot()))
     runmat_tpu_torch.uninstall()
 s = runmat_tpu_torch.session("cpu", auto_offload=True, offload_threshold=1)
 eng = accel.active_engine()
@@ -80,7 +82,8 @@ def test_port_runs_without_jax():
     out = p.stdout
     for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK"):
         assert f"RESULT_ok {label}=" in out, out
-    assert "monte_carlo folds 1 fallbacks 0" in out, out
+    assert "monte_carlo folds 1 fallbacks 0 plans" in out, out
+    assert "elementwise_math folds 0 fallbacks 0 plans 4" in out, out
     assert "histogram_stats fallbacks 0" in out, out
     assert "index_sets folds 1 1 fallbacks 0" in out, out
     assert "HOST_ok 5" in out, out

@@ -4,7 +4,8 @@
 `Session(accelerate=True)` on `JaxEngine("cpu")` and in the port's session
 on `TorchEngine("cpu")`, both taking every array (`auto_offload=True,
 offload_threshold=1`), and keeps each engine's counters from just before
-`src` to just after it; `prepare(session)`, where given, runs on each
+`src` to just after it and each engine's `fusion_snapshot()` at the end
+(`jsnap`, `tsnap`); `prepare(session)`, where given, runs on each
 session between the two (to set its RNG counter, say). `same(both, names)` holds each named workspace
 value of the port to the JAX package's: class, residency, shape, dtype and
 values, exactly unless a tolerance is given.
@@ -53,7 +54,9 @@ def run_both(setup: str, src: str = "", prepare=None) -> Both:
             r = s.execute(src) if src else r
             out += [r, _delta(before, eng.stats)]
         jr, jd, tr, td = out
-        return Both(js, jeng, jr, ts, teng, tr, jd, td)
+        b = Both(js, jeng, jr, ts, teng, tr, jd, td)
+        b.jsnap, b.tsnap = jeng.fusion_snapshot(), teng.fusion_snapshot()
+        return b
     finally:
         runmat_tpu_torch.uninstall()
         jaccel.set_engine(jprev)
