@@ -32,10 +32,14 @@ line is printed:
      table in float32 and float64 over NaN, +-Inf, +-0, subnormals and the
      pow identities, broadcast and strided inputs, linspace and casts, a
      chain at sizes 1 to 10^7, sum and mean over 'all' and over 1, 16 and
-     4096 segments, with the tolerances fusebench states), then every
-     group the three benchmark scripts launch at their default sizes,
-     timed against its plain version, its bound and, where one PyTorch
-     call computes it, that call;
+     4096 segments, pow with a scalar exponent of 2 and of nextafter(2, 3),
+     with the tolerances fusebench states); the square arm of a pow with
+     a scalar exponent over all 2^32 float32 bit patterns, equal to the
+     correctly rounded square bit for bit (and how many of them torch.pow
+     misses, by how many ulp); then every group the three benchmark
+     scripts launch at their default sizes, timed against its plain
+     version, its bound and, where one PyTorch call computes it, that
+     call;
   4. main path: benchmarks/{elementwise_math,monte_carlo,image_normalize}.m
      at their default sizes through runmat_tpu_torch.session("cuda"),
      against the port's host engine (Session(accelerate=False)) for CHECK,
@@ -68,7 +72,9 @@ line is printed:
      {"ok": true, "device": {...}}.
 Each kernel's `launches` is read from the runs of phases 4 to 6, with the
 counts set to 0 just before each run (a generated map-reduce counts once
-for its pair of launches). `bound_ms` is the larger of the bytes
+for its pair of launches); each generated group is a row of its own,
+counted by its kernel, so its `launches` are those of one run of its
+script. `bound_ms` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over the card's rate
 for them (runmat_tpu_torch/sass.py: for Threefry, the warp cycles of the
 kernel's own loop read from its machine code, which holds no call and no
@@ -528,6 +534,17 @@ def phase_fused_kernel() -> list:
             raise SmokeFailure(f"generated kernel: {e}") from e
         print(f"kernel fused {name}: {r['groups']} kernel(s) equal plain, "
               f"max_abs_err={r['max_abs_err']:g}")
+    t0 = time.perf_counter()
+    sweep = fusebench.square_sweep(eng)
+    took = time.perf_counter() - t0
+    check(sweep["kernel_differ"] == 0,
+          f"the square arm differs from the correctly rounded square in "
+          f"{sweep['kernel_differ']} of 2^32 float32 values")
+    print(f"kernel fused square arm: all 2^32 float32 values equal "
+          f"float32(float64(x)^2) bit for bit ({took:.1f} s); plain "
+          f"torch.pow(x, 2) on the card differs in {sweep['plain_differ']} "
+          f"(by ulp: {sweep['plain_ulps']}), NaN "
+          f"pattern in {sweep['plain_nan_differ']}")
     try:
         rows = fusebench.measure(eng, fusebench.record(), TIMING_REPS)
     except AssertionError as e:
@@ -542,13 +559,13 @@ def phase_fused_kernel() -> list:
               f"{r['bytes']} bytes), share of bound {r['share']:.2f}; "
               f"{' '.join(r['ops'])}")
     out = []
-    for label, r in sorted(fusebench.main_path_rows(rows).items()):
+    for r in rows:
         out.append({
-            "name": label, "route": "triton",
+            "name": r["name"], "route": "triton",
             "source": "runmat_tpu_torch/ops/fused.py",
             # no Pallas twin: XLA generated these from the jax.jit call
             "replaces": "runmat_tpu/accel/engine.py:1201",
-            "launches": 0, "launch_key": label,
+            "launches": 0, "launch_key": r["key"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -561,6 +578,7 @@ def phase_main_path() -> dict:
     import runmat_tpu_torch
     from runmat_tpu_torch import accel
     from runmat_tpu_torch.accel import loops
+    from runmat_tpu_torch.ops import fused
     from runmat_tpu_torch.values import MatArray
 
     sources = {w: open(f"benchmarks/{w}.m").read() for w in WORKLOADS}
@@ -593,10 +611,11 @@ def phase_main_path() -> dict:
         after = _read_launches()
         graphs = [g for g in eng._jit_cache.values()
                   if isinstance(g, loops._Graph)]
-        runs[w] = (s, eng, r, *({k: v - before[group].get(k, 0)
-                                 for k, v in after[group].items()}
-                                for group in ("threefry", "fused")),
-                   [dict(g.kernels) for g in graphs])
+        draws, kernels = ({k: v - before[group].get(k, 0)
+                           for k, v in after[group].items()}
+                          for group in ("threefry", "fused"))
+        runs[w] = (s, eng, r, draws, dict(fused.by_label(kernels)),
+                   [dict(fused.by_label(g.kernels)) for g in graphs])
         runmat_tpu_torch.uninstall()
     launches = _read_launches()
 

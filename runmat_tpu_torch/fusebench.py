@@ -6,10 +6,16 @@
 against its plain version (`accel/fuse.py` `run_group_plain`, the eager
 executor): every op of the table in float32 and float64 over NaN, +-Inf,
 +-0, subnormals and the `pow` identities, logical operands, broadcast and
-strided inputs, `linspace` and casts, a chain at sizes 1 to 10^7, and
+strided inputs, `linspace` and casts, a chain at sizes 1 to 10^7,
 `sum`/`mean` over 'all' and trailing blocks (1, 16 and 4096 segments) with
-a prologue, an epilogue and written prologue values. `check` runs one
-case; tolerances in `TOL`: logical values, NaN patterns, infinities,
+a prologue, an epilogue and written prologue values, and `pow` with a
+scalar exponent of exactly 2 (the kernels' square arm) and of
+nextafter(2, 3) (the general arm) in a map, a reduction's prologue and its
+epilogue, over the special values and the edges of the square's range.
+`square_sweep` runs every float32 bit pattern through the square arm and
+holds it to the correctly rounded square bit for bit; `square_arm` reads a
+compiled module's Triton IR for the branch and counts its machine code.
+`check` runs one case; tolerances in `TOL`: logical values, NaN patterns, infinities,
 `linspace` and casts exactly; other float32 values rtol=atol=1e-6 and
 float64 rtol=atol=1e-12 (`tests/test_torch_engine.py`'s); sums and means,
 and what a group computes from them, within 1e-5 (a float32 sum) or 1e-12
@@ -25,15 +31,17 @@ larger) and, where one PyTorch call computes the same function (a `sum` or
 `mean` with no prologue: `torch.sum`/`torch.mean`), that call. Run as a
 script, it imports `runmat_tpu_torch` from DIR (default: the checkout
 holding this file), checks every case, times the main path's groups, and
-prints the card's name and power limit, then one JSON line. Needs a CUDA
-card.
+prints the card's name and power limit, the machine-code reading of each
+group with a `pow`, then one JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -88,6 +96,22 @@ def _special(n: int, dtype, device, seed: int, shift: int = 0):
         m = min(n, k)
         x[:m] = np.roll(sp, shift)[:m]
     return torch.from_numpy(x.astype(dtype)).to(device)
+
+
+def _square_edges(dt) -> np.ndarray:
+    """Bases at the edges of x^2's range in `dt`, with both signs: the
+    largest value and the square root of it and its neighbour above (the
+    square overflows there), the smallest normal and subnormal values and
+    the square root of the smallest normal (subnormal or zero squares), and
+    the neighbours of 1."""
+    t = np.dtype(dt).type
+    f = np.finfo(t)
+    r = np.sqrt(f.max).astype(t)
+    e = np.array([f.max, r, np.nextafter(r, t(np.inf)), f.tiny,
+                  f.smallest_subnormal, np.sqrt(f.tiny).astype(t),
+                  np.nextafter(t(1), t(2)), np.nextafter(t(1), t(0))],
+                 dtype=t)
+    return np.concatenate([e, -e])
 
 
 def table_cases() -> list:
@@ -225,6 +249,26 @@ def table_cases() -> list:
             return p, outs, []
         return build
 
+    def pow_scalar(dt, exponent):
+        def build(dev):
+            import torch
+            p = _Prog()
+            n = (1 << 20) + 1
+            x = _special(n, dt, dev, 9)
+            edges = _square_edges(dt)
+            x[-len(edges):] = torch.from_numpy(edges).to(dev)
+            a = p.leaf(x, (1, n), dt)
+            e = p.leaf(torch.full((), exponent, dtype=_tdt(dt), device=dev),
+                       (1, 1), dt)
+            b = p.leaf(_special(16 * 4097, dt, dev, 10).reshape(16, 4097),
+                       (16, 4097), dt)
+            m = p.op("b:pow", (str(dt),), dt, [a, e], (1, n))
+            q = p.op("b:pow", (str(dt),), dt, [b, e], (16, 4097))
+            r = p.op("r:mean", ((1,), "", str(dt)), dt, [q], (16, 1))
+            t = p.op("b:pow", (str(dt),), dt, [r, e], (16, 1))
+            return p, [m, q, r, t], []
+        return build
+
     def reduce_bool(dev):
         import torch
         p = _Prog()
@@ -255,6 +299,10 @@ def table_cases() -> list:
             cases.append((f"{name} {dt} 4096 segments", reduce(
                 dt, name, (4096, 1000), (1,), True, False)))
     cases.append(("sum of a logical array, 4096 segments", reduce_bool))
+    for dt in (F32, F64):
+        cases.append((f"pow scalar 2 {dt}", pow_scalar(dt, 2.0)))
+        cases.append((f"pow scalar nextafter(2, 3) {dt}", pow_scalar(
+            dt, float(np.nextafter(dt.type(2), dt.type(3))))))
     return cases
 
 
@@ -351,6 +399,121 @@ def check(eng, name: str, build) -> dict:
     return {"name": name, "groups": len(plan.groups), "max_abs_err": err}
 
 
+def square_sweep(eng) -> dict:
+    """Every float32 bit pattern through the generated kernel of `x .^ e`,
+    e a 0-d tensor holding 2 (its square arm), 2^28 values a launch,
+    against float32(float64(x)^2): exact, since x^2 has at most 48
+    significant bits and fits a double, so the cast rounds once. Counts
+    the values where the kernel differs from it bit for bit (a NaN counts
+    as equal to a NaN), and those where the plain version (torch.pow with
+    a 0-d tensor exponent, the eager executor's) does, by their distance
+    in ulp."""
+    import torch
+
+    from .accel import fuse
+    dev = eng.device
+    chunk = 1 << 28             # divides 2^32: each pattern runs once
+    p = _Prog()
+    a = p.leaf(torch.empty(chunk, device=dev), (1, chunk), F32)
+    e = p.leaf(torch.full((), 2.0, device=dev), (1, 1), F32)
+    m = p.op("b:pow", ("float32",), F32, [a, e], (1, chunk))
+    plan = fuse.plan(p.entries, [m])
+    kernel = plain = plain_nan = 0
+    ulps: dict = {}
+    for lo in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int64,
+                         device=dev).to(torch.int32).view(torch.float32)
+        values = [x, p.values[e], None]
+        want = (x.double() * x.double()).float()
+        nan = torch.isnan(want)
+        wi = want.view(torch.int32).long()
+        (got,) = eng.run_program(p.entries, values, [m], plan)
+        kernel += int(((got.view(torch.int32).long() != wi) & ~nan).sum()) \
+            + int((torch.isnan(got) != nan).sum())
+        del got
+        (ref,) = run_plain(eng, p.entries, values, [m], plan)
+        plain_nan += int((torch.isnan(ref) != nan).sum())
+        d = (ref.view(torch.int32).long() - wi).abs()[~nan]
+        d = d[d != 0]
+        plain += int(d.numel())
+        for u, c in zip(*torch.unique(d, return_counts=True)):
+            ulps[int(u)] = ulps.get(int(u), 0) + int(c)
+    return {"values": 1 << 32, "kernel_differ": kernel,
+            "plain_differ": plain, "plain_nan_differ": plain_nan,
+            "plain_ulps": dict(sorted(ulps.items()))}
+
+
+def _compiled(fn) -> list:
+    """What Triton compiled for a `@triton.jit` function, from its own JIT
+    cache: `device_caches` maps a device to (kernels by key, ...)."""
+    return [k for c in fn.device_caches.values() for k in c[0].values()]
+
+
+def square_arm(module: str) -> dict:
+    """The kernels of a generated module (`launches_by`'s second key),
+    launched already, by kernel, one entry a compiled variant: `ifs`, the
+    `scf.if`s in its Triton IR;
+    `ir_ok`, whether in each the arm for 2 multiplies a value by itself and
+    calls no libdevice `pow` while the other arm calls it
+    (`ir_arms_ok`); and from its machine code (`cuobjdump -sass`), its
+    instruction, MUFU and CALL counts."""
+    from . import sass
+    from .ops import fused
+    mod = sys.modules[module]
+    out = {}
+    for kernel in ("map_kernel", "part_kernel", "fin_kernel"):
+        fn = getattr(mod, kernel, None)
+        for k in [] if fn is None else _compiled(fn):
+            arms = _if_arms(k.asm["ttir"])
+            path = fused.GEN_DIR / f"{kernel}_{id(k)}.cubin"
+            path.write_bytes(k.asm["cubin"])
+            text = subprocess.run([sass.cuobjdump(), "-sass", str(path)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            path.unlink()
+            insns = [i for v in sass.kernels(text).values() for i in v]
+            out.setdefault(kernel, []).append({
+                "ifs": len(arms), "ir_ok": ir_arms_ok(arms),
+                "instructions": len(insns),
+                "mufu": sum(i[1] == "MUFU" for i in insns),
+                "calls": sum(i[1] == "CALL" for i in insns)})
+    return out
+
+
+def ir_arms_ok(arms: list) -> bool:
+    """Whether there are `_if_arms` and in each the arm taken where the
+    exponent is 2 multiplies a value by itself and calls no libdevice
+    `pow` (`__nv_powf`, `__nv_pow`), while the other arm calls it."""
+    return bool(arms) and all(
+        re.search(r"arith\.mulf (%[\w#]+), \1\b", then) is not None
+        and "__nv_pow" not in then and "__nv_pow" in other
+        for then, other in arms)
+
+
+def _if_arms(ir: str) -> list:
+    """(then, else) region texts of each `scf.if` with an else region in
+    Triton IR text."""
+    lines = ir.splitlines()
+    arms = []
+    for i, line in enumerate(lines):
+        if "scf.if" not in line or not line.rstrip().endswith("{"):
+            continue
+        depth, then, other = 1, [], []
+        cur = then
+        for nxt in lines[i + 1:]:
+            s = nxt.strip()
+            if s.startswith("} else {") and depth == 1:
+                cur = other
+                continue
+            depth += nxt.count("{") - nxt.count("}")
+            if depth <= 0:
+                break
+            cur.append(nxt)
+        if other:
+            arms.append(("\n".join(then), "\n".join(other)))
+    return arms
+
+
 def record(device="cuda") -> list:
     """The groups the three benchmark scripts launch at their default
     sizes: (script, Group, program, args) each, args kept alive."""
@@ -423,9 +586,12 @@ def measure(eng, seen: list, reps: int) -> list:
     the kernel's error against the plain version."""
     from . import histbench
     from .accel import fuse
+    from .ops import fused
     rows = []
     for script, g, program, args in seen:
+        before = collections.Counter(fused.launches_by)
         got = fuse.run_group(eng, g, program, args)
+        (key,) = fused.launches_by - before
         want = fuse.run_group_plain(eng, g, program, args)
         err = 0.0
         red = reduced(program, g)
@@ -436,9 +602,11 @@ def measure(eng, seen: list, reps: int) -> list:
                 raise AssertionError(f"{script} {g.label} entry {i} "
                                      f"{program[i][0]}: {e}") from e
         lib = library(g, args)
-        row = {"script": script, "label": g.label,
-               "shape": list(g.shape), "ops": [program[i][0]
-                                               for i in g.members],
+        ops = [program[i][0] for i in g.members]
+        row = {"name": f"{g.label} ({script}, {'x'.join(map(str, g.shape))}"
+                       f": {' '.join(ops)})",
+               "key": key, "script": script, "label": g.label,
+               "shape": list(g.shape), "ops": ops,
                "outputs": len(g.outputs), "max_abs_err": err,
                "ms": histbench.time_ms(
                    lambda: fuse.run_group(eng, g, program, args), reps),
@@ -451,17 +619,6 @@ def measure(eng, seen: list, reps: int) -> list:
         row["share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
     return rows
-
-
-def main_path_rows(rows: list) -> dict:
-    """The row reported for each kernel label: the group with a library
-    call if one has one, else the one that moves the most bytes."""
-    best = {}
-    for r in rows:
-        key = (r["library_ms"] is not None, r["bytes"])
-        if r["label"] not in best or key > best[r["label"]][0]:
-            best[r["label"]] = (key, r)
-    return {label: r for label, (_, r) in best.items()}
 
 
 def main() -> int:
@@ -495,8 +652,13 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f}, library {lib}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}), share "
               f"{r['share']:.2f}, ops {r['ops']}")
+        if "b:pow" in r["ops"] and "key" in r:  # older trees' rows have none
+            print(f"  machine code: "
+                  f"{json.dumps(fusebench.square_arm(r['key'][1]))}")
     print(json.dumps({"tree": os.path.abspath(args.tree), "card": card,
-                      "checked": checked, "groups": rows}))
+                      "checked": checked,
+                      "groups": [{k: v for k, v in r.items() if k != "key"}
+                                 for r in rows]}))
     return 0
 
 

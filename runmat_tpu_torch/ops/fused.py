@@ -55,6 +55,20 @@ an FMA that the eager executor would round twice, and
 float32 subnormals to zero, which moves ceil(1e-40) from 1 to 0 and
 mod(1e-40, -3) from -3 to 1e-40.
 
+A `pow` whose exponent is a one-element input (a scalar of the program,
+a 0-d tensor on the card) branches on the exponent's value inside the
+kernel: the kernel loads it once, before any loop, in the op's type, and
+where it equals 2 computes `a * a`, the correctly rounded square, in place
+of libdevice's general `pow` (which held image_normalize's sigma group to
+0.28 of its byte bound on an H100). The branch is uniform: every lane of
+every program takes the same arm. It needs no NaN repair: a * a is NaN
+only where a is, and there a == 1 is false; it gives +Inf at +-Inf and +0
+at +-0 as `pow` does. Any other value (image_normalize's gamma of 1.8, a
+NaN) takes `_pow`. The value is read on the card, never by the host, so a
+plan is not keyed on it and a folded loop's graph replays the right arm
+when its exponent changes. An array exponent, a scalar base
+(`2 .^ x`) and an exponent computed inside the group keep `_pow`.
+
 A captured CUDA graph replays the arguments it captured, so every operand,
 scalars included, is a pointer: a folded loop's scalars are 0-d tensors on
 the card. The input pointers and the strides are in `do_not_specialize`:
@@ -68,8 +82,10 @@ capturing raises instead (`MatError`), as does any failure to generate,
 compile or launch: nothing falls back to the eager executor.
 
 `launches` counts the generated kernels the card runs, `launches_by` by
-label ("fused_map_f32", "fused_reduce_f64", ...; a map-reduce counts once
-for its pair of launches), and `captured` those launched into a graph
+kernel: (label, module), the label "fused_map_f32", "fused_reduce_f64",
+..., the module that of the group's generated text, so a run can count
+each group apart (a map-reduce counts once for its pair of launches;
+`by_label` sums a label's). `captured` counts those launched into a graph
 being captured (`replayed` adds them once a replay), as `ops/threefry.py`
 counts its draws.
 """
@@ -411,14 +427,36 @@ class _Gen:
         n = len(spec.body)
         self.pre = list(range(n if self.red is None else self.red))
         self.epi = [] if self.red is None else list(range(self.red + 1, n))
+        # body index -> input k of each pow whose exponent is a one-element
+        # input: it branches on the exponent's value (see the module doc)
+        self.square = {
+            m: args[1][1] for m, (op, static, _, args) in enumerate(spec.body)
+            if op == "b:pow" and static[0] in FLOATS and args[1][0] == "x"
+            and not nonsingleton(spec.inputs[args[1][1]][0])
+            and args[1][1] != spec.dense}
 
     def _uses(self, members) -> list:
+        """The inputs `members` read, but not a branching pow's exponent,
+        which `exponents` loads."""
         ks = []
         for m in members:
-            for kind, k in self.spec.body[m][3]:
-                if kind == "x" and k not in ks:
+            for j, (kind, k) in enumerate(self.spec.body[m][3]):
+                if kind == "x" and k not in ks and \
+                        (j == 0 or m not in self.square):
                     ks.append(k)
         return ks
+
+    def exponents(self, members) -> list:
+        """Before any loop: each branching pow's exponent in the op's type,
+        and whether it is 2."""
+        lines = []
+        for m in members:
+            if m in self.square:
+                k = self.square[m]
+                e = _cast(f"tl.load(x{k})", self.spec.inputs[k][1],
+                          self.spec.body[m][1][0])
+                lines += [f"e{m} = {e}", f"sq{m} = e{m} == 2"]
+        return lines
 
     def stride_args(self) -> list:
         return [f"s{k}_{d}" for k, (ls, _) in enumerate(self.spec.inputs)
@@ -450,6 +488,15 @@ class _Gen:
             named = [(f"{val}{k}", self.spec.inputs[k][1]) if kind == "x"
                      else (f"v{k}", self.spec.body[k][2])
                      for kind, k in args]
+            if m in self.square:
+                w = static[0]
+                a = _cast(*named[0], w)
+                self.helpers.add("_pow")
+                lines += [f"if sq{m}:",
+                          f"    v{m} = {_cast(f'({a} * {a})', w, dt)}",
+                          "else:",
+                          f"    v{m} = {_cast(f'_pow({a}, e{m})', w, dt)}"]
+                continue
             e = _linspace(static, dt, named, lin) if op == "c:linspace" \
                 else _op_expr(op, static, dt, named)
             self.helpers.update(h for h in _HELPERS if h + "(" in e)
@@ -476,6 +523,7 @@ class _Gen:
         b = [f"lin = {pid} * BLOCK + tl.arange(0, BLOCK)",
              f"mask = lin < {lay['N']}"]
         ks = self._uses(self.pre)
+        b += self.exponents(self.pre)
         if self.strided(ks):
             b += _index_lines(spec.shape, spec.order, "lin", "i")
         b += self.loads(ks, "i", "mask", "a")
@@ -503,6 +551,7 @@ class _Gen:
              f"rb = tl.program_id(1){i64} * {lay['STEPS']}",
              f"kmask = kk < {lay['K']}"]
         b += _index_lines(spec.shape, kept, "kk", "i")
+        b += self.exponents(self.pre)
         b.append(f"acc = tl.zeros({tile}, dtype={_T[acc_dt]})")
         b.append(f"for step in range({lay['STEPS']}):")
         loop = [f"rr = (rb + step) * BR + tl.arange(0, BR){rax}{i64}",
@@ -547,6 +596,7 @@ class _Gen:
                      f"v{self.red} = v{self.red} / {r}.0")
         ks = self._uses(self.epi)
         rs = spec.rshape
+        b += self.exponents(self.epi)
         if any(nonsingleton(spec.inputs[k][0]) for k in ks):
             b += _index_lines(rs, spec.blocks()[0], "kk", "i")
         b += self.loads(ks, "i", "kmask", "b")
@@ -696,16 +746,25 @@ def launch(spec: Spec, inputs: list, strides: list, outputs: list,
         raise MatError("RunMat:fusedKernel",
                        f"{spec.label} failed: {type(e).__name__}: "
                        f"{str(e)[-1500:]}") from e
+    key = (spec.label, mod.__name__)
     if torch.cuda.is_current_stream_capturing():
-        captured[spec.label] += 1
+        captured[key] += 1
     else:
         launches += 1
-        launches_by[spec.label] += 1
+        launches_by[key] += 1
 
 
 def replayed(kernels: collections.Counter, times: int) -> None:
     """A captured graph holding `kernels` ran `times` times."""
     global launches
-    for label, k in kernels.items():
+    for key, k in kernels.items():
         launches += k * times
-        launches_by[label] += k * times
+        launches_by[key] += k * times
+
+
+def by_label(counts) -> collections.Counter:
+    """Counts keyed by (label, module), as `launches_by`, summed by label."""
+    out = collections.Counter()
+    for (label, _), k in counts.items():
+        out[label] += k
+    return out

@@ -8,8 +8,10 @@ sizes. Each runs `--runs` times in one fresh session of DIR's
 `Session.run_source`, each run timed on the host clock and ended by
 `torch.cuda.synchronize()`: the first run, then the median of the others.
 For an A/B, unpack the other checkout with `git archive` under `build/` and
-run parent, change, change, parent in one call. Prints the card's name and
-power limit, one line a script, then one JSON line. Needs a CUDA card.
+run parent, change, change, parent in one call. Every call of
+`ops.fused.launch` (a generated kernel's launch) is timed on the host clock
+as well. Prints the card's name and power limit, one line a script, then
+one JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,27 +32,47 @@ SCRIPTS = ("benchmarks/elementwise_math.m", "benchmarks/monte_carlo.m",
 
 
 def script_walls(src: str, runs: int) -> dict:
-    """Host-clock seconds of each run of `src` in one session, and the
-    engine's counters after the last."""
+    """Host-clock seconds of each run of `src` in one session, the host
+    time each run spends inside `ops.fused.launch` (the host's share of
+    the generated kernels) and its calls, and the engine's counters after
+    the last."""
     import torch
 
     import runmat_tpu_torch
     from runmat_tpu_torch import accel
+    from runmat_tpu_torch.ops import fused
 
     s = runmat_tpu_torch.session("cuda")
     eng = accel.active_engine()
-    walls = []
+    walls, spent, calls = [], [], []
+    launch = fused.launch
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return launch(*args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    fused.launch = timed
     try:
         for _ in range(runs):
             s.stdout = io.StringIO()
+            n = len(spent)
             t0 = time.perf_counter()
             s.run_source(src)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            calls.append(spent[n:])
     finally:
+        fused.launch = launch
         runmat_tpu_torch.uninstall()
     return {"walls_ms": [w * 1e3 for w in walls],
             "warm_median_ms": statistics.median(walls[1:]) * 1e3,
+            "launches": [len(c) for c in calls],
+            "launch_host_us": [sum(c) * 1e6 for c in calls],
+            "warm_launch_host_us": statistics.median(
+                sum(c) for c in calls[1:]) * 1e6,
             "stats": {k: v for k, v in eng.stats.items() if v}}
 
 
@@ -79,7 +101,9 @@ def main() -> int:
         rows[path] = r
         print(f"{path}: first {r['walls_ms'][0]:.2f} ms, warm median "
               f"{r['warm_median_ms']:.2f} ms "
-              f"({', '.join(f'{w:.2f}' for w in r['walls_ms'][1:])})")
+              f"({', '.join(f'{w:.2f}' for w in r['walls_ms'][1:])}); "
+              f"{r['launches'][-1]} generated launches a run, warm median "
+              f"{r['warm_launch_host_us']:.1f} us of host time in them")
     print(json.dumps({"tree": os.path.abspath(args.tree), "card": card,
                       "scripts": rows}))
     return 0

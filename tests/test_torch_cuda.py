@@ -15,9 +15,12 @@ Goldschmidt iteration); histogram counts exact; workload results
 rtol=1e-4; the generated kernels (`ops/fused.py`) as
 `runmat_tpu_torch/fusebench.py` states (logical values, NaN patterns,
 infinities, linspace and casts exactly, other values float32 rtol=atol=1e-6,
-float64 1e-12, sums and means 1e-5 / 1e-12 of their largest magnitude).
+float64 1e-12, sums and means 1e-5 / 1e-12 of their largest magnitude); their
+square arm (a `pow` whose scalar exponent is 2) equal to the correctly
+rounded square bit for bit over all 2^32 float32 values.
 """
 
+import collections
 import io
 import re
 
@@ -727,7 +730,7 @@ def test_a_fused_body_is_captured_without_compiling(card):
         r = s.execute(src)
         assert r.error is None, r.error
         compiled = set(fused.compiled)
-        before = fused.launches_by["fused_map_f32"]
+        before = fused.by_label(fused.launches_by)["fused_map_f32"]
         for _ in range(2):
             r = s.execute(src)
             assert r.error is None, r.error
@@ -740,6 +743,68 @@ def test_a_fused_body_is_captured_without_compiling(card):
     assert st["graph_captures"] == 1 and st["graph_declines"] == 0
     assert fused.compiled == compiled
     (graph,) = graphs
-    assert graph.kernels == {"fused_map_f32": 1}
+    assert fused.by_label(graph.kernels) == {"fused_map_f32": 1}
     # two warm runs of 16 replayed steps, plus the payoff's setup kernels
-    assert fused.launches_by["fused_map_f32"] - before >= 2 * 16
+    assert fused.by_label(fused.launches_by)["fused_map_f32"] - before \
+        >= 2 * 16
+
+
+def test_generated_square_arm_is_the_rounded_square_everywhere(card):
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    sweep = fusebench.square_sweep(TorchEngine("cuda"))
+    assert sweep["values"] == 1 << 32 and sweep["kernel_differ"] == 0
+
+
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+def test_generated_square_arm_calls_no_pow(card, dt):
+    """The kernels of `x .^ e` (a map) and of a mean of it with `.^ e` in
+    its epilogue: in the Triton IR the arm for 2 multiplies a value by
+    itself and calls no libdevice pow, the other arm calls it; the machine
+    code holds that pow inline (a MUFU) or as a call."""
+    from runmat_tpu_torch.accel import fuse
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    from runmat_tpu_torch.ops import fused
+    eng = TorchEngine("cuda")
+    p, outs, _ = dict(fusebench.table_cases())[f"pow scalar 2 {dt}"](
+        eng.device)
+    plan = fuse.plan(p.entries, outs)
+    before = collections.Counter(fused.launches_by)
+    eng.run_program(p.entries, p.values, outs, plan)
+    torch.cuda.synchronize()
+    launched = fused.launches_by - before
+    assert len(launched) == len(plan.groups) == 2, launched
+    for _, module in launched:
+        arm = fusebench.square_arm(module)
+        assert arm and all(
+            a["ifs"] == 1 and a["ir_ok"] and a["mufu"] + a["calls"] > 0
+            for v in arm.values() for a in v), arm
+
+
+def test_generated_kernel_in_a_fold_follows_its_exponent(card):
+    """A folded loop whose exponent switches between 2 and 3 each
+    iteration, captured once and replayed, equals the eager fold on the
+    CPU: the replays take the arm of each iteration's exponent."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    src = ("x = gpuArray(single(linspace(0.5, 1.5, 4096)'));"
+           " y = gpuArray(zeros(4096, 1, 'single'));\n"
+           "for t = 1:24\n  e = 2 + mod(t, 2);\n"
+           "  y = y * single(0.5) + x .^ e;\nend\n")
+    got = {}
+    prev = accel.active_engine()
+    try:
+        for dev in ("cuda", "cpu"):
+            s = runmat_tpu_torch.session(dev)
+            eng = accel.active_engine()
+            r = s.execute(src)
+            assert r.error is None, r.error
+            got[dev] = (s.get("y").host().copy(), dict(eng.stats))
+            runmat_tpu_torch.uninstall()
+    finally:
+        accel.set_engine(prev)
+    st = got["cuda"][1]
+    assert st["loop_folds"] == 1 and st["graph_declines"] == 0
+    assert st["graph_captures"] == 1 and st["graph_replays"] == 23
+    assert got["cpu"][1]["graph_captures"] == 0
+    np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=1e-6,
+                               atol=1e-6)

@@ -17,6 +17,13 @@ executable.
 * The generated source is deterministic, parses, and names every op of its
   group; `ops/fused.py` imports and generates without triton, and asking it
   for a kernel without triton raises.
+* A `pow` whose exponent is a one-element input branches on its value in
+  the source (the exponent loaded once, outside any loop; `a * a` where it
+  is 2, `_pow` elsewhere); an array exponent, a scalar base and an exponent
+  computed in the group do not. The plain version of `.^` with a scalar
+  exponent (2, nextafter(2, 3), 0, 1, -2) over NaN, +-Inf, +-0, subnormal
+  and +-1 bases, and a folded loop whose exponent switches between 2 and 3,
+  give the JAX package's results (float32 rtol=atol=1e-6, float64 1e-12).
 """
 
 import ast
@@ -376,3 +383,235 @@ def test_outputs_take_the_walking_order():
         (1, 3)
     t = fuse._empty((3, 1), [0], torch.float64, "cpu")
     assert tuple(t.shape) == (3,) and t.is_contiguous()
+
+
+# ------------------------------------------- pow with a scalar exponent
+
+def _kernel(text: str, name: str) -> ast.FunctionDef:
+    (fn,) = [n for n in ast.parse(text).body
+             if isinstance(n, ast.FunctionDef) and n.name == name]
+    return fn
+
+
+def _loads_of(node, k: int) -> int:
+    """`tl.load(x{k})` calls under `node`."""
+    return sum(isinstance(c, ast.Call) and ast.unparse(c.func) == "tl.load"
+               and ast.unparse(c.args[0]) == f"x{k}" for c in ast.walk(node))
+
+
+def _branches(text: str, kernel: str) -> list:
+    """(body index, exponent input, inside a loop) of each branch on an
+    exponent in `kernel`, checked: the exponent loaded once, before any
+    loop, compared with 2, and the arms `a * a` and `_pow(a, e)`."""
+    fn = _kernel(text, kernel)
+    found = []
+    loops = [n for n in ast.walk(fn) if isinstance(n, ast.For)]
+    for node in ast.walk(fn):
+        if not (isinstance(node, ast.If) and isinstance(node.test, ast.Name)
+                and node.test.id.startswith("sq")):
+            continue
+        m = node.test.id[2:]
+        (then,), (other,) = node.body, node.orelse
+        assert ast.unparse(then.targets[0]) == f"v{m}"
+        assert ast.unparse(other.targets[0]) == f"v{m}"
+        sq = then.value
+        assert isinstance(sq, ast.BinOp) and isinstance(sq.op, ast.Mult)
+        assert ast.unparse(sq.left) == ast.unparse(sq.right)
+        call = other.value
+        assert ast.unparse(call.func) == "_pow"
+        assert [ast.unparse(a) for a in call.args] == \
+            [ast.unparse(sq.left), f"e{m}"]
+        # the exponent and the test: top-level statements before any loop
+        top = [ast.unparse(x) for x in fn.body]
+        (load,) = [x for x in fn.body if isinstance(x, ast.Assign)
+                   and ast.unparse(x.targets[0]) == f"e{m}"]
+        k = int(ast.unparse(load.value).split("tl.load(x")[1].split(")")[0])
+        assert f"sq{m} = e{m} == 2" in top
+        first_loop = min([fn.body.index(x) for x in fn.body
+                          if isinstance(x, ast.For)], default=len(fn.body))
+        assert fn.body.index(load) < first_loop
+        assert _loads_of(fn, k) == 1
+        found.append((int(m), k, any(node in ast.walk(lp) for lp in loops)))
+    return found
+
+
+def _main_groups(monkeypatch) -> dict:
+    """{(script, label, ops): Group} of the two scripts with a pow."""
+    out = {}
+    for name in ("elementwise_math", "image_normalize"):
+        for program, p in _plans(SMALL[name] + "\n" + _script(name),
+                                 monkeypatch):
+            for g in p.groups:
+                out[(name, g.label, tuple(program[i][0]
+                                          for i in g.members))] = g
+    return out
+
+
+@pytest.mark.parametrize("which,kernel,in_loop", [
+    ("elementwise_math", "map_kernel", False),
+    ("sigma", "part_kernel", True),
+    ("gamma", "part_kernel", True)])
+def test_a_scalar_exponent_branches_on_its_value(which, kernel, in_loop,
+                                                 monkeypatch):
+    groups = _main_groups(monkeypatch)
+    ops = {"elementwise_math": MAIN_PLANS["elementwise_math"][0][0][1],
+           "sigma": MAIN_PLANS["image_normalize"][0][2][1],
+           "gamma": MAIN_PLANS["image_normalize"][0][3][1]}[which]
+    (g,) = [g for (_, _, o), g in groups.items() if list(o) == ops]
+    text = fused.source(g.spec)
+    (m, k, looped), = _branches(text, kernel)
+    assert g.spec.body[m][0] == "b:pow" and g.spec.body[m][3][1] == ("x", k)
+    assert g.spec.inputs[k][0] == (1, 1) and looped == in_loop
+    # the exponent stays a pointer that is not specialised on
+    lines = text.splitlines()
+    (i,) = [i for i, line in enumerate(lines)
+            if line.startswith(f"def {kernel}(")]
+    assert f'"x{k}"' in lines[i - 1]
+    assert text == fused.source(g.spec)
+    assert ast.parse(fused.source(g.spec, big=True))
+
+
+def test_an_epilogue_exponent_branches_in_the_finishing_kernel():
+    from runmat_tpu_torch import fusebench
+    from runmat_tpu_torch.accel.engine import TorchEngine
+    eng = TorchEngine("cpu")
+    p, outs, _ = dict(fusebench.table_cases())["pow scalar 2 float32"](
+        eng.device)
+    plan = fuse.plan(p.entries, outs)
+    found = {}
+    for g in plan.groups:
+        text = fused.source(g.spec)
+        for kernel in ("map_kernel", "part_kernel", "fin_kernel"):
+            if f"def {kernel}(" in text:
+                found[kernel] = [looped for _, _, looped in
+                                 _branches(text, kernel)]
+    assert found == {"map_kernel": [False], "part_kernel": [True],
+                     "fin_kernel": [False]}
+
+
+F32 = "float32"
+
+
+@pytest.mark.parametrize("name,spec", [
+    ("array exponent", fused.Spec(
+        shape=(1, 8), inputs=(((1, 8), F32), ((1, 8), F32)),
+        body=(("b:pow", (F32,), F32, (("x", 0), ("x", 1))),),
+        reduce=None, outputs=(0,))),
+    ("scalar base", fused.Spec(
+        shape=(1, 8), inputs=(((1, 1), F32), ((1, 8), F32)),
+        body=(("b:pow", (F32,), F32, (("x", 0), ("x", 1))),),
+        reduce=None, outputs=(0,))),
+    ("exponent computed in the group", fused.Spec(
+        shape=(1, 8), inputs=(((1, 8), F32), ((1, 1), F32)),
+        body=(("b:add", (F32,), F32, (("x", 0), ("x", 1))),
+              ("b:pow", (F32,), F32, (("x", 0), ("v", 0)))),
+        reduce=None, outputs=(1,))),
+    ("array exponent in a reduction", fused.Spec(
+        shape=(4, 8), inputs=(((4, 8), F32), ((4, 8), F32)),
+        body=(("b:pow", (F32,), F32, (("x", 0), ("x", 1))),
+              ("r:sum", ((1,), "", F32), F32, (("v", 0),))),
+        reduce=1, outputs=(1,), rshape=(4, 1)))])
+def test_no_branch_without_a_scalar_exponent(name, spec):
+    text = fused.source(spec)
+    tree = ast.parse(text)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.If)], name
+    assert "_pow(" in text and " * x" not in text
+
+
+def _matlab(values: np.ndarray) -> str:
+    return "[" + " ".join(repr(float(v)) for v in values) + "]"
+
+
+POW_BASES = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0]
+
+
+@pytest.mark.parametrize("mclass", ["single", "double"])
+@pytest.mark.parametrize("exponent", ["2", "nextafter(2, 3)", "0", "1", "-2"])
+def test_scalar_exponent_matches_the_jax_package(exponent, mclass):
+    dt = np.float32 if mclass == "single" else np.float64
+    tiny = np.finfo(dt).smallest_subnormal
+    rng = np.random.default_rng(12)
+    x = np.concatenate([POW_BASES, [tiny, -tiny, 3 * tiny, np.finfo(dt).tiny,
+                                    np.sqrt(np.finfo(dt).max) * 2],
+                        rng.uniform(-3.0, 3.0, 40)]).astype(dt)
+    e = repr(float(np.nextafter(dt(2), dt(3)))) \
+        if exponent.startswith("nextafter") else exponent
+    b = run_both(f"x = gpuArray({mclass}({_matlab(x)})); "
+                 f"e = {mclass}({e});", "y = x .^ e;")
+    same(b, [])
+    tol = 1e-6 if mclass == "single" else 1e-12
+    got, want = b.ts.get("y"), b.js.get("y")
+    assert got.mclass == want.mclass == mclass and got.on_device
+    np.testing.assert_allclose(got.host(), want.host(), rtol=tol, atol=tol)
+    # MATLAB's x^0 = 1 (NaN included) and x^1 = x, exactly
+    if exponent in ("0", "1"):
+        ref = np.ones_like(x) if exponent == "0" else x
+        np.testing.assert_array_equal(np.asarray(got.host()).reshape(-1),
+                                      ref)
+    assert (b.td["compiles"], b.td["cache_hits"]) == \
+        (b.jd["compiles"], b.jd["cache_hits"])
+    assert _snap(b.tsnap) == _snap(b.jsnap)
+
+
+LOOP_POW = ("x = gpuArray(single(linspace(0.5, 1.5, 4096)'));"
+            " y = gpuArray(zeros(4096, 1, 'single'));",
+            "for t = 1:24\n  e = 2 + mod(t, 2);\n"
+            "  y = y * single(0.5) + x .^ e;\nend\n")
+
+
+def test_a_folded_loop_with_a_changing_exponent():
+    b = run_both(*LOOP_POW)
+    assert b.td["loop_folds"] == 1 and b.td["loop_bails"] == 0, b.td
+    assert b.jd["loop_trace_attempts"] == 1
+    assert any(k[0] == "device_loop" for k in b.jeng._jit_cache)
+    same(b, ["e"])
+    np.testing.assert_allclose(b.ts.get("y").host(), b.js.get("y").host(),
+                               rtol=1e-6, atol=1e-6)
+    assert _snap(b.tsnap) == _snap(b.jsnap)
+
+
+# a branch on the exponent as Triton's IR prints it (trimmed from the sigma
+# group's part_kernel on an H100)
+TTIR_BRANCH = """\
+      %6 = scf.if %sq1_12 -> (tensor<128x16xf32>) {
+        %v1 = arith.mulf %v0, %v0 : tensor<128x16xf32> loc(#loc94)
+        scf.yield %v1 : tensor<128x16xf32> loc(#loc94)
+      } else {
+        %r = tt.splat %e1 : f32 -> tensor<128x16xf32> loc(#loc97)
+        %r_35 = tt.extern_elementwise %v0, %r {libname = "", libpath = "", \
+pure = true, symbol = "__nv_powf"} : (tensor<128x16xf32>, \
+tensor<128x16xf32>) -> tensor<128x16xf32> loc(#loc97)
+        scf.yield %r_35 : tensor<128x16xf32> loc(#loc88)
+      } loc(#loc29)
+"""
+
+
+@pytest.mark.parametrize("case", ["as compiled", "pow in the square arm",
+                                  "no pow in the other arm",
+                                  "a product of two"])
+def test_the_square_arm_in_ir(case):
+    from runmat_tpu_torch import fusebench
+    ir = TTIR_BRANCH
+    if case == "pow in the square arm":
+        ir = ir.replace("arith.mulf %v0, %v0", "tt.extern_elementwise %v0, "
+                        '%e1 {symbol = "__nv_powf"}')
+    elif case == "no pow in the other arm":
+        ir = ir.replace("__nv_powf", "__nv_expf")
+    elif case == "a product of two":
+        ir = ir.replace("arith.mulf %v0, %v0", "arith.mulf %v0, %v00")
+    arms = fusebench._if_arms(ir)
+    (then, other), = arms
+    assert "scf.yield %v1" in then and "tt.splat" in other
+    assert fusebench.ir_arms_ok(arms) == (case == "as compiled")
+    assert not fusebench.ir_arms_ok([])
+    assert fusebench._if_arms(ir.replace("} else {", "} {")) == []
+
+
+def test_launches_summed_by_label():
+    from runmat_tpu_torch.ops import fused
+    counts = {("fused_map_f32", "runmat_fused_a"): 3,
+              ("fused_reduce_f32", "runmat_fused_b"): 1,
+              ("fused_map_f32", "runmat_fused_c"): 2}
+    assert fused.by_label(counts) == {"fused_map_f32": 5,
+                                      "fused_reduce_f32": 1}
+    assert fused.by_label({}) == {}
