@@ -14,8 +14,9 @@ line is printed:
      against its numpy model (runmat_tpu_torch/ops/boxmuller.py) over every
      float32 (u1, u2) and 2^20 float64 pairs; the time of the kernel and of
      the plain version at the main path's draws (runmat_tpu_torch/
-     rngbench.py: normals f32 at 10^6, 10^7 and 2^26, f64 at 10^7,
-     uniforms f32 at 10^7 and 2^26, f64 at 10^7), each beside its bound
+     rngbench.py: normals f32 at 10^6, 10^7 and 2^26, f64 at 10^7, 2^22
+     and 4096^2, uniforms f32 at 10^7 and 2^26, f64 at 10^7), each
+     beside its bound
      and its kernel's registers; the histogram kernel against its plain
      versions, exactly, in its three modes over sizes up to 2^26 and 1 to
      256 bins, and up to 2^20+1 values at 257 to 65536 bins, which cross
@@ -37,9 +38,9 @@ line is printed:
      a scalar exponent over all 2^32 float32 bit patterns, equal to the
      correctly rounded square bit for bit (and how many of them torch.pow
      misses, by how many ulp); then every group the three benchmark
-     scripts launch at their default sizes, timed against its plain
-     version, its bound and, where one PyTorch call computes it, that
-     call;
+     scripts, dense_linalg.m and spectral.m launch at their default sizes,
+     held to its plain version and timed against it, its bound and, where
+     one PyTorch call computes it, that call;
   4. main path: benchmarks/{elementwise_math,monte_carlo,image_normalize}.m
      at their default sizes through runmat_tpu_torch.session("cuda"),
      against the port's host engine (Session(accelerate=False)) for CHECK,
@@ -68,9 +69,24 @@ line is printed:
      one `while` fold, under 1 MB each way, and its sort, unique, counts,
      median, membership and column writes against numpy of the port's own
      gathered data; with the warm walls;
-  7. one JSON line of kernel results, then the result line
+  7. linear algebra and signal path: the IIR kernel (csrc/iir.cu) against
+     its plain version bit for bit, orders 1 to 8 in float32 and float64,
+     and spectral.m's 4th-order call over 2^22 samples in float32, timed
+     (runmat_tpu_torch/linalgbench.py); then
+     runmat_tpu_torch/workloads/dense_linalg.m at N = 4096 and
+     spectral.m at N = 2^22 through Session.run_source, each against the
+     port's host engine: LINALG and SPECTRAL within a relative 1e-9
+     (LAPACK against cuSOLVER, pocketfft against cuFFT, sums in other
+     orders), dense_linalg's six residuals under 1e-10, spectral's single
+     conv2 within 1e-5 of its largest value (TF32 would miss by ~1e-3);
+     no host fallback and no not-ported decline, under 1 MB uploaded, the
+     IIR kernel launched once a spectral.m run, its float64 call (the
+     script's own signal and coefficients, all 2^22 samples) and the
+     path's output z bit-equal to the plain version, which is timed on
+     the host, the waits equal to the counted reads, and the warm walls;
+  8. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
-Each kernel's `launches` is read from the runs of phases 4 to 6, with the
+Each kernel's `launches` is read from the runs of phases 4 to 7, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches); each generated group is a row of its own,
 counted by its kernel, so its `launches` are those of one run of its
@@ -100,12 +116,20 @@ RESULT_KEY = {"elementwise_math": ("CHECK", "checksum"),
               "image_normalize": ("MSE", "mse")}
 PARITY_RTOL = 1e-4       # f32 reductions and T compounding steps of exp
 SIZES = (1, 2, 3, 1023, (1 << 20) + 1, 10 ** 7)
-# image_normalize.m, monte_carlo.m (256 a run) and histogram_stats.m
-MAIN_PATH_DRAWS = (("rand", 16 * 2160 * 3840), ("randn", 1_000_000),
-                   ("rand", 1 << 26), ("randn", 1 << 26))
-# the kernel JSON line's Threefry rows: the main path's most-launched
-# normal draw and its uniform draw of histogram_stats.m
-REPORTED_DRAWS = {"rand": 1 << 26, "randn": 10 ** 6}
+# (kind, n, dtype): image_normalize.m, monte_carlo.m (256 a run),
+# histogram_stats.m, dense_linalg.m (A, 4096 x 4096) and spectral.m (2^22)
+MAIN_PATH_DRAWS = (("rand", 16 * 2160 * 3840, "float32"),
+                   ("randn", 1_000_000, "float32"),
+                   ("rand", 1 << 26, "float32"),
+                   ("randn", 1 << 26, "float32"),
+                   ("randn", 4096 * 4096, "float64"),
+                   ("randn", 1 << 22, "float64"))
+# the kernel JSON line's Threefry rows, (kind, dtype) -> the draw timed:
+# the main path's most-launched normal draw, the uniform draw of
+# histogram_stats.m and dense_linalg.m's float64 normal draw
+REPORTED_DRAWS = {("rand", "float32"): 1 << 26,
+                  ("randn", "float32"): 10 ** 6,
+                  ("randn", "float64"): 4096 * 4096}
 # the draws' key and the normals' tolerance are rngbench.KEY and
 # rngbench.NORMAL_TOL, which also check the timed draws
 COUNTERS = (12345, (0xFFFFFFFD, 7))   # the second carries lo into hi
@@ -135,6 +159,22 @@ INDEX_REFERENCE_N = "N = 2^20;\n"     # the host engine's unique is a Python loo
 INDEX_TRANSFER_LIMIT = 1 << 20
 TIMING_REPS = 50
 F64_SWEEP = 1 << 20       # float64 word sets through the device transform
+LINALG_WORKLOAD = "runmat_tpu_torch/workloads/dense_linalg.m"
+SIGNAL_WORKLOAD = "runmat_tpu_torch/workloads/spectral.m"
+# LAPACK against cuSOLVER, pocketfft against cuFFT: the double sums agree
+# to a few ulp of their terms; dense_linalg's factorizations reproduce
+# their matrix to within rounding
+SLICE_RTOL = 1e-9
+RESIDUAL_LIMIT = 1e-10
+RESIDUALS = ("res_chol", "res_solve", "res_qr", "res_lu", "res_inv",
+             "res_pinv")
+# spectral.m's single conv2: cuDNN in true FP32 against the host's f64 FFT
+# rounded to single, of its largest value (TF32 misses by ~1e-3)
+CONV2_SINGLE_TOL = 1e-5
+# the scripts upload only short vectors: b, its first quarter, the
+# filters' coefficients and the window
+SLICE_TRANSFER_LIMIT = 1 << 20
+IIR_ORDERS_N = 1 << 10            # orders 1 to 8, both types
 
 
 class SmokeFailure(Exception):
@@ -177,12 +217,12 @@ def phase_kernel() -> list:
     from runmat_tpu_torch.ops import ctrng, threefry
 
     dev = torch.device("cuda")
-    worst = {"rand": 0.0, "randn": 0.0}
+    worst = {key: 0.0 for key in REPORTED_DRAWS}
     cases = [(kind, n, dt, ctr) for kind in ("rand", "randn")
              for dt in (torch.float32, torch.float64)
              for n in SIZES for ctr in COUNTERS]
-    cases += [(kind, n, torch.float32, COUNTERS[0])
-              for kind, n in MAIN_PATH_DRAWS]
+    cases += [(kind, n, getattr(torch, dt), COUNTERS[0])
+              for kind, n, dt in MAIN_PATH_DRAWS]
     for kind, n, dt, ctr in cases:
         got = threefry.rng_draw(kind, rngbench.KEY, ctr, n, dt, dev)
         want = threefry.plain_draw(kind, rngbench.KEY, ctr, n, dt, dev)
@@ -207,7 +247,8 @@ def phase_kernel() -> list:
             check(bool(torch.isfinite(got).all()) and torch.allclose(
                 got, want, rtol=tol, atol=tol),
                 f"randn {name} n={n} ctr={ctr}: max err {err:g} > {tol:g}")
-        worst[kind] = max(worst[kind], err)
+        if (kind, name) in worst:
+            worst[kind, name] = max(worst[kind, name], err)
         print(f"kernel {kind} {name} n={n} ctr={ctr}: max_abs_err={err:g}")
 
     _transform_sweep(threefry)
@@ -227,22 +268,23 @@ def phase_kernel() -> list:
               f"{r['stack_bytes']} bytes of stack, {r['resident_warps']} "
               f"warps a SM; loop {json.dumps(r['loop'])}")
     out = []
-    for kind, label in (("rand", "uniform"), ("randn", "normal")):
+    for (kind, dtype), n in REPORTED_DRAWS.items():
         (r,) = [r for r in rows if r["kind"] == kind
-                and r["dtype"] == "float32" and r["n"] == REPORTED_DRAWS[kind]]
+                and r["dtype"] == dtype and r["n"] == n]
+        label = "uniform" if kind == "rand" else "normal"
         out.append({
-            "name": f"threefry2x32_{label}_f32", "route": "cuda",
+            "name": f"threefry2x32_{label}_f{dtype[-2:]}", "route": "cuda",
             "source": "runmat_tpu_torch/csrc/threefry.cu",
             "replaces": "runmat_tpu/ops/pallas/threefry.py:"
                         + ("134" if kind == "rand" else "114"),
-            "launches": 0, "launch_key": f"{kind} float32",
-            "max_abs_err": worst[kind], "ms": r["ms"],
+            "launches": 0, "launch_key": f"{kind} {dtype}",
+            "max_abs_err": worst[kind, dtype], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             # torch.rand draws Philox, another stream: no library call
             # computes these values
             "library_ms": None})
-        if kind == "randn":
+        if (kind, dtype) == ("randn", "float32"):
             out.append({**out[-1], **device_counter,
                         "bound_ms": r["bound_ms"]})
     return out
@@ -263,8 +305,8 @@ def _device_counter_entry(threefry, rngbench) -> dict:
     cases = [(kind, n, dt, ctr) for kind in ("rand", "randn")
              for dt in (torch.float32, torch.float64)
              for n in SIZES for ctr in COUNTERS]
-    cases += [(kind, n, torch.float32, ctr) for kind, n in MAIN_PATH_DRAWS
-              for ctr in COUNTERS]
+    cases += [(kind, n, getattr(torch, dt), ctr)
+              for kind, n, dt in MAIN_PATH_DRAWS for ctr in COUNTERS]
     for kind, n, dt, ctr in cases:
         c = ctr if isinstance(ctr, int) else ctr[0] | (ctr[1] << 32)
         at = torch.full((), counter_value(c), dtype=torch.int64, device=dev)
@@ -502,23 +544,25 @@ def _sync_check(src: str, label: str) -> None:
 
 
 def _zero_launches() -> None:
-    from runmat_tpu_torch.ops import fused, histogram, threefry
-    for mod in (histogram, threefry, fused):
+    from runmat_tpu_torch.ops import fused, histogram, iir, threefry
+    for mod in (histogram, threefry, fused, iir):
         mod.launches = 0
         mod.launches_by.clear()
 
 
 def _read_launches() -> dict:
-    from runmat_tpu_torch.ops import fused, histogram, threefry
+    from runmat_tpu_torch.ops import fused, histogram, iir, threefry
     return {"threefry": dict(threefry.launches_by),
             "histogram": dict(histogram.launches_by),
-            "fused": dict(fused.launches_by)}
+            "fused": dict(fused.launches_by),
+            "iir": dict(iir.launches_by)}
 
 
 def _group(name: str) -> str:
     """The launch counter a kernel row reads."""
     return "threefry" if name.startswith("threefry") else \
-        "histogram" if name.startswith("histcounts") else "fused"
+        "histogram" if name.startswith("histcounts") else \
+        "iir" if name.startswith("iir") else "fused"
 
 
 def phase_fused_kernel() -> list:
@@ -995,6 +1039,173 @@ def phase_indexing_path() -> dict:
     return launches
 
 
+def _iir_kernel() -> None:
+    """The IIR kernel against its plain version, bit for bit: orders 1 to
+    8 in both types at IIR_ORDERS_N samples, then spectral.m's call (its
+    Butterworth filter over 2^22 samples) in float32, timed
+    (runmat_tpu_torch/linalgbench.py). The float64 call the path makes is
+    held to its plain version after spectral.m's run."""
+    import torch
+
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.ops import iir
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    cases = 0
+    for dt in (torch.float32, torch.float64):
+        for order in range(1, 9):
+            n = order + 1
+            x = torch.randn(IIR_ORDERS_N, dtype=dt, device=dev, generator=gen)
+            b = torch.randn(n, dtype=dt, device=dev, generator=gen) * 0.3
+            a = torch.randn(n, dtype=dt, device=dev, generator=gen) * 0.1
+            z0 = torch.randn(n - 1, dtype=dt, device=dev, generator=gen) * 0.1
+            got, want = iir.iir(x, b, a, z0), iir.plain_iir(x, b, a, z0)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"iir {dt} order {order}: kernel differs from plain by "
+                  f"{float((got - want).abs().max()):g}")
+            cases += 1
+    print(f"kernel iir: {cases} cases bit-equal to plain (orders 1-8 at "
+          f"{IIR_ORDERS_N} samples in float32 and float64)")
+    # spectral.m filters in float64 (its coefficients are double); the
+    # float32 kernel is timed at the same call beside it
+    r = linalgbench.iir_row(iir, *linalgbench.iir_inputs(torch.float32), 3)
+    check(r["equal"], f"iir f32 at 2^22: differs from plain by "
+          f"{r['max_abs_err']:g}")
+    _print_iir("iir f32", r)
+
+
+def _print_iir(label: str, r: dict) -> None:
+    print(f"time {label} (spectral.m's call, n=2^22, order {r['order']}): "
+          f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms (the "
+          f"host loop over all {r['n']} samples, equal bit for bit), "
+          f"library none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+          f"share of bound {r['bound_ms'] / r['ms']:.5f}")
+
+
+def _iir_path_row(values: dict) -> dict:
+    """spectral.m's IIR call held to the plain version over all its
+    samples: the kernel on the script's own signal and coefficients, and
+    the path's output z, both bit-equal; the row of the kernel line."""
+    import torch
+
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.ops import iir
+    x, z = values["x"], values["z"]
+    dev, f64 = x.device, torch.float64
+    bb, aa = (np.asarray(torch.as_tensor(values[name]).cpu(),
+                         dtype=np.float64).reshape(-1)
+              for name in ("bb", "aa"))
+    b = torch.tensor(bb / aa[0], dtype=f64, device=dev)
+    a = torch.tensor(aa / aa[0], dtype=f64, device=dev)
+    z0 = torch.zeros(len(bb) - 1, dtype=f64, device=dev)
+    r = linalgbench.iir_row(iir, x.reshape(-1), b, a, z0, 3, path_y=z)
+    check(r["equal"], f"iir f64, spectral.m's call: the kernel or the path's "
+          f"z differs from plain by {r['max_abs_err']:g}")
+    _print_iir("iir f64", r)
+    return {"name": "iir_f64", "route": "cuda",
+            "source": "runmat_tpu_torch/csrc/iir.cu",
+            "replaces": "runmat_tpu/accel/dense.py:706",
+            "launches": 0, "launch_key": "iir f64",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None}
+
+
+def _slice_script(path: str, label: str, key: str, keep=()) -> tuple:
+    """One script of phase 7 against the port's host engine. Returns (the
+    port's session, its launches, the host session, the workspace values
+    named in `keep`: a device value as its CUDA tensor, a host one as its
+    array)."""
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.errors import MatError
+
+    src = open(path).read()
+    t0 = time.perf_counter()
+    out, host = _host_reference(src)
+    ref = _result_value(out, key)
+    print(f"host {label}: {out.strip()} ({time.perf_counter() - t0:.1f} s)")
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        output = _run_source(s, src)
+    except MatError as e:
+        raise SmokeFailure(f"{label}: {e}") from e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    st, log = dict(eng.stats), list(eng.launch_log)
+    reasons = dict(eng.sync_reasons)
+    kept = {}
+    for name in keep:
+        v = s.get(name)
+        kept[name] = eng.materialize(v.dev) if v.on_device else v.host()
+    runmat_tpu_torch.uninstall()
+    got = _result_value(output, key)
+    check(abs(got - ref) <= SLICE_RTOL * abs(ref),
+          f"{label}: {key}={got!r} against host {ref!r}")
+    check(st["host_fallbacks"] == 0,
+          f"{label}: {st['host_fallbacks']} host fallbacks "
+          f"{[e for e in log if e['cat'] == 'host_fallback']}")
+    unported = [e for e in log if any(t in json.dumps(e) for t in
+                                      ("(A7)", "(A8)", "not ported"))]
+    check(not unported, f"{label}: declines {unported}")
+    check(st["upload_bytes"] < SLICE_TRANSFER_LIMIT,
+          f"{label}: {st['upload_bytes']} bytes uploaded")
+    print(f"port {label}: {output.strip()} (host {ref!r}, rel err "
+          f"{abs(got - ref) / abs(ref):.3g}); {st['uploads']} uploads "
+          f"({st['upload_bytes']} bytes), {st['gathers']} gathers "
+          f"({st['gather_bytes']} bytes), {st['syncs']} waits inside "
+          f"torch.linalg {reasons}; launches {launches}; first run "
+          f"{wall * 1e3:.1f} ms")
+    return s, launches, host, kept
+
+
+def phase_linalg_signal_path() -> dict:
+    """dense_linalg.m and spectral.m at their default sizes against the
+    host engine, after the IIR kernel against its plain version."""
+    _iir_kernel()
+    s, launches, host, _ = _slice_script(LINALG_WORKLOAD, "dense_linalg",
+                                         "LINALG")
+    for name in RESIDUALS:
+        r = float(np.asarray(s.get(name).host()).reshape(-1)[0])
+        check(r < RESIDUAL_LIMIT, f"dense_linalg: {name} = {r!r}")
+    print("port dense_linalg: residuals " + ", ".join(
+        f"{n} {float(np.asarray(s.get(n).host()).reshape(-1)[0]):.3g}"
+        for n in RESIDUALS))
+    del s, host
+    _sync_check(open(LINALG_WORKLOAD).read(), "dense_linalg")
+    _walls(open(LINALG_WORKLOAD).read(), "dense_linalg", preview=False)
+
+    s, sig, host, kept = _slice_script(SIGNAL_WORKLOAD, "spectral",
+                                       "SPECTRAL", ("x", "z", "bb", "aa"))
+    check(sig["iir"] == {"iir f64": 1}, f"spectral: iir launches {sig['iir']}")
+    phase_linalg_signal_path.kernels = [_iir_path_row(kept)]
+    del kept
+    G = np.asarray(s.get("G").host())
+    Gh = np.asarray(host.get("G").host())
+    check(G.dtype == Gh.dtype == np.float32 and G.shape == Gh.shape,
+          f"spectral: G {G.dtype} {G.shape} against {Gh.dtype} {Gh.shape}")
+    gerr = float(np.abs(G.astype(np.float64) - Gh).max() / np.abs(Gh).max())
+    check(gerr <= CONV2_SINGLE_TOL, f"spectral: single conv2 off by {gerr:g}"
+          f" of its largest value (TF32?)")
+    print(f"port spectral: single conv2 within {gerr:.3g} of its largest "
+          f"value of the host engine's")
+    del s, host
+    _sync_check(open(SIGNAL_WORKLOAD).read(), "spectral")
+    _walls(open(SIGNAL_WORKLOAD).read(), "spectral", preview=False)
+    for group, counts in sig.items():
+        for k, v in counts.items():
+            launches[group][k] = launches[group].get(k, 0) + v
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -1009,10 +1220,12 @@ def main() -> int:
         kernels = phase(phase_kernel) + phase(phase_histogram_kernel) + \
             phase(phase_fused_kernel)
         paths = [phase(phase_main_path), phase(phase_statistics_path),
-                 phase(phase_indexing_path)]
+                 phase(phase_indexing_path),
+                 phase(phase_linalg_signal_path)]
+        kernels += phase_linalg_signal_path.kernels
         for k in kernels:
             key = k.pop("launch_key")
-            k["launches"] = sum(p[_group(k["name"])].get(key, 0)
+            k["launches"] = sum(p.get(_group(k["name"]), {}).get(key, 0)
                                 for p in paths)
             check(k["launches"] > 0, f"{k['name']}: no launch on the paths")
     except SmokeFailure as e:

@@ -3,18 +3,50 @@
 
 Port of `runmat_tpu/accel/dense.py:43-225` on torch tensors. A call looks up
 the builder of its kind, brings every operand to the device in its logical
-MATLAB shape and the work dtype, runs the builder eagerly and returns its
-tensors; `TorchEngine.linalg` wraps them as leaf nodes. There is no jit
-cache, no warmup record and no failure memo: a device error propagates.
+MATLAB shape and the work dtype (complex64/complex128 where an operand is
+complex), runs the builder eagerly and returns its tensors;
+`TorchEngine.linalg` wraps them as leaf nodes. `compiles`/`cache_hits`
+count each call under JaxEngine DenseOps' key (kind, shapes, dtype, opts),
+as it counts its jitted builders, so both engines count alike. There is no
+warmup record and no failure memo: a failing builder raises, and no kind is
+ever sent to the host for good.
 
 A kind without a builder here returns None before it touches an operand, so
 the builtin takes its host path; that is counted as a host fallback when an
-operand is on the device. Complex work returns None the same way (A8).
+operand is on the device.
 
-Builders (kind -> (engine, opts) -> fn(*tensors)): `diff`, `trapz`,
-`movwin`, `sort`, `unique`, `setop`, `mode`, `accumarray` and `ismember` are
-plain torch, as the JAX package leaves them to XLA; `histcounts` runs on the
-hand-written kernel of `ops/histogram.py`.
+Builders (kind -> (engine, opts) -> fn(*tensors)):
+  * `diff`, `trapz`, `movwin`, `sort`, `unique`, `setop`, `mode`,
+    `accumarray` and `ismember` are plain torch, as the JAX package leaves
+    them to XLA; `histcounts` runs on the hand-written kernel of
+    `ops/histogram.py`;
+  * the dense linear algebra goes through `torch.linalg` (cuSOLVER on a
+    card), as the JAX package's goes through `jnp.linalg`: `solve`,
+    `lstsq` (economy QR and a triangular solve), `inv`, `pinv`, `det`,
+    `chol` (factor and flag), `qr`, `svd`, `eigh`, `eig_qr` and
+    `eig_full` (LAPACK's eigenvalues and vectors in JaxEngine's
+    `(wr, wi, flags)` and plane-stack contracts, not its Francis QR),
+    `lu`, `trisolve`, `trace`, `ishermitian`, `norm`, `rank`;
+  * `fft`, `fft2`, `hilbert` and `spectrogram` through `torch.fft`
+    (cuFFT); `conv1`, `conv2` and `fir` through `torch.nn.functional`
+    convolutions (cuDNN), with float32 convolutions in true FP32 (TF32 off
+    around the call); `iir` on the hand-written kernel of `ops/iir.py`.
+Each keeps its JAX builder's output contract (tuple arity, shapes), so the
+copied builtins use them unchanged. `spectrogram` returns its result on
+the host, as the builtin reads it with `np.asarray` there (a counted
+gather), and `eig_full` its flags (a counted read).
+
+The general eigenproblem (`eig_qr`, `eig_full`) is cuSOLVER's geev on
+the card under torch 2.11 with CUDA 12.8: the Hessenberg reduction and the
+QR sweeps are card kernels, steered from the host through a few hundred
+small copies inside the call (`linalgbench.eig_where` lists them).
+
+Waits for the card: torch.linalg's `_ex` forms (`cholesky_ex`, `inv_ex`,
+`solve_ex`, `lu_factor_ex`) do not check LAPACK's `info` on the host. The
+calls without such a form (`svd`/`svdvals`, `eigh`/`eigvalsh`,
+`eig`/`eigvals`) wait inside torch; each such call is counted in
+`stats["syncs"]` with its kind in `eng.sync_reasons`, so that every wait is
+named (`runmat_tpu_torch/syncs.py` holds the count to the waits torch sees).
 
 The sort family keeps the JAX builders' semantics (`dense.py:534-559`,
 755-943), not their padded static shapes: each NaN is its own value and
@@ -25,32 +57,38 @@ subscript together, `count_sync`, and raises MATLAB's error for one
 outside 1..n); the keys are made canonical (one NaN, +0) first, because a
 card's radix sort orders by bit pattern. No builder calls a torch op that
 reads a device value back inside torch (`torch.bincount` reads the min and
-max of its input, `torch.isin` runs `unique` on a large test set), so every
-wait for the card is one the engine counts.
+max of its input, `torch.isin` runs `unique` on a large test set) unless
+the wait is counted as above.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops import histogram
+from ..ops import histogram, iir
 from ..values import MatArray, normalize_shape
 from .lazy import LazyNode
 
 _WORK = {np.dtype(np.float32): torch.float32,
-         np.dtype(np.float64): torch.float64}
+         np.dtype(np.float64): torch.float64,
+         np.dtype(np.complex64): torch.complex64,
+         np.dtype(np.complex128): torch.complex128}
 _NUMPY = {torch.float32: np.dtype(np.float32),
           torch.float64: np.dtype(np.float64),
+          torch.complex64: np.dtype(np.complex64),
+          torch.complex128: np.dtype(np.complex128),
           torch.int64: np.dtype(np.int64), torch.bool: np.dtype(np.bool_)}
 
 
 class DenseOps:
     def __init__(self, eng):
         self.eng = eng
+        self._keys: set = set()     # (kind, shapes, dtype, opts) seen
 
     def work_dtype(self, *xs: MatArray) -> np.dtype:
         """double->f64, single->f32; complex rides the numpy dtype."""
@@ -89,8 +127,16 @@ class DenseOps:
         node.dispatch_id = eng.dispatch_seq
         return MatArray.from_device(node, mclass)
 
+    def _leaf_cplx(self, planes: torch.Tensor, mclass: str,
+                   lshape: tuple) -> MatArray:
+        """A (2,)+shape stack of real and imaginary planes as a complex
+        device leaf (JaxEngine's native-complex branch of `_leaf_cplx`)."""
+        return self._leaf(torch.complex(planes[0], planes[1]), mclass,
+                          lshape=lshape)
+
     def call(self, kind: str, xs: list, opts: tuple = ()) -> Optional[list]:
-        """Run `kind` on the device. Returns tensors in logical shapes, or
+        """Run `kind` on the device. Returns tensors in logical shapes (a
+        numpy array where the builtin reads the result on the host), or
         None when the port has no builder for it (the caller's host path)."""
         eng = self.eng
         build = _BUILDERS.get(kind)
@@ -98,15 +144,21 @@ class DenseOps:
             eng._declines(kind, f"{kind} not ported (A7)", *xs)
             return None
         dt = self.work_dtype(*xs)
-        if dt.kind == "c":
-            eng._declines(kind, "complex not ported (A8)", *xs)
-            return None
         args = [self._mat(x, dt) for x in xs]
+        key = (kind, tuple(tuple(a.shape) for a in args), str(dt), opts)
+        if key in self._keys:
+            eng.stats["cache_hits"] += 1
+        else:
+            self._keys.add(key)
+            eng.stats["compiles"] += 1
         t0 = time.perf_counter()
         out = build(eng, opts)(*args)
         ms = (time.perf_counter() - t0) * 1e3
         if not isinstance(out, tuple):
             out = (out,)
+        # a conjugate view (`mH`, an inverse FFT) as a tensor of its own
+        out = tuple(o.resolve_conj() if isinstance(o, torch.Tensor) else o
+                    for o in out)
         eng.record_launch("linalg", [kind], ms, sum(int(o.nbytes) for o in out))
         eng.stats["dispatches"] += 1
         eng.dispatch_seq += 1
@@ -378,7 +430,432 @@ def _b_ismember(eng, opts):
     return f
 
 
+@contextlib.contextmanager
+def tf32(on: bool, backend: str = "matmul"):
+    """TF32 on or off for float32 work on the card inside the block only:
+    cuBLAS products (`backend` "matmul") or cuDNN convolutions ("conv"),
+    through torch's `fp32_precision` or, before it, `allow_tf32`. torch
+    turns TF32 on for convolutions by default; the port's float32
+    convolutions run with it off."""
+    if backend == "matmul":
+        new = old = torch.backends.cuda.matmul
+    else:
+        new, old = getattr(torch.backends.cudnn, "conv", None), \
+            torch.backends.cudnn
+    if hasattr(new, "fp32_precision"):
+        holder, attr, value = new, "fp32_precision", "tf32" if on else "ieee"
+    else:
+        holder, attr, value = old, "allow_tf32", on
+    prev = getattr(holder, attr)
+    setattr(holder, attr, value)
+    try:
+        yield
+    finally:
+        setattr(holder, attr, prev)
+
+
+# --------------------------------------------------------------------------- #
+# dense linear algebra (`runmat_tpu/accel/dense.py:232-330, 384-406,
+# 518-532, 562-610`)
+# --------------------------------------------------------------------------- #
+
+# The waits for the card inside each torch.linalg call that has no `_ex`
+# form (it reads LAPACK's `info`, or steers geev from the host), as
+# torch's sync debug mode counts them for torch 2.11 on an H100
+# (`python3 runmat_tpu_torch/syncs.py` holds every script's count).
+_TORCH_WAITS = {"svdvals": 2, "svd": 2, "eigvalsh": 1, "eigh": 1,
+                "eigvals": 2, "eig": 3}
+
+
+def _waits(eng, kind: str, call: str, out: torch.Tensor) -> None:
+    """Count the waits of torch.linalg's `call` on the card, named by the
+    builder's `kind`."""
+    if out.is_cuda:
+        for _ in range(_TORCH_WAITS[call]):
+            eng.count_sync(4, kind)
+
+
+def _host(eng, t: torch.Tensor) -> np.ndarray:
+    """A result the builtin reads on the host, copied there and counted as
+    a gather (the JAX builtin's `np.asarray` of the device array)."""
+    eng.stats["gathers"] += 1
+    eng.stats["gather_bytes"] += int(t.nbytes)
+    return t.cpu().numpy()
+
+
+def _b_solve(eng, opts):
+    def f(a, b):
+        return torch.linalg.solve_ex(a, b)[0]
+    return f
+
+
+def _b_lstsq(eng, opts):
+    """Least squares by economy QR (`_b_lstsq`): m >= n, x = R \\ Q^H b;
+    m < n, the minimum-norm x = Q (R^H \\ b) from the QR of A^H."""
+    def f(a, b):
+        m, n = a.shape
+        if m >= n:
+            q, r = torch.linalg.qr(a, mode="reduced")
+            return torch.linalg.solve_triangular(r, q.mH @ b, upper=True)
+        q, r = torch.linalg.qr(a.mH, mode="reduced")
+        return q @ torch.linalg.solve_triangular(r.mH, b, upper=False)
+    return f
+
+
+def _b_inv(eng, opts):
+    return lambda a: torch.linalg.inv_ex(a)[0]
+
+
+def _svd(eng, kind: str, a: torch.Tensor, full: Optional[bool] = None):
+    """Singular values (full is None) or (U, s, Vh), the wait counted."""
+    if full is None:
+        out = torch.linalg.svdvals(a)
+        _waits(eng, kind, "svdvals", out)
+        return out
+    u, s, vh = torch.linalg.svd(a, full_matrices=full)
+    _waits(eng, kind, "svd", s)
+    return u, s, vh
+
+
+def _b_pinv(eng, opts):
+    """jnp.linalg.pinv's form: singular values above rcond * s_max
+    inverted, the rest dropped."""
+    rcond = opts[0] if opts else 1e-15
+
+    def f(a):
+        u, s, vh = _svd(eng, "pinv", a, full=False)
+        keep = s > rcond * s[:1]
+        sinv = torch.where(keep, 1.0 / s, torch.zeros_like(s))
+        return (vh.mH * sinv.to(vh.dtype)) @ u.mH
+    return f
+
+
+def _b_det(eng, opts):
+    """det as the product of the LU factor's diagonal with the pivots'
+    sign, from `lu_factor_ex` (no read of `info`)."""
+    def f(a):
+        lu, piv, _ = torch.linalg.lu_factor_ex(a)
+        n = a.shape[0]
+        odd = (piv != torch.arange(1, n + 1, device=a.device,
+                                   dtype=piv.dtype)).sum() % 2
+        sign = 1 - 2 * odd.to(a.real.dtype if a.is_complex() else a.dtype)
+        return torch.diagonal(lu).prod() * sign
+    return f
+
+
+def _b_chol(eng, opts):
+    """(factor, not-positive-definite flag), `_b_chol`'s contract: the
+    input symmetrised as jnp.linalg.cholesky symmetrises it; the flag is
+    LAPACK's `info` (or a diagonal entry <= 0 or not finite) unless the
+    input holds a NaN, and a failed factor is NaN, as JAX's is."""
+    lower = bool(opts and opts[0] == "lower")
+
+    def f(a):
+        L, info = torch.linalg.cholesky_ex((a + a.mH) / 2)
+        L = torch.where(info != 0, torch.full_like(L, float("nan")), L)
+        d = torch.diagonal(L).real
+        nan_in = torch.isnan(a).any()
+        bad = ((info != 0) | (d <= 0).any() | ~torch.isfinite(d).all()) \
+            & ~nan_in
+        return (L if lower else L.mH), bad
+    return f
+
+
+def _b_qr(eng, opts):
+    mode = "reduced" if (opts and opts[0] == "econ") else "complete"
+
+    def f(a):
+        return tuple(torch.linalg.qr(a, mode=mode))
+    return f
+
+
+def _b_svd(eng, opts):
+    """('vals',) -> singular values; ('f3',)/('econ3',) -> MATLAB's
+    (U, S, V)."""
+    mode = opts[0] if opts else "vals"
+
+    def f(a):
+        if mode == "vals":
+            return _svd(eng, "svd", a)
+        u, s, vh = _svd(eng, "svd", a, full=(mode == "f3"))
+        S = torch.zeros((u.shape[1], vh.shape[0]), dtype=s.dtype,
+                        device=s.device)
+        k = min(S.shape)
+        S[range(k), range(k)] = s[:k]
+        return u, S, vh.mH
+    return f
+
+
+def _b_eigh(eng, opts):
+    """('vals',) -> ascending eigenvalues; () -> MATLAB's (V, D)."""
+    vals_only = bool(opts and opts[0] == "vals")
+
+    def f(a):
+        if vals_only:
+            w = torch.linalg.eigvalsh(a)
+            _waits(eng, "eigh", "eigvalsh", w)
+            return w
+        w, v = torch.linalg.eigh(a)
+        _waits(eng, "eigh", "eigh", w)
+        return v, torch.diag(w)
+    return f
+
+
+def _eig(eng, kind: str, a: torch.Tensor, vectors: bool):
+    """Eigenvalues (and vectors) of a real matrix, the waits counted."""
+    if vectors:
+        w, v = torch.linalg.eig(a)
+        _waits(eng, kind, "eig", w)
+        return w, v
+    w = torch.linalg.eigvals(a)
+    _waits(eng, kind, "eigvals", w)
+    return w
+
+
+def _flags(w: torch.Tensor) -> torch.Tensor:
+    """[converged, has a complex pair] in float64: LAPACK's geev raises
+    where JaxEngine's QR would report no convergence."""
+    one = torch.ones((), dtype=torch.float64, device=w.device)
+    return torch.stack([one, (w.imag != 0).any().to(torch.float64)])
+
+
+def _b_eig_qr(eng, opts):
+    """General real eigenvalues as `_b_eig_qr`'s (wr, wi, flags), columns
+    of n; LAPACK's order, not the Francis QR's (compare sorted)."""
+    def f(a):
+        w = _eig(eng, "eig_qr", a.to(torch.float64), False)
+        return (w.real.reshape(-1, 1).contiguous(),
+                w.imag.reshape(-1, 1).contiguous(), _flags(w))
+    return f
+
+
+def _b_eig_full(eng, opts):
+    """[V, D] of a real matrix as `_b_eig_full`'s plane stacks (2, n, n)
+    and its flags, read on the host (the builtin reads them with
+    `np.asarray`); V's columns have unit 2-norm, as MATLAB's."""
+    def f(a):
+        w, v = _eig(eng, "eig_full", a.to(torch.float64), True)
+        V = torch.stack([v.real, v.imag])
+        D = torch.stack([torch.diag(w.real), torch.diag(w.imag)])
+        flags = _flags(w)
+        eng.count_sync(int(flags.nbytes), "eig_full")
+        return V, D, flags.cpu().numpy()
+    return f
+
+
+def _b_lu(eng, opts):
+    """A = P L U from `lu_factor_ex` and `lu_unpack`. MATLAB's forms:
+    '2out' -> (P L, U); '3out' -> (L, U, P^T) with P^T A = L U; '1out' ->
+    the strictly lower L plus U."""
+    mode = opts[0] if opts else "2out"
+
+    def f(a):
+        lu, piv, _ = torch.linalg.lu_factor_ex(a)
+        p, l, u = torch.lu_unpack(lu, piv)
+        if mode == "3out":
+            return l, u, p.mT.contiguous()
+        if mode == "1out":
+            m, n = a.shape
+            k = min(m, n)
+            full = torch.zeros((m, n), dtype=a.dtype, device=a.device)
+            full[:, :k] = torch.tril(l, -1)
+            full[:k, :] += u[:k, :]
+            return full
+        return p @ l, u
+    return f
+
+
+def _b_trisolve(eng, opts):
+    lower, trans = opts
+
+    def f(a, b):
+        aa = torch.tril(a) if lower else torch.triu(a)
+        if trans:
+            return torch.linalg.solve_triangular(aa.mH, b, upper=lower)
+        return torch.linalg.solve_triangular(aa, b, upper=not lower)
+    return f
+
+
+def _b_trace(eng, opts):
+    return lambda a: torch.diagonal(a).sum()
+
+
+def _b_ishermitian(eng, opts):
+    return lambda a: torch.all(a == a.mH)
+
+
+def _sq_abs(v: torch.Tensor) -> torch.Tensor:
+    """|v|^2 as jnp computes abs(v) ** 2: the modulus, then its square."""
+    av = torch.abs(v)
+    return av * av
+
+
+def _b_norm(eng, opts):
+    """opts: (ord, is_vector), `_b_norm`'s MATLAB norm surface."""
+    p, is_vec = opts
+
+    def f(a):
+        if is_vec:
+            v = a.reshape(-1)
+            if p in (2.0, "fro"):
+                # 'fro' of a vector is its 2-norm (the JAX builder raises
+                # there, and its failure memo sends `norm` to the host)
+                return torch.sqrt(_sq_abs(v).sum())
+            if p == np.inf:
+                return torch.abs(v).amax()
+            if p == -np.inf:
+                return torch.abs(v).amin()
+            if p == 1.0:
+                return torch.abs(v).sum()
+            return (torch.abs(v) ** p).sum() ** (1.0 / p)
+        if p == "fro":
+            return torch.sqrt(_sq_abs(a).sum())
+        if p == 1.0:
+            return torch.abs(a).sum(0).amax()
+        if p == np.inf:
+            return torch.abs(a).sum(1).amax()
+        return _svd(eng, "norm", a).amax()   # the matrix 2-norm
+    return f
+
+
+def _b_rank(eng, opts):
+    (tol,) = opts
+
+    def f(a):
+        s = _svd(eng, "rank", a)
+        t = s[0] * max(a.shape) * torch.finfo(s.dtype).eps \
+            if tol is None else tol
+        return (s > t).sum().to(s.dtype)
+    return f
+
+
+# --------------------------------------------------------------------------- #
+# FFT and signal filters (`dense.py:612-728, 985-1017`)
+# --------------------------------------------------------------------------- #
+
+def _b_fft(eng, opts):
+    inverse, n, axis = opts
+
+    def f(a):
+        return (torch.fft.ifft if inverse else torch.fft.fft)(a, n=n,
+                                                               dim=axis)
+    return f
+
+
+def _b_fft2(eng, opts):
+    (inverse,) = opts
+
+    def f(a):
+        return torch.fft.ifft2(a) if inverse else torch.fft.fft2(a)
+    return f
+
+
+def _one_sided(npts: int, device) -> torch.Tensor:
+    """The analytic signal's weights: 1 at DC (and Nyquist), 2 for the
+    positive frequencies, 0 for the negative ones; made on the device."""
+    k = torch.arange(npts, device=device)
+    edge = (k == 0) | ((k == npts // 2) if npts % 2 == 0 else (k < 0))
+    # (assignments into a slice or an element of a card tensor wait for it)
+    return torch.where(edge, 1.0, torch.where(
+        k < (npts + 1) // 2, 2.0, 0.0)).to(torch.float64)
+
+
+def _b_hilbert(eng, opts):
+    """Analytic signal by one-sided weighting between fft and ifft; its
+    modulus for the envelope."""
+    npts, envelope = opts
+
+    def f(x):
+        sp = torch.fft.fft(x.reshape(-1), npts)
+        analytic = torch.fft.ifft(sp * _one_sided(npts, x.device))
+        return torch.abs(analytic) if envelope else analytic
+    return f
+
+
+def _b_spectrogram(eng, opts):
+    """STFT: frames of x by `unfold`, windowed, one batched fft, the first
+    nbins bins, (nbins, nwin); returned on the host (see the module doc)."""
+    nseg, hop, nf, nwin, nbins = opts
+
+    def f(x, w):
+        segs = x.reshape(-1).unfold(0, nseg, hop)[:nwin] * w.reshape(1, -1)
+        S = torch.fft.fft(segs, nf, dim=1)[:, :nbins]
+        return _host(eng, S.mT)
+    return f
+
+
+def _conv1d(x: torch.Tensor, k: torch.Tensor, lo: int, hi: int):
+    """Correlation of the flat x, padded (lo, hi) with zeros, with k."""
+    xp = torch.nn.functional.pad(x.reshape(1, 1, -1), (lo, hi))
+    with tf32(False, "conv"):
+        return torch.nn.functional.conv1d(xp, k.reshape(1, 1, -1))[0, 0]
+
+
+def _b_conv1(eng, opts):
+    """jnp.convolve(a, b, mode) of the flattened operands: the longer one
+    slides, the other flipped; 'same' pads (k//2, k - k//2 - 1)."""
+    (mode,) = opts
+
+    def f(a, b):
+        x, k = a.reshape(-1), b.reshape(-1)
+        if x.numel() < k.numel():
+            x, k = k, x
+        m = k.numel()
+        lo, hi = {"valid": (0, 0), "same": (m // 2, m - m // 2 - 1),
+                  "full": (m - 1, m - 1)}[mode]
+        return _conv1d(x, torch.flip(k, (0,)), lo, hi)
+    return f
+
+
+def _b_conv2(eng, opts):
+    """2-D convolution: correlation with the doubly flipped kernel, padded
+    per MATLAB's mode ('same' keeps the centred window)."""
+    (mode,) = opts
+
+    def f(a, b):
+        kh, kw = b.shape
+        if mode == "full":
+            pad = (kw - 1, kw - 1, kh - 1, kh - 1)
+        elif mode == "same":
+            r0, c0 = (kh - 1) // 2, (kw - 1) // 2
+            pad = (kw - 1 - c0, c0, kh - 1 - r0, r0)
+        else:
+            pad = (0, 0, 0, 0)
+        ap = torch.nn.functional.pad(a[None, None], pad)
+        with tf32(False, "conv"):
+            return torch.nn.functional.conv2d(
+                ap, torch.flip(b, (0, 1))[None, None])[0, 0]
+    return f
+
+
+def _b_fir(eng, opts):
+    """filter(b, 1, x): the causal convolution's first n samples."""
+    def f(x, b):
+        nb = b.numel()
+        return _conv1d(x, torch.flip(b.reshape(-1), (0,)), nb - 1, 0)
+    return f
+
+
+def _b_iir(eng, opts):
+    """filter(b, a, x) in direct form II transposed from the state z0: the
+    hand-written kernel of `ops/iir.py` on a card, its plain version (the
+    scan's step) on the CPU."""
+    def f(x, b, a, z0):
+        return iir.iir(x.reshape(-1), b.reshape(-1), a.reshape(-1),
+                       z0.reshape(-1))
+    return f
+
+
 _BUILDERS = {"diff": _b_diff, "trapz": _b_trapz, "movwin": _b_movwin,
              "histcounts": _b_histcounts, "sort": _b_sort,
              "unique": _b_unique, "setop": _b_setop, "mode": _b_mode,
-             "accumarray": _b_accumarray, "ismember": _b_ismember}
+             "accumarray": _b_accumarray, "ismember": _b_ismember,
+             "solve": _b_solve, "lstsq": _b_lstsq, "inv": _b_inv,
+             "pinv": _b_pinv, "det": _b_det, "chol": _b_chol, "qr": _b_qr,
+             "svd": _b_svd, "eigh": _b_eigh, "eig_qr": _b_eig_qr, "eig_full": _b_eig_full, "lu": _b_lu,
+             "trisolve": _b_trisolve, "trace": _b_trace,
+             "ishermitian": _b_ishermitian, "norm": _b_norm,
+             "rank": _b_rank, "fft": _b_fft,
+             "fft2": _b_fft2, "hilbert": _b_hilbert,
+             "spectrogram": _b_spectrogram, "conv1": _b_conv1,
+             "conv2": _b_conv2, "fir": _b_fir, "iir": _b_iir}

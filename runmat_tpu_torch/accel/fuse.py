@@ -31,9 +31,10 @@ extra outputs do.
 Every other entry runs through `TorchEngine._exec` as before and is counted
 (`stats["eager_ops"]`, `eager_by_op`), with its reason in `Plan.eager`:
 RNG draws, indexing, structural ops, scans, sorts and matmul are eager by
-design; integer classes (saturating arithmetic), NaN modes other than the
-default, reductions over other axes and empty arrays stay eager in this
-slice.
+design; complex values (Triton has no complex type: "complex operand",
+checked first), integer classes (saturating arithmetic), NaN modes other
+than the default, reductions over other axes and empty arrays stay eager
+in this slice.
 
 `run_group_plain` is the plain version of a group: its entries through the
 same `_exec` (`ops/table.py` TORCH_BINARY/TORCH_UNARY, `_reduce_impl`).
@@ -106,10 +107,14 @@ def decline(program: list, i: int) -> Optional[str]:
     if any(fused.numel(s) == 0 for s in (out_shape,) + tuple(in_shapes)):
         return "empty array"
     dts = [str(dt)] + [_dtype(program, j) for j in ins]
+    if op.startswith("b:") or op == "cast":
+        dts.append(str(static[0]))
+    if any(d.startswith("complex") for d in dts):
+        # Triton has no complex type: complex groups stay eager
+        return "complex operand"
     if op.startswith("b:"):
         if op[2:] not in fused.BINARY:
             return "op not in the code generator's table"
-        dts.append(str(static[0]))
     elif op.startswith("u:"):
         if op[2:] not in fused.UNARY:
             return "op not in the code generator's table"
@@ -123,7 +128,7 @@ def decline(program: list, i: int) -> Optional[str]:
         if str(dt) not in fused.FLOATS:
             return f"{dt} reduction"
     elif op == "cast":
-        dts.append(str(static[0]))
+        pass
     elif op == "c:linspace":
         if static[0] < 2 or str(dt) not in fused.FLOATS:
             return "linspace of fewer than 2 points"

@@ -3,8 +3,9 @@
 The lazy operation DAG: every device-resident value is a `LazyNode`, and
 `TorchEngine.materialize` runs the DAG reachable from a node. Concrete
 values are torch tensors. `gather` copies a tensor to the host in place of
-the JAX package's `jax.device_get`; split-plane complex values do not exist
-here (ROADMAP A8), so the node's `cplx` flag is always False.
+the JAX package's `jax.device_get`. Complex values are complex64/complex128
+tensors (JaxEngine's native-complex mode); the JAX package's split-plane
+values do not exist here, so the node's `cplx` flag is always False.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ class LazyNode:
         t = eng.materialize(self)
         eng.stats["gathers"] += 1
         eng.stats["gather_bytes"] += int(t.nbytes)
-        h = t.cpu().numpy()
+        h = t.resolve_conj().cpu().numpy()
         h.setflags(write=False)
         # dispatches complete in program order on a device stream: a blocking
         # gather of this node proves every dispatch with id <= this node's is

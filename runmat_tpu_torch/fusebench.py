@@ -22,8 +22,10 @@ and what a group computes from them, within 1e-5 (a float32 sum) or 1e-12
 (float64) of the largest magnitude of their output, the sum being taken in
 another order.
 
-`record` runs the three benchmark scripts at their default sizes on the
-card and keeps each group the main path launches with its inputs;
+`record` runs the three benchmark scripts and the linear algebra and
+signal slice's two (`runmat_tpu_torch/workloads/dense_linalg.m` and
+`spectral.m`) at their default sizes on the card and keeps each group the
+main path launches with its inputs;
 `measure` times each (CUDA events, mean of `reps`, the card spinning first:
 `histbench.time_ms`) against its plain version, its bound (bytes moved at
 3.35 TB/s, or operations at 67 TFLOP/s float32, 34 float64, whichever is
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import io
 import json
 import os
 import re
@@ -54,6 +57,8 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 SIZES = (1, 2, 3, 1023, (1 << 20) + 1, 10 ** 7)
 WORKLOADS = ("elementwise_math", "monte_carlo", "image_normalize")
+# run through Session.run_source, as chip_smoke.py's phase 7 runs them
+SLICE_SCRIPTS = ("dense_linalg", "spectral")
 SPECIAL = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1.0, -1.0,
            0.5, -0.5, 2.5, -2.5, 2.0, 3.0, -3.0, 1e30, -1e30, 1e-30, 1e-40,
            88.5, -88.5, 710.0, 0.7)
@@ -515,10 +520,11 @@ def _if_arms(ir: str) -> list:
 
 
 def record(device="cuda") -> list:
-    """The groups the three benchmark scripts launch at their default
-    sizes: (script, Group, program, args) each, args kept alive."""
+    """The groups the scripts launch at their default sizes: (script,
+    Group, program, args) each, args kept alive."""
     import runmat_tpu_torch
     from .accel import fuse
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     seen = []
     real = fuse.run_group
 
@@ -529,14 +535,21 @@ def record(device="cuda") -> list:
 
     fuse.run_group = keep
     try:
-        for script in WORKLOADS:
+        for script in WORKLOADS + SLICE_SCRIPTS:
             s = runmat_tpu_torch.session(device)
-            r = s.execute(open(os.path.join(
-                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                "benchmarks", f"{script}.m")).read())
-            runmat_tpu_torch.uninstall()
-            if r.error is not None:
-                raise RuntimeError(f"{script}: {r.error}")
+            try:
+                if script in WORKLOADS:
+                    r = s.execute(open(os.path.join(
+                        root, "benchmarks", f"{script}.m")).read())
+                    if r.error is not None:
+                        raise RuntimeError(f"{script}: {r.error}")
+                else:
+                    s.stdout = io.StringIO()
+                    s.run_source(open(os.path.join(
+                        root, "runmat_tpu_torch", "workloads",
+                        f"{script}.m")).read())
+            finally:
+                runmat_tpu_torch.uninstall()
     finally:
         fuse.run_group = real
     return seen

@@ -1,0 +1,264 @@
+"""Time the linear algebra and signal slice on the card: the IIR kernel and
+the library calls of `dense_linalg.m` and `spectral.m` at their default
+shapes.
+
+    python3 runmat_tpu_torch/linalgbench.py [--tree DIR] [--reps 5]
+
+`iir_inputs` makes spectral.m's IIR call (its 4th-order Butterworth
+filter over 2^22 samples of the script's signal) and `iir_row` holds the
+kernel (`ops/iir.py`) on such inputs to its plain version over the whole
+signal, bit for bit, and times both: the kernel with CUDA events, the
+plain version (a loop on the host over the signal copied there, the
+copies included) once on the host's clock; beside them the least time
+the card could take (bytes: x read and y written once, 3.35 TB/s;
+operations: 4 (N - 1) + 2 a sample at the card's float64 or float32
+rate). `library_rows` times each call the
+two scripts make into cuSOLVER, cuFFT and cuDNN through torch, at the
+scripts' shapes, beside its bound: the flop count of the textbook
+algorithm over the card's peak for the type (float64 67 TFLOP/s, the
+tensor cores' DMMA rate; float32 67 TFLOP/s outside the tensor cores), or
+its inputs read and outputs written once over 3.35 TB/s, whichever is
+larger. `eig_where` profiles one general eigenvalue call (dense_linalg.m's
+`eig(A(1:N/8, 1:N/8))`, 512 f64) with torch.profiler: the call's time on
+the host, its card kernels' time and count, and its copies each way, which
+show where cuSOLVER's geev runs. Each time is the mean of `--reps` after a warm-up, CUDA events
+(`histbench.time_ms`). Run as a script, this file imports
+`runmat_tpu_torch` from DIR (default: the checkout holding this file).
+Prints the card's name and power limit, one line a call, then one JSON
+line. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+N_LINALG = 4096                 # dense_linalg.m's default N
+N_SIGNAL = 1 << 22              # spectral.m's default N
+BYTES_PER_S = 3.35e12
+FLOPS = {"float64": 67e12, "float32": 67e12}
+# spectral.m's butter(4, 0.1), as the script writes it
+BUTTER_B = (0.00041659920440659937, 0.0016663968176263975,
+            0.0024995952264395961, 0.0016663968176263975,
+            0.00041659920440659937)
+BUTTER_A = (1.0, -3.1806385488747191, 3.8611943489942133,
+            -2.1121553551109691, 0.43826514226197977)
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple:
+    """(bound_ms, bound_by): bytes over 3.35 TB/s against flops over the
+    type's peak, whichever is larger."""
+    by_bytes = nbytes / BYTES_PER_S * 1e3
+    by_ops = flops / FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def iir_inputs(dtype, n: int = N_SIGNAL, seed: int = 0):
+    """spectral.m's IIR call on the card: its two tones and noise at 48
+    kHz over n samples (the noise from torch's generator, seeded), the
+    Butterworth coefficients and a zero state."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t = torch.arange(n, dtype=torch.float64, device=dev) / 48000
+    x = torch.sin(2 * math.pi * 1000 * t) + 0.5 * torch.sin(
+        2 * math.pi * 5000 * t) + 0.1 * torch.randn(
+        n, dtype=torch.float64, device=dev, generator=gen)
+    b = torch.tensor(BUTTER_B, dtype=dtype, device=dev)
+    a = torch.tensor(BUTTER_A, dtype=dtype, device=dev)
+    return x.to(dtype), b, a, torch.zeros(len(BUTTER_B) - 1, dtype=dtype,
+                                          device=dev)
+
+
+def iir_row(iir, x, b, a, z0, reps: int, path_y=None) -> dict:
+    """The kernel on (x, b, a, z0) against its plain version over the whole
+    signal: equal bit for bit (`max_abs_err`), and `path_y`, where given
+    (what the main path computed from these inputs), equal to it too; the
+    kernel's time, the plain version's, the bound."""
+    import torch
+
+    from runmat_tpu_torch.histbench import time_ms
+    y = iir.iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    outs = [y] if path_y is None else [y, path_y.reshape(-1)]
+    err = max(float((o - want).abs().max()) for o in outs)
+    equal = all(torch.equal(o, want) for o in outs)
+    ms = time_ms(lambda: iir.iir(x, b, a, z0), reps)
+    n = x.numel()
+    name = "float64" if x.dtype == torch.float64 else "float32"
+    nb = b.numel()
+    bnd = bound(2 * n * x.element_size(), (4 * (nb - 1) + 2) * n, name)
+    return {"n": n, "order": nb - 1, "equal": equal, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+
+
+def library_rows(reps: int) -> list:
+    """The scripts' cuSOLVER, cuFFT and cuDNN calls through torch at their
+    default shapes, each timed beside its bound."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    f64 = torch.float64
+    n = N_LINALG
+    A = torch.randn(n, n, dtype=f64, device=dev, generator=gen)
+    S = A.mT @ A / n + torch.eye(n, dtype=f64, device=dev)
+    b = torch.randn(n, 1, dtype=f64, device=dev, generator=gen)
+    x = torch.randn(N_SIGNAL, dtype=f64, device=dev, generator=gen)
+    X = torch.fft.fft(x)
+    k31 = torch.randn(31, dtype=f64, device=dev, generator=gen)
+    img = torch.randn(1, 1, 1024, 1024, dtype=torch.float32, device=dev,
+                      generator=gen)
+    box = torch.ones(1, 1, 5, 5, dtype=torch.float32, device=dev) / 25
+    h, q, e = n // 2, n // 4, n // 8
+    w8, w16 = 8, 16
+    # (name, script's call, fn, bytes, flops, dtype)
+    calls = [
+        ("gemm", "A' * A (4096, f64)", lambda: A.mT @ A,
+         3 * n * n * w8, 2 * n ** 3, "float64"),
+        ("potrf", "chol(S) (4096, f64)", lambda: torch.linalg.cholesky_ex(S),
+         2 * n * n * w8, n ** 3 / 3, "float64"),
+        ("getrf+getrs", "S \\ b (4096, f64)",
+         lambda: torch.linalg.solve_ex(S, b), n * n * w8 + 2 * n * w8,
+         2 * n ** 3 / 3 + 2 * n * n, "float64"),
+        ("geqrf+orgqr", "qr(A(:, 1:N/4), 0) (4096 x 1024, f64)",
+         lambda: torch.linalg.qr(A[:, :q]),
+         (2 * n * q + q * q) * w8, 4 * n * q * q - 4 * q ** 3 / 3,
+         "float64"),
+        ("gesvd values", "svd(A(1:N/2, 1:N/2)) (2048, f64)",
+         lambda: torch.linalg.svdvals(A[:h, :h]), h * h * w8 + h * w8,
+         8 * h ** 3 / 3, "float64"),
+        ("syevd values", "eig(S) (4096, f64)",
+         lambda: torch.linalg.eigvalsh(S), n * n * w8 + n * w8,
+         4 * n ** 3 / 3, "float64"),
+        ("geev values", "eig(A(1:N/8, 1:N/8)) (512, f64)",
+         lambda: torch.linalg.eigvals(A[:e, :e]), e * e * w8 + e * w16,
+         10 * e ** 3, "float64"),
+        ("getrf", "lu(A(1:N/2, 1:N/2)) (2048, f64)",
+         lambda: torch.linalg.lu_factor_ex(A[:h, :h]), 2 * h * h * w8,
+         2 * h ** 3 / 3, "float64"),
+        ("getrf+getri", "inv(S(1:N/4, 1:N/4)) (1024, f64)",
+         lambda: torch.linalg.inv_ex(S[:q, :q]), 2 * q * q * w8,
+         2 * q ** 3, "float64"),
+        ("fft r2c", "fft(y) (2^22, f64)", lambda: torch.fft.fft(x),
+         N_SIGNAL * (w8 + w16), 2.5 * N_SIGNAL * 22, "float64"),
+        ("fft c2c inverse", "ifft(X .* H) (2^22, c128)",
+         lambda: torch.fft.ifft(X), 2 * N_SIGNAL * w16,
+         5 * N_SIGNAL * 22, "float64"),
+        ("conv1d", "filter(b, 1, x) (2^22 x 31 taps, f64)",
+         lambda: torch.nn.functional.conv1d(
+             x.reshape(1, 1, -1), k31.reshape(1, 1, -1), padding=30),
+         2 * N_SIGNAL * w8, 2 * 31 * N_SIGNAL, "float64"),
+        ("conv2d", "conv2(single(...), single(ones(5)/25), 'same') "
+         "(1024^2 x 5x5, f32)",
+         lambda: _fp32_conv2d(img, box), 2 * img.numel() * 4,
+         2 * 25 * img.numel(), "float32"),
+    ]
+    from runmat_tpu_torch.histbench import time_ms
+    rows = []
+    for name, call, fn, nbytes, flops, dt in calls:
+        ms = time_ms(fn, reps)
+        bnd = bound(nbytes, flops, dt)
+        rows.append({"op": name, "call": call, "ms": ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "share": bnd[0] / ms})
+    return rows
+
+
+def _fp32_conv2d(img, box):
+    """The port's conv2 call: cuDNN in true FP32 (`accel/dense.py`)."""
+    import torch
+
+    from runmat_tpu_torch.accel.dense import tf32
+    with tf32(False, "conv"):
+        return torch.nn.functional.conv2d(img, box, padding=2)
+
+
+def eig_where(n: int = N_LINALG // 8) -> dict:
+    """One torch.linalg.eigvals call on an n x n float64 card matrix under
+    torch.profiler (after a warm-up call): its host time, the time and
+    number of its card kernels, and its copies to and from the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    a = torch.randn(n, n, dtype=torch.float64, device="cuda", generator=gen)
+    torch.linalg.eigvals(a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.linalg.eigvals(a)
+        torch.cuda.synchronize()
+    out = {"n": n, "call_ms": 0.0, "kernel_ms": 0.0, "kernels": 0,
+           "copies_to_host": 0, "copies_to_card": 0}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = e.cuda_time_total
+        if e.key == "aten::linalg_eigvals":
+            out["call_ms"] = e.cpu_time_total / 1e3
+        elif e.key.startswith("Memcpy DtoH"):
+            out["copies_to_host"] += e.count
+        elif e.key.startswith("Memcpy HtoD"):
+            out["copies_to_card"] += e.count
+        elif e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.key.startswith("Memcpy") and dev_us > 0:
+            out["kernel_ms"] += dev_us / 1e3
+            out["kernels"] += e.count
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    # the tree replaces this file's directory, whose module names
+    # (profile.py, ...) would shadow the standard library's
+    sys.path[0] = os.path.abspath(args.tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("linalgbench: no CUDA card", file=sys.stderr)
+        return 1
+    from runmat_tpu_torch.ops import iir
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(card)
+    out = {"tree": os.path.abspath(args.tree), "card": card, "iir": {},
+           "library": []}
+    for dt in (torch.float64, torch.float32):
+        r = iir_row(iir, *iir_inputs(dt), args.reps)
+        out["iir"][str(dt).split(".")[1]] = r
+        print(f"iir {dt} n=2^22 order {r['order']}: kernel {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.1f} ms (host loop), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), equal {r['equal']}")
+    out["eig_where"] = w = eig_where()
+    print(f"eigvals {w['n']} f64: the call {w['call_ms']:.1f} ms on the "
+          f"host, {w['kernels']} card kernels {w['kernel_ms']:.1f} ms, "
+          f"{w['copies_to_host']} copies to the host and "
+          f"{w['copies_to_card']} to the card")
+    for r in library_rows(args.reps):
+        out["library"].append(r)
+        print(f"{r['op']:16s} {r['call']}: {r['ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+              f"{r['share']:.3f}")
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -194,18 +194,59 @@ COMPLEX_OK_UNARY = {
 # torch names differ from numpy's (no `xp.power`, no `.astype`), so the
 # entries are written against torch. Where torch's primitive differs from
 # numpy's, the entry repairs it: `sign(NaN)` is NaN, `x^0` and `1^y` are 1
-# even where pow gives NaN, `min2`/`max2` ignore NaN. Real inputs only:
-# complex values do not reach the device in this port.
+# even where pow gives NaN, `min2`/`max2` ignore NaN. Complex tensors take
+# MATLAB's rules, as the host path (`runtime/dispatch.py`) applies them:
+# `<`, `<=`, `>`, `>=` compare real parts (`==`/`~=` both parts),
+# `min2`/`max2` pick by modulus and then by angle, `sign` is z/|z|,
+# rounding acts on each part, `asin`/`acos` follow MATLAB's formulas on the
+# branch cuts, and `abs`/`real`/`imag`/`angle` give real values.
 # --------------------------------------------------------------------------- #
 
 
+def _parts(f):
+    """A real rounding op applied to each part of a complex tensor."""
+    def g(a):
+        if a.is_complex():
+            return torch.complex(f(a.real), f(a.imag))
+        return f(a)
+    return g
+
+
 def _torch_sign(a):
+    if a.is_complex():
+        return torch.sgn(a)
     return torch.where(torch.isnan(a), a, torch.sign(a))
 
 
 def _torch_round(a):
     # half away from zero, written as the host table writes it
     return torch.trunc(a + torch.where(a >= 0, 0.5, -0.5).to(a.dtype))
+
+
+def _torch_asin(a):
+    if a.is_complex():
+        return -1j * torch.log(1j * a + torch.sqrt(1 - a * a))
+    return torch.asin(a)
+
+
+def _torch_acos(a):
+    if a.is_complex():
+        return -1j * torch.log(a + 1j * torch.sqrt(1 - a * a))
+    return torch.acos(a)
+
+
+def _torch_real(a):
+    return a.real.contiguous() if a.is_complex() else a
+
+
+def _torch_imag(a):
+    return a.imag.contiguous() if a.is_complex() else torch.zeros_like(a)
+
+
+def _torch_angle(a):
+    if a.is_complex():
+        return torch.angle(a)
+    return torch.atan2(torch.zeros_like(a), a)
 
 
 def _torch_gamma(a):
@@ -228,8 +269,8 @@ TORCH_UNARY = {
     "sin": torch.sin,
     "cos": torch.cos,
     "tan": torch.tan,
-    "asin": torch.asin,
-    "acos": torch.acos,
+    "asin": _torch_asin,
+    "acos": _torch_acos,
     "atan": torch.atan,
     "sinh": torch.sinh,
     "cosh": torch.cosh,
@@ -237,14 +278,14 @@ TORCH_UNARY = {
     "asinh": torch.asinh,
     "acosh": torch.acosh,
     "atanh": torch.atanh,
-    "floor": torch.floor,
-    "ceil": torch.ceil,
-    "fix": torch.trunc,
-    "round": _torch_round,
-    "real": lambda a: a,
-    "imag": torch.zeros_like,
-    "conj": lambda a: a,
-    "angle": lambda a: torch.atan2(torch.zeros_like(a), a),
+    "floor": _parts(torch.floor),
+    "ceil": _parts(torch.ceil),
+    "fix": _parts(torch.trunc),
+    "round": _parts(_torch_round),
+    "real": _torch_real,
+    "imag": _torch_imag,
+    "conj": lambda a: torch.conj_physical(a) if a.is_complex() else a,
+    "angle": _torch_angle,
     "reciprocal": lambda a: 1.0 / a,
     "square": lambda a: a * a,
     "gamma": _torch_gamma,
@@ -283,6 +324,32 @@ def _torch_rem(a, b):
     return torch.where(inf_b, a, r)
 
 
+def _re(a):
+    return a.real if a.is_complex() else a
+
+
+def _minmax2(pick_b_over_a):
+    """min2/max2: NaN-ignoring; complex by modulus, a tie by angle."""
+    def f(a, b):
+        if not (a.is_complex() or b.is_complex()):
+            return (torch.fmax if pick_b_over_a is _gt else torch.fmin)(a, b)
+        a, b = torch.broadcast_tensors(a, b)
+        ma, mb = torch.abs(a), torch.abs(b)
+        take_b = pick_b_over_a(mb, ma) | ((mb == ma) & pick_b_over_a(
+            torch.angle(b), torch.angle(a)))
+        take_b = (take_b & ~torch.isnan(b)) | torch.isnan(a)
+        return torch.where(take_b, b, a)
+    return f
+
+
+def _gt(x, y):
+    return x > y
+
+
+def _lt(x, y):
+    return x < y
+
+
 TORCH_BINARY = {
     "add": torch.add,
     "sub": torch.sub,
@@ -294,15 +361,15 @@ TORCH_BINARY = {
     "hypot": torch.hypot,
     "mod": _torch_mod,
     "rem": _torch_rem,
-    "min2": torch.fmin,
-    "max2": torch.fmax,
+    "min2": _minmax2(_lt),
+    "max2": _minmax2(_gt),
     "and": lambda a, b: torch.logical_and(a != 0, b != 0),
     "or": lambda a, b: torch.logical_or(a != 0, b != 0),
     "xor": lambda a, b: torch.logical_xor(a != 0, b != 0),
-    "lt": torch.lt,
-    "le": torch.le,
-    "gt": torch.gt,
-    "ge": torch.ge,
+    "lt": lambda a, b: torch.lt(_re(a), _re(b)),
+    "le": lambda a, b: torch.le(_re(a), _re(b)),
+    "gt": lambda a, b: torch.gt(_re(a), _re(b)),
+    "ge": lambda a, b: torch.ge(_re(a), _re(b)),
     "eq": torch.eq,
     "ne": torch.ne,
 }

@@ -12,7 +12,8 @@ warm-up, the card spinning first, so that a 10^6 draw is timed by the card
 and not by the host): normals in float32 at 10^6 values
 (`benchmarks/monte_carlo.m` draws one per step, 256 a run), 10^7 and 2^26
 (`runmat_tpu_torch/workloads/histogram_stats.m`), float64 normals at 10^7,
-and the uniforms as a guard. Beside every draw it times `torch.rand` or
+2^22 (`spectral.m`) and 4096^2 (`dense_linalg.m`), and the uniforms as a
+guard. Beside every draw it times `torch.rand` or
 `torch.randn` of the same size and type as a yardstick: Philox, another
 stream, which the port never calls. Each row has its bound, read with this file's `sass.py` from
 the machine code of DIR's kernels, and the registers and local-memory
@@ -33,6 +34,7 @@ import sys
 
 DRAWS = (("randn", "float32", 10 ** 6), ("randn", "float32", 10 ** 7),
          ("randn", "float32", 1 << 26), ("randn", "float64", 10 ** 7),
+         ("randn", "float64", 1 << 22), ("randn", "float64", 4096 * 4096),
          ("rand", "float32", 10 ** 7), ("rand", "float32", 1 << 26),
          ("rand", "float64", 10 ** 7))
 # the draws' key and the normals' tolerance against the plain stream, here

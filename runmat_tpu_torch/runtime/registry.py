@@ -91,9 +91,9 @@ def ensure_loaded() -> None:
         return
     _LOADED = True
     from .builtins import (  # noqa: F401
-        elementwise, creation, reductions, arrays, rng, strings,
+        elementwise, creation, reductions, arrays, linalg, rng, strings,
         io_console, introspection, control, cells_structs, gpu, stats,
-        sets_sort, logical_ops, handles,
+        sets_sort, fft_signal, logical_ops, handles,
     )
     # In the JAX package a later module, not carried yet, registers these
     # names over the carried definition; they stay undefined here until it
@@ -105,4 +105,5 @@ def ensure_loaded() -> None:
 # name -> the JAX package's builtin module that defines it last
 _REGISTERED_LATER = {"isobject": "oop_builtins", "hold": "plotting",
                      "addpath": "file_io", "wait": "async_builtins",
-                     "sortrows": "table_builtins"}
+                     "sortrows": "table_builtins", "sqrtm": "breadth2",
+                     "logm": "breadth2"}

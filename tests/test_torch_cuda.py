@@ -808,3 +808,125 @@ def test_generated_kernel_in_a_fold_follows_its_exponent(card):
     assert got["cpu"][1]["graph_captures"] == 0
     np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=1e-6,
                                atol=1e-6)
+
+
+# ------------------------------------------- linear algebra, FFT and filters
+
+@pytest.mark.parametrize("order", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_kernel_equals_plain(card, dtype, order):
+    from runmat_tpu_torch.ops import iir
+    gen = torch.Generator(device=card)
+    gen.manual_seed(order)
+    n = order + 1
+    x = torch.randn(3001, dtype=dtype, device=card, generator=gen)
+    b = torch.randn(n, dtype=dtype, device=card, generator=gen) * 0.3
+    a = torch.randn(n, dtype=dtype, device=card, generator=gen) * 0.1
+    z0 = torch.randn(n - 1, dtype=dtype, device=card, generator=gen) * 0.1
+    before = iir.launches
+    got = iir.iir(x, b, a, z0)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    assert iir.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_iir_kernel_refuses_what_it_does_not_take(card):
+    from runmat_tpu_torch.ops import iir
+    n = iir.MAX_COEFS + 1
+    x = torch.zeros(8, dtype=torch.float64, device=card)
+    c = torch.ones(n, dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="at most"):
+        iir.iir(x, c, c, c[1:])
+    with pytest.raises(ValueError, match="one device"):
+        iir.iir(x, c[:3].cpu(), c[:3], c[:2])
+
+
+def _run_on_card(src: str):
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    prev = accel.active_engine()
+    try:
+        s = runmat_tpu_torch.session("cuda")
+        eng = accel.active_engine()
+        r = s.execute(src)
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+    assert r.error is None, r.error
+    return s, eng
+
+
+def test_single_conv2_runs_in_true_fp32(card):
+    """cuDNN runs a float32 convolution in TF32 unless told not to; the
+    port's conv2 turns it off around the call and restores it."""
+    fp32 = torch.backends.cudnn.conv.fp32_precision
+    s, _ = _run_on_card("A = gpuArray(single(reshape(sin((1:2^16) .^ 1.3), "
+                        "256, 256))); K = single(reshape(cos(1:25), 5, 5));"
+                        " G = conv2(A, K, 'same'); G64 = conv2(double(A), "
+                        "double(K), 'same');")
+    assert torch.backends.cudnn.conv.fp32_precision == fp32
+    g = np.asarray(s.get("G").host()).astype(np.float64)
+    want = np.asarray(s.get("G64").host())
+    # TF32 keeps ~3 decimal digits: its error here is ~1e-3 of the largest
+    assert np.abs(g - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("script,pre", [("dense_linalg", "N = 1024;"),
+                                        ("spectral", "N = 2^18;")])
+def test_new_scripts_wait_only_where_counted(card, script, pre):
+    """Each script on the card: no host fallback, and every wait torch's
+    sync debug mode sees is one the engine counts (torch.linalg's waits
+    among `syncs`, named in `sync_reasons`)."""
+    from runmat_tpu_torch import syncs
+    src = pre + "\n" + open(f"runmat_tpu_torch/workloads/{script}.m").read()
+    s, eng = _run_on_card(src)
+    assert eng.stats["host_fallbacks"] == 0
+    r = syncs.script_syncs(src)
+    assert r["warnings"] == r["counted"], r["sites"]
+    if script == "dense_linalg":
+        assert sum(eng.sync_reasons.values()) == eng.stats["syncs"] > 0
+
+
+def _on(device: str, src: str, names):
+    """`src` on a session of `device` taking every array; the named values
+    on the host."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    prev = accel.active_engine()
+    try:
+        s = runmat_tpu_torch.session(device, auto_offload=True,
+                                     offload_threshold=1)
+        r = s.execute(src)
+        assert r.error is None, r.error
+        return [np.asarray(s.get(n).host()) for n in names], \
+            accel.active_engine()
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+
+
+def test_complex_values_on_card_match_the_cpu(card):
+    """The complex surface on the card against the same engine on the CPU
+    (the CPU tests hold that one to the JAX package): within 1e-12 of the
+    largest magnitude (cuFFT, cuBLAS and the card's libm round apart)."""
+    src = ("z = [1+2i, 3-4i, -2+1i, 0.5-0.25i]; w = [2-1i, -1+1i, -2+5i, 2i];"
+           " M = reshape(sin(1:16) + 1i*cos(1:16), 4, 4);"
+           " a = abs(z) + angle(w); e = exp(z) .* log(w) ./ sqrt(z);"
+           " lt = z < w; eq = z == w; mx = max(M); mn = min(M, [], 2);"
+           " m2 = max(z, w); s = sum(M); mu = mean(M, 2); c = cumsum(z);"
+           " P = M * M'; g = M(2:3, [1 4]); M(1, :) = z; f = fft(M);"
+           " sg = sign(z); rd = round(1.5 * z); v = var(M);"
+           " x = zeros(1, 16); for t = 1:16, x(t) = abs(t + 2i); end")
+    names = ["a", "e", "lt", "eq", "mx", "mn", "m2", "s", "mu", "c", "P",
+             "g", "M", "f", "sg", "rd", "v", "x"]
+    got, eng = _on("cuda", src, names)
+    want, _ = _on("cpu", src, names)
+    assert eng.stats["host_fallbacks"] == 0 and eng.stats["loop_folds"] == 1
+    for n, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, n
+        if w.dtype.kind == "b":
+            assert np.array_equal(g, w), n
+            continue
+        scale = max(1.0, float(np.abs(w).max()))
+        assert np.abs(g - w).max() <= 1e-12 * scale, n

@@ -264,6 +264,45 @@ def test_eager_reasons():
         [["u:exp"]]
 
 
+def test_a_complex_node_declines_as_complex():
+    # Triton has no complex type: complex entries stay eager with their own
+    # reason, checked before the integer one; a real op fed by abs(X)
+    # still fuses
+    c128, f64 = np.dtype("complex128"), np.dtype("float64")
+    i32 = np.dtype("int32")
+    program = [("__leaf__", (), c128, (), (), (4, 5)),
+               ("__leaf__", (), i32, (), (), (4, 5)),
+               ("u:abs", (), f64, (0,), ((4, 5),), (4, 5)),
+               ("b:mul", ("complex128",), c128, (0, 0), ((4, 5), (4, 5)),
+                (4, 5)),
+               ("r:sum", (("all",), "", "complex128"), c128, (0,),
+                ((4, 5),), (1, 1)),
+               ("cast", ("complex128",), c128, (1,), ((4, 5),), (4, 5)),
+               ("b:add", ("int32",), i32, (1, 1), ((4, 5), (4, 5)), (4, 5)),
+               ("u:exp", (), f64, (2,), ((4, 5),), (4, 5)),
+               ("b:mul", ("float64",), f64, (7, 2), ((4, 5), (4, 5)),
+                (4, 5))]
+    p = fuse.plan(program, [3, 4, 5, 6, 8])
+    assert [(op, why) for _, op, why in p.eager] == [
+        ("u:abs", "complex operand"), ("b:mul", "complex operand"),
+        ("r:sum", "complex operand"), ("cast", "complex operand"),
+        ("b:add", "int32 operand (integer classes saturate)")]
+    assert [[program[i][0] for i in g.members] for g in p.groups] == \
+        [["u:exp", "b:mul"]]
+
+
+def test_a_complex_script_fuses_its_real_ops_against_jaxengine():
+    b = run_both("x = gpuArray(sin(1:64));",
+                 "f = fft(x); g = abs(f) .^ 2 / 64 + 1; h = sum(g);")
+    same(b, ["g", "h"], rtol=1e-12)
+    for k in ("compiles", "cache_hits"):
+        assert b.td[k] == b.jd[k], k
+    eager = [x for e in b.teng.launch_log for x in e.get("eager", [])]
+    assert "u:abs: complex operand" in eager
+    kernels = [k for e in b.teng.launch_log for k in e.get("kernels", [])]
+    assert kernels and all(k.endswith("f64") for k in kernels)
+
+
 def test_a_cycle_is_not_fused():
     # exp(x) feeds an eager op whose result comes back: the add cannot join
     # exp's group, or the group would wait for itself

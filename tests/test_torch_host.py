@@ -179,10 +179,12 @@ def test_while_loop_is_left_to_the_interpreter(restore_engine):
 
 
 def test_a_failed_fold_is_counted_with_its_reason(restore_engine):
-    # complex values are not ported yet (ROADMAP A8): the body's complex
-    # add declines on record, the fold bails on record with its reason,
-    # and the interpreter runs the loop to the host engine's result
-    src = "x = zeros(1, 16); for t = 1:16, x(t) = abs(t + 2i); end"
+    # writing a complex value into a real array declines on record (as
+    # JaxEngine does; the body of complex ops this test used before
+    # complex values were ported now folds), the fold bails on record
+    # with its reason, and the interpreter runs the loop to the host
+    # engine's result
+    src = "x = zeros(1, 16); for t = 1:16, x(t) = t + 2i; end"
     host = _host(src)
     s = runmat_tpu_torch.session("cpu", **OFFLOAD)
     eng = accel.active_engine()
@@ -194,7 +196,7 @@ def test_a_failed_fold_is_counted_with_its_reason(restore_engine):
     assert reasons and reasons[0]
     declined = [e["reason"] for e in eng.launch_log
                 if e["cat"] == "host_fallback"]
-    assert "complex not ported (A8)" in declined
+    assert "a write that changes complexity" in declined
     assert np.array_equal(s.get("x").host(), host.get("x").host())
 
 

@@ -1,8 +1,9 @@
 """The port runs where neither jax nor the JAX package can be imported: a
 subprocess with `jax` and `runmat_tpu` blocked in `sys.modules` imports
-runmat_tpu_torch and runs the three workloads and the statistics and
-indexing scripts (`runmat_tpu_torch/workloads/{histogram_stats,
-index_sets}.m`) at small size on TorchEngine(device="cpu"), and a host
+runmat_tpu_torch and runs the three workloads and the statistics,
+indexing, linear algebra and spectral scripts
+(`runmat_tpu_torch/workloads/{histogram_stats,index_sets,dense_linalg,
+spectral}.m`) at small size on TorchEngine(device="cpu"), and a host
 session without an engine; the profiling, sync-counting, timing and
 benchmark tools import there too. No module of the JAX package is loaded
 at the end."""
@@ -23,6 +24,8 @@ import runmat_tpu_torch.fusebench
 import runmat_tpu_torch.histbench
 import runmat_tpu_torch.ops.boxmuller
 import runmat_tpu_torch.ops.fused
+import runmat_tpu_torch.ops.iir
+import runmat_tpu_torch.linalgbench
 import runmat_tpu_torch.profile
 import runmat_tpu_torch.rngbench
 import runmat_tpu_torch.sass
@@ -61,6 +64,16 @@ print(r.output.strip())
 print("index_sets folds", eng.stats["loop_folds"], eng.stats["while_folds"],
       "fallbacks", eng.stats["host_fallbacks"])
 runmat_tpu_torch.uninstall()
+for name, pre in (("dense_linalg", "N = 64;"), ("spectral", "N = 2^12;")):
+    s = runmat_tpu_torch.session("cpu", auto_offload=True,
+                                 offload_threshold=1)
+    eng = accel.active_engine()
+    r = s.execute(pre + "\n" +
+                  open(f"runmat_tpu_torch/workloads/{name}.m").read())
+    assert r.error is None, r.error
+    print(r.output.strip())
+    print(name, "fallbacks", eng.stats["host_fallbacks"])
+    runmat_tpu_torch.uninstall()
 h = Session(accelerate=False)
 r = h.execute("x = rand(1, 5); fprintf('HOST_ok %d\\n', numel(x));")
 assert r.error is None, r.error
@@ -80,12 +93,15 @@ def test_port_runs_without_jax():
                        capture_output=True, text=True, timeout=600)
     assert p.returncode == 0, p.stderr[-3000:]
     out = p.stdout
-    for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK"):
+    for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK", "LINALG",
+                  "SPECTRAL"):
         assert f"RESULT_ok {label}=" in out, out
     assert "monte_carlo folds 1 fallbacks 0 plans" in out, out
     assert "elementwise_math folds 0 fallbacks 0 plans 4" in out, out
     assert "histogram_stats fallbacks 0" in out, out
     assert "index_sets folds 1 1 fallbacks 0" in out, out
+    assert "dense_linalg fallbacks 0" in out, out
+    assert "spectral fallbacks 0" in out, out
     assert "HOST_ok 5" in out, out
     assert "jax blocked: True" in out, out
     assert "runmat_tpu modules: []" in out, out

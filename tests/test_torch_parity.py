@@ -111,6 +111,17 @@ SNIPPETS = [
                   " tf = ismember([1 5 2 NaN], [2 3 NaN]); un = union([3 1], [2 1]);"
                   " in = intersect([5 1 3 3], [3 5 8]); d = setdiff([5 1 3], 3);"
                   " x = setxor([NaN 1 2], [2 3]);", EXACT),
+    ("linalg", "A = [4 1 0; 1 3 1; 0 1 2]; R = chol(A); x = A \\ [1; 2; 3];"
+               " d = det(A); Ai = inv(A); [Q, Rq] = qr(A); s = svd(A);"
+               " e = eig(A); [L, U, P] = lu(A); n = norm(A); r = rank(A);"
+               " t = trace(A); c = cond(A); p = pinv([1 2; 3 4; 5 6]);"
+               " [R2, k] = chol([1 2; 2 1]);", EXACT),
+    ("linalg-errors", "chol([1 2; 2 1]);", EXACT),
+    ("fft-signal", "x = sin(0.3*(1:16)); f = fft(x); g = real(ifft(f));"
+                   " F = fft2(reshape(1:16, 4, 4)); sh = fftshift(1:5);"
+                   " y = filter([1 2 1]/4, [1 -0.5], x); c = conv(x, [1 -1]);"
+                   " c2 = conv2(reshape(1:16, 4, 4), ones(2)); w = hann(8); h = abs(hilbert(x));"
+                   " v = envelope(x); s = sinc(0.5);", EXACT),
 ]
 
 

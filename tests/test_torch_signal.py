@@ -1,0 +1,218 @@
+"""FFT, signal filters and convolutions of the port against the JAX package
+(the counterparts of `tests/test_device_conv.py` and the fft cases of
+`tests/test_device_linalg.py`), on the same `.m` source through both
+packages' device engines on the CPU (`tests/torch_both.py`), and the IIR
+filter's plain version (`ops/iir.py`) against the JAX package's `_b_iir`
+scan.
+
+Tolerances: the IIR plain version within 1e-13 (float64) and 1e-6
+(float32) of the largest output magnitude of the scan's, because XLA on
+the CPU contracts the scan's multiply-adds into FMAs where the port rounds
+each product and sum (the hand-written kernel rounds as the plain version
+does, bit for bit, `tests/test_torch_cuda.py`); FFT results, filters and
+convolutions within 1e-12 of the largest magnitude (at least 1;
+pocketfft and torch's FFT, XLA's and torch's convolutions sum in other
+orders), single ones 1e-5 or 1e-6; everything else (shapes, classes,
+dtypes, residency, logical values) exactly.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from runmat_tpu.accel.dense import _b_iir
+from runmat_tpu.accel.engine import JaxEngine
+from runmat_tpu_torch.ops import iir
+from torch_both import close, run_both, same
+
+RTOL = 1e-12
+
+
+def _dev(b, names, rtol=RTOL):
+    close(b, names, rtol)
+    assert b.td["host_fallbacks"] == 0 == b.jd["host_fallbacks"], b.td
+
+
+# --------------------------------------------------------------- the IIR
+
+@pytest.mark.parametrize("order", range(1, 9))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_iir_plain_matches_the_jax_scan(dtype, order):
+    jax.config.update("jax_enable_x64", True)
+    f = jax.jit(_b_iir(JaxEngine(platform="cpu"), ()))
+    rng = np.random.default_rng(100 + order)
+    n = order + 1
+    x = rng.standard_normal(257).astype(dtype)
+    b = (rng.standard_normal(n) * 0.3).astype(dtype)
+    a = (rng.standard_normal(n) * 0.1).astype(dtype)
+    a[0] = 1
+    z0 = (rng.standard_normal(n - 1) * 0.1).astype(dtype)
+    want = np.asarray(f(x, b, a, z0))
+    before = iir.launches
+    got = iir.iir(*(torch.from_numpy(v) for v in (x, b, a, z0))).numpy()
+    assert iir.launches == before          # a CPU tensor takes the plain form
+    assert got.dtype == want.dtype == dtype
+    tol = 1e-13 if dtype == np.float64 else 1e-6
+    assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
+
+
+def test_iir_wrapper_checks_its_inputs():
+    x = torch.zeros(8, dtype=torch.float64)
+    b = torch.ones(3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="share"):
+        iir.iir(x.float(), b, b, b[:2])
+    with pytest.raises(ValueError, match="N - 1"):
+        iir.iir(x, b, b, b)
+    with pytest.raises(ValueError, match="share"):
+        iir.iir(x.to(torch.int64), b, b, b[:2])
+    y = iir.iir(torch.zeros(0, dtype=torch.float64), b, b, b[:2])
+    assert y.shape == (0,)
+
+
+def test_iir_zero_state_step_is_the_recurrence():
+    # y_i = b0 x_i + z0; z_k = b_{k+1} x_i + z_{k+1} - a_{k+1} y_i
+    x = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float64)
+    b = torch.tensor([1.0, 0.5], dtype=torch.float64)
+    a = torch.tensor([1.0, -0.5], dtype=torch.float64)
+    y = iir.iir(x, b, a, torch.zeros(1, dtype=torch.float64))
+    assert y.tolist() == [1.0, 1.0, 0.5, 0.25]
+
+
+# --------------------------------------------------------------- filters
+
+@pytest.mark.parametrize("mclass", ["double", "single"])
+def test_filter_fir_and_iir(mclass):
+    b = run_both(f"x = gpuArray({mclass}(sin(0.1*(1:400))));",
+                 "y = filter([0.2 0.2 0.2 0.2 0.2], 1, x); "
+                 "z = filter([1 0.5], [1 -0.8 0.2], x); "
+                 "zc = filter([1 2 1]/4, [2 -0.4 0.1 0.05], x');")
+    _dev(b, ["y", "z", "zc"])
+    # double coefficients: a single signal filters in float64, as there
+    if mclass == "single":
+        assert b.ts.get("y").host().dtype == np.float64
+
+
+def test_filter_iir_stays_on_the_device_and_counts_no_wait():
+    b = run_both("x = gpuArray(sin(0.1*(1:400)));",
+                 "r = filter([1 0.5], [1 -0.8 0.2], x);")
+    assert b.ts.get("r").on_device
+    _dev(b, ["r"])
+    assert b.td["syncs"] == 0
+
+
+def test_filter_butterworth_order_8():
+    import scipy.signal as ss
+    bb, aa = ss.butter(8, 0.2)
+    lit = lambda v: "[" + " ".join(repr(float(t)) for t in v) + "]"
+    b = run_both("x = gpuArray(cos(0.3*(1:500)) + 0.2*sin(2.1*(1:500)));",
+                 f"y = filter({lit(bb)}, {lit(aa)}, x);")
+    _dev(b, ["y"], rtol=1e-10)
+
+
+# --------------------------------------------------------------- conv
+
+@pytest.mark.parametrize("mode", ["full", "same", "valid"])
+def test_conv_modes(mode):
+    b = run_both("x = gpuArray(sin(1:200)); k = gpuArray([1 2 3 2 1]/9);",
+                 f"r = conv(x, k, '{mode}'); q = conv(k, x, '{mode}');"
+                 f" e = conv(x, [1 -1 0.5 2], '{mode}');")
+    _dev(b, ["r", "q", "e"])
+
+
+def test_conv_column_orientation():
+    b = run_both("x = gpuArray((1:50)'); k = gpuArray([1; 1; 1]);",
+                 "r = conv(x, k); sz = size(r);")
+    _dev(b, ["r", "sz"])
+    assert b.ts.get("sz").host().reshape(-1).tolist() == [52, 1]
+
+
+@pytest.mark.parametrize("mode", ["full", "same", "valid"])
+@pytest.mark.parametrize("mclass", ["double", "single"])
+def test_conv2_modes(mode, mclass):
+    b = run_both(f"A = gpuArray({mclass}(reshape(cos(1:256), 16, 16)));"
+                 f" K = {mclass}([1 0 -1; 2 0 -2; 1 0 -1]);"
+                 f" K2 = {mclass}(ones(4, 2) / 8);",
+                 f"r = conv2(A, K, '{mode}'); r2 = conv2(A, K2, '{mode}');")
+    _dev(b, ["r", "r2"], rtol=RTOL if mclass == "double" else 1e-5)
+
+
+# --------------------------------------------------------------- fft
+
+@pytest.mark.parametrize("mclass", ["double", "single"])
+def test_fft_ifft_with_length_and_dim(mclass):
+    b = run_both(f"X = gpuArray({mclass}(reshape(sin(1:24), 4, 6)));"
+                 f" v = gpuArray({mclass}(cos(1:16)));",
+                 "Y = fft(X); Y2 = fft(X, 8, 2); Y3 = fft(X, 3, 1);"
+                 " f = fft(v); g = ifft(f); h = ifft(v); r = real(ifft(fft(v)));"
+                 " m = abs(f) + 1;")
+    _dev(b, ["Y", "Y2", "Y3", "f", "g", "h", "r", "m"],
+         rtol=RTOL if mclass == "double" else 1e-5)
+    # an inverse transform stays complex on the device, as there
+    assert b.ts.get("g").is_complex and b.ts.get("h").is_complex
+
+
+def test_fft2_ifft2_roundtrip():
+    b = run_both("A = gpuArray(reshape(sin(1:64), 8, 8));",
+                 "F = fft2(A); B = real(ifft2(F)); e = norm(B - A, 'fro');"
+                 " G = ifft2(F);")
+    _dev(b, ["F", "B", "G"])
+    assert float(b.ts.get("e").host().reshape(-1)[0]) < 1e-12
+
+
+def test_fftshift_of_a_device_spectrum():
+    b = run_both("v = gpuArray(1:8);",
+                 "s = fftshift(fft(v)); t = ifftshift(abs(fft(v)));")
+    close(b, ["s", "t"], RTOL)
+
+
+def test_fft_of_a_complex_input():
+    b = run_both("z = gpuArray(sin(1:32) + 1i*cos(1:32));",
+                 "f = fft(z); g = ifft(f, 40); p = abs(f) .^ 2;")
+    _dev(b, ["f", "g", "p"])
+
+
+# --------------------------------------------------------------- analytic
+
+@pytest.mark.parametrize("n", [64, 65])
+@pytest.mark.parametrize("mclass", ["double", "single"])
+def test_hilbert_and_envelope(mclass, n):
+    b = run_both(f"x = gpuArray({mclass}(sin(0.3*(1:{n})) .* (1 + 0.5*cos(0.05*(1:{n})))));"
+                 f" c = gpuArray({mclass}(cos(0.2*(1:{n}))'));",
+                 "h = hilbert(x); e = envelope(x); hc = hilbert(c);"
+                 " ec = envelope(c);")
+    # single: the float32 FFT of pocketfft and of torch round apart
+    _dev(b, ["h", "e", "hc", "ec"], RTOL if mclass == "double" else 1e-6)
+
+
+def test_spectrogram_and_pwelch():
+    b = run_both("x = gpuArray(sin(0.2*(1:2048)) + 0.1*cos(1.3*(1:2048)));",
+                 "S = spectrogram(x, hann(256), 128, 256);"
+                 " [S2, F, T] = spectrogram(x, 128);"
+                 " p = pwelch(x, 256);")
+    close(b, ["S", "S2", "F", "T", "p"], RTOL)
+    # the STFT comes back to the host, a counted gather
+    assert not b.ts.get("S").on_device
+    assert b.td["gathers"] >= 3
+
+
+def test_window_builtins_and_sinc():
+    b = run_both("", "w1 = hann(16); w2 = hamming(9); w3 = blackman(8);"
+                 " w4 = bartlett(7); w5 = rectwin(3); w6 = kaiser(10, 3);"
+                 " s = sinc(-2:0.5:2);")
+    same(b, ["w1", "w2", "w3", "w4", "w5", "w6", "s"])
+
+
+# --------------------------------------------------------------- the script
+
+def test_spectral_script_matches_the_jax_package():
+    src = open("runmat_tpu_torch/workloads/spectral.m").read()
+    b = run_both("N = 2^12;", src)
+    for n in ("x", "y", "z", "X", "P", "yb", "env", "c", "G"):
+        assert b.ts.get(n).on_device, n
+    close(b, ["res", "P", "z", "yb", "env", "c", "s1k"], RTOL)
+    close(b, ["G"], 1e-6)
+    assert b.tr.output.strip().startswith("RESULT_ok SPECTRAL=")
+    for k in ("compiles", "cache_hits", "host_fallbacks"):
+        assert b.td[k] == b.jd[k], (k, b.td[k], b.jd[k])
+    assert b.td["host_fallbacks"] == 0

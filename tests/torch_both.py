@@ -8,7 +8,10 @@ offload_threshold=1`), and keeps each engine's counters from just before
 (`jsnap`, `tsnap`); `prepare(session)`, where given, runs on each
 session between the two (to set its RNG counter, say). `same(both, names)` holds each named workspace
 value of the port to the JAX package's: class, residency, shape, dtype and
-values, exactly unless a tolerance is given.
+values, exactly unless a tolerance is given; `close(both, names, tol)`
+holds floating values within `tol` of the JAX package's largest magnitude
+(at least 1) instead, for results with entries near zero (FFTs,
+factorizations).
 """
 
 import numpy as np
@@ -77,3 +80,28 @@ def same(b: Both, names, rtol: float = 0.0) -> None:
             assert np.array_equal(g, w, equal_nan=True), (n, g, w)
         else:
             np.testing.assert_allclose(g, w, rtol=rtol, err_msg=n)
+
+
+def close(b: Both, names, tol: float, device: bool = False) -> None:
+    """As `same`, with floating values within `tol` of the largest magnitude
+    of the JAX package's value (or of 1); `device` also asks that each value
+    be on the port's device. NaNs must sit in the same places."""
+    assert b.jr.error is None and b.tr.error is None, (b.jr.error,
+                                                       b.tr.error)
+    for n in names:
+        want, got = b.js.get(n), b.ts.get(n)
+        assert got.mclass == want.mclass, n
+        assert got.on_device == want.on_device, (n, got.on_device)
+        assert got.on_device or not device, n
+        w, g = np.asarray(want.host()), np.asarray(got.host())
+        assert g.shape == w.shape and g.dtype == w.dtype, (n, g.shape,
+                                                          w.shape, g.dtype)
+        if w.dtype.kind not in "fc":
+            assert np.array_equal(g, w), n
+            continue
+        assert np.array_equal(np.isnan(g), np.isnan(w)), n
+        if not w.size:
+            continue
+        scale = max(float(np.nanmax(np.abs(w), initial=0.0)), 1.0)
+        err = float(np.nanmax(np.abs(g - w), initial=0.0))
+        assert err <= tol * scale, (n, err, scale)
