@@ -69,10 +69,16 @@ line is printed:
      one `while` fold, under 1 MB each way, and its sort, unique, counts,
      median, membership and column writes against numpy of the port's own
      gathered data; with the warm walls;
-  7. linear algebra and signal path: the IIR kernel (csrc/iir.cu) against
-     its plain version bit for bit, orders 1 to 8 in float32 and float64,
-     and spectral.m's 4th-order call over 2^22 samples in float32, timed
-     (runmat_tpu_torch/linalgbench.py); then
+  7. linear algebra and signal path: the IIR kernel (csrc/iir.cu, a
+     chunked parallel scan) against its plain version, bit for bit on its
+     first stretch of L samples and elsewhere within 1e-10 (float64) or
+     1e-4 (float32) of the largest output magnitude, non-finite values in
+     the same places: random filters of orders 1 to 8 in float32 and
+     float64 from a nonzero state over one stretch and over 64, a pole of
+     radius 0.999, a NaN in a middle stretch; spectral.m's float64 call at
+     stretch lengths 32 to 4096; and its 4th-order call over 2^22 samples
+     in float32, timed with its phases (runmat_tpu_torch/linalgbench.py);
+     then
      runmat_tpu_torch/workloads/dense_linalg.m at N = 4096 and
      spectral.m at N = 2^22 through Session.run_source, each against the
      port's host engine: LINALG and SPECTRAL within a relative 1e-9
@@ -82,13 +88,14 @@ line is printed:
      no host fallback and no not-ported decline, under 1 MB uploaded, the
      IIR kernel launched once a spectral.m run, its float64 call (the
      script's own signal and coefficients, all 2^22 samples) and the
-     path's output z bit-equal to the plain version, which is timed on
-     the host, the waits equal to the counted reads, and the warm walls;
+     path's output z held to the plain version as above (which is timed on
+     the host), the waits equal to the counted reads, and the warm walls;
   8. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Each kernel's `launches` is read from the runs of phases 4 to 7, with the
 counts set to 0 just before each run (a generated map-reduce counts once
-for its pair of launches); each generated group is a row of its own,
+for its pair of launches, or for its one where one program covers each
+segment); each generated group is a row of its own,
 counted by its kernel, so its `launches` are those of one run of its
 script. `bound_ms` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over the card's rate
@@ -174,7 +181,12 @@ CONV2_SINGLE_TOL = 1e-5
 # the scripts upload only short vectors: b, its first quarter, the
 # filters' coefficients and the window
 SLICE_TRANSFER_LIMIT = 1 << 20
-IIR_ORDERS_N = 1 << 10            # orders 1 to 8, both types
+# the IIR kernel's cases: one stretch (bit-equal), at least 64 stretches,
+# a pole of radius 0.999 over 256 stretches; the stretch lengths timed
+IIR_SHORT = 200
+IIR_STRETCHES = 64
+IIR_POLE_N = 1 << 16
+IIR_SWEEP = (32, 64, 128, 256, 512, 1024, 4096)
 
 
 class SmokeFailure(Exception):
@@ -1039,10 +1051,48 @@ def phase_indexing_path() -> dict:
     return launches
 
 
+def _iir_cases(dev) -> list:
+    """(label, x, b, a, z0) the IIR kernel is held to its plain version on:
+    random filters of orders 1 to 8 in both types from a nonzero state,
+    over IIR_SHORT samples (one stretch: bit-equal throughout) and over
+    IIR_STRETCHES stretches; a resonator with poles of radius 0.999; a NaN
+    in the middle of a middle stretch."""
+    import torch
+    from runmat_tpu_torch.ops import iir
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    long_n = IIR_STRETCHES * iir.CHUNK + 77
+    cases = []
+    for dt in (torch.float32, torch.float64):
+        for order in range(1, 9):
+            n = order + 1
+            b = torch.randn(n, dtype=dt, device=dev, generator=gen) * 0.3
+            a = torch.randn(n, dtype=dt, device=dev, generator=gen) * 0.1
+            z0 = torch.randn(n - 1, dtype=dt, device=dev, generator=gen) * 0.1
+            for length in (IIR_SHORT, long_n):
+                x = torch.randn(length, dtype=dt, device=dev, generator=gen)
+                cases.append((f"{dt} order {order} n={length}", x, b, a, z0))
+        th, r = 0.05, 0.999
+        b = torch.tensor([0.02, 0.01, -0.005], dtype=dt, device=dev)
+        a = torch.tensor([1, -2 * r * np.cos(th), r * r], dtype=dt, device=dev)
+        z0 = torch.tensor([0.3, -0.2], dtype=dt, device=dev)
+        x = torch.randn(IIR_POLE_N, dtype=dt, device=dev, generator=gen)
+        cases.append((f"{dt} pole radius 0.999 n={IIR_POLE_N}", x, b, a, z0))
+        x = torch.randn(long_n, dtype=dt, device=dev, generator=gen)
+        x[(IIR_STRETCHES // 2) * iir.CHUNK + iir.CHUNK // 2] = float("nan")
+        b, a, z0 = cases[-3][2:]
+        cases.append((f"{dt} order 8, NaN in stretch {IIR_STRETCHES // 2} "
+                      f"n={long_n}", x, b, a, z0))
+    return cases
+
+
 def _iir_kernel() -> None:
-    """The IIR kernel against its plain version, bit for bit: orders 1 to
-    8 in both types at IIR_ORDERS_N samples, then spectral.m's call (its
-    Butterworth filter over 2^22 samples) in float32, timed
+    """The IIR kernel against its plain version (`linalgbench.held`: the
+    first stretch bit for bit, elsewhere within iir.TOL of the largest
+    output magnitude, non-finite values in the same places) on
+    `_iir_cases`; the kernel at each stretch length of IIR_SWEEP on
+    spectral.m's float64 call; then that call (its Butterworth filter over
+    2^22 samples) in float32, timed with its phases
     (runmat_tpu_torch/linalgbench.py). The float64 call the path makes is
     held to its plain version after spectral.m's run."""
     import torch
@@ -1050,44 +1100,47 @@ def _iir_kernel() -> None:
     from runmat_tpu_torch import linalgbench
     from runmat_tpu_torch.ops import iir
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(9)
-    cases = 0
-    for dt in (torch.float32, torch.float64):
-        for order in range(1, 9):
-            n = order + 1
-            x = torch.randn(IIR_ORDERS_N, dtype=dt, device=dev, generator=gen)
-            b = torch.randn(n, dtype=dt, device=dev, generator=gen) * 0.3
-            a = torch.randn(n, dtype=dt, device=dev, generator=gen) * 0.1
-            z0 = torch.randn(n - 1, dtype=dt, device=dev, generator=gen) * 0.1
-            got, want = iir.iir(x, b, a, z0), iir.plain_iir(x, b, a, z0)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"iir {dt} order {order}: kernel differs from plain by "
-                  f"{float((got - want).abs().max()):g}")
-            cases += 1
-    print(f"kernel iir: {cases} cases bit-equal to plain (orders 1-8 at "
-          f"{IIR_ORDERS_N} samples in float32 and float64)")
+    worst = {}
+    for label, x, b, a, z0 in _iir_cases(dev):
+        got, want = iir.iir(x, b, a, z0), iir.plain_iir(x, b, a, z0)
+        torch.cuda.synchronize()
+        r = linalgbench.held(got, want, iir.CHUNK, iir.TOL[x.dtype])
+        check(r["ok"], f"iir {label}: {r}")
+        key = str(x.dtype)
+        worst[key] = max(worst.get(key, 0.0), r["rel_err"])
+        print(f"kernel iir {label}: first {min(iir.CHUNK, x.numel())} "
+              f"outputs bit-equal, non-finite in the same places, rel err "
+              f"{r['rel_err']:.3g} (limit {iir.TOL[x.dtype]:g})")
+    print(f"kernel iir: largest rel err {worst}; stretches of L={iir.CHUNK} "
+          f"samples, {iir.SHAPE}")
+    for r in linalgbench.iir_sweep(
+            iir, *linalgbench.iir_inputs(torch.float64), IIR_SWEEP, 20):
+        check(r["ok"], f"iir f64 at 2^22, L={r['chunk']}: {r}")
+        print(f"time iir f64 (spectral.m's call) at L={r['chunk']}: "
+              f"{r['ms']:.4f} ms, rel err {r['rel_err']:.3g}")
     # spectral.m filters in float64 (its coefficients are double); the
     # float32 kernel is timed at the same call beside it
-    r = linalgbench.iir_row(iir, *linalgbench.iir_inputs(torch.float32), 3)
-    check(r["equal"], f"iir f32 at 2^22: differs from plain by "
-          f"{r['max_abs_err']:g}")
+    r = linalgbench.iir_row(iir, *linalgbench.iir_inputs(torch.float32), 20)
+    check(r["ok"], f"iir f32 at 2^22: {r}")
     _print_iir("iir f32", r)
 
 
 def _print_iir(label: str, r: dict) -> None:
-    print(f"time {label} (spectral.m's call, n=2^22, order {r['order']}): "
-          f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms (the "
-          f"host loop over all {r['n']} samples, equal bit for bit), "
-          f"library none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-          f"share of bound {r['bound_ms'] / r['ms']:.5f}")
+    phases = ", ".join(f"{k} {v:.4f}" for k, v in r["phase_ms"].items())
+    print(f"time {label} (spectral.m's call, n=2^22, order {r['order']}, "
+          f"L={r['chunk']}): kernel {r['ms']:.4f} ms (phases, ms: "
+          f"{phases}), plain {r['plain_ms']:.1f} ms (the host loop over all "
+          f"{r['n']} samples; first stretch bit-equal, rel err "
+          f"{r['rel_err']:.3g}, limit {r['tol']:g}), library none, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+          f"{r['bound_ms'] / r['ms']:.4f}")
 
 
 def _iir_path_row(values: dict) -> dict:
     """spectral.m's IIR call held to the plain version over all its
     samples: the kernel on the script's own signal and coefficients, and
-    the path's output z, both bit-equal; the row of the kernel line."""
+    the path's output z, both (`linalgbench.held`); the row of the kernel
+    line."""
     import torch
 
     from runmat_tpu_torch import linalgbench
@@ -1100,12 +1153,12 @@ def _iir_path_row(values: dict) -> dict:
     b = torch.tensor(bb / aa[0], dtype=f64, device=dev)
     a = torch.tensor(aa / aa[0], dtype=f64, device=dev)
     z0 = torch.zeros(len(bb) - 1, dtype=f64, device=dev)
-    r = linalgbench.iir_row(iir, x.reshape(-1), b, a, z0, 3, path_y=z)
-    check(r["equal"], f"iir f64, spectral.m's call: the kernel or the path's "
-          f"z differs from plain by {r['max_abs_err']:g}")
+    r = linalgbench.iir_row(iir, x.reshape(-1), b, a, z0, 20, path_y=z)
+    check(r["ok"], f"iir f64, spectral.m's call: the kernel or the path's "
+          f"z against plain: {r}")
     _print_iir("iir f64", r)
     return {"name": "iir_f64", "route": "cuda",
-            "source": "runmat_tpu_torch/csrc/iir.cu",
+            "source": "runmat_tpu_torch/csrc/iir.cuh",
             "replaces": "runmat_tpu/accel/dense.py:706",
             "launches": 0, "launch_key": "iir f64",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -29,8 +29,9 @@ main path launches with its inputs;
 `measure` times each (CUDA events, mean of `reps`, the card spinning first:
 `histbench.time_ms`) against its plain version, its bound (bytes moved at
 3.35 TB/s, or operations at 67 TFLOP/s float32, 34 float64, whichever is
-larger) and, where one PyTorch call computes the same function (a `sum` or
-`mean` with no prologue: `torch.sum`/`torch.mean`), that call. Run as a
+larger) and, where one PyTorch call computes the same function (`library`:
+a `sum` or `mean` with no prologue, a lone `linspace`, a `full` times a
+scalar, a lone add, subtract, multiply or divide), that call. Run as a
 script, it imports `runmat_tpu_torch` from DIR (default: the checkout
 holding this file), checks every case, times the main path's groups, and
 prints the card's name and power limit, the machine-code reading of each
@@ -466,7 +467,7 @@ def square_arm(module: str) -> dict:
     from .ops import fused
     mod = sys.modules[module]
     out = {}
-    for kernel in ("map_kernel", "part_kernel", "fin_kernel"):
+    for kernel in ("map_kernel", "part_kernel", "fin_kernel", "one_kernel"):
         fn = getattr(mod, kernel, None)
         for k in [] if fn is None else _compiled(fn):
             arms = _if_arms(k.asm["ttir"])
@@ -578,20 +579,49 @@ def work(g, program, args) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+LIBRARY_BINARY = ("add", "sub", "mul", "div")
+
+
 def library(g, args):
     """One PyTorch call computing the same function, where there is one: a
     `sum` or `mean` of an input with no prologue, followed at most by casts
-    to its own class (mean(imgs, [2 3]) under single())."""
+    to its own class (mean(imgs, [2 3]) under single()), `torch.sum`/
+    `torch.mean`; a lone `linspace`, `torch.linspace`; a `full` times a
+    scalar, `torch.full` (its value read back once, before the timing); a
+    lone add, subtract, multiply or divide of two inputs in their own type,
+    `torch.add`/`sub`/`mul`/`div`."""
     import torch
     spec = g.spec
+    ins = [a.reshape(ls) for a, (ls, _) in zip(args, spec.inputs)]
+    ops = [b[0] for b in spec.body]
+    if ops == ["c:linspace"] and spec.body[0][3] == (("x", 0), ("x", 1)):
+        n, dt = spec.body[0][1][0], ins[0].dtype
+        lo, hi = float(ins[0].reshape(())), float(ins[1].reshape(()))
+        return lambda: torch.linspace(lo, hi, n, dtype=dt,
+                                      device=ins[0].device)
+    if ops == ["c:full", "b:mul"] and spec.body[1][3] in (
+            (("v", 0), ("x", 1)), (("x", 1), ("v", 0))) and \
+            spec.body[0][3] == (("x", 0),) and \
+            len({b[2] for b in spec.body} | {b[1][0] for b in spec.body[1:]}
+                | {d for _, d in spec.inputs}) == 1:
+        value = float((ins[0] * ins[1]).reshape(()))
+        shape, dt = spec.body[0][1][0], ins[0].dtype
+        return lambda: torch.full(shape, value, dtype=dt,
+                                  device=ins[0].device)
+    if len(ops) == 1 and ops[0][2:] in LIBRARY_BINARY and \
+            ops[0].startswith("b:") and \
+            spec.body[0][3] == (("x", 0), ("x", 1)) and \
+            spec.body[0][2] == spec.body[0][1][0] == spec.inputs[0][1] == \
+            spec.inputs[1][1]:
+        fn = getattr(torch, ops[0][2:])
+        return lambda: fn(ins[0], ins[1])
     if spec.reduce != 0 or spec.body[0][3] != (("x", 0),) or any(
             b[0] != "cast" or b[1][0] != spec.body[0][2]
             for b in spec.body[1:]):
         return None
     op, static, _, _ = spec.body[0]
-    x = args[0].reshape(spec.inputs[0][0])
     fn = torch.sum if op == "r:sum" else torch.mean
-    return lambda: fn(x, dim=tuple(static[0]), keepdim=True)
+    return lambda: fn(ins[0], dim=tuple(static[0]), keepdim=True)
 
 
 def measure(eng, seen: list, reps: int) -> list:

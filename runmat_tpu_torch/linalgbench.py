@@ -6,15 +6,18 @@ shapes.
 
 `iir_inputs` makes spectral.m's IIR call (its 4th-order Butterworth
 filter over 2^22 samples of the script's signal) and `iir_row` holds the
-kernel (`ops/iir.py`) on such inputs to its plain version over the whole
-signal, bit for bit, and times both: the kernel with CUDA events, the
-plain version (a loop on the host over the signal copied there, the
-copies included) once on the host's clock; beside them the least time
-the card could take (bytes: x read and y written once, 3.35 TB/s;
-operations: 4 (N - 1) + 2 a sample at the card's float64 or float32
-rate). `library_rows` times each call the
-two scripts make into cuSOLVER, cuFFT and cuDNN through torch, at the
-scripts' shapes, beside its bound: the flop count of the textbook
+kernel (`ops/iir.py`, a chunked parallel scan) on such inputs to its plain
+version over the whole signal (`held`: bit for bit on the first stretch of
+`iir.CHUNK` samples, elsewhere within `iir.TOL` of the largest output
+magnitude, non-finite values in the same places), and times both: the
+kernel and each of its four phases with CUDA events, the plain version (a
+loop on the host over the signal copied there, the copies included) once
+on the host's clock; beside them the least time the card could take
+(bytes: x read and y written once, 3.35 TB/s; operations: 4 (N - 1) + 2 a
+sample at the card's float64 or float32 rate). `iir_sweep` times the
+kernel at other stretch lengths on the same call. `library_rows` times
+each call the two scripts make into cuSOLVER, cuFFT and cuDNN through
+torch, at the scripts' shapes, beside its bound: the flop count of the textbook
 algorithm over the card's peak for the type (float64 67 TFLOP/s, the
 tensor cores' DMMA rate; float32 67 TFLOP/s outside the tensor cores), or
 its inputs read and outputs written once over 3.35 TB/s, whichever is
@@ -77,11 +80,37 @@ def iir_inputs(dtype, n: int = N_SIGNAL, seed: int = 0):
                                           device=dev)
 
 
+def held(got, want, chunk: int, tol: float) -> dict:
+    """`got` (the kernel's y) against `want` (the plain version's):
+    bit-equal on the first `chunk` outputs (the first stretch, all of them
+    where n <= chunk; NaN equal to NaN); non-finite exactly where `want`
+    is; elsewhere within `tol` of want's largest finite magnitude.
+    `max_abs_err` over the outputs finite in both, `rel_err` over that
+    magnitude, `ok` all three."""
+    import torch
+    g, w = got.reshape(-1), want.reshape(-1)
+    first = min(chunk, w.numel())
+    same = (g[:first] == w[:first]) | (torch.isnan(g[:first]) &
+                                       torch.isnan(w[:first]))
+    fin = torch.isfinite(w)
+    finite = torch.equal(torch.isfinite(g), fin)
+    both = fin & torch.isfinite(g)
+    err = float((g[both] - w[both]).abs().max()) if bool(both.any()) \
+        else 0.0
+    scale = float(w[fin].abs().max()) if bool(fin.any()) else 0.0
+    rel = err / scale if scale else 0.0
+    equal = bool(same.all())
+    return {"n": w.numel(), "chunk": chunk, "equal_first": equal,
+            "finite_same": finite, "max_abs_err": err, "rel_err": rel,
+            "ok": equal and finite and rel <= tol}
+
+
 def iir_row(iir, x, b, a, z0, reps: int, path_y=None) -> dict:
     """The kernel on (x, b, a, z0) against its plain version over the whole
-    signal: equal bit for bit (`max_abs_err`), and `path_y`, where given
-    (what the main path computed from these inputs), equal to it too; the
-    kernel's time, the plain version's, the bound."""
+    signal (`held`, at iir.CHUNK and iir.TOL), and `path_y`, where given
+    (what the main path computed from these inputs), held to it too; the
+    kernel's time, each phase's (the time of phases 1..k less that of
+    1..k-1), the plain version's, the bound."""
     import torch
 
     from runmat_tpu_torch.histbench import time_ms
@@ -91,17 +120,39 @@ def iir_row(iir, x, b, a, z0, reps: int, path_y=None) -> dict:
     want = iir.plain_iir(x, b, a, z0)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    outs = [y] if path_y is None else [y, path_y.reshape(-1)]
-    err = max(float((o - want).abs().max()) for o in outs)
-    equal = all(torch.equal(o, want) for o in outs)
+    tol = iir.TOL[x.dtype]
+    checks = [held(o, want, iir.CHUNK, tol)
+              for o in [y] + ([] if path_y is None else [path_y])]
     ms = time_ms(lambda: iir.iir(x, b, a, z0), reps)
+    upto = [time_ms(lambda: iir.launch(x, b, a, z0, upto=k), reps)
+            for k in range(1, len(iir.PHASES))] + [ms]
+    phase_ms = dict(zip(iir.PHASES, [upto[0]] + [
+        upto[k] - upto[k - 1] for k in range(1, len(upto))]))
     n = x.numel()
     name = "float64" if x.dtype == torch.float64 else "float32"
     nb = b.numel()
     bnd = bound(2 * n * x.element_size(), (4 * (nb - 1) + 2) * n, name)
-    return {"n": n, "order": nb - 1, "equal": equal, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1]}
+    return {"n": n, "order": nb - 1, "chunk": iir.CHUNK,
+            "ok": all(c["ok"] for c in checks),
+            "equal_first": all(c["equal_first"] for c in checks),
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "rel_err": max(c["rel_err"] for c in checks), "tol": tol,
+            "ms": ms, "phase_ms": phase_ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def iir_sweep(iir, x, b, a, z0, chunks, reps: int) -> list:
+    """The kernel at each stretch length of `chunks` on one call: its time
+    and its error against the plain version `want`'s largest magnitude."""
+    from runmat_tpu_torch.histbench import time_ms
+    want = iir.plain_iir(x, b, a, z0)
+    rows = []
+    for chunk in chunks:
+        r = held(iir.launch(x, b, a, z0, chunk), want, chunk,
+                 iir.TOL[x.dtype])
+        r["ms"] = time_ms(lambda: iir.launch(x, b, a, z0, chunk), reps)
+        rows.append(r)
+    return rows
 
 
 def library_rows(reps: int) -> list:
@@ -243,9 +294,12 @@ def main() -> int:
     for dt in (torch.float64, torch.float32):
         r = iir_row(iir, *iir_inputs(dt), args.reps)
         out["iir"][str(dt).split(".")[1]] = r
-        print(f"iir {dt} n=2^22 order {r['order']}: kernel {r['ms']:.3f} ms, "
-              f"plain {r['plain_ms']:.1f} ms (host loop), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), equal {r['equal']}")
+        print(f"iir {dt} n=2^22 order {r['order']} L={r['chunk']}: kernel "
+              f"{r['ms']:.4f} ms (phases {r['phase_ms']}), plain "
+              f"{r['plain_ms']:.1f} ms (host loop), bound {r['bound_ms']:.4f}"
+              f" ms ({r['bound_by']}), first stretch bit-equal "
+              f"{r['equal_first']}, rel err {r['rel_err']:.3g} (limit "
+              f"{r['tol']:g})")
     out["eig_where"] = w = eig_where()
     print(f"eigvals {w['n']} f64: the call {w['call_ms']:.1f} ms on the "
           f"host, {w['kernels']} card kernels {w['kernel_ms']:.1f} ms, "

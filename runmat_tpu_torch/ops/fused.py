@@ -13,7 +13,7 @@ writes the text under `build/runmat_tpu_torch/fused/`, named by a hash of
 it, imports it from there (Triton's `@jit` reads its function's source with
 `inspect`, so a string given to `exec` does not compile), and launches.
 
-Two templates and a finishing pass:
+Two templates, a finishing pass and a one-launch form of the second:
 
   * map (`map_kernel`): one program a block of BLOCK elements of the
     iteration shape, walked in the order `Spec.perm` names; each input is
@@ -37,6 +37,12 @@ Two templates and a finishing pass:
     segment as one tile in a fixed order (no float atomics: the same result
     on every run), divides for `mean`, and runs the group's epilogue (the
     elementwise ops over the reduced shape, such as `sqrt(... + eps0)`).
+  * map-reduce in one launch (`one_kernel`): where `layout` gives SPLITS
+    == 1 (one program covers each segment, as for a sum of 1024 values),
+    the same loop, then the reduced values, `mean`'s division and the
+    epilogue in the same program: one launch and no partials buffer. The
+    one partial was the whole sum, so the result is the two kernels' bit
+    for bit.
 
 What bounds them on the card: the bytes they move (each input read once,
 each output written once, at 3.35 TB/s). The design keeps every
@@ -84,8 +90,8 @@ compile or launch: nothing falls back to the eager executor.
 `launches` counts the generated kernels the card runs, `launches_by` by
 kernel: (label, module), the label "fused_map_f32", "fused_reduce_f64",
 ..., the module that of the group's generated text, so a run can count
-each group apart (a map-reduce counts once for its pair of launches;
-`by_label` sums a label's). `captured` counts those launched into a graph
+each group apart (a map-reduce counts once for its pair of launches or its
+one; `by_label` sums a label's). `captured` counts those launched into a graph
 being captured (`replayed` adds them once a replay), as `ops/threefry.py`
 counts its draws.
 """
@@ -532,15 +538,13 @@ class _Gen:
             b.append(f"tl.store(y{j} + lin, v{m}, mask=mask)")
         return head + ["    " + x for x in b]
 
-    def part_kernel(self) -> list:
+    def accumulate(self, branching) -> list:
+        """The map-reduce's tile loop (unindented lines): the prologue over
+        [BK, BR] tiles, its written values stored, the reduced value added
+        into `acc`; before it, the exponents of the pows in `branching`."""
         spec, lay = self.spec, self.lay
         _, static, acc_dt, ((kind, src),) = spec.body[self.red]
-        ins = [f"x{k}" for k in range(len(spec.inputs))]
         pre_out = [m for m in spec.outputs if m in self.pre]
-        outs = [f"y{spec.outputs.index(m)}" for m in pre_out]
-        head = self.def_line("part_kernel",
-                             ins + outs + ["part"] + self.stride_args(),
-                             ["BK", "BR"])
         i64 = ".to(tl.int64)" if self.big else ""
         kept, red, col = spec.blocks()
         # a tile of BK kept by BR reduced elements; in a column reduction
@@ -551,7 +555,7 @@ class _Gen:
              f"rb = tl.program_id(1){i64} * {lay['STEPS']}",
              f"kmask = kk < {lay['K']}"]
         b += _index_lines(spec.shape, kept, "kk", "i")
-        b += self.exponents(self.pre)
+        b += self.exponents(branching)
         b.append(f"acc = tl.zeros({tile}, dtype={_T[acc_dt]})")
         b.append(f"for step in range({lay['STEPS']}):")
         loop = [f"rr = (rb + step) * BR + tl.arange(0, BR){rax}{i64}",
@@ -568,18 +572,46 @@ class _Gen:
         v, vd = (f"a{src}", spec.inputs[src][1]) if kind == "x" \
             else (f"v{src}", spec.body[src][2])
         loop.append(f"acc += tl.where(mask, {_cast(v, vd, acc_dt)}, 0.0)")
-        b += ["    " + x for x in loop]
+        return b + ["    " + x for x in loop]
+
+    def part_kernel(self) -> list:
+        spec, lay = self.spec, self.lay
+        ins = [f"x{k}" for k in range(len(spec.inputs))]
+        outs = [f"y{spec.outputs.index(m)}" for m in spec.outputs
+                if m in self.pre]
+        head = self.def_line("part_kernel",
+                             ins + outs + ["part"] + self.stride_args(),
+                             ["BK", "BR"])
+        b = self.accumulate(self.pre)
         b += ["kk1 = tl.program_id(0) * BK + tl.arange(0, BK)",
               f"tl.store(part + tl.program_id(1) * {lay['K']} + kk1, "
-              f"tl.sum(acc, axis={0 if col else 1}), mask=kk1 < {lay['K']})"]
+              f"tl.sum(acc, axis={0 if spec.blocks()[2] else 1}), "
+              f"mask=kk1 < {lay['K']})"]
+        return head + ["    " + x for x in b]
+
+    def one_kernel(self) -> list:
+        """A map-reduce whose segments one program each covers (SPLITS ==
+        1): `part_kernel`'s loop, then the reduced values, `mean`'s
+        division and the epilogue as `fin_kernel` computes them, in one
+        launch and with no partials buffer."""
+        spec, lay = self.spec, self.lay
+        ins = [f"x{k}" for k in range(len(spec.inputs))]
+        outs = [f"y{j}" for j in range(len(spec.outputs))]
+        head = self.def_line("one_kernel", ins + outs + self.stride_args(),
+                             ["BK", "BR"])
+        b = self.accumulate(self.pre + self.epi)
+        b += ["ko = tl.program_id(0) * BK + tl.arange(0, BK)",
+              f"komask = ko < {lay['K']}",
+              f"v{self.red} = tl.sum(acc, axis="
+              f"{0 if spec.blocks()[2] else 1})"]
+        b += self.finish("ko", "komask", "BK", "j", [])
         return head + ["    " + x for x in b]
 
     def fin_kernel(self) -> list:
         spec, lay = self.spec, self.lay
-        name, _, acc_dt, _ = spec.body[self.red]
         ins = [f"x{k}" for k in range(len(spec.inputs))]
-        post_out = [m for m in spec.outputs if m not in self.pre]
-        outs = [f"y{spec.outputs.index(m)}" for m in post_out]
+        outs = [f"y{spec.outputs.index(m)}" for m in spec.outputs
+                if m not in self.pre]
         head = self.def_line("fin_kernel",
                              ["part"] + ins + outs + self.stride_args(),
                              ["BKF", "BS"])
@@ -589,27 +621,39 @@ class _Gen:
              f"p = tl.load(part + ss * {lay['K']} + kk[None, :], "
              f"mask=(ss < {lay['SPLITS']}) & kmask[None, :], other=0.0)",
              f"v{self.red} = tl.sum(p, axis=0)"]
+        b += self.finish("kk", "kmask", "BKF", "i", self.epi)
+        return head + ["    " + x for x in b]
+
+    def finish(self, kk: str, kmask: str, width: str, prefix: str,
+               branching) -> list:
+        """From the reduced values `v{red}` over the kept indices `kk` (a
+        block of `width`): `mean`'s division, the exponents of the pows in
+        `branching`, the epilogue and the stores of what it writes."""
+        spec, lay = self.spec, self.lay
+        name, _, acc_dt, _ = spec.body[self.red]
+        b = []
         if name == "r:mean":
             r = lay["R"]
-            b.append(f"v{self.red} = tl.div_rn(v{self.red}, tl.full([BKF], "
-                     f"{r}, tl.float32))" if acc_dt == "float32" else
-                     f"v{self.red} = v{self.red} / {r}.0")
+            b.append(f"v{self.red} = tl.div_rn(v{self.red}, tl.full("
+                     f"[{width}], {r}, tl.float32))" if acc_dt == "float32"
+                     else f"v{self.red} = v{self.red} / {r}.0")
         ks = self._uses(self.epi)
-        rs = spec.rshape
-        b += self.exponents(self.epi)
+        b += self.exponents(branching)
         if any(nonsingleton(spec.inputs[k][0]) for k in ks):
-            b += _index_lines(rs, spec.blocks()[0], "kk", "i")
-        b += self.loads(ks, "i", "kmask", "b")
-        b += self.body(self.epi, "b", "kk")
-        for m in post_out:
-            b.append(f"tl.store(y{spec.outputs.index(m)} + kk, v{m}, "
-                     f"mask=kmask)")
-        return head + ["    " + x for x in b]
+            b += _index_lines(spec.rshape, spec.blocks()[0], kk, prefix)
+        b += self.loads(ks, prefix, kmask, "b")
+        b += self.body(self.epi, "b", kk)
+        for m in spec.outputs:
+            if m not in self.pre:
+                b.append(f"tl.store(y{spec.outputs.index(m)} + {kk}, v{m}, "
+                         f"mask={kmask})")
+        return b
 
     def text(self) -> str:
         spec = self.spec
         ops = " ".join(b[0] for b in spec.body)
         kernels = [self.map_kernel()] if self.red is None else \
+            [self.one_kernel()] if self.lay["SPLITS"] == 1 else \
             [self.part_kernel(), self.fin_kernel()]
         parts = [_PRELUDE.format(what=f"{spec.label} over "
                                  f"{'x'.join(map(str, spec.shape))}: {ops}")]
@@ -725,6 +769,9 @@ def launch(spec: Spec, inputs: list, strides: list, outputs: list,
         if spec.reduce is None:
             _run(mod, "map_kernel", lay["grid"], inputs + outputs + flat,
                  {"BLOCK": lay["BLOCK"]}, lay["num_warps"])
+        elif lay["SPLITS"] == 1:
+            _run(mod, "one_kernel", lay["grid"], inputs + outputs + flat,
+                 {"BK": lay["BK"], "BR": lay["BR"]}, lay["num_warps"])
         else:
             acc = torch.float32 if spec.body[spec.reduce][2] == "float32" \
                 else torch.float64

@@ -5,16 +5,28 @@
 is 1 and not read) from the state z0 (N-1 values), as the JAX package's
 `_b_iir` scan does (runmat_tpu/accel/dense.py:706-728). A CPU tensor takes
 the plain version below; a CUDA tensor launches the kernel or raises.
-`launches` counts kernel launches and nothing else; `launches_by` splits
-the count by dtype ("iir f32", "iir f64").
+`launches` counts filter calls that launched the kernel (one each, whatever
+the number of its phases) and nothing else; `launches_by` splits the count
+by dtype ("iir f32", "iir f64").
+
+The kernel is a chunked parallel scan (see its source): stretches of
+`CHUNK` samples filtered from a zero state, the states carried into each
+stretch by a log-step scan over powers of the state matrix, and each
+stretch filtered again from its carried state. `chunked_iir` is a model of
+those three phases in plain PyTorch, vectorised over stretches, for the CPU
+tests; nothing on the main path calls it.
 
 `plain_iir` is the scan's step, one sample at a time on the host, in the
 scan's order of operations: y = b0 * x_i + z[0], then z = (b[1:] * x_i +
 [z[1:], 0]) - a[1:] * y, over Python floats for float64 and numpy float32
 scalars for float32, so that each product, sum and difference is rounded
-on its own in x's type. The kernel rounds each one the same way in the same
-order, so the two are bit-equal; the host loop takes a few seconds for 2^22
-float64 samples, so the kernel is checked over a whole signal.
+on its own in x's type. The kernel's first stretch (its first CHUNK
+outputs, and the whole call when n <= CHUNK) rounds each one the same way
+in the same order, from z0 itself, so those are bit-equal to it; after
+that the carried states are rounded in another order, and the kernel is
+held to the plain version within TOL of the largest output magnitude
+(float64 1e-10, float32 1e-4), with the non-finite outputs in the same
+places.
 """
 
 from __future__ import annotations
@@ -33,20 +45,84 @@ launches_by: collections.Counter = collections.Counter()
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _NAMES = {torch.float32: "iir f32", torch.float64: "iir f64"}
 MAX_COEFS = 33          # kMaxN of csrc/iir.cu: orders 1..32 (it refuses more)
+CHUNK = 64              # samples a stretch (a power of two, at most 2^20):
+                        # the fastest of 32..4096 on an H100 (PERF.md)
+PHASES = ("powers", "chunk states", "carries", "output")
+# csrc/iir.cu's block shapes, printed beside the times: phases 2 and 4 walk
+# a stretch a thread in blocks of 128 stretches, staging tiles of 32
+# samples of each; phase 3 scans blocks of 128 threads of 16 carries each
+SHAPE = {"walk_threads": 128, "tile": 32, "scan_threads": 128, "run": 16}
+TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 _entry = None
 
 
 def _kernel():
     global _entry
     if _entry is None:
-        fn = library().runmat_iir
+        lib = library()
+        size = lib.runmat_iir_scratch
+        size.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_int]
+        size.restype = ctypes.c_int64
+        fn = lib.runmat_iir
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
-        _entry = fn
+        _entry = (size, fn)
     return _entry
+
+
+def _steps(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+           z: torch.Tensor) -> tuple:
+    """The scan's step along the last axis of x (S stretches of L samples)
+    from the states z (S x M), every operation a torch op in x's dtype:
+    (y, the end states)."""
+    b0, bk, ak = b[0], b[1:], a[1:]
+    zero = torch.zeros(x.shape[0], 1, dtype=x.dtype)
+    y = torch.empty_like(x)
+    for i in range(x.shape[1]):
+        xi = x[:, i]
+        yi = b0 * xi + z[:, 0]
+        z = (bk * xi[:, None] + torch.cat([z[:, 1:], zero], 1)) - \
+            ak * yi[:, None]
+        y[:, i] = yi
+    return y, z
+
+
+def chunked_iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+                z0: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The kernel's phases in plain PyTorch on the CPU, for any chunk >= 1:
+    the stretches filtered from zero, the carries c_0 = z0, c_j = G c_{j-1}
+    + s_{j-1} (G = A^chunk) scanned in log steps over G^(2^k) in float64
+    whatever x's type, and the stretches filtered again from their
+    carries, rounded to x's type."""
+    xv = x.reshape(-1)
+    n, m = xv.numel(), b.numel() - 1
+    b, a = b.reshape(-1), a.reshape(-1)
+    p = max(1, -(-n // chunk))
+    xs = torch.zeros(p * chunk, dtype=xv.dtype)
+    xs[:n] = xv
+    xs = xs.reshape(p, chunk)
+    f64 = torch.float64
+    c = torch.empty(p, m, dtype=f64)
+    c[0] = z0.reshape(-1)
+    if p > 1:
+        _, ends = _steps(xs[:-1], b, a, torch.zeros(p - 1, m,
+                                                    dtype=xv.dtype))
+        c[1:] = ends
+        am = torch.diag(torch.ones(m - 1, dtype=f64), 1)
+        am[:, 0] -= a[1:].to(f64)
+        g = torch.linalg.matrix_power(am, chunk)
+        d = 1
+        while d < p:
+            nxt = c.clone()
+            nxt[d:] = c[:-d] @ g.T + c[d:]
+            c, g, d = nxt, g @ g, 2 * d
+    y, _ = _steps(xs, b, a, c.to(xv.dtype))
+    return y.reshape(-1)[:n]
 
 
 def plain_iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
@@ -74,12 +150,7 @@ def plain_iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
     return torch.from_numpy(out).to(x.device)
 
 
-def iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
-        z0: torch.Tensor) -> torch.Tensor:
-    """y (flat, x's dtype) of the filter over flat x. x, b, a and z0 share
-    one dtype (float32 or float64) and one device; b and a hold N = 2 ..
-    MAX_COEFS values, z0 N - 1."""
-    global launches
+def _check(x, b, a, z0) -> None:
     n_coef = b.numel()
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (b, a, z0)):
         raise ValueError(f"iir: x {x.dtype}, b {b.dtype}, a {a.dtype} and "
@@ -90,27 +161,58 @@ def iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
                          f"{z0.numel()})")
     if any(t.device != x.device for t in (b, a, z0)):
         raise ValueError("iir: x, b, a and z0 must share one device")
-    if x.device.type == "cpu":
-        return plain_iir(x, b, a, z0)
+
+
+def launch(x, b, a, z0, chunk: int = CHUNK, upto: int = 4) -> torch.Tensor:
+    """The kernel's phases 1..upto (4: all) on CUDA tensors, stretches of
+    `chunk` samples; y (flat), written by phase 4. Counts nothing: `iir`
+    counts its calls, and the phases and other chunks are for timing."""
+    _check(x, b, a, z0)
     if x.device.type != "cuda":
         raise ValueError(f"iir: no kernel for device {x.device}")
+    n_coef = b.numel()
     if n_coef > MAX_COEFS:
         raise ValueError(f"iir: the kernel takes at most {MAX_COEFS} "
                          f"coefficients, not {n_coef}")
+    lg = chunk.bit_length() - 1
+    if chunk < 1 or chunk != 1 << lg:
+        raise ValueError(f"iir: the chunk must be a power of two, not "
+                         f"{chunk}")
     xv = x.reshape(-1).contiguous()
     bv, av = b.reshape(-1).contiguous(), a.reshape(-1).contiguous()
     zv = z0.reshape(-1).contiguous()
     y = torch.empty_like(xv)
     if xv.numel() == 0:
         return y
+    size, fn = _kernel()
+    code = _DTYPES[x.dtype]
+    nbytes = size(code, xv.numel(), n_coef, lg)
+    if nbytes < 0:
+        raise ValueError(f"iir: the kernel refuses n={xv.numel()}, "
+                         f"N={n_coef}, chunk={chunk}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    rc = _kernel()(_DTYPES[x.dtype], xv.data_ptr(), y.data_ptr(),
-                   xv.numel(), n_coef, bv.data_ptr(), av.data_ptr(),
-                   zv.data_ptr(), torch.cuda.current_stream(index).cuda_stream,
-                   index)
+    rc = fn(code, xv.data_ptr(), y.data_ptr(), xv.numel(), n_coef,
+            bv.data_ptr(), av.data_ptr(), zv.data_ptr(), lg,
+            scratch.data_ptr(), nbytes, upto,
+            torch.cuda.current_stream(index).cuda_stream, index)
     if rc != 0:
         raise RuntimeError(f"iir kernel launch failed: CUDA error {rc}")
-    launches += 1
-    launches_by[_NAMES[x.dtype]] += 1
+    return y
+
+
+def iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+        z0: torch.Tensor) -> torch.Tensor:
+    """y (flat, x's dtype) of the filter over flat x. x, b, a and z0 share
+    one dtype (float32 or float64) and one device; b and a hold N = 2 ..
+    MAX_COEFS values, z0 N - 1."""
+    global launches
+    if x.device.type == "cpu":
+        _check(x, b, a, z0)
+        return plain_iir(x, b, a, z0)
+    y = launch(x, b, a, z0)
+    if y.numel():
+        launches += 1
+        launches_by[_NAMES[x.dtype]] += 1
     return y

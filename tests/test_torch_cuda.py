@@ -749,6 +749,91 @@ def test_a_fused_body_is_captured_without_compiling(card):
         >= 2 * 16
 
 
+def _one_and_two(card, spec, inputs):
+    """`spec` on the card through fused.launch (one_kernel where SPLITS ==
+    1) and through the two kernels part_kernel + fin_kernel generated for
+    the same Spec: the outputs of each."""
+    from runmat_tpu_torch.accel import fuse
+    from runmat_tpu_torch.ops import fused
+    prepared = [fuse._operand(t, ls) for t, (ls, _) in
+                zip(inputs, spec.inputs)]
+    ins = [t for t, _ in prepared]
+    flat = [x for _, st in prepared for x in st]
+
+    def outputs():
+        return [torch.empty(spec.rshape if m >= spec.reduce else spec.shape,
+                            dtype=getattr(torch, spec.body[m][2]),
+                            device=card) for m in spec.outputs]
+    one = outputs()
+    fused.launch(spec, ins, [st for _, st in prepared], one, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    gen = fused._Gen(spec, False, sms)
+    kernels = [gen.part_kernel(), gen.fin_kernel()]
+    text = fused._PRELUDE.format(what="part and fin of a one-kernel group")
+    text += "".join(fused._HELPERS[h] for h in sorted(gen.helpers))
+    text += "".join("\n\n" + "\n".join(k) + "\n" for k in kernels)
+    mod = fused.module(text)
+    lay = fused.layout(spec, sms)
+    two = outputs()
+    part = torch.empty(lay["SPLITS"] * lay["K"], device=card,
+                       dtype=getattr(torch, spec.body[spec.reduce][2]))
+    pre = [o for o, m in zip(two, spec.outputs) if m < spec.reduce]
+    post = [o for o, m in zip(two, spec.outputs) if m >= spec.reduce]
+    fused._run(mod, "part_kernel", lay["grid"], ins + pre + [part] + flat,
+               {"BK": lay["BK"], "BR": lay["BR"]}, lay["num_warps"])
+    fused._run(mod, "fin_kernel", lay["fin_grid"], [part] + ins + post + flat,
+               {"BKF": lay["BKF"], "BS": lay["BS"]}, lay["fin_warps"])
+    torch.cuda.synchronize()
+    return one, two
+
+
+@pytest.mark.parametrize("case", ["sum of 1024 float32",
+                                  "mean of rows, prologue, pow epilogue 2",
+                                  "mean of rows, prologue, pow epilogue 1.8",
+                                  "sum of rows float64"])
+def test_one_kernel_equals_the_two_kernels_bit_for_bit(card, case):
+    """A map-reduce that one program a segment covers (SPLITS == 1) runs
+    as one launch of one_kernel, and gives the pair part_kernel +
+    fin_kernel's outputs bit for bit: the one partial was the whole sum."""
+    from runmat_tpu_torch.ops import fused
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    F32, F64 = "float32", "float64"
+    if case == "sum of 1024 float32":     # elementwise_math's checksum
+        spec = fused.Spec(shape=(1, 1024), inputs=(((1, 1024), F32),),
+                          body=(("r:sum", ((0, 1), "", F32), F32,
+                                 (("x", 0),)),),
+                          reduce=0, outputs=(0,), rshape=(1, 1))
+        inputs = [torch.randn(1024, device=card, generator=gen)]
+    elif case.startswith("mean of rows"):
+        spec = fused.Spec(
+            shape=(16, 1000), inputs=(((16, 1000), F32), ((1, 1), F32)),
+            body=(("b:mul", (F32,), F32, (("x", 0), ("x", 0))),
+                  ("r:mean", ((1,), "", F32), F32, (("v", 0),)),
+                  ("b:pow", (F32,), F32, (("v", 1), ("x", 1)))),
+            reduce=1, outputs=(0, 1, 2), rshape=(16, 1))
+        e = 2.0 if case.endswith(" 2") else 1.8
+        inputs = [torch.randn(16, 1000, device=card, generator=gen),
+                  torch.full((), e, device=card)]
+    else:
+        spec = fused.Spec(shape=(4096, 257), inputs=(((4096, 257), F64),),
+                          body=(("r:sum", ((1,), "", F64), F64,
+                                 (("x", 0),)),),
+                          reduce=0, outputs=(0,), rshape=(4096, 1))
+        inputs = [torch.randn(4096, 257, dtype=torch.float64, device=card,
+                              generator=gen)]
+    assert fused.layout(spec)["SPLITS"] == 1
+    assert "def one_kernel(" in fused.source(spec)
+    before = fused.launches
+    one, two = _one_and_two(card, spec, inputs)
+    assert fused.launches == before + 1
+    for a, b in zip(one, two):
+        assert torch.equal(a.view(torch.int32 if a.dtype == torch.float32
+                                  else torch.int64),
+                           b.view(torch.int32 if b.dtype == torch.float32
+                                  else torch.int64))
+
+
 def test_generated_square_arm_is_the_rounded_square_everywhere(card):
     from runmat_tpu_torch.accel.engine import TorchEngine
     sweep = fusebench.square_sweep(TorchEngine("cuda"))
@@ -812,9 +897,20 @@ def test_generated_kernel_in_a_fold_follows_its_exponent(card):
 
 # ------------------------------------------- linear algebra, FFT and filters
 
+def _iir_held(got, want, chunk):
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.ops import iir
+    r = linalgbench.held(got, want, chunk, iir.TOL[want.dtype])
+    assert r["ok"], r
+    return r
+
+
 @pytest.mark.parametrize("order", range(1, 9))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_iir_kernel_equals_plain(card, dtype, order):
+    # the first stretch bit for bit, the rest (3001 samples: 12 stretches)
+    # within iir.TOL of the largest output: the carried states are rounded
+    # in another order than the sequential scan's
     from runmat_tpu_torch.ops import iir
     gen = torch.Generator(device=card)
     gen.manual_seed(order)
@@ -828,7 +924,83 @@ def test_iir_kernel_equals_plain(card, dtype, order):
     want = iir.plain_iir(x, b, a, z0)
     torch.cuda.synchronize()
     assert iir.launches == before + 1
-    assert torch.equal(got, want)
+    _iir_held(got, want, iir.CHUNK)
+    # a signal of one stretch is the sequential scan's, bit for bit
+    short = x[:iir.CHUNK - 5]
+    assert torch.equal(iir.iir(short, b, a, z0),
+                       iir.plain_iir(short, b, a, z0))
+
+
+def _iir_case(card, dtype, order, n, seed):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    k = order + 1
+    x = torch.randn(n, dtype=dtype, device=card, generator=gen)
+    b = torch.randn(k, dtype=dtype, device=card, generator=gen) * 0.3
+    a = torch.randn(k, dtype=dtype, device=card, generator=gen) * (
+        0.1 if order <= 8 else 0.02)
+    a[0] = 1
+    z0 = torch.randn(k - 1, dtype=dtype, device=card, generator=gen) * 0.1
+    return x, b, a, z0
+
+
+@pytest.mark.parametrize("chunk,n", [(1, 5000), (4, 64 * 4 + 3),
+                                     (16, 3001), (64, 1 << 16),
+                                     (1024, 100_003), (1 << 20, 5000)])
+@pytest.mark.parametrize("order", [1, 4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_kernel_over_many_stretches(card, dtype, order, chunk, n):
+    from runmat_tpu_torch.ops import iir
+    x, b, a, z0 = _iir_case(card, dtype, order, n, 1000 * order + chunk)
+    got = iir.launch(x, b, a, z0, chunk)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    _iir_held(got, want, chunk)
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_kernel_near_a_pole_of_radius_0999(card, dtype, chunk):
+    from runmat_tpu_torch.ops import iir
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    x = torch.randn(1 << 16, dtype=dtype, device=card, generator=gen)
+    r, th = 0.999, 0.05
+    b = torch.tensor([0.02, 0.01, -0.005], dtype=dtype, device=card)
+    a = torch.tensor([1, -2 * r * np.cos(th), r * r], dtype=dtype,
+                     device=card)
+    z0 = torch.tensor([0.3, -0.2], dtype=dtype, device=card)
+    got = iir.launch(x, b, a, z0, chunk)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    _iir_held(got, want, chunk)
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_kernel_carries_a_non_finite_value(card, dtype, bad):
+    # in the middle of stretch 40 of 64: every later output is non-finite
+    from runmat_tpu_torch.ops import iir
+    x, b, a, z0 = _iir_case(card, dtype, 4, 64 * 256 - 9, 3)
+    i = 40 * 256 + 100
+    x[i] = bad
+    got = iir.launch(x, b, a, z0, 256)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want[:i]).all())
+    assert not bool(torch.isfinite(want[i:]).any())
+    _iir_held(got, want, 256)
+
+
+def test_iir_kernel_three_scan_levels(card):
+    # 2^22 + 3 stretches of one sample: the carry scan takes three levels
+    # of blocks of 2048 carries
+    from runmat_tpu_torch.ops import iir
+    x, b, a, z0 = _iir_case(card, torch.float64, 2, (1 << 22) + 3, 17)
+    got = iir.launch(x, b, a, z0, 1)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    _iir_held(got, want, 1)
 
 
 def test_iir_kernel_refuses_what_it_does_not_take(card):

@@ -328,14 +328,91 @@ def test_generated_source_is_deterministic(name, monkeypatch):
             text = fused.source(g.spec)
             assert text == fused.source(g.spec)
             tree = ast.parse(text)
-            kernels = {n.name for n in tree.body
-                       if isinstance(n, ast.FunctionDef)}
-            assert kernels >= ({"map_kernel"} if g.reduce is None
-                               else {"part_kernel", "fin_kernel"})
+            assert _kernels(text) == _expected(g.spec)
             first = text.splitlines()[0]
             for i in g.members:
                 assert program[i][0] in first
             assert ast.parse(fused.source(g.spec, big=True))
+            if g.reduce is not None and fused.layout(g.spec)["SPLITS"] == 1:
+                # the same group over segments that programs share
+                wide = _widened(g.spec)
+                assert fused.layout(wide)["SPLITS"] > 1
+                assert _kernels(fused.source(wide)) == {"part_kernel",
+                                                        "fin_kernel"}
+
+
+def _kernels(text: str) -> set:
+    return {n.name for n in ast.parse(text).body
+            if isinstance(n, ast.FunctionDef) and n.name.endswith("_kernel")}
+
+
+def _expected(spec) -> set:
+    """The kernels a Spec generates: a map's, a map-reduce's pair, or its
+    one kernel where one program covers each segment (SPLITS == 1)."""
+    if spec.reduce is None:
+        return {"map_kernel"}
+    if fused.layout(spec)["SPLITS"] == 1:
+        return {"one_kernel"}
+    return {"part_kernel", "fin_kernel"}
+
+
+def _widened(spec, factor: int = 64):
+    """`spec` with each reduced dimension `factor` times longer (in the
+    iteration shape and in every input that spans it)."""
+    import dataclasses
+    axes = spec.body[spec.reduce][1][0]
+    red = [d for d in fused.nonsingleton(spec.shape) if d in axes]
+
+    def widen(shape):
+        return tuple(s * factor if d in red and s == spec.shape[d] else s
+                     for d, s in enumerate(shape))
+    return dataclasses.replace(
+        spec, shape=widen(spec.shape),
+        inputs=tuple((widen(ls), dt) for ls, dt in spec.inputs))
+
+
+def test_a_one_program_reduction_generates_one_kernel():
+    # sum of 1024 values (elementwise_math's checksum): one program
+    one = fused.Spec(shape=(1, 1024), inputs=(((1, 1024), F32),),
+                     body=(("r:sum", ((0, 1), "", F32), F32, (("x", 0),)),),
+                     reduce=0, outputs=(0,), rshape=(1, 1))
+    assert fused.layout(one)["SPLITS"] == 1
+    text = fused.source(one)
+    assert _kernels(text) == {"one_kernel"}
+    assert "part" not in [a.arg for a in
+                          _kernel(text, "one_kernel").args.args]
+    assert "tl.sum(acc, axis=1)" in text and "tl.store(y0 + ko" in text
+    # 10^6 values: programs share the segment, two kernels as before
+    many = fused.Spec(shape=(1, 10 ** 6), inputs=(((1, 10 ** 6), F32),),
+                      body=one.body, reduce=0, outputs=(0,), rshape=(1, 1))
+    assert fused.layout(many)["SPLITS"] > 1
+    assert _kernels(fused.source(many)) == {"part_kernel", "fin_kernel"}
+
+
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+def test_an_epilogue_exponent_branches_in_the_one_kernel(dt):
+    # mean over rows of 16 x 1000, then .^ e with e a one-element input:
+    # one program a segment, the exponent loaded before the loop, the
+    # branch after it
+    spec = fused.Spec(
+        shape=(16, 1000), inputs=(((16, 1000), dt), ((1, 1), dt)),
+        body=(("b:mul", (dt,), dt, (("x", 0), ("x", 0))),
+              ("r:mean", ((1,), "", dt), dt, (("v", 0),)),
+              ("b:pow", (dt,), dt, (("v", 1), ("x", 1)))),
+        reduce=1, outputs=(2,), rshape=(16, 1))
+    assert fused.layout(spec)["SPLITS"] == 1
+    text = fused.source(spec)
+    assert _kernels(text) == {"one_kernel"}
+    assert _branches(text, "one_kernel") == [(2, 1, False)]
+    div = "tl.div_rn(v1, tl.full([BK], 1000, tl.float32))" \
+        if dt == "float32" else "v1 = v1 / 1000.0"
+    assert div in text
+    # the same group over longer rows keeps its finishing kernel's branch
+    wide = _widened(spec)
+    text = fused.source(wide)
+    assert _kernels(text) == {"part_kernel", "fin_kernel"}
+    assert _branches(text, "fin_kernel") == [(2, 1, False)]
+    assert _branches(text, "part_kernel") == []
 
 
 def test_every_table_op_generates():
@@ -370,6 +447,66 @@ except MatError as e:
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr[-2000:]
     assert "raised RunMat:fusedKernel" in p.stdout
+
+
+# ------------------------------------------------ the library yardsticks
+
+LIBRARY_SCRIPTS = {
+    "elementwise_math": ("benchmarks/elementwise_math.m", "points = 4096;"),
+    "monte_carlo": ("benchmarks/monte_carlo.m", "M = 4096; T = 16;"),
+    "image_normalize": ("benchmarks/image_normalize.m",
+                        "B = 2; H = 32; W = 48;"),
+    "dense_linalg": ("runmat_tpu_torch/workloads/dense_linalg.m", "N = 64;"),
+    "spectral": ("runmat_tpu_torch/workloads/spectral.m", "N = 2^12;")}
+
+
+@pytest.mark.parametrize("name", sorted(LIBRARY_SCRIPTS))
+def test_library_calls_compute_their_group(name, monkeypatch):
+    """Each group the script launches that one PyTorch call computes
+    (`fusebench.library`): that call gives the group's result on the same
+    inputs, float32 within 1e-6 and float64 within 1e-12 of its largest
+    magnitude (torch.linspace and the engine's linspace round apart)."""
+    import io
+
+    import torch
+
+    from runmat_tpu_torch import fusebench
+    seen = []
+    real = fuse.run_group
+
+    def keep(eng, g, program, args):
+        outs = real(eng, g, program, args)
+        seen.append((g, list(args), outs))
+        return outs
+
+    monkeypatch.setattr(fuse, "run_group", keep)
+    path, pre = LIBRARY_SCRIPTS[name]
+    s = runmat_tpu_torch.session("cpu", auto_offload=True,
+                                 offload_threshold=1)
+    s.stdout = io.StringIO()
+    try:
+        s.run_source(pre + "\n" + open(os.path.join(REPO, path)).read())
+    finally:
+        runmat_tpu_torch.uninstall()
+    kinds = set()
+    for g, args, outs in seen:
+        lib = fusebench.library(g, args)
+        ops = tuple(g.spec.body[m][0] for m in range(len(g.spec.body)))
+        if lib is None:
+            continue
+        kinds.add(ops)
+        got, want = lib().double().reshape(-1), outs[-1].double().reshape(-1)
+        tol = 1e-6 if outs[-1].dtype == torch.float32 else 1e-12
+        assert got.shape == want.shape, ops
+        assert float((got - want).abs().max()) <= tol * max(
+            1.0, float(want.abs().max())), ops
+    expected = {"elementwise_math": {("r:sum",), ("b:mul",)},
+                "monte_carlo": {("c:full", "b:mul")},
+                "image_normalize": {("r:mean", "cast")},
+                "dense_linalg": {("b:div",), ("b:sub",), ("b:add",)},
+                "spectral": {("c:linspace",), ("r:mean",), ("b:div",),
+                             ("b:mul",)}}[name]
+    assert kinds == expected, kinds
 
 
 # ------------------------------------------------------- the walking order
@@ -497,17 +634,27 @@ def test_a_scalar_exponent_branches_on_its_value(which, kernel, in_loop,
            "sigma": MAIN_PLANS["image_normalize"][0][2][1],
            "gamma": MAIN_PLANS["image_normalize"][0][3][1]}[which]
     (g,) = [g for (_, _, o), g in groups.items() if list(o) == ops]
-    text = fused.source(g.spec)
-    (m, k, looped), = _branches(text, kernel)
-    assert g.spec.body[m][0] == "b:pow" and g.spec.body[m][3][1] == ("x", k)
-    assert g.spec.inputs[k][0] == (1, 1) and looped == in_loop
-    # the exponent stays a pointer that is not specialised on
-    lines = text.splitlines()
-    (i,) = [i for i, line in enumerate(lines)
-            if line.startswith(f"def {kernel}(")]
-    assert f'"x{k}"' in lines[i - 1]
-    assert text == fused.source(g.spec)
-    assert ast.parse(fused.source(g.spec, big=True))
+    specs = [g.spec]
+    if g.reduce is not None and fused.layout(g.spec)["SPLITS"] == 1:
+        # one program a segment at this size: the branch is in one_kernel,
+        # and the group at a width that splits its segments keeps it in
+        # `kernel`
+        specs.append(_widened(g.spec))
+    for spec in specs:
+        text = fused.source(spec)
+        name = "one_kernel" if _expected(spec) == {"one_kernel"} else kernel
+        (m, k, looped), = _branches(text, name)
+        assert spec.body[m][0] == "b:pow" and spec.body[m][3][1] == ("x", k)
+        assert spec.inputs[k][0] == (1, 1) and looped == in_loop
+        # the exponent stays a pointer that is not specialised on
+        lines = text.splitlines()
+        (i,) = [i for i, line in enumerate(lines)
+                if line.startswith(f"def {name}(")]
+        assert f'"x{k}"' in lines[i - 1]
+        assert text == fused.source(spec)
+        assert ast.parse(fused.source(spec, big=True))
+    assert _expected(specs[-1]) == ({"map_kernel"} if g.reduce is None
+                                    else {"part_kernel", "fin_kernel"})
 
 
 def test_an_epilogue_exponent_branches_in_the_finishing_kernel():

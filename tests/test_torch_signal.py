@@ -8,8 +8,12 @@ scan.
 Tolerances: the IIR plain version within 1e-13 (float64) and 1e-6
 (float32) of the largest output magnitude of the scan's, because XLA on
 the CPU contracts the scan's multiply-adds into FMAs where the port rounds
-each product and sum (the hand-written kernel rounds as the plain version
-does, bit for bit, `tests/test_torch_cuda.py`); FFT results, filters and
+each product and sum; the model of the kernel's chunked scan
+(`iir.chunked_iir`) within `iir.TOL` (1e-10 float64, 1e-4 float32) of it,
+its carried states rounded in another order, with the non-finite outputs
+in the same places, and bit-equal to the plain version on its first
+stretch (the kernel is held to the plain version the same way,
+`tests/test_torch_cuda.py`); FFT results, filters and
 convolutions within 1e-12 of the largest magnitude (at least 1;
 pocketfft and torch's FFT, XLA's and torch's convolutions sum in other
 orders), single ones 1e-5 or 1e-6; everything else (shapes, classes,
@@ -55,6 +59,97 @@ def test_iir_plain_matches_the_jax_scan(dtype, order):
     assert got.dtype == want.dtype == dtype
     tol = 1e-13 if dtype == np.float64 else 1e-6
     assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
+
+
+def _jax_iir():
+    jax.config.update("jax_enable_x64", True)
+    return jax.jit(_b_iir(JaxEngine(platform="cpu"), ()))
+
+
+def _random_filter(rng, order, dtype):
+    """b, a (a[0] = 1) and z0 != 0 of a random filter; the feedback
+    coefficients stay small enough for its poles to lie inside the unit
+    circle (order 32: sum |a[1:]| < 1)."""
+    n = order + 1
+    b = (rng.standard_normal(n) * 0.3).astype(dtype)
+    a = (rng.standard_normal(n) * (0.1 if order <= 8 else 0.02)).astype(dtype)
+    a[0] = 1
+    z0 = (rng.standard_normal(n - 1) * 0.1).astype(dtype)
+    return b, a, z0
+
+
+def _resonator(dtype, radius=0.999, theta=0.05):
+    """A second-order filter with poles at radius * exp(+-i theta)."""
+    b = np.array([0.02, 0.01, -0.005], dtype)
+    a = np.array([1, -2 * radius * np.cos(theta), radius ** 2], dtype)
+    return b, a, np.array([0.3, -0.2], dtype)
+
+
+def _held(got, want, dtype):
+    """got within iir.TOL of want's largest magnitude where want is finite,
+    non-finite exactly where want is."""
+    tol = iir.TOL[torch.float64 if dtype == np.float64 else torch.float32]
+    fin = np.isfinite(want)
+    assert np.array_equal(np.isfinite(got), fin)
+    scale = np.abs(want[fin]).max()
+    err = np.abs(got[fin] - want[fin]).max()
+    assert err <= tol * scale, (err, scale)
+
+
+N_CHUNKED = 1000
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, N_CHUNKED, 4 * N_CHUNKED])
+@pytest.mark.parametrize("order", [1, 2, 3, 4, 5, 6, 7, 8, 32])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_chunked_iir_matches_the_jax_scan(dtype, order, chunk):
+    # n is no multiple of 7 or 64; z0 is not zero
+    rng = np.random.default_rng(200 + order)
+    x = rng.standard_normal(N_CHUNKED).astype(dtype)
+    b, a, z0 = _random_filter(rng, order, dtype)
+    want = np.asarray(_jax_iir()(x, b, a, z0))
+    args = [torch.from_numpy(v) for v in (x, b, a, z0)]
+    got = iir.chunked_iir(*args, chunk).numpy()
+    assert got.dtype == want.dtype == dtype
+    _held(got, want, dtype)
+    # the first stretch (the whole signal where n <= chunk) is the plain
+    # version's, bit for bit
+    plain = iir.plain_iir(*args).numpy()
+    first = min(chunk, N_CHUNKED)
+    assert np.array_equal(got[:first], plain[:first])
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 64])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_chunked_iir_near_a_pole_of_radius_0999(dtype, chunk):
+    # G = A^chunk stays near the identity's scale (0.999^64 = 0.94): the
+    # carries reach across many stretches
+    rng = np.random.default_rng(7)
+    n = 64 * 64 + 13
+    x = rng.standard_normal(n).astype(dtype)
+    b, a, z0 = _resonator(dtype)
+    want = np.asarray(_jax_iir()(x, b, a, z0))
+    got = iir.chunked_iir(*(torch.from_numpy(v) for v in (x, b, a, z0)),
+                          chunk).numpy()
+    _held(got, want, dtype)
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_chunked_iir_carries_a_non_finite_value(dtype, bad):
+    # a NaN or Inf in the middle of stretch 9 of 16: every later output
+    # is non-finite, through the stretch's end state and the carries
+    rng = np.random.default_rng(11)
+    chunk = 64
+    x = rng.standard_normal(16 * chunk - 5).astype(dtype)
+    x[9 * chunk + 30] = bad
+    b, a, z0 = _random_filter(rng, 4, dtype)
+    want = np.asarray(_jax_iir()(x, b, a, z0))
+    got = iir.chunked_iir(*(torch.from_numpy(v) for v in (x, b, a, z0)),
+                          chunk).numpy()
+    assert np.isfinite(want[:9 * chunk + 30]).all()
+    assert not np.isfinite(want[9 * chunk + 30:]).any()
+    _held(got, want, dtype)
 
 
 def test_iir_wrapper_checks_its_inputs():
