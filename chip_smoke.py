@@ -38,7 +38,8 @@ line is printed:
      a scalar exponent over all 2^32 float32 bit patterns, equal to the
      correctly rounded square bit for bit (and how many of them torch.pow
      misses, by how many ulp); then every group the three benchmark
-     scripts, dense_linalg.m and spectral.m launch at their default sizes,
+     scripts, dense_linalg.m, spectral.m and resample_pages.m launch at
+     their default sizes,
      held to its plain version and timed against it, its bound and, where
      one PyTorch call computes it, that call;
   4. main path: benchmarks/{elementwise_math,monte_carlo,image_normalize}.m
@@ -90,9 +91,33 @@ line is printed:
      script's own signal and coefficients, all 2^22 samples) and the
      path's output z held to the plain version as above (which is timed on
      the host), the waits equal to the counted reads, and the warm walls;
-  8. one JSON line of kernel results, then the result line
+  8. interpolation, selection and page path: the sequential IIR kernel
+     (csrc/iir_seq.cu, the orders above the scan's 32) against its plain
+     version, every output bit for bit, at orders 33, 40 and 200 in both
+     types, and resample_pages.m's order-39 filter over 2^22 samples
+     timed against its bound; the script's device builders at its shapes
+     timed beside their bounds and torch.topk / torch.bmm, and each made
+     while the card is busy, none waiting for it
+     (runmat_tpu_torch/linalgbench.py); then
+     runmat_tpu_torch/workloads/resample_pages.m at N = 2^22 and 8192
+     pages of 32 x 32 through Session.run_source against the port's host
+     engine (PAGES within a relative 1e-9), with no host fallback, under
+     1 MB uploaded, the sequential kernel launched once and each device
+     builder as often as the script calls it (interp1lin once, topk
+     twice, pagemtimes three times, pagesolve, pageinv and pagenorm once),
+     pagefun(@mtimes, A, B) equal to pagemtimes(A, B) bit for bit on the
+     card, the path's filter call (2^18 samples) and its output equal to
+     the plain version bit for bit and timed against it, the waits equal
+     to the counted reads, and the warm walls; then
+     each snippet of runmat_tpu_torch/parity_snippets.py (one for each
+     builtin module the slice copied) in a card session against the
+     host engine, skipping the one whose module needs a package this
+     machine lacks (sympy);
+  9. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
-Each kernel's `launches` is read from the runs of phases 4 to 7, with the
+Phase 3 also times each generated group that one PyTorch call computes
+against that call in turns, ten rounds, for the run-to-run spread of
+both. Each kernel's `launches` is read from the runs of phases 4 to 8, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches, or for its one where one program covers each
 segment); each generated group is a row of its own,
@@ -107,6 +132,8 @@ runmat_tpu.
 
 from __future__ import annotations
 
+import collections
+import importlib.util
 import io
 import json
 import re
@@ -187,6 +214,15 @@ IIR_SHORT = 200
 IIR_STRETCHES = 64
 IIR_POLE_N = 1 << 16
 IIR_SWEEP = (32, 64, 128, 256, 512, 1024, 4096)
+PAGES_WORKLOAD = "runmat_tpu_torch/workloads/resample_pages.m"
+# (coefficients, samples) the sequential IIR kernel is held to its plain
+# version on: orders 33, 40 and 200
+IIR_SEQ_CASES = ((34, 3001), (41, 20000), (201, 4000))
+IIR_SEQ_N = 1 << 22       # resample_pages.m's filter over the whole record
+# the device builders a run of resample_pages.m calls, each its count
+PAGES_LINALG = {"interp1lin": 1, "topk": 2, "iir": 1, "pagemtimes": 3,
+                "pagesolve": 1, "pageinv": 1, "pagenorm": 1}
+SPREAD_ROUNDS = 10
 
 
 class SmokeFailure(Exception):
@@ -601,10 +637,22 @@ def phase_fused_kernel() -> list:
           f"torch.pow(x, 2) on the card differs in {sweep['plain_differ']} "
           f"(by ulp: {sweep['plain_ulps']}), NaN "
           f"pattern in {sweep['plain_nan_differ']}")
+    seen = fusebench.record()
     try:
-        rows = fusebench.measure(eng, fusebench.record(), TIMING_REPS)
+        rows = fusebench.measure(eng, seen, TIMING_REPS)
     except AssertionError as e:
         raise SmokeFailure(f"generated kernel on the main path: {e}") from e
+    for r in fusebench.spread(eng, seen, SPREAD_ROUNDS, TIMING_REPS):
+        print(f"spread {r['label']} ({r['script']}, "
+              f"{'x'.join(map(str, r['shape']))}: {' '.join(r['ops'])}), "
+              f"{SPREAD_ROUNDS} rounds in turns: kernel median "
+              f"{statistics.median(r['kernel_ms']):.4f} ms (range "
+              f"{min(r['kernel_ms']):.4f}-{max(r['kernel_ms']):.4f}), library "
+              f"median {statistics.median(r['library_ms']):.4f} ms (range "
+              f"{min(r['library_ms']):.4f}-{max(r['library_ms']):.4f}), gap "
+              f"{r['gap_ms']:+.4f} ms, spread {r['spread_ms']:.4f} ms: "
+              f"{'within' if r['within'] else 'outside'} its spread")
+    del seen
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -1194,6 +1242,8 @@ def _slice_script(path: str, label: str, key: str, keep=()) -> tuple:
     wall = time.perf_counter() - t0
     launches = _read_launches()
     st, log = dict(eng.stats), list(eng.launch_log)
+    launches["linalg"] = dict(collections.Counter(
+        k for e in log if e["cat"] == "linalg" for k in e["ops"]))
     reasons = dict(eng.sync_reasons)
     kept = {}
     for name in keep:
@@ -1259,6 +1309,156 @@ def phase_linalg_signal_path() -> dict:
     return launches
 
 
+def _iir_seq_kernel() -> None:
+    """The sequential IIR kernel (csrc/iir_seq.cu, more than MAX_COEFS
+    coefficients) against its plain version, every output bit for bit, at
+    orders 33, 40 and 200 in both types from a nonzero state; then
+    resample_pages.m's filter over 2^22 samples timed against its bound
+    (the path's own call, 2^18 samples, is held and timed against plain
+    after the script's run)."""
+    import torch
+
+    from runmat_tpu_torch import histbench, linalgbench
+    from runmat_tpu_torch.ops import iir
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(39)
+    for dt in (torch.float32, torch.float64):
+        for ncoef, n in IIR_SEQ_CASES:
+            x = torch.randn(n, dtype=dt, device=dev, generator=gen)
+            b = torch.randn(ncoef, dtype=dt, device=dev, generator=gen) * 0.3
+            a = torch.rand(ncoef, dtype=dt, device=dev, generator=gen)
+            a = a * (0.5 / float(a[1:].sum()))
+            z0 = torch.randn(ncoef - 1, dtype=dt, device=dev,
+                             generator=gen) * 0.1
+            got, want = iir.iir(x, b, a, z0), iir.plain_iir(x, b, a, z0)
+            torch.cuda.synchronize()
+            r = linalgbench.held(got, want, n, 0.0)
+            check(r["ok"], f"iir_seq {dt} order {ncoef - 1} n={n}: {r}")
+            print(f"kernel iir_seq {dt} order {ncoef - 1} n={n}: all "
+                  f"outputs bit-equal to plain")
+    x, b, a, z0 = linalgbench.seq_inputs(torch.float64, IIR_SEQ_N)
+    ms = histbench.time_ms(lambda: iir.iir(x, b, a, z0), 2)
+    bnd = linalgbench.bound(2 * x.numel() * 8,
+                            (4 * (b.numel() - 1) + 2) * x.numel(), "float64")
+    print(f"time iir_seq f64 (resample_pages.m's filter, n=2^22, order "
+          f"{b.numel() - 1}): kernel {ms:.3f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}), share of bound {bnd[0] / ms:.6f}")
+
+
+def _builders() -> None:
+    """resample_pages.m's device builders at its default shapes, each timed
+    beside its bound and its PyTorch call where there is one; then each
+    made while the card is busy: none may wait for the card inside torch
+    (where the sync debug mode of `_sync_check` does not look)."""
+    from runmat_tpu_torch import linalgbench
+    calls = linalgbench.builder_calls()
+    for r in linalgbench.builder_rows(TIMING_REPS // 5, calls):
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"time {r['op']} ({r['call']}): {r['ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+              f"of bound {r['share']:.3f}")
+    for r in linalgbench.host_waits([(c[1], c[2]) for c in calls]):
+        check(r["host_ms"] < r["card_ms"] / 4,
+              f"{r['call']} waits for the card: {r}")
+        print(f"no wait: {r['call']} returns in {r['host_ms']:.3f} ms while "
+              f"the card is busy for {r['card_ms']:.1f} ms")
+
+
+def _module_snippets() -> None:
+    """Each snippet of runmat_tpu_torch/parity_snippets.py (one a builtin
+    module copied with the page slice) in a card session against the
+    port's host engine: the same output, error and workspace values."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch.parity_snippets import NEEDS, SNIPPETS
+    from runmat_tpu_torch.session import Session
+    for sid, module, src, _ in SNIPPETS:
+        need = NEEDS.get(module)
+        if need and importlib.util.find_spec(need) is None:
+            print(f"snippet {sid}: skipped, {module} needs {need}, which "
+                  f"this machine does not have")
+            continue
+        host = Session(accelerate=False, stdout=io.StringIO())
+        want = host.execute(src)
+        card = runmat_tpu_torch.session("cuda")
+        try:
+            got = card.execute(src)
+        finally:
+            runmat_tpu_torch.uninstall()
+        check(got.output == want.output and (got.error is None) ==
+              (want.error is None), f"snippet {sid}: {got.output!r} "
+              f"{got.error} against {want.output!r} {want.error}")
+        names = sorted(host.workspace_names())
+        check(sorted(card.workspace_names()) == names,
+              f"snippet {sid}: workspace {sorted(card.workspace_names())}")
+        for name in names:
+            w, g = host.get(name), card.get(name)
+            if hasattr(w, "host") and hasattr(w, "mclass"):
+                wh, gh = np.asarray(w.host()), np.asarray(g.host())
+                check(g.mclass == w.mclass and gh.shape == wh.shape and
+                      gh.dtype == wh.dtype and
+                      np.array_equal(gh, wh, equal_nan=True),
+                      f"snippet {sid}: {name} {gh!r} against {wh!r}")
+            else:
+                check(type(g).__name__ == type(w).__name__,
+                      f"snippet {sid}: {name} is a {type(g).__name__}")
+        print(f"snippet {sid} ({module}): card session equals the host "
+              f"engine ({len(names)} values)")
+
+
+def phase_pages_path() -> dict:
+    """resample_pages.m at its default size (N = 2^22, 8192 pages of 32 x
+    32) against the host engine, after the sequential IIR kernel against
+    its plain version; then the slice's modules' snippets on the card."""
+    import torch
+
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.ops import iir
+    _iir_seq_kernel()
+    _builders()
+    s, launches, host, kept = _slice_script(
+        PAGES_WORKLOAD, "resample_pages", "PAGES", ("C", "D", "y", "w"))
+    check(launches["iir"] == {"iir_seq f64": 1},
+          f"resample_pages: iir launches {launches['iir']}")
+    check(launches["linalg"] == PAGES_LINALG,
+          f"resample_pages: device builders {launches['linalg']}")
+    C, D = kept["C"], kept["D"]
+    check(isinstance(D, torch.Tensor) and D.is_cuda and torch.equal(C, D),
+          "resample_pages: pagefun(@mtimes, A, B) is not pagemtimes(A, B) "
+          "on the card")
+    # the path's filter: the kernel on the script's own signal and
+    # coefficients, and the path's output w, against the plain version
+    y, w = kept["y"], kept["w"]
+    _, b, a, z0 = linalgbench.seq_inputs(torch.float64, 1)
+    r = linalgbench.seq_row(iir, y.reshape(-1)[:w.numel()], b, a, z0, 5,
+                            path_y=w)
+    check(r["ok"], f"resample_pages: the order-39 filter or the path's w "
+          f"against plain: {r}")
+    print(f"time iir_seq f64 (resample_pages.m's call, n={r['n']}, order "
+          f"{r['order']}): kernel {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.1f} ms (the host loop; the kernel and the "
+          f"path's w bit-equal to it), library none, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+          f"{r['bound_ms'] / r['ms']:.6f}")
+    print(f"port resample_pages: D equals C bit for bit on the card; device "
+          f"builders {launches['linalg']}")
+    row = {"name": "iir_seq_f64", "route": "cuda",
+           "source": "runmat_tpu_torch/csrc/iir_seq.cu",
+           "replaces": "runmat_tpu/accel/dense.py:706",
+           "launches": 0, "launch_key": "iir_seq f64",
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"], "library_ms": None}
+    del s, host, kept, C, D, y, w
+    src = open(PAGES_WORKLOAD).read()
+    _sync_check(src, "resample_pages")
+    _walls(src, "resample_pages", preview=False)
+    _module_snippets()
+    phase_pages_path.kernels = [row]
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -1274,8 +1474,9 @@ def main() -> int:
             phase(phase_fused_kernel)
         paths = [phase(phase_main_path), phase(phase_statistics_path),
                  phase(phase_indexing_path),
-                 phase(phase_linalg_signal_path)]
-        kernels += phase_linalg_signal_path.kernels
+                 phase(phase_linalg_signal_path), phase(phase_pages_path)]
+        kernels += phase_linalg_signal_path.kernels + \
+            phase_pages_path.kernels
         for k in kernels:
             key = k.pop("launch_key")
             k["launches"] = sum(p.get(_group(k["name"]), {}).get(key, 0)

@@ -846,6 +846,192 @@ def _b_iir(eng, opts):
     return f
 
 
+# --------------------------------------------------------------------------- #
+# pages, interpolation and selection (`dense.py:407-520, 730-751,
+# 1019-1032`)
+# --------------------------------------------------------------------------- #
+
+def _page_stack(a):
+    """(m, n, ...pages) -> ((pages, m, n), page shape): the pages in F
+    order, as the JAX builders' `_page_stack` (`dense.py:407-413`) stacks
+    them (a view where torch can)."""
+    if a.ndim == 2:
+        return a[None], ()
+    ps = tuple(a.shape[2:])
+    lead = tuple(range(a.ndim - 1, 1, -1))   # the last page dim varies slowest
+    return a.permute(*lead, 0, 1).reshape(-1, a.shape[0], a.shape[1]), ps
+
+
+def _page_unstack(r, ps):
+    """(pages, m, n) -> (m, n, *ps), the inverse of `_page_stack`, laid
+    out contiguous."""
+    if not ps:
+        return r[0].contiguous()
+    k = len(ps)
+    r = r.reshape(tuple(reversed(ps)) + tuple(r.shape[1:]))
+    return r.permute(k, k + 1, *range(k - 1, -1, -1)).contiguous()
+
+
+def _page_pair(pa, pb):
+    """One page set broadcast against many (`dense.py:439-442`)."""
+    if pa.shape[0] == 1 and pb.shape[0] > 1:
+        pa = pa.expand((pb.shape[0],) + tuple(pa.shape[1:]))
+    if pb.shape[0] == 1 and pa.shape[0] > 1:
+        pb = pb.expand((pa.shape[0],) + tuple(pb.shape[1:]))
+    return pa, pb
+
+
+def _b_pagemtimes(eng, opts):
+    """Batched page product with 'none'/'transpose'/'ctranspose' on each
+    side: one batched product under the session's precision policy (a
+    float32 product in true FP32 under "highest")."""
+    from .engine import _matmul
+    ta, tb = opts
+
+    def tr(p, mode):
+        if mode == "transpose":
+            return p.transpose(1, 2)
+        if mode == "ctranspose":
+            return p.transpose(1, 2).conj()
+        return p
+
+    def f(a, b):
+        (pa, psa), (pb, psb) = _page_stack(a), _page_stack(b)
+        pa, pb = _page_pair(tr(pa, ta), tr(pb, tb))
+        r = _matmul(pa, pb, eng.matmul_precision)
+        if r.shape[0] == 1:
+            return r[0]
+        return _page_unstack(r, psa or psb)
+    return f
+
+
+@contextlib.contextmanager
+def cusolver(t: torch.Tensor):
+    """torch's cuSOLVER/cuBLAS route for the LU of a batch of card matrices
+    inside the block. For a batch of small matrices (8192 pages of 32 x 32)
+    torch 2.11's default takes MAGMA, whose batched LU waits for the card
+    where torch's sync debug mode does not see it; cuBLAS's batched LU
+    does not wait (`linalgbench.host_waits`, PERF.md)."""
+    if not t.is_cuda:
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def _b_pageinv(eng, opts):
+    """Per-page inverse; a singular page gives Inf/NaN, as jnp.linalg.inv,
+    with LAPACK's `info` left on the device."""
+    def f(a):
+        pa, ps = _page_stack(a)
+        with cusolver(pa):
+            return _page_unstack(torch.linalg.inv_ex(pa)[0], ps)
+    return f
+
+
+def _b_pagesolve(eng, opts):
+    """Per-page A \\ B for square pages, one page set against many."""
+    def f(a, b):
+        (pa, psa), (pb, psb) = _page_stack(a), _page_stack(b)
+        pa, pb = _page_pair(pa, pb)
+        with cusolver(pa):
+            return _page_unstack(torch.linalg.solve_ex(pa, pb)[0],
+                                 psa or psb)
+    return f
+
+
+def _b_pagenorm(eng, opts):
+    """Per-page matrix norm of ord 'fro', 1, 2 or inf, in jnp.linalg.norm's
+    arithmetic; ord 2 is the largest singular value (its wait counted)."""
+    from .engine import reshape_f
+    (ordv,) = opts
+
+    def f(a):
+        pa, ps = _page_stack(a)
+        if ordv == "fro":
+            r = torch.sqrt((pa * pa.conj()).real.sum((1, 2)))
+        elif ordv == 1:
+            r = torch.abs(pa).sum(1).amax(1)
+        elif ordv == np.inf:
+            r = torch.abs(pa).sum(2).amax(1)
+        else:
+            r = _svd(eng, "pagenorm", pa).amax(1)
+        return reshape_f(r, (1, 1) + ps) if ps else r.reshape(1, 1)
+    return f
+
+
+def _b_pagectranspose(eng, opts):
+    """Per-page transpose, conjugated unless opts[0] is False."""
+    conj = opts[0] if opts else True
+
+    def f(a):
+        pa, ps = _page_stack(a)
+        r = pa.transpose(1, 2)
+        return _page_unstack(r.conj() if conj else r, ps)
+    return f
+
+
+def _b_interp1lin(eng, opts):
+    """Linear interp1 with NaN outside [x(1), x(end)]. The JAX builder takes
+    each query's interval from a broadcast count, sum(q >= x), which is
+    Nq * Nk compares; here the count is a binary search over the knots
+    sorted (a NaN knot read as +Inf, so never counted below +Inf), which
+    gives the same count for any knots: a query of +Inf does not count the
+    NaN knots, a NaN query counts none. The interval is clipped to [0,
+    n-2] and the knots and values gathered from the unsorted operands, and
+    the lerp keeps the JAX builder's order of operations (not torch.lerp,
+    which rounds otherwise for weights of 1/2 and more)."""
+    def f(x, v, q):
+        xv, vv, qv = x.reshape(-1), v.reshape(-1), q.reshape(-1)
+        n = xv.numel()
+        nan = torch.isnan(xv)
+        keys = torch.sort(torch.where(nan, torch.full_like(xv, np.inf),
+                                      xv)).values
+        cnt = torch.searchsorted(keys, qv.contiguous(), right=True)
+        cnt = cnt - torch.where(qv == np.inf, nan.sum(), 0)
+        cnt = torch.where(torch.isnan(qv), 0, cnt)
+        idx = torch.clamp(cnt - 1, 0, n - 2)
+        x0, x1 = xv[idx], xv[idx + 1]
+        v0, v1 = vv[idx], vv[idx + 1]
+        r = v0 + (v1 - v0) * ((qv - x0) / (x1 - x0))
+        oob = (qv < xv[0]) | (qv > xv[-1])
+        return torch.where(oob, torch.full_like(r, np.nan), r).reshape(
+            q.shape)
+    return f
+
+
+def _total_order(key):
+    """Integers ordered as the floats of `key` in IEEE total order (-0 below
+    +0), as lax.top_k compares them."""
+    it = {torch.float32: torch.int32, torch.float64: torch.int64}[key.dtype]
+    bits = key.view(it)
+    return bits ^ ((bits >> (bits.element_size() * 8 - 1))
+                   & torch.iinfo(it).max)
+
+
+def _b_topk(eng, opts):
+    """maxk/mink of a vector: the k largest of key = v (maxk) or -v (mink),
+    a NaN key read as -Inf, in lax.top_k's order: descending in total
+    order, ties to the lower index (a stable sort; torch.topk does not
+    promise the tie order, which decides NaN against -Inf in maxk and
+    against +Inf in mink)."""
+    k, largest = opts
+
+    def f(x):
+        v = x.reshape(-1)
+        key = v if largest else -v
+        key = torch.where(torch.isnan(key), torch.full_like(key, -np.inf),
+                          key)
+        idx = torch.sort(_total_order(key), descending=True,
+                         stable=True).indices[:k]
+        return v[idx]
+    return f
+
+
 _BUILDERS = {"diff": _b_diff, "trapz": _b_trapz, "movwin": _b_movwin,
              "histcounts": _b_histcounts, "sort": _b_sort,
              "unique": _b_unique, "setop": _b_setop, "mode": _b_mode,
@@ -858,4 +1044,8 @@ _BUILDERS = {"diff": _b_diff, "trapz": _b_trapz, "movwin": _b_movwin,
              "rank": _b_rank, "fft": _b_fft,
              "fft2": _b_fft2, "hilbert": _b_hilbert,
              "spectrogram": _b_spectrogram, "conv1": _b_conv1,
-             "conv2": _b_conv2, "fir": _b_fir, "iir": _b_iir}
+             "conv2": _b_conv2, "fir": _b_fir, "iir": _b_iir,
+             "pagemtimes": _b_pagemtimes, "pageinv": _b_pageinv,
+             "pagesolve": _b_pagesolve, "pagenorm": _b_pagenorm,
+             "pagectranspose": _b_pagectranspose,
+             "interp1lin": _b_interp1lin, "topk": _b_topk}

@@ -74,7 +74,10 @@ around the one product and restored after it.
 from __future__ import annotations
 
 import collections
+import functools
+import inspect
 import os
+import threading
 import time
 from typing import Optional
 
@@ -283,6 +286,29 @@ def phys_shape(shape: tuple) -> tuple:
     return tuple(shape)
 
 
+def _serialised(cls):
+    """Every public method of the engine under the instance's re-entrant
+    `lock`. The copied async and timer builtins run MATLAB code on host
+    threads against the one engine, whose lazy DAG, plan and graph caches,
+    counters and the captured loops' buffers are not safe to share (the JAX
+    package's `async_builtins` relies on jax arrays being immutable). Each
+    engine call then runs whole before another thread's; a thread's values
+    are never written in place (every indexed write and loop result is a
+    new tensor), so a task sees its arguments as they were."""
+    def locked(fn):
+        @functools.wraps(fn)
+        def run(self, *args, **kwargs):
+            with self.lock:
+                return fn(self, *args, **kwargs)
+        return run
+
+    for name, fn in list(vars(cls).items()):
+        if not name.startswith("_") and inspect.isfunction(fn):
+            setattr(cls, name, locked(fn))
+    return cls
+
+
+@_serialised
 class TorchEngine:
     def __init__(self, device="cuda", auto_offload: Optional[bool] = None,
                  offload_threshold: Optional[int] = None,
@@ -302,6 +328,7 @@ class TorchEngine:
             raise MatError("parallel:gpu:device:NoDevice",
                            f"Unsupported device {device}.")
         self.device = device
+        self.lock = threading.RLock()
         # offload policy of JaxEngine (engine.py:133-154), without its
         # TPU calibration file
         env_auto = os.environ.get("RUNMAT_TPU_AUTO_OFFLOAD")

@@ -70,16 +70,17 @@ class LazyNode:
         array shares the tensor's memory. Each call counts in the engine's
         `gathers` and `gather_bytes`, whatever its device."""
         eng = self.engine
-        t = eng.materialize(self)
-        eng.stats["gathers"] += 1
-        eng.stats["gather_bytes"] += int(t.nbytes)
-        h = t.resolve_conj().cpu().numpy()
-        h.setflags(write=False)
-        # dispatches complete in program order on a device stream: a blocking
-        # gather of this node proves every dispatch with id <= this node's is
-        # finished
-        if self.dispatch_id is not None:
-            eng.gathered_seq = max(eng.gathered_seq, self.dispatch_id)
+        with eng.lock:
+            t = eng.materialize(self)
+            eng.stats["gathers"] += 1
+            eng.stats["gather_bytes"] += int(t.nbytes)
+            h = t.resolve_conj().cpu().numpy()
+            h.setflags(write=False)
+            # dispatches complete in program order on a device stream: a
+            # blocking gather of this node proves every dispatch with id <=
+            # this node's is finished
+            if self.dispatch_id is not None:
+                eng.gathered_seq = max(eng.gathered_seq, self.dispatch_id)
         return h if h.shape == self.shape else h.reshape(self.shape)
 
     def concrete(self):

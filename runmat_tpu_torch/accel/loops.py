@@ -84,6 +84,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import time
 from typing import Any, Optional
 
@@ -128,6 +129,20 @@ class _Marker:
         self.arg = arg      # rng: block offset within one iteration
 
 
+def _engine_locked(fn):
+    """`fn` under the active engine's lock (TorchEngine's methods take it
+    each): a fold traces, captures and replays as one engine call."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        eng = active_engine()
+        if eng is None:
+            return fn(*args, **kwargs)
+        with eng.lock:
+            return fn(*args, **kwargs)
+    return run
+
+
+@_engine_locked
 def try_device_loop(interp, frame, code, for_next_pc: int, iterable):
     """Run the whole `for` loop at `for_next_pc` on the device. Returns the
     pc to resume at, or None for the interpreter to run the loop."""
@@ -1000,6 +1015,7 @@ def _build_and_run(eng, tr: _Trace, T: int, state,
 # --------------------------------------------------------------------------- #
 
 
+@_engine_locked
 def try_device_while(interp, frame, code, marker_pc: int, jf_pc: int,
                      end_pc: int):
     """Run the whole `while` loop at `marker_pc` on the device. Returns the

@@ -22,16 +22,18 @@ and what a group computes from them, within 1e-5 (a float32 sum) or 1e-12
 (float64) of the largest magnitude of their output, the sum being taken in
 another order.
 
-`record` runs the three benchmark scripts and the linear algebra and
-signal slice's two (`runmat_tpu_torch/workloads/dense_linalg.m` and
-`spectral.m`) at their default sizes on the card and keeps each group the
-main path launches with its inputs;
+`record` runs the three benchmark scripts and the port's slice scripts
+(`runmat_tpu_torch/workloads/dense_linalg.m`, `spectral.m` and
+`resample_pages.m`) at their default sizes on the card and keeps each
+group the main path launches with its inputs;
 `measure` times each (CUDA events, mean of `reps`, the card spinning first:
 `histbench.time_ms`) against its plain version, its bound (bytes moved at
 3.35 TB/s, or operations at 67 TFLOP/s float32, 34 float64, whichever is
 larger) and, where one PyTorch call computes the same function (`library`:
 a `sum` or `mean` with no prologue, a lone `linspace`, a `full` times a
-scalar, a lone add, subtract, multiply or divide), that call. Run as a
+scalar, a lone add, subtract, multiply or divide), that call; `spread`
+times each group that has such a call against it in turns, ten rounds,
+for the run-to-run spread of both. Run as a
 script, it imports `runmat_tpu_torch` from DIR (default: the checkout
 holding this file), checks every case, times the main path's groups, and
 prints the card's name and power limit, the machine-code reading of each
@@ -46,6 +48,7 @@ import io
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 
@@ -59,7 +62,7 @@ OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 SIZES = (1, 2, 3, 1023, (1 << 20) + 1, 10 ** 7)
 WORKLOADS = ("elementwise_math", "monte_carlo", "image_normalize")
 # run through Session.run_source, as chip_smoke.py's phase 7 runs them
-SLICE_SCRIPTS = ("dense_linalg", "spectral")
+SLICE_SCRIPTS = ("dense_linalg", "spectral", "resample_pages")
 SPECIAL = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1.0, -1.0,
            0.5, -0.5, 2.5, -2.5, 2.0, 3.0, -3.0, 1e30, -1e30, 1e-30, 1e-40,
            88.5, -88.5, 710.0, 0.7)
@@ -588,8 +591,9 @@ def library(g, args):
     to its own class (mean(imgs, [2 3]) under single()), `torch.sum`/
     `torch.mean`; a lone `linspace`, `torch.linspace`; a `full` times a
     scalar, `torch.full` (its value read back once, before the timing); a
-    lone add, subtract, multiply or divide of two inputs in their own type,
-    `torch.add`/`sub`/`mul`/`div`."""
+    lone add, subtract, multiply or divide of two inputs of one rank in
+    their own type, `torch.add`/`sub`/`mul`/`div` (MATLAB lines up the
+    dims of two ranks from the first, torch from the last)."""
     import torch
     spec = g.spec
     ins = [a.reshape(ls) for a, (ls, _) in zip(args, spec.inputs)]
@@ -611,6 +615,7 @@ def library(g, args):
     if len(ops) == 1 and ops[0][2:] in LIBRARY_BINARY and \
             ops[0].startswith("b:") and \
             spec.body[0][3] == (("x", 0), ("x", 1)) and \
+            ins[0].ndim == ins[1].ndim and \
             spec.body[0][2] == spec.body[0][1][0] == spec.inputs[0][1] == \
             spec.inputs[1][1]:
         fn = getattr(torch, ops[0][2:])
@@ -661,6 +666,37 @@ def measure(eng, seen: list, reps: int) -> list:
                **work(g, program, args)}
         row["share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
+    return rows
+
+
+def spread(eng, seen: list, rounds: int, reps: int) -> list:
+    """Each recorded group that one PyTorch call computes too: the kernel
+    and that call timed in turns (kernel first in even rounds, the call
+    first in odd ones), `rounds` times each, each time the mean of `reps`
+    (`histbench.time_ms`). `within` holds where the gap between their
+    medians is no larger than the wider of their two spreads (largest less
+    smallest)."""
+    from . import histbench
+    from .accel import fuse
+    rows = []
+    for script, g, program, args in seen:
+        lib = library(g, args)
+        if lib is None:
+            continue
+
+        def run(g=g, program=program, args=args):
+            return fuse.run_group(eng, g, program, args)
+        ks, ls = [], []
+        for i in range(rounds):
+            for fn in ((run, lib) if i % 2 == 0 else (lib, run)):
+                (ks if fn is run else ls).append(histbench.time_ms(fn, reps))
+        gap = statistics.median(ks) - statistics.median(ls)
+        width = max(max(ks) - min(ks), max(ls) - min(ls))
+        rows.append({"script": script, "label": g.label,
+                     "shape": list(g.shape),
+                     "ops": [program[i][0] for i in g.members],
+                     "kernel_ms": ks, "library_ms": ls, "gap_ms": gap,
+                     "spread_ms": width, "within": gap <= width})
     return rows
 
 

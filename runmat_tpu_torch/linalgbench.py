@@ -1,6 +1,6 @@
-"""Time the linear algebra and signal slice on the card: the IIR kernel and
-the library calls of `dense_linalg.m` and `spectral.m` at their default
-shapes.
+"""Time the linear algebra, signal and page slices on the card: the IIR
+kernels and the library calls of `dense_linalg.m`, `spectral.m` and
+`resample_pages.m` at their default shapes.
 
     python3 runmat_tpu_torch/linalgbench.py [--tree DIR] [--reps 5]
 
@@ -15,7 +15,16 @@ loop on the host over the signal copied there, the copies included) once
 on the host's clock; beside them the least time the card could take
 (bytes: x read and y written once, 3.35 TB/s; operations: 4 (N - 1) + 2 a
 sample at the card's float64 or float32 rate). `iir_sweep` times the
-kernel at other stretch lengths on the same call. `library_rows` times
+kernel at other stretch lengths on the same call. `seq_inputs` makes
+resample_pages.m's order-39 filter (40 coefficients) and `seq_row` holds
+the sequential kernel (`csrc/iir_seq.cu`, the orders above the scan's) to
+the plain version bit for bit over every output and times both beside the
+same bound. `builder_rows` times resample_pages.m's device builders
+(interp1lin, topk, the page functions; `builder_calls`) beside their
+bounds and, where one PyTorch call computes the same function,
+`torch.topk` or `torch.bmm`; `host_waits` makes each while the card is
+busy, to show a wait inside a library that torch's sync debug mode does
+not see. `library_rows` times
 each call the two scripts make into cuSOLVER, cuFFT and cuDNN through
 torch, at the scripts' shapes, beside its bound: the flop count of the textbook
 algorithm over the card's peak for the type (float64 67 TFLOP/s, the
@@ -139,6 +148,152 @@ def iir_row(iir, x, b, a, z0, reps: int, path_y=None) -> dict:
             "rel_err": max(c["rel_err"] for c in checks), "tol": tol,
             "ms": ms, "phase_ms": phase_ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def seq_inputs(dtype, n: int, ncoef: int = 40, seed: int = 0,
+               device: str = "cuda"):
+    """resample_pages.m's filter, a moving average of `ncoef` samples over
+    a recursive part of sum |a_k| = 0.01 (ncoef - 1), on a signal of n
+    samples made on the card (torch's generator, seeded); a zero state."""
+    import torch
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn(n, dtype=torch.float64, device=dev, generator=gen)
+    b = torch.full((ncoef,), 1.0 / ncoef, dtype=torch.float64, device=dev)
+    a = torch.full((ncoef,), 0.01, dtype=torch.float64, device=dev)
+    a[0] = 1.0
+    return x.to(dtype), b.to(dtype), a.to(dtype), torch.zeros(
+        ncoef - 1, dtype=dtype, device=dev)
+
+
+def seq_row(iir, x, b, a, z0, reps: int, path_y=None) -> dict:
+    """The sequential kernel (`iir.iir` with more than iir.MAX_COEFS
+    coefficients) on (x, b, a, z0) against its plain version, bit for bit
+    over every output (NaN equal to NaN), and `path_y` where given; its
+    time, the plain version's (the host loop, on the host's clock) and the
+    bound (x read and y written once at 3.35 TB/s, or 4 (N - 1) + 2
+    operations a sample at the type's rate)."""
+    import torch
+
+    from runmat_tpu_torch.histbench import time_ms
+    y = iir.iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    checks = [held(o, want, x.numel(), 0.0)
+              for o in [y] + ([] if path_y is None else [path_y.reshape(-1)])]
+    ms = time_ms(lambda: iir.iir(x, b, a, z0), reps)
+    n, nb = x.numel(), b.numel()
+    name = "float64" if x.dtype == torch.float64 else "float32"
+    bnd = bound(2 * n * x.element_size(), (4 * (nb - 1) + 2) * n, name)
+    return {"n": n, "order": nb - 1, "ok": all(c["ok"] for c in checks),
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+
+
+def builder_calls(n: int = N_SIGNAL, pages: int = 8192,
+                  device: str = "cuda") -> list:
+    """resample_pages.m's device builders (`accel/dense.py`) on inputs of
+    its default shapes made on `device`: (name, the script's call, fn, one
+    PyTorch call computing the same function or None, bytes the call must
+    move, its flops) each."""
+    import torch
+
+    from runmat_tpu_torch.accel import dense
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    f64, w8 = torch.float64, 8
+    t = torch.linspace(0, 1, n, dtype=f64, device=dev)
+    x = torch.sin(2 * math.pi * 50 * t) + 0.1 * torch.randn(
+        n, dtype=f64, device=dev, generator=gen)
+    q = t ** 1.5
+    y = dense._b_interp1lin(None, ())(t, x, q)
+    ay = y.abs()
+    A = torch.randn(32, 32, pages, dtype=f64, device=dev, generator=gen) + \
+        32 * torch.eye(32, dtype=f64, device=dev)[:, :, None]
+    B = torch.randn(32, 32, pages, dtype=f64, device=dev, generator=gen)
+    pa, pb = A.permute(2, 0, 1), B.permute(2, 0, 1)
+
+    class Eng:              # what the page and norm builders read
+        matmul_precision = "highest"
+
+        @staticmethod
+        def count_sync(nbytes, reason):
+            pass
+    eng = Eng()
+    page = pages * 32 * 32 * w8
+    mm = 2 * 32 ** 3 * pages
+    return [
+        ("interp1lin", "interp1(t, x, tq) (2^22 knots and queries, f64)",
+         lambda: dense._b_interp1lin(eng, ())(t, x, q), None,
+         4 * n * w8, 0),
+        ("topk", "maxk(abs(y), 1024) (2^22, f64)",
+         lambda: dense._b_topk(eng, (1024, True))(ay),
+         lambda: torch.topk(ay, 1024), n * w8 + 1024 * w8, 0),
+        ("topk", "mink(y, 16) (2^22, f64)",
+         lambda: dense._b_topk(eng, (16, False))(y),
+         lambda: torch.topk(y, 16, largest=False), n * w8 + 16 * w8, 0),
+        ("pagemtimes", "pagemtimes(A, B) (8192 x 32^2, f64)",
+         lambda: dense._b_pagemtimes(eng, ("none", "none"))(A, B),
+         lambda: torch.bmm(pa, pb), 3 * page, mm),
+        ("pagemtimes", "pagemtimes(A, 'transpose', B, 'none')",
+         lambda: dense._b_pagemtimes(eng, ("transpose", "none"))(A, B),
+         lambda: torch.bmm(pa.transpose(1, 2), pb), 3 * page, mm),
+        ("pagesolve", "pagemldivide(A, B) (8192 x 32^2, f64)",
+         lambda: dense._b_pagesolve(eng, ())(A, B), None, 3 * page,
+         pages * (2 * 32 ** 3 / 3 + 2 * 32 ** 3)),
+        ("pageinv", "pageinv(A) (8192 x 32^2, f64)",
+         lambda: dense._b_pageinv(eng, ())(A), None, 2 * page,
+         pages * 2 * 32 ** 3),
+        ("pagenorm", "pagenorm(C, 'fro') (8192 x 32^2, f64)",
+         lambda: dense._b_pagenorm(eng, ("fro",))(A), None,
+         page + pages * w8, 2 * 32 * 32 * pages),
+    ]
+
+
+def builder_rows(reps: int, calls: list) -> list:
+    """Each of `builder_calls` timed beside its bound (inputs read and
+    outputs written once at 3.35 TB/s; the page products' and solves'
+    flops over the float64 rate where larger) and its PyTorch call
+    (`torch.topk`, `torch.bmm`) where there is one."""
+    from runmat_tpu_torch.histbench import time_ms
+    rows = []
+    for name, call, fn, lib, nbytes, flops in calls:
+        ms = time_ms(fn, reps)
+        bnd = bound(nbytes, flops, "float64")
+        rows.append({"op": name, "call": call, "ms": ms,
+                     "library_ms": None if lib is None else time_ms(lib, reps),
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "share": bnd[0] / ms})
+    return rows
+
+
+def host_waits(calls, spin_cycles: int = 10 ** 8) -> list:
+    """Which calls wait for the card inside torch, where torch's sync debug
+    mode may not see it (a library's own device synchronise): each call of
+    `calls` ((name, fn) pairs, warmed up first) is made while the card
+    spins `spin_cycles` (about 50 ms on an H100) and timed on the host's
+    clock. A call that returns in well under the spin enqueued its work;
+    one that takes about the spin waited for the card."""
+    import torch
+    rows = []
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin_cycles)
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        rows.append({"call": name, "host_ms": host_ms,
+                     "card_ms": host_ms + (time.perf_counter() - t1) * 1e3})
+    return rows
 
 
 def iir_sweep(iir, x, b, a, z0, chunks, reps: int) -> list:
@@ -300,6 +455,24 @@ def main() -> int:
               f" ms ({r['bound_by']}), first stretch bit-equal "
               f"{r['equal_first']}, rel err {r['rel_err']:.3g} (limit "
               f"{r['tol']:g})")
+    r = seq_row(iir, *seq_inputs(torch.float64, N_SIGNAL), 3)
+    out["iir_seq"] = r
+    print(f"iir_seq f64 n=2^22 order {r['order']}: kernel {r['ms']:.3f} ms,"
+          f" plain {r['plain_ms']:.1f} ms (host loop), bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), bit-equal {r['ok']}")
+    calls = builder_calls()
+    out["builders"] = builder_rows(args.reps, calls)
+    out["waits"] = host_waits([(c[1], c[2]) for c in calls])
+    for r in out["waits"]:
+        print(f"host time with the card busy for 50 ms: {r['call']}: "
+              f"{r['host_ms']:.3f} ms (the card's {r['card_ms']:.1f} ms)")
+    del calls
+    for r in out["builders"]:
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"{r['op']:16s} {r['call']}: {r['ms']:.4f} ms, library {lib},"
+              f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+              f"{r['share']:.3f}")
     out["eig_where"] = w = eig_where()
     print(f"eigvals {w['n']} f64: the call {w['call_ms']:.1f} ms on the "
           f"host, {w['kernels']} card kernels {w['kernel_ms']:.1f} ms, "

@@ -1,13 +1,17 @@
-"""IIR filtering, direct form II transposed: the wrapper around
-`csrc/iir.cu`.
+"""IIR filtering, direct form II transposed: the wrappers around
+`csrc/iir.cu` and `csrc/iir_seq.cu`.
 
 `iir(x, b, a, z0)` filters the vector x with N coefficients b and a (a[0]
 is 1 and not read) from the state z0 (N-1 values), as the JAX package's
-`_b_iir` scan does (runmat_tpu/accel/dense.py:706-728). A CPU tensor takes
-the plain version below; a CUDA tensor launches the kernel or raises.
-`launches` counts filter calls that launched the kernel (one each, whatever
+`_b_iir` scan does (runmat_tpu/accel/dense.py:706-728), for any N >= 2. A
+CPU tensor takes the plain version below; a CUDA tensor launches a kernel
+or raises: the chunked scan (`launch`) for N <= MAX_COEFS, the sample
+recurrence in one block (`seq_launch`, csrc/iir_seq.cu) above that.
+`launches` counts filter calls that launched a kernel (one each, whatever
 the number of its phases) and nothing else; `launches_by` splits the count
-by dtype ("iir f32", "iir f64").
+by route and dtype ("iir f32", "iir f64", "iir_seq f32", "iir_seq f64").
+The sequential kernel rounds every operation as the plain version does, in
+the same order, so all its outputs are bit-equal to it.
 
 The kernel is a chunked parallel scan (see its source): stretches of
 `CHUNK` samples filtered from a zero state, the states carried into each
@@ -44,6 +48,7 @@ launches_by: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _NAMES = {torch.float32: "iir f32", torch.float64: "iir f64"}
+_SEQ_NAMES = {torch.float32: "iir_seq f32", torch.float64: "iir_seq f64"}
 MAX_COEFS = 33          # kMaxN of csrc/iir.cu: orders 1..32 (it refuses more)
 CHUNK = 64              # samples a stretch (a power of two, at most 2^20):
                         # the fastest of 32..4096 on an H100 (PERF.md)
@@ -54,6 +59,24 @@ PHASES = ("powers", "chunk states", "carries", "output")
 SHAPE = {"walk_threads": 128, "tile": 32, "scan_threads": 128, "run": 16}
 TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 _entry = None
+_seq_entry = None
+
+
+def _seq_kernel():
+    global _seq_entry
+    if _seq_entry is None:
+        lib = library()
+        size = lib.runmat_iir_seq_scratch
+        size.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+        size.restype = ctypes.c_int64
+        fn = lib.runmat_iir_seq
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _seq_entry = (size, fn)
+    return _seq_entry
 
 
 def _kernel():
@@ -163,13 +186,23 @@ def _check(x, b, a, z0) -> None:
         raise ValueError("iir: x, b, a and z0 must share one device")
 
 
+def _operands(x, b, a, z0) -> tuple:
+    """x, b, a and z0 checked and on a card: flat and contiguous, with y
+    allocated and the card's index."""
+    _check(x, b, a, z0)
+    if x.device.type != "cuda":
+        raise ValueError(f"iir: no kernel for device {x.device}")
+    flat = [t.reshape(-1).contiguous() for t in (x, b, a, z0)]
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    return flat, torch.empty_like(flat[0]), index
+
+
 def launch(x, b, a, z0, chunk: int = CHUNK, upto: int = 4) -> torch.Tensor:
     """The kernel's phases 1..upto (4: all) on CUDA tensors, stretches of
     `chunk` samples; y (flat), written by phase 4. Counts nothing: `iir`
     counts its calls, and the phases and other chunks are for timing."""
-    _check(x, b, a, z0)
-    if x.device.type != "cuda":
-        raise ValueError(f"iir: no kernel for device {x.device}")
+    (xv, bv, av, zv), y, index = _operands(x, b, a, z0)
     n_coef = b.numel()
     if n_coef > MAX_COEFS:
         raise ValueError(f"iir: the kernel takes at most {MAX_COEFS} "
@@ -178,10 +211,6 @@ def launch(x, b, a, z0, chunk: int = CHUNK, upto: int = 4) -> torch.Tensor:
     if chunk < 1 or chunk != 1 << lg:
         raise ValueError(f"iir: the chunk must be a power of two, not "
                          f"{chunk}")
-    xv = x.reshape(-1).contiguous()
-    bv, av = b.reshape(-1).contiguous(), a.reshape(-1).contiguous()
-    zv = z0.reshape(-1).contiguous()
-    y = torch.empty_like(xv)
     if xv.numel() == 0:
         return y
     size, fn = _kernel()
@@ -191,8 +220,6 @@ def launch(x, b, a, z0, chunk: int = CHUNK, upto: int = 4) -> torch.Tensor:
         raise ValueError(f"iir: the kernel refuses n={xv.numel()}, "
                          f"N={n_coef}, chunk={chunk}")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    index = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
     rc = fn(code, xv.data_ptr(), y.data_ptr(), xv.numel(), n_coef,
             bv.data_ptr(), av.data_ptr(), zv.data_ptr(), lg,
             scratch.data_ptr(), nbytes, upto,
@@ -202,17 +229,42 @@ def launch(x, b, a, z0, chunk: int = CHUNK, upto: int = 4) -> torch.Tensor:
     return y
 
 
+def seq_launch(x, b, a, z0) -> torch.Tensor:
+    """csrc/iir_seq.cu on CUDA tensors, any N >= 2 coefficients: y (flat).
+    Counts nothing (`iir` counts its calls)."""
+    (xv, bv, av, zv), y, index = _operands(x, b, a, z0)
+    if xv.numel() == 0:
+        return y
+    size, fn = _seq_kernel()
+    code = _DTYPES[x.dtype]
+    nbytes = size(code, xv.numel(), b.numel())
+    if nbytes < 0:
+        raise ValueError(f"iir: the sequential kernel refuses "
+                         f"n={xv.numel()}, N={b.numel()}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) \
+        if nbytes else None
+    rc = fn(code, xv.data_ptr(), y.data_ptr(), xv.numel(), b.numel(),
+            bv.data_ptr(), av.data_ptr(), zv.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, nbytes,
+            torch.cuda.current_stream(index).cuda_stream, index)
+    if rc != 0:
+        raise RuntimeError(f"iir_seq kernel launch failed: CUDA error {rc}")
+    return y
+
+
 def iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
         z0: torch.Tensor) -> torch.Tensor:
     """y (flat, x's dtype) of the filter over flat x. x, b, a and z0 share
-    one dtype (float32 or float64) and one device; b and a hold N = 2 ..
-    MAX_COEFS values, z0 N - 1."""
+    one dtype (float32 or float64) and one device; b and a hold N >= 2
+    values, z0 N - 1. On a card, N <= MAX_COEFS takes the chunked scan and
+    more the sequential kernel."""
     global launches
     if x.device.type == "cpu":
         _check(x, b, a, z0)
         return plain_iir(x, b, a, z0)
-    y = launch(x, b, a, z0)
+    seq = b.numel() > MAX_COEFS
+    y = seq_launch(x, b, a, z0) if seq else launch(x, b, a, z0)
     if y.numel():
         launches += 1
-        launches_by[_NAMES[x.dtype]] += 1
+        launches_by[(_SEQ_NAMES if seq else _NAMES)[x.dtype]] += 1
     return y

@@ -409,7 +409,9 @@ def m_find(x, n=None, direction=None, nargout=1):
 
 @builtin("diff", category="array", min_in=1, max_in=3)
 def m_diff(x, n=None, dim=None):
-    # symbolic values: not yet ported (ROADMAP A16)
+    if type(x).__name__ == "SymValue":
+        from .symbolic import _diff
+        return _diff(x, n, dim)
     if isinstance(x, MatArray) and x.on_device and not x.is_complex:
         from ...accel import active_engine
         eng = active_engine()

@@ -244,7 +244,9 @@ def m_realmin(cls=None):
 # ------------------------------ conversions ---------------------------------- #
 
 def _convert(x, mclass: str):
-    # symbolic values: not yet ported (ROADMAP A16)
+    if type(x).__name__ == "SymValue" and mclass == "double":
+        from .symbolic import sym_to_double
+        return sym_to_double(x)
     if isinstance(x, StringArray):
         if mclass == "char":
             return MatArray.char_from_str(x.item() or "")

@@ -165,7 +165,12 @@ def build_matrix(rows: list[list]):
     ≙ 'like' semantics in the reference constructors)."""
     if not rows:
         return MatArray.empty()
-    # symbolic values: not yet ported (ROADMAP A16)
+    if any(type(el).__name__ == "SymValue" for r in rows for el in r):
+        row_vals = [_cat_sym(list(r), 1) if len(r) > 1 else r[0] for r in rows]
+        if len(row_vals) == 1:
+            from .builtins.symbolic import _to_sym
+            return _to_sym(row_vals[0])
+        return _cat_sym(row_vals, 0)
     row_vals = []
     for r in rows:
         if len(r) == 1:
@@ -205,6 +210,18 @@ def build_cell(rows: list[list]) -> CellArray:
 
 
 def cat(axis: int, parts: list):
-    # symbolic values: not yet ported (ROADMAP A16)
+    if any(type(p).__name__ == "SymValue" for p in parts):
+        return _cat_sym(parts, axis)
     return _cat_arrays(parts, axis)
+
+
+def _cat_sym(parts: list, axis: int):
+    """Concatenate symbolic values/arrays (sym dominates numerics)."""
+    from .builtins.symbolic import SymValue, _to_sym
+    mats = []
+    for p in parts:
+        s = _to_sym(p)
+        mats.append(s.exprs.reshape(s.shape))
+    data = np.concatenate(mats, axis=min(axis, 1))
+    return SymValue(data, data.shape)
 

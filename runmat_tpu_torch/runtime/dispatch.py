@@ -135,7 +135,12 @@ def binary(op: str, a, b):
     r = _obj_binop(op, a, b)
     if r is not None:
         return r
-    # sparse, datetime and symbolic values: not yet ported (ROADMAP A16)
+    # sparse and datetime values: not yet ported (ROADMAP A16)
+    if type(a).__name__ == "SymValue" or type(b).__name__ == "SymValue":
+        from .builtins.symbolic import sym_binary
+        r = sym_binary(op, a, b)
+        if r is not None:
+            return r
     # string concatenation via plus (MATLAB string class semantics)
     if op == "add" and (isinstance(a, StringArray) or isinstance(b, StringArray)):
         return _string_plus(a, b)
@@ -326,7 +331,12 @@ def unary(op: str, a):
         r = a._mat_unop_(op)
         if r is not NotImplemented:
             return r
-    # symbolic and sparse values: not yet ported (ROADMAP A16)
+    if type(a).__name__ == "SymValue":
+        from .builtins.symbolic import sym_unary
+        r = sym_unary(op, a)
+        if r is not None:
+            return r
+    # sparse values: not yet ported (ROADMAP A16)
     return _unary_impl(op, a)
 
 

@@ -93,7 +93,10 @@ def ensure_loaded() -> None:
     from .builtins import (  # noqa: F401
         elementwise, creation, reductions, arrays, linalg, rng, strings,
         io_console, introspection, control, cells_structs, gpu, stats,
-        sets_sort, fft_signal, logical_ops, handles,
+        sets_sort, fft_signal, interp_poly, datetime_timing, logical_ops,
+        handles, ode_optim, async_builtins, symbolic, breadth2, breadth3,
+        breadth4, stats2, strings2, linalg2, signal2, optim2, timing2,
+        validators, profiler, stats3,
     )
     # In the JAX package a later module, not carried yet, registers these
     # names over the carried definition; they stay undefined here until it
@@ -104,6 +107,5 @@ def ensure_loaded() -> None:
 
 # name -> the JAX package's builtin module that defines it last
 _REGISTERED_LATER = {"isobject": "oop_builtins", "hold": "plotting",
-                     "addpath": "file_io", "wait": "async_builtins",
-                     "sortrows": "table_builtins", "sqrtm": "breadth2",
-                     "logm": "breadth2"}
+                     "addpath": "file_io", "sortrows": "table_builtins",
+                     "datestr": "datetime_builtins", "peaks": "plotting3"}

@@ -57,8 +57,11 @@ def format_value(name: str, v) -> str:
 
 def _format_body(v, indent: str = "    ") -> str:
     tn = type(v).__name__
-    # symbolic values, classdef objects and class references: not yet
-    # ported (ROADMAP A16)
+    if tn == "SymValue":
+        from ..runtime.builtins.symbolic import sym_display
+        return sym_display(v)
+    # classdef objects and class references: not yet ported (ROADMAP
+    # A16)
     if tn == "MatTable":
         widths = [max(len(nm), 8) for nm in v.varnames]
         lines = [indent + "    ".join(nm.rjust(w) for nm, w in

@@ -2,7 +2,7 @@
 
     python3 runmat_tpu_torch/walls.py [--tree DIR] [--runs 4] [SCRIPT ...]
 
-With no SCRIPT, the seven scripts `chip_smoke.py` runs, at their default
+With no SCRIPT, the eight scripts `chip_smoke.py` runs, at their default
 sizes. Each runs `--runs` times in one fresh session of DIR's
 `runmat_tpu_torch` (default: the checkout holding this file) through
 `Session.run_source`, each run timed on the host clock and ended by
@@ -30,7 +30,8 @@ SCRIPTS = ("benchmarks/elementwise_math.m", "benchmarks/monte_carlo.m",
            "runmat_tpu_torch/workloads/histogram_stats.m",
            "runmat_tpu_torch/workloads/index_sets.m",
            "runmat_tpu_torch/workloads/dense_linalg.m",
-           "runmat_tpu_torch/workloads/spectral.m")
+           "runmat_tpu_torch/workloads/spectral.m",
+           "runmat_tpu_torch/workloads/resample_pages.m")
 
 
 def script_walls(src: str, runs: int) -> dict:

@@ -1004,14 +1004,35 @@ def test_iir_kernel_three_scan_levels(card):
 
 
 def test_iir_kernel_refuses_what_it_does_not_take(card):
+    # the chunked scan's wrapper refuses more than MAX_COEFS coefficients
+    # (`iir` sends those to the sequential kernel instead)
     from runmat_tpu_torch.ops import iir
     n = iir.MAX_COEFS + 1
     x = torch.zeros(8, dtype=torch.float64, device=card)
     c = torch.ones(n, dtype=torch.float64, device=card)
     with pytest.raises(ValueError, match="at most"):
-        iir.iir(x, c, c, c[1:])
+        iir.launch(x, c, c, c[1:])
     with pytest.raises(ValueError, match="one device"):
         iir.iir(x, c[:3].cpu(), c[:3], c[:2])
+
+
+@pytest.mark.parametrize("ncoef,n", [(34, 3001), (40, 5000), (200, 2500),
+                                     (2100, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_high_orders_take_the_sequential_kernel(card, dtype, ncoef, n):
+    # above MAX_COEFS: csrc/iir_seq.cu, every output bit-equal to the plain
+    # version (2100 coefficients keep the state in device memory, not in
+    # shared memory)
+    from runmat_tpu_torch.ops import iir
+    x, b, a, z0 = _iir_case(card, dtype, ncoef - 1, n, ncoef)
+    a[1:] *= 0.5 / max(1.0, float(a[1:].abs().sum()))
+    before = collections.Counter(iir.launches_by)
+    got = iir.iir(x, b, a, z0)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    name = "iir_seq f64" if dtype == torch.float64 else "iir_seq f32"
+    assert collections.Counter(iir.launches_by) - before == {name: 1}
+    assert torch.equal(got, want)
 
 
 def _run_on_card(src: str):
@@ -1102,3 +1123,88 @@ def test_complex_values_on_card_match_the_cpu(card):
             continue
         scale = max(1.0, float(np.abs(w).max()))
         assert np.abs(g - w).max() <= 1e-12 * scale, n
+
+
+# ------------------------------------------ interpolation, selection and pages
+
+def _card_and_host(src: str, names):
+    """`src` in a card session taking every array and in the port's host
+    engine (so `src` names no gpuArray); the named values of each on the
+    host, and the card's engine."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch.session import Session
+    got, eng = _on("cuda", src, names)
+    s = Session(accelerate=False, stdout=io.StringIO())
+    r = s.execute(src)
+    assert r.error is None, r.error
+    runmat_tpu_torch.uninstall()
+    return got, [np.asarray(s.get(n).host()) for n in names], eng
+
+
+def _held(names, got, want, tol):
+    for n, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (n, g.shape,
+                                                           w.shape)
+        assert np.array_equal(np.isnan(g), np.isnan(w)), n
+        scale = max(1.0, float(np.nanmax(np.abs(w), initial=0.0)))
+        assert np.nanmax(np.abs(g - w), initial=0.0) <= tol * scale, n
+
+
+@pytest.mark.parametrize("ncoef", [34, 41, 201])     # orders 33, 40, 200
+def test_filter_of_a_high_order_on_a_device_array(card, ncoef):
+    from runmat_tpu_torch.ops import iir
+    m = ncoef - 1
+    # the card session takes every array (x too); b and a are read on the
+    # host by the builtin
+    src = (f"rng(3); x = randn(20000, 1); b = ones(1, {ncoef}) / {ncoef};"
+           f" a = [1 (0.5 / {m}) * ones(1, {m})]; w = filter(b, a, x);")
+    before = collections.Counter(iir.launches_by)
+    got, want, eng = _card_and_host(src, ["w"])
+    assert collections.Counter(iir.launches_by) - before == \
+        {"iir_seq f64": 1}
+    assert eng.stats["host_fallbacks"] == 0
+    # the host engine filters with its own recurrence (scipy's lfilter)
+    _held(["w"], got, want, 1e-12)
+
+
+def test_interp_maxk_and_pages_on_device_arrays(card):
+    src = ("rng(7); N = 2^16; t = linspace(0, 1, N)'; x = sin(40*t) + "
+           "0.1*randn(N, 1); tq = linspace(0, 1, N)' .^ 1.5;"
+           " y = interp1(t, x, tq); yn = interp1(t, x, [tq; -1; NaN; 2]);"
+           " top = maxk(abs(y), 64); low = mink(y, 16); r = maxk(y', 5);"
+           " A = randn(8, 8, 64) + 8*eye(8); B = randn(8, 8, 64);"
+           " C = pagemtimes(A, B); D = pagefun(@mtimes, A, B);"
+           " E = pagemtimes(A, 'transpose', B, 'none');"
+           " X = pagemldivide(A, B); Ai = pageinv(A); nC = pagenorm(C, 'fro');"
+           " n1 = pagenorm(C, 1); ni = pagenorm(C, Inf); n2 = pagenorm(C);"
+           " T = pagectranspose(A);")
+    names = ["y", "yn", "top", "low", "r", "C", "D", "E", "X", "Ai", "nC",
+             "n1", "ni", "n2", "T"]
+    got, want, eng = _card_and_host(src, names)
+    assert eng.stats["host_fallbacks"] == 0
+    kinds = [k for e in eng.launch_log if e["cat"] == "linalg"
+             for k in e["ops"]]
+    for kind in ("interp1lin", "topk", "pagemtimes", "pagesolve", "pageinv",
+                 "pagenorm", "pagectranspose"):
+        assert kind in kinds, (kind, kinds)
+    # the interpolated values and what is picked from them within 1e-10
+    # of the largest magnitude: the query grid's `.^ 1.5` rounds apart by
+    # an ulp on the card and the host, times slopes of up to ~3e4 between
+    # noisy samples; cuBLAS and cuSOLVER against LAPACK, and the pages'
+    # normal draws (a few ulps apart), within 1e-12
+    _held(names[:5], got[:5], want[:5], 1e-10)
+    _held(names[5:], got[5:], want[5:], 1e-12)
+    assert np.array_equal(got[names.index("C")], got[names.index("D")])
+
+
+def test_parfeval_on_a_device_array_while_the_card_computes(card):
+    # a task's engine calls and the main thread's take turns under the
+    # engine's lock; each side's result is what it computes alone
+    src = ("rng(2); A = randn(512); f = parfeval(@(M) sum(M(:) .^ 2)"
+           ", 1, A); acc = 0; for k = 1:40, acc = acc + sum(A(:) * k); end;"
+           " B = A * A; r = fetchOutputs(f); s = sum(A(:) .^ 2);"
+           " c = sum(B(:));")
+    names = ["r", "s", "acc", "c"]
+    got, want, eng = _card_and_host(src, names)
+    assert got[0] == got[1]
+    _held(names, got, want, 1e-9)

@@ -158,7 +158,8 @@ def test_inv_of_a_device_matrix_declines_with_one_fallback(restore_engine):
     assert d.on_device
     before = eng.stats["host_fallbacks"]
     assert eng.route_linalg(d) is True
-    # inv has a builder since the linalg slice (tests/test_torch_linalg.py);
-    # topk (ROADMAP: breadth4.py) has none yet and declines
-    assert eng.linalg("topk", [d], (2, True)) is None
+    # inv has a builder since the linalg slice (tests/test_torch_linalg.py),
+    # topk since breadth4 was copied; cmap (ROADMAP: plotting.py) has none
+    # yet and declines
+    assert eng.linalg("cmap", [d], ("parula",)) is None
     assert eng.stats["host_fallbacks"] == before + 1

@@ -310,14 +310,14 @@ def test_outside_the_slice_declines_or_raises(engines):
     d = eng.upload(x)
     z = PortMatArray(np.array([[1j, 2.0]]), "double")
     before = eng.stats["host_fallbacks"]
-    # linalg routes a resident operand; a kind without a builder (topk,
-    # ROADMAP: breadth4.py) declines in linalg, counted because the operand
+    # linalg routes a resident operand; a kind without a builder (cmap,
+    # ROADMAP: plotting.py) declines in linalg, counted because the operand
     # is on the device
     assert eng.route_linalg(d) is True
-    assert eng.linalg("topk", [d], (2, True)) is None
+    assert eng.linalg("cmap", [d], ("parula",)) is None
     assert eng.stats["host_fallbacks"] == before + 1
     # a host operand of an unported kind declines without a count
-    assert eng.linalg("topk", [x], (2, True)) is None
+    assert eng.linalg("cmap", [x], ("parula",)) is None
     assert eng.stats["host_fallbacks"] == before + 1
     # complex values and the fft route as JaxEngine routes them (A8): by
     # residency or the offload policy, complex or not

@@ -457,7 +457,9 @@ LIBRARY_SCRIPTS = {
     "image_normalize": ("benchmarks/image_normalize.m",
                         "B = 2; H = 32; W = 48;"),
     "dense_linalg": ("runmat_tpu_torch/workloads/dense_linalg.m", "N = 64;"),
-    "spectral": ("runmat_tpu_torch/workloads/spectral.m", "N = 2^12;")}
+    "spectral": ("runmat_tpu_torch/workloads/spectral.m", "N = 2^12;"),
+    "resample_pages": ("runmat_tpu_torch/workloads/resample_pages.m",
+                       "N = 2^12; P = 16;")}
 
 
 @pytest.mark.parametrize("name", sorted(LIBRARY_SCRIPTS))
@@ -505,7 +507,12 @@ def test_library_calls_compute_their_group(name, monkeypatch):
                 "image_normalize": {("r:mean", "cast")},
                 "dense_linalg": {("b:div",), ("b:sub",), ("b:add",)},
                 "spectral": {("c:linspace",), ("r:mean",), ("b:div",),
-                             ("b:mul",)}}[name]
+                             ("b:mul",)},
+                # no ("b:add",): the pages' `randn(32, 32, P) + 32*eye(32)`
+                # lines up its operands from the first dim, torch.add from
+                # the last
+                "resample_pages": {("c:linspace",), ("r:mean",), ("b:mul",),
+                                   ("c:full", "b:mul")}}[name]
     assert kinds == expected, kinds
 
 

@@ -22,6 +22,7 @@ from runmat_tpu.session import Session as JaxSession
 from runmat_tpu.utils import display as jax_display
 from runmat_tpu.utils.display import format_value as jax_format
 from runmat_tpu_torch import accel as taccel
+from runmat_tpu_torch.parity_snippets import SNIPPETS as MODULE_SNIPPETS
 from runmat_tpu_torch.session import Session as PortSession
 from runmat_tpu_torch.utils import display as port_display
 from runmat_tpu_torch.utils.display import format_value as port_format
@@ -123,6 +124,10 @@ SNIPPETS = [
                    " c2 = conv2(reshape(1:16, 4, 4), ones(2)); w = hann(8); h = abs(hilbert(x));"
                    " v = envelope(x); s = sinc(0.5);", EXACT),
 ]
+# the builtin modules copied in the interpolation, selection and page slice
+# (interp_poly, breadth2-4, linalg2, ...), one snippet each, shared with
+# chip_smoke.py, which runs them on a card
+SNIPPETS += [(sid, src, tol) for sid, _, src, tol in MODULE_SNIPPETS]
 
 
 @pytest.fixture
