@@ -92,22 +92,32 @@ line is printed:
      path's output z held to the plain version as above (which is timed on
      the host), the waits equal to the counted reads, and the warm walls;
   8. interpolation, selection and page path: the sequential IIR kernel
-     (csrc/iir_seq.cu, the orders above the scan's 32) against its plain
-     version, every output bit for bit, at orders 33, 40 and 200 in both
-     types, and resample_pages.m's order-39 filter over 2^22 samples
-     timed against its bound; the script's device builders at its shapes
-     timed beside their bounds and torch.topk / torch.bmm, and each made
+     (csrc/iir_seq.cu, the orders above 64) against its plain version,
+     every output bit for bit, at orders 65 and 200 in both types; the
+     warp kernel (csrc/iir_warp.cu, a chunked scan with a warp a stretch,
+     orders 33-64) against its plain version as phase 7 holds the scan,
+     at orders 33, 39 and 64 in both types over one stretch and over 65,
+     a pole of radius 0.999 and a NaN in a middle stretch at order 39,
+     its stretch length and carry group swept at resample_pages.m's
+     filter over 2^18 and 2^22 samples, and that filter over 2^22 held to
+     the sequential kernel's output (bit-equal to plain) and timed with
+     its phases beside its bound and the sequential kernel; the script's
+     device builders at its shapes timed beside their bounds and
+     torch.topk / torch.bmm, and each made
      while the card is busy, none waiting for it
      (runmat_tpu_torch/linalgbench.py); then
      runmat_tpu_torch/workloads/resample_pages.m at N = 2^22 and 8192
      pages of 32 x 32 through Session.run_source against the port's host
      engine (PAGES within a relative 1e-9), with no host fallback, under
-     1 MB uploaded, the sequential kernel launched once and each device
+     1 MB uploaded, the warp kernel launched once (the sequential kernel
+     never) and each device
      builder as often as the script calls it (interp1lin once, topk
      twice, pagemtimes three times, pagesolve, pageinv and pagenorm once),
      pagefun(@mtimes, A, B) equal to pagemtimes(A, B) bit for bit on the
-     card, the path's filter call (2^18 samples) and its output equal to
-     the plain version bit for bit and timed against it, the waits equal
+     card, the path's filter call (2^18 samples) and its output w held to
+     the plain version (the first L outputs bit for bit, the rest within
+     1e-10 of the largest) and timed beside it and the sequential kernel
+     (which is also held bit for bit on that call), the waits equal
      to the counted reads, and the warm walls; then
      each snippet of runmat_tpu_torch/parity_snippets.py (one for each
      builtin module the slice copied) in a card session against the
@@ -117,12 +127,16 @@ line is printed:
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
 against that call in turns, ten rounds, for the run-to-run spread of
-both. Each kernel's `launches` is read from the runs of phases 4 to 8, with the
+both, and prints the layout of each float64 map of more than 2^20
+elements (8 warps a block since the layout sweep of fusebench.py). Each
+kernel's `launches` is read from the runs of phases 4 to 8, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches, or for its one where one program covers each
-segment); each generated group is a row of its own,
-counted by its kernel, so its `launches` are those of one run of its
-script. `bound_ms` is the larger of the bytes
+segment); each generated group is a row of its own, counted by its
+kernel, so its `launches` are those of one run of its script. Every
+kernel of the paths must launch; the sequential IIR kernel, which no
+script reaches since the warp kernel took orders 33-64, keeps its row
+with its launches (0). `bound_ms` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over the card's rate
 for them (runmat_tpu_torch/sass.py: for Threefry, the warp cycles of the
 kernel's own loop read from its machine code, which holds no call and no
@@ -216,9 +230,24 @@ IIR_POLE_N = 1 << 16
 IIR_SWEEP = (32, 64, 128, 256, 512, 1024, 4096)
 PAGES_WORKLOAD = "runmat_tpu_torch/workloads/resample_pages.m"
 # (coefficients, samples) the sequential IIR kernel is held to its plain
-# version on: orders 33, 40 and 200
-IIR_SEQ_CASES = ((34, 3001), (41, 20000), (201, 4000))
+# version on: orders 65 and 200, above the warp kernel's 64
+IIR_SEQ_CASES = ((66, 3001), (201, 4000))
 IIR_SEQ_N = 1 << 22       # resample_pages.m's filter over the whole record
+# the warp kernel's cases: orders 33, 39 (resample_pages.m's) and 64 over
+# one stretch of the default L (bit-equal throughout) and over 65
+# stretches (three carry levels), a pole of radius 0.999 and a NaN in a
+# middle stretch at order 39
+IIR_WARP_ORDERS = (33, 39, 64)
+IIR_WARP_SHORT = 100
+IIR_WARP_LONG = 64 * 128 + 77
+# (L, g) the warp kernel is swept over at resample_pages.m's call (2^18)
+# and at 2^22 (iir.WARP_SHAPES keeps the fastest): one warp over the whole
+# call, the carries in one level, and groups of 8-32
+IIR_WARP_SWEEP = {18: ((1 << 18, 0), (64, 0), (128, 0), (64, 16),
+                       (128, 8), (128, 16), (128, 32), (256, 16),
+                       (256, 32), (512, 16)),
+                  22: ((512, 16), (512, 32), (1024, 8), (1024, 16),
+                       (1024, 32), (2048, 16))}
 # the device builders a run of resample_pages.m calls, each its count
 PAGES_LINALG = {"interp1lin": 1, "topk": 2, "iir": 1, "pagemtimes": 3,
                 "pagesolve": 1, "pageinv": 1, "pagenorm": 1}
@@ -652,6 +681,14 @@ def phase_fused_kernel() -> list:
               f"{min(r['library_ms']):.4f}-{max(r['library_ms']):.4f}), gap "
               f"{r['gap_ms']:+.4f} ms, spread {r['spread_ms']:.4f} ms: "
               f"{'within' if r['within'] else 'outside'} its spread")
+    from runmat_tpu_torch.ops import fused
+    for script, g, program, _ in seen:
+        lay = fused.layout(g.spec)
+        if g.spec.reduce is None and lay["N"] > fused.WIDE_MAP:
+            print(f"layout {g.label} ({script}, "
+                  f"{'x'.join(map(str, g.shape))}: "
+                  f"{' '.join(program[i][0] for i in g.members)}): BLOCK "
+                  f"{lay['BLOCK']}, {lay['num_warps']} warps")
     del seen
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
@@ -1310,15 +1347,13 @@ def phase_linalg_signal_path() -> dict:
 
 
 def _iir_seq_kernel() -> None:
-    """The sequential IIR kernel (csrc/iir_seq.cu, more than MAX_COEFS
-    coefficients) against its plain version, every output bit for bit, at
-    orders 33, 40 and 200 in both types from a nonzero state; then
-    resample_pages.m's filter over 2^22 samples timed against its bound
-    (the path's own call, 2^18 samples, is held and timed against plain
-    after the script's run)."""
+    """The sequential IIR kernel (csrc/iir_seq.cu, more than
+    MAX_WARP_COEFS coefficients) against its plain version, every output
+    bit for bit, at orders 65 and 200 in both types from a nonzero
+    state."""
     import torch
 
-    from runmat_tpu_torch import histbench, linalgbench
+    from runmat_tpu_torch import linalgbench
     from runmat_tpu_torch.ops import iir
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -1331,19 +1366,124 @@ def _iir_seq_kernel() -> None:
             a = a * (0.5 / float(a[1:].sum()))
             z0 = torch.randn(ncoef - 1, dtype=dt, device=dev,
                              generator=gen) * 0.1
+            before = collections.Counter(iir.launches_by)
             got, want = iir.iir(x, b, a, z0), iir.plain_iir(x, b, a, z0)
             torch.cuda.synchronize()
+            name = f"iir_seq {'f64' if dt == torch.float64 else 'f32'}"
+            check(collections.Counter(iir.launches_by) - before == {name: 1},
+                  f"iir order {ncoef - 1}: {iir.launches_by}")
             r = linalgbench.held(got, want, n, 0.0)
             check(r["ok"], f"iir_seq {dt} order {ncoef - 1} n={n}: {r}")
             print(f"kernel iir_seq {dt} order {ncoef - 1} n={n}: all "
                   f"outputs bit-equal to plain")
+
+
+def _warp_cases(dev) -> list:
+    """(label, x, b, a, z0) the warp kernel is held to its plain version
+    on: random stable filters (sum |a[1:]| = 0.5) of IIR_WARP_ORDERS in
+    both types from a nonzero state over IIR_WARP_SHORT and IIR_WARP_LONG
+    samples; at order 39 a resonator of radius 0.999 times a random
+    order-37 part over IIR_POLE_N samples, and a NaN in the middle of the
+    middle stretch."""
+    import torch
+    from runmat_tpu_torch.ops import iir
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    cases = []
+
+    def stable(order, dt):
+        n = order + 1
+        b = torch.randn(n, dtype=torch.float64, device=dev, generator=gen)
+        a = torch.randn(n, dtype=torch.float64, device=dev, generator=gen)
+        a[1:] *= 0.5 / float(a[1:].abs().sum())
+        a[0] = 1.0
+        z0 = torch.randn(n - 1, dtype=torch.float64, device=dev,
+                         generator=gen) * 0.1
+        return (b * 0.3).to(dt), a.to(dt), z0.to(dt)
+    for dt in (torch.float32, torch.float64):
+        for order in IIR_WARP_ORDERS:
+            b, a, z0 = stable(order, dt)
+            for length in (IIR_WARP_SHORT, IIR_WARP_LONG):
+                x = torch.randn(length, dtype=dt, device=dev, generator=gen)
+                cases.append((f"{dt} order {order} n={length}", x, b, a, z0))
+        b, a, z0 = stable(37, torch.float64)
+        r, th = 0.999, 0.05
+        a = torch.tensor(np.convolve(a.cpu().numpy(),
+                                     [1, -2 * r * np.cos(th), r * r]),
+                         dtype=dt, device=dev)
+        b = torch.cat([b, b[:2]]).to(dt)
+        z0 = torch.cat([z0, z0[:2]]).to(dt)
+        x = torch.randn(IIR_POLE_N, dtype=dt, device=dev, generator=gen)
+        cases.append((f"{dt} order 39, pole radius 0.999 n={IIR_POLE_N}", x,
+                      b, a, z0))
+        x = torch.randn(IIR_WARP_LONG, dtype=dt, device=dev, generator=gen)
+        chunk = iir.warp_shape(IIR_WARP_LONG)[0]
+        x[32 * chunk + chunk // 2] = float("nan")
+        b, a, z0 = stable(39, dt)
+        cases.append((f"{dt} order 39, NaN in stretch 32 n={IIR_WARP_LONG}",
+                      x, b, a, z0))
+    return cases
+
+
+def _iir_warp_kernel() -> None:
+    """The warp kernel (csrc/iir_warp.cu, orders 33-64) against its plain
+    version on `_warp_cases` (`linalgbench.held`: the first stretch of L
+    samples bit for bit, all of a one-stretch call, elsewhere within
+    iir.TOL of the largest output magnitude, non-finite values in the same
+    places); the kernel at each (L, g) of IIR_WARP_SWEEP on
+    resample_pages.m's filter; then that filter over 2^22 samples, held the
+    same way to the sequential kernel's output (bit-equal to plain) and
+    timed with its phases beside the bound and the sequential kernel (the
+    path's own call, 2^18 samples, is held and timed after the script's
+    run)."""
+    import torch
+
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.ops import iir
+    dev = torch.device("cuda")
+    worst = {}
+    for label, x, b, a, z0 in _warp_cases(dev):
+        before = collections.Counter(iir.launches_by)
+        got, want = iir.iir(x, b, a, z0), iir.plain_iir(x, b, a, z0)
+        torch.cuda.synchronize()
+        name = f"iir_warp {'f64' if x.dtype == torch.float64 else 'f32'}"
+        check(collections.Counter(iir.launches_by) - before == {name: 1},
+              f"iir {label}: {iir.launches_by}")
+        chunk = iir.warp_shape(x.numel())[0]
+        r = linalgbench.held(got, want, chunk, iir.TOL[x.dtype])
+        check(r["ok"], f"iir_warp {label}: {r}")
+        key = str(x.dtype)
+        worst[key] = max(worst.get(key, 0.0), r["rel_err"])
+        print(f"kernel iir_warp {label}: first {min(chunk, x.numel())} "
+              f"outputs bit-equal, non-finite in the same places, rel err "
+              f"{r['rel_err']:.3g} (limit {iir.TOL[x.dtype]:g})")
+    print(f"kernel iir_warp: largest rel err {worst}; {iir.WARP_SHAPE}")
+    for lg, shapes in IIR_WARP_SWEEP.items():
+        x, b, a, z0 = linalgbench.seq_inputs(torch.float64, 1 << lg)
+        for r in linalgbench.warp_sweep(iir, x, b, a, z0, shapes, 10):
+            walk = "" if "cycles_a_sample" not in r else \
+                f" (one warp, {r['cycles_a_sample']:.1f} cycles a sample)"
+            print(f"time iir_warp f64 (resample_pages.m's filter, n=2^{lg})"
+                  f" at L={r['chunk']}, g={r['group']}: {r['ms']:.4f} ms"
+                  f"{walk}")
     x, b, a, z0 = linalgbench.seq_inputs(torch.float64, IIR_SEQ_N)
-    ms = histbench.time_ms(lambda: iir.iir(x, b, a, z0), 2)
-    bnd = linalgbench.bound(2 * x.numel() * 8,
-                            (4 * (b.numel() - 1) + 2) * x.numel(), "float64")
-    print(f"time iir_seq f64 (resample_pages.m's filter, n=2^22, order "
-          f"{b.numel() - 1}): kernel {ms:.3f} ms, bound {bnd[0]:.4f} ms "
-          f"({bnd[1]}), share of bound {bnd[0] / ms:.6f}")
+    seq = iir.seq_launch(x, b, a, z0)
+    r = linalgbench.warp_row(iir, x, b, a, z0, TIMING_REPS // 5, want=seq,
+                             seq_reps=2)
+    check(r["ok"], f"iir_warp f64 at 2^22 against iir_seq: {r}")
+    _print_warp("resample_pages.m's filter, n=2^22", r)
+
+
+def _print_warp(label: str, r: dict) -> None:
+    phases = ", ".join(f"{k} {v:.4f}" for k, v in r["phase_ms"].items())
+    plain = "" if r["plain_ms"] is None else \
+        f", plain {r['plain_ms']:.1f} ms (the host loop)"
+    print(f"time iir_warp f64 ({label}, order {r['order']}, L={r['chunk']}, "
+          f"g={r['group']}): kernel {r['ms']:.4f} ms (phases, ms: {phases})"
+          f"{plain}, iir_seq on the same input {r['seq_ms']:.3f} ms, library "
+          f"none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share of "
+          f"bound {r['bound_ms'] / r['ms']:.4f}; first stretch bit-equal, rel "
+          f"err {r['rel_err']:.3g} (limit {r['tol']:g})")
 
 
 def _builders() -> None:
@@ -1409,17 +1549,19 @@ def _module_snippets() -> None:
 
 def phase_pages_path() -> dict:
     """resample_pages.m at its default size (N = 2^22, 8192 pages of 32 x
-    32) against the host engine, after the sequential IIR kernel against
-    its plain version; then the slice's modules' snippets on the card."""
+    32) against the host engine, after the sequential and the warp IIR
+    kernels against their plain versions; then the slice's modules'
+    snippets on the card."""
     import torch
 
     from runmat_tpu_torch import linalgbench
     from runmat_tpu_torch.ops import iir
     _iir_seq_kernel()
+    _iir_warp_kernel()
     _builders()
     s, launches, host, kept = _slice_script(
         PAGES_WORKLOAD, "resample_pages", "PAGES", ("C", "D", "y", "w"))
-    check(launches["iir"] == {"iir_seq f64": 1},
+    check(launches["iir"] == {"iir_warp f64": 1},
           f"resample_pages: iir launches {launches['iir']}")
     check(launches["linalg"] == PAGES_LINALG,
           f"resample_pages: device builders {launches['linalg']}")
@@ -1428,34 +1570,45 @@ def phase_pages_path() -> dict:
           "resample_pages: pagefun(@mtimes, A, B) is not pagemtimes(A, B) "
           "on the card")
     # the path's filter: the kernel on the script's own signal and
-    # coefficients, and the path's output w, against the plain version
+    # coefficients, and the path's output w, against the plain version;
+    # the sequential kernel on the same input, bit for bit
     y, w = kept["y"], kept["w"]
     _, b, a, z0 = linalgbench.seq_inputs(torch.float64, 1)
-    r = linalgbench.seq_row(iir, y.reshape(-1)[:w.numel()], b, a, z0, 5,
-                            path_y=w)
+    x = y.reshape(-1)[:w.numel()]
+    r = linalgbench.warp_row(iir, x, b, a, z0, TIMING_REPS // 5, path_y=w,
+                             seq_reps=2)
     check(r["ok"], f"resample_pages: the order-39 filter or the path's w "
           f"against plain: {r}")
-    print(f"time iir_seq f64 (resample_pages.m's call, n={r['n']}, order "
-          f"{r['order']}): kernel {r['ms']:.3f} ms, plain "
-          f"{r['plain_ms']:.1f} ms (the host loop; the kernel and the "
-          f"path's w bit-equal to it), library none, bound "
-          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
-          f"{r['bound_ms'] / r['ms']:.6f}")
+    _print_warp(f"resample_pages.m's call, n={r['n']}", r)
+    sr = linalgbench.seq_row(iir, x, b, a, z0, 2)
+    check(sr["ok"], f"resample_pages: iir_seq on the path's call: {sr}")
+    print(f"time iir_seq f64 (resample_pages.m's call, n={sr['n']}, order "
+          f"{sr['order']}, not on the path since the warp kernel): kernel "
+          f"{sr['ms']:.3f} ms, bit-equal to plain, bound "
+          f"{sr['bound_ms']:.4f} ms ({sr['bound_by']}), share of bound "
+          f"{sr['bound_ms'] / sr['ms']:.6f}")
     print(f"port resample_pages: D equals C bit for bit on the card; device "
           f"builders {launches['linalg']}")
-    row = {"name": "iir_seq_f64", "route": "cuda",
-           "source": "runmat_tpu_torch/csrc/iir_seq.cu",
-           "replaces": "runmat_tpu/accel/dense.py:706",
-           "launches": 0, "launch_key": "iir_seq f64",
-           "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-           "bound_by": r["bound_by"], "library_ms": None}
-    del s, host, kept, C, D, y, w
+    rows = [{"name": "iir_warp_f64", "route": "cuda",
+             "source": "runmat_tpu_torch/csrc/iir_warp.cu",
+             "replaces": "runmat_tpu/accel/dense.py:706",
+             "launches": 0, "launch_key": "iir_warp f64",
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None},
+            {"name": "iir_seq_f64", "route": "cuda",
+             "source": "runmat_tpu_torch/csrc/iir_seq.cu",
+             "replaces": "runmat_tpu/accel/dense.py:706",
+             "launches": 0, "launch_key": "iir_seq f64", "on_path": False,
+             "max_abs_err": sr["max_abs_err"], "ms": sr["ms"],
+             "plain_ms": sr["plain_ms"], "bound_ms": sr["bound_ms"],
+             "bound_by": sr["bound_by"], "library_ms": None}]
+    del s, host, kept, C, D, x, y, w
     src = open(PAGES_WORKLOAD).read()
     _sync_check(src, "resample_pages")
     _walls(src, "resample_pages", preview=False)
     _module_snippets()
-    phase_pages_path.kernels = [row]
+    phase_pages_path.kernels = rows
     return launches
 
 
@@ -1479,9 +1632,13 @@ def main() -> int:
             phase_pages_path.kernels
         for k in kernels:
             key = k.pop("launch_key")
+            on_path = k.pop("on_path", True)
             k["launches"] = sum(p.get(_group(k["name"]), {}).get(key, 0)
                                 for p in paths)
-            check(k["launches"] > 0, f"{k['name']}: no launch on the paths")
+            # the sequential IIR kernel is held and timed, but no script
+            # reaches an order above 64 since the warp kernel took 33-64
+            check(k["launches"] > 0 or not on_path,
+                  f"{k['name']}: no launch on the paths")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -31,9 +31,13 @@ group the main path launches with its inputs;
 3.35 TB/s, or operations at 67 TFLOP/s float32, 34 float64, whichever is
 larger) and, where one PyTorch call computes the same function (`library`:
 a `sum` or `mean` with no prologue, a lone `linspace`, a `full` times a
-scalar, a lone add, subtract, multiply or divide), that call; `spread`
+scalar, a lone add, subtract, multiply or divide, a lone `abs`, a `.^`
+by a scalar), that call; `spread`
 times each group that has such a call against it in turns, ten rounds,
-for the run-to-run spread of both. Run as a
+for the run-to-run spread of both; `layout_sweep` (`--layouts`) tries the
+large maps' layouts against `torch.sub` on dense_linalg's 4096^2 float64
+subtraction and holds the kept one against the old on every large map,
+in turns. Run as a
 script, it imports `runmat_tpu_torch` from DIR (default: the checkout
 holding this file), checks every case, times the main path's groups, and
 prints the card's name and power limit, the machine-code reading of each
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import io
 import json
 import os
@@ -593,7 +598,9 @@ def library(g, args):
     scalar, `torch.full` (its value read back once, before the timing); a
     lone add, subtract, multiply or divide of two inputs of one rank in
     their own type, `torch.add`/`sub`/`mul`/`div` (MATLAB lines up the
-    dims of two ranks from the first, torch from the last)."""
+    dims of two ranks from the first, torch from the last); a lone `abs`,
+    `torch.abs`; a lone `.^` of an input by a one-element input in one
+    type, `torch.pow`."""
     import torch
     spec = g.spec
     ins = [a.reshape(ls) for a, (ls, _) in zip(args, spec.inputs)]
@@ -620,6 +627,13 @@ def library(g, args):
             spec.inputs[1][1]:
         fn = getattr(torch, ops[0][2:])
         return lambda: fn(ins[0], ins[1])
+    if ops == ["u:abs"] and spec.body[0][3] == (("x", 0),) and \
+            spec.body[0][2] == spec.inputs[0][1]:
+        return lambda: torch.abs(ins[0])
+    if ops == ["b:pow"] and spec.body[0][3] == (("x", 0), ("x", 1)) and \
+            ins[1].numel() == 1 and spec.body[0][2] == spec.body[0][1][0] \
+            == spec.inputs[0][1] == spec.inputs[1][1]:
+        return lambda: torch.pow(ins[0], ins[1])
     if spec.reduce != 0 or spec.body[0][3] != (("x", 0),) or any(
             b[0] != "cast" or b[1][0] != spec.body[0][2]
             for b in spec.body[1:]):
@@ -669,6 +683,128 @@ def measure(eng, seen: list, reps: int) -> list:
     return rows
 
 
+@contextlib.contextmanager
+def map_variant(block=None, warps=None, unmasked=False, evict=False):
+    """Inside: every map of more than fused.WIDE_MAP elements generated
+    with BLOCK `block` and `warps` warps (None: fused.layout's), without
+    its masks where BLOCK divides its size (`unmasked`), and its strided
+    loads marked eviction_policy="evict_first" (`evict`); the cache of
+    prepared kernels emptied on the way in and out."""
+    from .ops import fused
+    real_layout, real_map = fused.layout, fused._Gen.map_kernel
+
+    def layout(spec, sms=fused.SMS_DEFAULT):
+        lay = real_layout(spec, sms)
+        if spec.reduce is None and lay["N"] > fused.WIDE_MAP:
+            b = block or lay["BLOCK"]
+            lay = dict(lay, BLOCK=b, grid=(-(-lay["N"] // b),),
+                       num_warps=warps or lay["num_warps"])
+        return lay
+
+    def map_kernel(self):
+        lines = real_map(self)
+        if self.lay["N"] > fused.WIDE_MAP:
+            if unmasked and self.lay["N"] % self.lay["BLOCK"] == 0:
+                lines = [ln.replace(", mask=mask)", ")") for ln in lines]
+            if evict:
+                lines = [ln[:-1] + ', eviction_policy="evict_first")'
+                         if "= tl.load(x" in ln and " + " in ln else ln
+                         for ln in lines]
+        return lines
+
+    fused.layout, fused._Gen.map_kernel = layout, map_kernel
+    fused._kernels.clear()
+    try:
+        yield
+    finally:
+        fused.layout, fused._Gen.map_kernel = real_layout, real_map
+        fused._kernels.clear()
+
+
+def _turns(fns: list, rounds: int, reps: int) -> list:
+    """Each of `fns` timed `rounds` times in turns (the order reversed
+    every other round), each time the mean of `reps` calls."""
+    from . import histbench
+    times = [[] for _ in fns]
+    for i in range(rounds):
+        order = list(range(len(fns)))
+        for k in (order if i % 2 == 0 else order[::-1]):
+            times[k].append(histbench.time_ms(fns[k], reps))
+    return times
+
+
+def _summary(times: list) -> dict:
+    return {"median_ms": statistics.median(times), "min_ms": min(times),
+            "max_ms": max(times)}
+
+
+OLD_MAP = {"block": 1024, "warps": 4}   # every large map's layout before the sweep
+
+
+def layout_sweep(eng, seen: list, rounds: int, reps: int) -> dict:
+    """The map layouts tried on dense_linalg's 4096^2 float64 `R' * R - S`:
+    BLOCK 1024-8192, 4 or 8 warps, masked or not, plain or evict_first
+    loads, each timed once (the mean of `reps` calls) and its output held
+    equal to the kept layout's bit for bit; then, on every recorded map of
+    more than fused.WIDE_MAP elements, the layout fused.layout keeps
+    against OLD_MAP in turns over `rounds` rounds (a float32 map also at 8
+    warps, which fused.layout does not take); and the kept and the old
+    layout each against torch.sub in turns."""
+    import torch
+
+    from .accel import fuse
+    from .ops import fused
+    big = [e for e in seen if e[1].spec.reduce is None and
+           fused.numel(e[1].spec.shape) > fused.WIDE_MAP]
+    (sub,) = [e for e in big if e[0] == "dense_linalg" and
+              tuple(e[1].shape) == (4096, 4096) and
+              [e[2][i][0] for i in e[1].members] == ["b:sub"]]
+
+    def runner(entry):
+        return lambda: fuse.run_group(eng, entry[1], entry[2], entry[3])
+    run = runner(sub)
+    want = [t.clone() for t in run()]
+    grid = []
+    for block in (1024, 2048, 4096, 8192):
+        for warps in (4, 8):
+            for unmasked in (False, True):
+                for evict in (False, True):
+                    with map_variant(block, warps, unmasked, evict):
+                        equal = all(torch.equal(a, b)
+                                    for a, b in zip(run(), want))
+                        ms = _turns([run], 1, reps)[0][0]
+                    grid.append({"block": block, "warps": warps,
+                                 "unmasked": unmasked, "evict_first": evict,
+                                 "ms": ms, "equal": equal})
+    groups = []
+    for entry in big:
+        label, fn = entry[1].label, runner(entry)
+        variants = {"old": OLD_MAP, "kept": {}}
+        if label == "fused_map_f32":
+            variants["8 warps"] = {"block": 1024, "warps": 8}
+        times = {}
+        for name, var in variants.items():
+            with map_variant(**var):
+                fn()
+                times[name] = _turns([fn], rounds, reps)[0]
+        groups.append({"script": entry[0], "label": label,
+                       "shape": list(entry[1].shape),
+                       "ops": [entry[2][i][0] for i in entry[1].members],
+                       "layout": fused.layout(entry[1].spec),
+                       **{k: _summary(v) for k, v in times.items()}})
+    lib = library(sub[1], sub[3])
+    with map_variant(**OLD_MAP):
+        run()
+        old = _turns([run, lib], rounds, reps)
+    run()
+    kept = _turns([run, lib], rounds, reps)
+    return {"grid": grid, "groups": groups,
+            "against_sub": {"old": _summary(old[0]),
+                            "sub_beside_old": _summary(old[1]),
+                            "kept": _summary(kept[0]),
+                            "sub_beside_kept": _summary(kept[1])}}
+
+
 def spread(eng, seen: list, rounds: int, reps: int) -> list:
     """Each recorded group that one PyTorch call computes too: the kernel
     and that call timed in turns (kernel first in even rounds, the call
@@ -676,7 +812,6 @@ def spread(eng, seen: list, rounds: int, reps: int) -> list:
     (`histbench.time_ms`). `within` holds where the gap between their
     medians is no larger than the wider of their two spreads (largest less
     smallest)."""
-    from . import histbench
     from .accel import fuse
     rows = []
     for script, g, program, args in seen:
@@ -686,10 +821,7 @@ def spread(eng, seen: list, rounds: int, reps: int) -> list:
 
         def run(g=g, program=program, args=args):
             return fuse.run_group(eng, g, program, args)
-        ks, ls = [], []
-        for i in range(rounds):
-            for fn in ((run, lib) if i % 2 == 0 else (lib, run)):
-                (ks if fn is run else ls).append(histbench.time_ms(fn, reps))
+        ks, ls = _turns([run, lib], rounds, reps)
         gap = statistics.median(ks) - statistics.median(ls)
         width = max(max(ks) - min(ks), max(ls) - min(ls))
         rows.append({"script": script, "label": g.label,
@@ -705,6 +837,9 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--layouts", action="store_true",
+                    help="sweep the large maps' layouts (layout_sweep) "
+                         "instead of checking and timing every group")
     args = ap.parse_args()
     # the tree replaces this file's directory, whose module names
     # (profile.py, ...) would shadow the standard library's
@@ -721,6 +856,26 @@ def main() -> int:
                           text=True).stdout.strip().splitlines()[0]
     print(card)
     eng = TorchEngine("cuda")
+    if args.layouts:
+        out = fusebench.layout_sweep(eng, fusebench.record(), 10, args.reps)
+        for r in out["grid"]:
+            print(f"R' * R - S, BLOCK {r['block']}, {r['warps']} warps, "
+                  f"{'unmasked' if r['unmasked'] else 'masked'}, "
+                  f"{'evict_first' if r['evict_first'] else 'plain'} "
+                  f"loads: {r['ms']:.4f} ms, equal {r['equal']}")
+        for r in out["groups"]:
+            print(f"{r['script']} {r['label']} {r['shape']} {r['ops']}: " +
+                  ", ".join(f"{k} {v['median_ms']:.4f} ms ({v['min_ms']:.4f}"
+                            f"-{v['max_ms']:.4f})" for k, v in r.items()
+                            if isinstance(v, dict) and "median_ms" in v) +
+                  f"; kept {r['layout']}")
+        print("R' * R - S against torch.sub, ten rounds in turns: " +
+              ", ".join(f"{k} {v['median_ms']:.5f} ms ({v['min_ms']:.5f}-"
+                        f"{v['max_ms']:.5f})"
+                        for k, v in out["against_sub"].items()))
+        print(json.dumps({"tree": os.path.abspath(args.tree), "card": card,
+                          "layouts": out}))
+        return 0
     checked = [fusebench.check(eng, name, build)
                for name, build in fusebench.table_cases()]
     rows = fusebench.measure(eng, fusebench.record(), args.reps)

@@ -16,10 +16,13 @@ on the host's clock; beside them the least time the card could take
 (bytes: x read and y written once, 3.35 TB/s; operations: 4 (N - 1) + 2 a
 sample at the card's float64 or float32 rate). `iir_sweep` times the
 kernel at other stretch lengths on the same call. `seq_inputs` makes
-resample_pages.m's order-39 filter (40 coefficients) and `seq_row` holds
-the sequential kernel (`csrc/iir_seq.cu`, the orders above the scan's) to
-the plain version bit for bit over every output and times both beside the
-same bound. `builder_rows` times resample_pages.m's device builders
+resample_pages.m's order-39 filter (40 coefficients); `warp_row` holds the
+warp kernel (`csrc/iir_warp.cu`, orders 33-64) on it to the plain version
+as `held` does, and times it with its three phases beside the bound and the
+sequential kernel; `seq_row` holds the sequential kernel (`csrc/iir_seq.cu`,
+the orders above 64, and any order through `iir.seq_launch`) to the plain
+version bit for bit over every output and times both beside the same
+bound. `builder_rows` times resample_pages.m's device builders
 (interp1lin, topk, the page functions; `builder_calls`) beside their
 bounds and, where one PyTorch call computes the same function,
 `torch.topk` or `torch.bmm`; `host_waits` makes each while the card is
@@ -137,10 +140,8 @@ def iir_row(iir, x, b, a, z0, reps: int, path_y=None) -> dict:
             for k in range(1, len(iir.PHASES))] + [ms]
     phase_ms = dict(zip(iir.PHASES, [upto[0]] + [
         upto[k] - upto[k - 1] for k in range(1, len(upto))]))
-    n = x.numel()
-    name = "float64" if x.dtype == torch.float64 else "float32"
-    nb = b.numel()
-    bnd = bound(2 * n * x.element_size(), (4 * (nb - 1) + 2) * n, name)
+    n, nb = x.numel(), b.numel()
+    bnd = _iir_bound(x, b)
     return {"n": n, "order": nb - 1, "chunk": iir.CHUNK,
             "ok": all(c["ok"] for c in checks),
             "equal_first": all(c["equal_first"] for c in checks),
@@ -168,16 +169,17 @@ def seq_inputs(dtype, n: int, ncoef: int = 40, seed: int = 0,
 
 
 def seq_row(iir, x, b, a, z0, reps: int, path_y=None) -> dict:
-    """The sequential kernel (`iir.iir` with more than iir.MAX_COEFS
-    coefficients) on (x, b, a, z0) against its plain version, bit for bit
-    over every output (NaN equal to NaN), and `path_y` where given; its
-    time, the plain version's (the host loop, on the host's clock) and the
-    bound (x read and y written once at 3.35 TB/s, or 4 (N - 1) + 2
-    operations a sample at the type's rate)."""
+    """The sequential kernel (`iir.seq_launch`, csrc/iir_seq.cu, which `iir`
+    takes above iir.MAX_WARP_COEFS coefficients and which takes any order)
+    on (x, b, a, z0) against its plain version, bit for bit over every
+    output (NaN equal to NaN), and `path_y` where given; its time, the
+    plain version's (the host loop, on the host's clock) and the bound (x
+    read and y written once at 3.35 TB/s, or 4 (N - 1) + 2 operations a
+    sample at the type's rate)."""
     import torch
 
     from runmat_tpu_torch.histbench import time_ms
-    y = iir.iir(x, b, a, z0)
+    y = iir.seq_launch(x, b, a, z0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = iir.plain_iir(x, b, a, z0)
@@ -185,14 +187,83 @@ def seq_row(iir, x, b, a, z0, reps: int, path_y=None) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     checks = [held(o, want, x.numel(), 0.0)
               for o in [y] + ([] if path_y is None else [path_y.reshape(-1)])]
-    ms = time_ms(lambda: iir.iir(x, b, a, z0), reps)
-    n, nb = x.numel(), b.numel()
-    name = "float64" if x.dtype == torch.float64 else "float32"
-    bnd = bound(2 * n * x.element_size(), (4 * (nb - 1) + 2) * n, name)
-    return {"n": n, "order": nb - 1, "ok": all(c["ok"] for c in checks),
+    ms = time_ms(lambda: iir.seq_launch(x, b, a, z0), reps)
+    bnd = _iir_bound(x, b)
+    return {"n": x.numel(), "order": b.numel() - 1,
+            "ok": all(c["ok"] for c in checks),
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1]}
+
+
+def _iir_bound(x, b) -> tuple:
+    """The least time of a filter call: x read and y written once at
+    3.35 TB/s, or 4 (N - 1) + 2 operations a sample at the type's rate."""
+    import torch
+    n, nb = x.numel(), b.numel()
+    name = "float64" if x.dtype == torch.float64 else "float32"
+    return bound(2 * n * x.element_size(), (4 * (nb - 1) + 2) * n, name)
+
+
+def warp_row(iir, x, b, a, z0, reps: int, path_y=None, want=None,
+             seq_reps: int = 0) -> dict:
+    """The warp kernel (`iir.iir` with MAX_COEFS < N <= MAX_WARP_COEFS
+    coefficients, csrc/iir_warp.cu) on (x, b, a, z0) against `want` (the
+    plain version's y, made here, timed on the host's clock, where not
+    given): bit for bit on the first stretch of L samples, elsewhere
+    within iir.TOL of the largest output magnitude, non-finite values in
+    the same places (`held`), and `path_y` where given held the same way;
+    the kernel's time and each phase's (WARP_PHASES: the time of phases
+    1..k less that of 1..k-1), the bound and, with `seq_reps`, the
+    sequential kernel's time on the same input."""
+    import torch
+
+    from runmat_tpu_torch.histbench import time_ms
+    y = iir.iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    plain_ms = None
+    if want is None:
+        t0 = time.perf_counter()
+        want = iir.plain_iir(x, b, a, z0)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    n = x.numel()
+    chunk, group = iir.warp_shape(n)
+    tol = iir.TOL[x.dtype]
+    checks = [held(o, want, chunk, tol)
+              for o in [y] + ([] if path_y is None else [path_y.reshape(-1)])]
+    ms = time_ms(lambda: iir.iir(x, b, a, z0), reps)
+    upto = [time_ms(lambda: iir.warp_launch(x, b, a, z0, upto=k), reps)
+            for k in range(1, len(iir.WARP_PHASES))] + [ms]
+    phase_ms = dict(zip(iir.WARP_PHASES, [upto[0]] + [
+        upto[k] - upto[k - 1] for k in range(1, len(upto))]))
+    bnd = _iir_bound(x, b)
+    return {"n": n, "order": b.numel() - 1, "chunk": chunk, "group": group,
+            "ok": all(c["ok"] for c in checks),
+            "equal_first": all(c["equal_first"] for c in checks),
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "rel_err": max(c["rel_err"] for c in checks), "tol": tol,
+            "ms": ms, "phase_ms": phase_ms, "plain_ms": plain_ms,
+            "seq_ms": time_ms(lambda: iir.seq_launch(x, b, a, z0), seq_reps)
+            if seq_reps else None,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def warp_sweep(iir, x, b, a, z0, shapes, reps: int) -> list:
+    """The warp kernel on one call at each (L, g) of `shapes` (g = 0: the
+    carries in one level; L >= n: one warp walks the whole signal, phase 3
+    alone): its time, and one warp's cycles a sample at the 1.98 GHz
+    boost clock where a single stretch covers the call."""
+    from runmat_tpu_torch.histbench import time_ms
+    rows = []
+    for chunk, group in shapes:
+        ms = time_ms(lambda: iir.warp_launch(x, b, a, z0, chunk, group),
+                     reps)
+        row = {"chunk": chunk, "group": group, "ms": ms}
+        if chunk >= x.numel():
+            row["cycles_a_sample"] = ms * 1e-3 * 1.98e9 / x.numel()
+        rows.append(row)
+    return rows
 
 
 def builder_calls(n: int = N_SIGNAL, pages: int = 8192,
@@ -460,6 +531,16 @@ def main() -> int:
     print(f"iir_seq f64 n=2^22 order {r['order']}: kernel {r['ms']:.3f} ms,"
           f" plain {r['plain_ms']:.1f} ms (host loop), bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}), bit-equal {r['ok']}")
+    for lg in (18, 22):
+        x, b, a, z0 = seq_inputs(torch.float64, 1 << lg)
+        want = iir.seq_launch(x, b, a, z0) if lg == 22 else None
+        r = warp_row(iir, x, b, a, z0, args.reps, want=want, seq_reps=2)
+        out[f"iir_warp_2^{lg}"] = r
+        print(f"iir_warp f64 n=2^{lg} order {r['order']} L={r['chunk']} "
+              f"g={r['group']}: kernel {r['ms']:.4f} ms (phases "
+              f"{r['phase_ms']}), iir_seq {r['seq_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), first stretch "
+              f"bit-equal {r['equal_first']}, rel err {r['rel_err']:.3g}")
     calls = builder_calls()
     out["builders"] = builder_rows(args.reps, calls)
     out["waits"] = host_waits([(c[1], c[2]) for c in calls])

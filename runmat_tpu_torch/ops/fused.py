@@ -124,6 +124,13 @@ FLOATS = ("float32", "float64")
 DTYPES = FLOATS + ("bool",)
 _T = {"float32": "tl.float32", "float64": "tl.float64", "bool": "tl.int1"}
 BIG = (1 << 31) - (1 << 21)     # index math in int64 from here
+# a float64 map of more elements takes 8 warps a block of 1024, unless it
+# is one unary op: on an H100 that beat torch.sub on dense_linalg's 4096^2
+# map outside the ten-round spread and slowed no main-path group, where 8
+# warps slowed resample_pages' lone abs outside its spread
+# (fusebench.layout_sweep; PERF.md); float32 maps keep 4
+WIDE_MAP = 1 << 20
+WIDE_MAP_WARPS = 8
 
 # --------------------------------------------------------------------------- #
 # the op table: Triton expressions over operands already in the op's type
@@ -326,8 +333,12 @@ def layout(spec: Spec, sms: int = SMS_DEFAULT) -> dict:
     if spec.reduce is None:
         n = numel(spec.shape)
         block = min(1024, max(16, _pow2(n)))
+        warps = 4 if block >= 512 else 1
+        if n > WIDE_MAP and spec.label == "fused_map_f64" and not (
+                len(spec.body) == 1 and spec.body[0][0].startswith("u:")):
+            warps = WIDE_MAP_WARPS
         return {"N": n, "BLOCK": block, "grid": (-(-n // block),),
-                "num_warps": 4 if block >= 512 else 1}
+                "num_warps": warps}
     kept, red, col = spec.blocks()
     k = numel([spec.shape[d] for d in kept])
     r = numel([spec.shape[d] for d in red])

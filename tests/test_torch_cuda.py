@@ -1016,13 +1016,141 @@ def test_iir_kernel_refuses_what_it_does_not_take(card):
         iir.iir(x, c[:3].cpu(), c[:3], c[:2])
 
 
-@pytest.mark.parametrize("ncoef,n", [(34, 3001), (40, 5000), (200, 2500),
-                                     (2100, 1500)])
+# the warp kernel's orders (csrc/iir_warp.cu: 33 .. MAX_WARP_COEFS - 1)
+WARP_ORDERS = [33, 39, 64]
+
+
+def _warp_case(card, dtype, order, n, seed, pole=False):
+    """A random filter of `order` with sum |a[1:]| = 0.5 (stable), or with
+    `pole` a resonator of radius 0.999 times a random order - 2 part, and
+    a nonzero state."""
+    x, b, a, z0 = _iir_case(card, dtype, order, n, seed)
+    a = a.double()
+    a[1:] *= 0.5 / float(a[1:].abs().sum())
+    if pole:
+        r, th = 0.999, 0.05
+        res = torch.tensor([1, -2 * r * np.cos(th), r * r],
+                           dtype=torch.float64)
+        a = torch.tensor(np.convolve(a[:order - 1].cpu().numpy(),
+                                     res.numpy()), device=card)
+    return x, b, a.to(dtype), z0
+
+
+@pytest.mark.parametrize("order", WARP_ORDERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_warp_kernel_equals_plain(card, dtype, order):
+    # through iir.iir at its default shape (iir.warp_shape): a signal of
+    # one stretch bit for bit; 3001 samples (12 stretches) the first L
+    # bit for bit, the rest within iir.TOL of the largest output
+    from runmat_tpu_torch.ops import iir
+    assert iir.MAX_COEFS < order + 1 <= iir.MAX_WARP_COEFS
+    x, b, a, z0 = _warp_case(card, dtype, order, 3001, 500 + order)
+    before = collections.Counter(iir.launches_by)
+    got = iir.iir(x, b, a, z0)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    name = "iir_warp f64" if dtype == torch.float64 else "iir_warp f32"
+    assert collections.Counter(iir.launches_by) - before == {name: 1}
+    chunk = iir.warp_shape(x.numel())[0]
+    _iir_held(got, want, chunk)
+    short = x[:chunk - 5]
+    assert torch.equal(iir.iir(short, b, a, z0),
+                       iir.plain_iir(short, b, a, z0))
+
+
+# (L, g, n): carry groups of 4 over 156 stretches (four levels), one
+# level, 256 stretches in groups of 32 (two levels), a ragged last
+# stretch over 98 stretches in groups of 8, and 2048 stretches of 32 in
+# groups of 2 (the kernel's eight levels, the last one longer)
+@pytest.mark.parametrize("chunk,group,n", [(32, 4, 5000), (256, 0, 3001),
+                                           (256, 32, 1 << 16),
+                                           (1024, 8, 100_003),
+                                           (32, 2, 1 << 16)])
+@pytest.mark.parametrize("order", WARP_ORDERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_warp_kernel_over_many_stretches(card, dtype, order, chunk,
+                                             group, n):
+    from runmat_tpu_torch.ops import iir
+    x, b, a, z0 = _warp_case(card, dtype, order, n, 1000 * order + chunk)
+    got = iir.warp_launch(x, b, a, z0, chunk, group)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    _iir_held(got, want, chunk)
+
+
+@pytest.mark.parametrize("chunk,group", [(64, 8), (512, 0), (256, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_warp_kernel_near_a_pole_of_radius_0999(card, dtype, chunk,
+                                                    group):
+    # order 39: the carries reach across many stretches
+    from runmat_tpu_torch.ops import iir
+    x, b, a, z0 = _warp_case(card, dtype, 39, 1 << 16, 7, pole=True)
+    assert np.abs(np.roots(a.double().cpu().numpy())).max() > 0.998
+    got = iir.warp_launch(x, b, a, z0, chunk, group)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    _iir_held(got, want, chunk)
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iir_warp_kernel_carries_a_non_finite_value(card, dtype, bad):
+    # order 39, in the middle of stretch 40 of 64: every later output is
+    # non-finite
+    from runmat_tpu_torch.ops import iir
+    x, b, a, z0 = _warp_case(card, dtype, 39, 64 * 256 - 9, 3)
+    i = 40 * 256 + 100
+    x[i] = bad
+    got = iir.warp_launch(x, b, a, z0, 256, 4)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want[:i]).all())
+    assert not bool(torch.isfinite(want[i:]).any())
+    _iir_held(got, want, 256)
+
+
+@pytest.mark.parametrize("ncoef,route", [(33, "iir"), (34, "iir_warp"),
+                                         (65, "iir_warp"),
+                                         (66, "iir_seq")])
+def test_iir_routes_by_order(card, ncoef, route):
+    # orders 1-32 the scan, 33-64 the warp kernel, above the sequential one
+    from runmat_tpu_torch.ops import iir
+    x, b, a, z0 = _warp_case(card, torch.float64, ncoef - 1, 2000, ncoef)
+    before = collections.Counter(iir.launches_by)
+    got = iir.iir(x, b, a, z0)
+    want = iir.plain_iir(x, b, a, z0)
+    torch.cuda.synchronize()
+    assert collections.Counter(iir.launches_by) - before == \
+        {f"{route} f64": 1}
+    if route == "iir_seq":
+        assert torch.equal(got, want)
+    else:
+        _iir_held(got, want, iir.CHUNK if route == "iir"
+                  else iir.warp_shape(2000)[0])
+
+
+def test_iir_warp_kernel_refuses_what_it_does_not_take(card):
+    # more than MAX_WARP_COEFS coefficients, a chunk or group that is no
+    # power of two
+    from runmat_tpu_torch.ops import iir
+    x = torch.zeros(8, dtype=torch.float64, device=card)
+    c = torch.ones(iir.MAX_WARP_COEFS + 1, dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="at most"):
+        iir.warp_launch(x, c, c, c[1:])
+    c = c[:40]
+    with pytest.raises(ValueError, match="power of two"):
+        iir.warp_launch(x, c, c, c[1:], 48, 0)
+    with pytest.raises(ValueError, match="power of two"):
+        iir.warp_launch(x, c, c, c[1:], 64, 3)
+
+
+@pytest.mark.parametrize("ncoef,n", [(200, 2500), (2100, 1500)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_iir_high_orders_take_the_sequential_kernel(card, dtype, ncoef, n):
-    # above MAX_COEFS: csrc/iir_seq.cu, every output bit-equal to the plain
-    # version (2100 coefficients keep the state in device memory, not in
-    # shared memory)
+    # above MAX_WARP_COEFS: csrc/iir_seq.cu, every output bit-equal to the
+    # plain version (2100 coefficients keep the state in device memory,
+    # not in shared memory); orders 33-64 take the warp kernel
+    # (test_iir_warp_kernel_equals_plain)
     from runmat_tpu_torch.ops import iir
     x, b, a, z0 = _iir_case(card, dtype, ncoef - 1, n, ncoef)
     a[1:] *= 0.5 / max(1.0, float(a[1:].abs().sum()))
@@ -1152,6 +1280,7 @@ def _held(names, got, want, tol):
 
 @pytest.mark.parametrize("ncoef", [34, 41, 201])     # orders 33, 40, 200
 def test_filter_of_a_high_order_on_a_device_array(card, ncoef):
+    # orders 33 and 40 take the warp kernel, 200 the sequential one
     from runmat_tpu_torch.ops import iir
     m = ncoef - 1
     # the card session takes every array (x too); b and a are read on the
@@ -1160,8 +1289,9 @@ def test_filter_of_a_high_order_on_a_device_array(card, ncoef):
            f" a = [1 (0.5 / {m}) * ones(1, {m})]; w = filter(b, a, x);")
     before = collections.Counter(iir.launches_by)
     got, want, eng = _card_and_host(src, ["w"])
+    route = "iir_warp" if ncoef <= iir.MAX_WARP_COEFS else "iir_seq"
     assert collections.Counter(iir.launches_by) - before == \
-        {"iir_seq f64": 1}
+        {f"{route} f64": 1}
     assert eng.stats["host_fallbacks"] == 0
     # the host engine filters with its own recurrence (scipy's lfilter)
     _held(["w"], got, want, 1e-12)

@@ -389,6 +389,38 @@ def test_a_one_program_reduction_generates_one_kernel():
     assert _kernels(fused.source(many)) == {"part_kernel", "fin_kernel"}
 
 
+# (shape, dtype, op, warps): a float64 map of more than fused.WIDE_MAP
+# (2^20) elements takes 8 warps a block of 1024 (dense_linalg's 4096^2
+# maps, spectral's and resample_pages' 2^22 ones, the 32 x 32 x 8192
+# pages), unless it is one unary op (resample_pages' abs); every float32
+# map keeps the layout it had (4 warps from a block of 512, 1 below), as
+# does a float64 map of 2^20 elements or fewer
+@pytest.mark.parametrize("shape,dt,op,warps", [
+    ((4096, 4096), "float64", "b:sub", 8),
+    ((4194304, 1), "float64", "b:sub", 8),
+    ((32, 32, 8192), "float64", "b:add", 8),
+    ((1, (1 << 20) + 1), "float64", "b:sub", 8),
+    ((4194304, 1), "float64", "u:abs", 4),
+    ((1, 1 << 20), "float64", "b:sub", 4),
+    ((2048, 2048), "float32", "b:sub", 4),
+    ((1, 10 ** 7), "float32", "b:mul", 4),
+    ((1, 10 ** 7), "float32", "u:abs", 4),
+    ((1, 10 ** 6), "float32", "b:sub", 4),
+    ((1, 1000), "float32", "b:sub", 4), ((1, 100), "float32", "b:sub", 1),
+    ((1, 100), "float64", "b:sub", 1)])
+def test_map_layout_gives_large_float64_maps_eight_warps(shape, dt, op,
+                                                         warps):
+    args = (("x", 0),) if op.startswith("u:") else (("x", 0), ("x", 1))
+    spec = fused.Spec(shape=shape, inputs=((shape, dt),) * len(args),
+                      body=((op, (dt,), dt, args),),
+                      reduce=None, outputs=(0,))
+    n = int(np.prod(shape))
+    block = min(1024, max(16, 1 << (n - 1).bit_length()))
+    assert fused.layout(spec) == {"N": n, "BLOCK": block,
+                                  "grid": (-(-n // block),),
+                                  "num_warps": warps}
+
+
 @pytest.mark.parametrize("dt", ["float32", "float64"])
 def test_an_epilogue_exponent_branches_in_the_one_kernel(dt):
     # mean over rows of 16 x 1000, then .^ e with e a one-element input:
@@ -506,13 +538,15 @@ def test_library_calls_compute_their_group(name, monkeypatch):
                 "monte_carlo": {("c:full", "b:mul")},
                 "image_normalize": {("r:mean", "cast")},
                 "dense_linalg": {("b:div",), ("b:sub",), ("b:add",)},
+                # ("b:pow",): a `.^` by a scalar, torch.pow
                 "spectral": {("c:linspace",), ("r:mean",), ("b:div",),
-                             ("b:mul",)},
+                             ("b:mul",), ("b:pow",)},
                 # no ("b:add",): the pages' `randn(32, 32, P) + 32*eye(32)`
                 # lines up its operands from the first dim, torch.add from
-                # the last
+                # the last; `abs(y)` is torch.abs, `t .^ 1.5` torch.pow
                 "resample_pages": {("c:linspace",), ("r:mean",), ("b:mul",),
-                                   ("c:full", "b:mul")}}[name]
+                                   ("c:full", "b:mul"), ("u:abs",),
+                                   ("b:pow",)}}[name]
     assert kinds == expected, kinds
 
 

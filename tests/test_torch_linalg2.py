@@ -123,8 +123,8 @@ def test_pagefun_mtimes_is_the_batched_product():
 
 
 def test_filter_of_order_39_matches_the_jax_scan():
-    # the card takes csrc/iir_seq.cu here (tests/test_torch_cuda.py); on
-    # the CPU both routes are the plain version
+    # the card takes csrc/iir_warp.cu here (tests/test_torch_cuda.py); on
+    # the CPU every route is the plain version
     b = run_both("rng(1); x = gpuArray(randn(3000, 1));",
                  "w = filter(ones(1, 40) / 40, [1 0.01*ones(1, 39)], x);")
     _dev(b, ["w"], 1e-13)

@@ -152,6 +152,94 @@ def test_chunked_iir_carries_a_non_finite_value(dtype, bad):
     _held(got, want, dtype)
 
 
+# the warp kernel's orders (csrc/iir_warp.cu: 33 .. 64, MAX_WARP_COEFS - 1)
+WARP_ORDERS = [33, 39, iir.MAX_WARP_COEFS - 1]
+
+
+def _stable_filter(rng, order, dtype):
+    """b, a (a[0] = 1, sum |a[1:]| = 0.5, so every pole lies inside the
+    unit circle) and z0 != 0 of a random filter."""
+    n = order + 1
+    b = (rng.standard_normal(n) * 0.3).astype(dtype)
+    a = rng.standard_normal(n)
+    a = (a * (0.5 / np.abs(a[1:]).sum())).astype(dtype)
+    a[0] = 1
+    z0 = (rng.standard_normal(n - 1) * 0.1).astype(dtype)
+    return b, a, z0
+
+
+def _warp_model(x, b, a, z0, chunk, group):
+    """The warp kernel's model (sequential carries in groups) and the plain
+    version on the same inputs."""
+    args = [torch.from_numpy(v) for v in (x, b, a, z0)]
+    return (iir.chunked_iir(*args, chunk, group).numpy(),
+            iir.plain_iir(*args).numpy())
+
+
+def test_warp_route_covers_orders_33_to_64():
+    # the chunked scan up to 33 coefficients, the warp kernel up to 65
+    assert iir.MAX_COEFS == 33 and iir.MAX_WARP_COEFS == 65
+    assert WARP_ORDERS[-1] == 64
+    for n in (1, 1 << 18, 1 << 22, 1 << 30):
+        chunk, group = iir.warp_shape(n)
+        assert chunk & (chunk - 1) == 0 and group & (group - 1) == 0
+
+
+# L = 16 over 1000 samples: 63 stretches, carries in groups of 2 over six
+# levels; L = 256: 4 stretches, one level
+@pytest.mark.parametrize("chunk,group", [(16, 2), (256, 0)])
+@pytest.mark.parametrize("order", WARP_ORDERS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_warp_model_matches_the_jax_scan(dtype, order, chunk, group):
+    rng = np.random.default_rng(300 + order)
+    x = rng.standard_normal(N_CHUNKED).astype(dtype)
+    b, a, z0 = _stable_filter(rng, order, dtype)
+    want = np.asarray(_jax_iir()(x, b, a, z0))
+    got, plain = _warp_model(x, b, a, z0, chunk, group)
+    assert got.dtype == want.dtype == dtype
+    _held(got, want, dtype)
+    # stretch 0 is the plain version's, bit for bit
+    assert np.array_equal(got[:chunk], plain[:chunk])
+
+
+@pytest.mark.parametrize("chunk,group", [(64, 8), (512, 0)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_warp_model_near_a_pole_of_radius_0999(dtype, chunk, group):
+    # order 39: a resonator with poles at 0.999 exp(+-0.05 i) times a
+    # random order-37 part; the carries reach across many stretches
+    rng = np.random.default_rng(39)
+    n = 64 * 64 + 13
+    x = rng.standard_normal(n).astype(dtype)
+    b, a, z0 = _stable_filter(rng, 37, np.float64)
+    _, res, _ = _resonator(np.float64)
+    b = np.concatenate([b, rng.standard_normal(2) * 0.3]).astype(dtype)
+    a = np.convolve(a, res).astype(dtype)
+    z0 = (rng.standard_normal(39) * 0.1).astype(dtype)
+    assert np.abs(np.roots(a.astype(np.float64))).max() > 0.998
+    want = np.asarray(_jax_iir()(x, b, a, z0))
+    got, plain = _warp_model(x, b, a, z0, chunk, group)
+    _held(got, want, dtype)
+    assert np.array_equal(got[:chunk], plain[:chunk])
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_warp_model_carries_a_non_finite_value(dtype, bad):
+    # order 39, a NaN or Inf in the middle of stretch 9 of 16: every later
+    # output is non-finite, through the stretch's end state and the carries
+    rng = np.random.default_rng(12)
+    chunk = 64
+    x = rng.standard_normal(16 * chunk - 5).astype(dtype)
+    x[9 * chunk + 30] = bad
+    b, a, z0 = _stable_filter(rng, 39, dtype)
+    want = np.asarray(_jax_iir()(x, b, a, z0))
+    got, plain = _warp_model(x, b, a, z0, chunk, 4)
+    assert np.isfinite(want[:9 * chunk + 30]).all()
+    assert not np.isfinite(want[9 * chunk + 30:]).any()
+    _held(got, want, dtype)
+    assert np.array_equal(got[:chunk], plain[:chunk])
+
+
 def test_iir_wrapper_checks_its_inputs():
     x = torch.zeros(8, dtype=torch.float64)
     b = torch.ones(3, dtype=torch.float64)
