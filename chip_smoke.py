@@ -123,13 +123,31 @@ line is printed:
      builtin module the slice copied) in a card session against the
      host engine, skipping the one whose module needs a package this
      machine lacks (sympy);
-  9. one JSON line of kernel results, then the result line
+  9. sparse path: the sparse CG kernels (csrc/spcg.cu: spmv_f64,
+     cg_scalars, cg_update, cg_direction) against their plain versions
+     (runmat_tpu_torch/spbench.py): the product bit for bit on rows that
+     are empty, a row of 5000 nonzeros, triangles that differ in the last
+     bits and the path's matrix; the whole solve against plain_cg on a
+     60^2 Poisson system and a seeded SPD sprandsym-style matrix, twice
+     bit for bit the same, x within 1e-8 of plain's largest entry; each
+     kernel of one iteration at the path's shape against the JAX body's
+     torch ops on the same inputs, timed beside its bound, its plain
+     version and cuSPARSE's product or torch.add; then
+     runmat_tpu_torch/workloads/sparse_poisson.m at N = 1024 (1,048,576
+     unknowns) through Session.run_source: one device solve, its
+     iterations in chunks of spcg.CHUNK, one read of the done flag a chunk
+     (the engine's only syncs, and the waits torch sees equal the counted
+     reads), each kernel launched as often as the chunks say, the loop's
+     residual under 1e-10, x within 1e-8 of plain_cg's on the card and its
+     norm(b - A*x)/norm(b) no more than 1 % above plain_cg's, under 128 MB
+     uploaded (the CSR, 1/diag(A) and b); the warm walls and a profile;
+ 10. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
 against that call in turns, ten rounds, for the run-to-run spread of
 both, and prints the layout of each float64 map of more than 2^20
 elements (8 warps a block since the layout sweep of fusebench.py). Each
-kernel's `launches` is read from the runs of phases 4 to 8, with the
+kernel's `launches` is read from the runs of phases 4 to 9, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches, or for its one where one program covers each
 segment); each generated group is a row of its own, counted by its
@@ -252,6 +270,21 @@ IIR_WARP_SWEEP = {18: ((1 << 18, 0), (64, 0), (128, 0), (64, 16),
 PAGES_LINALG = {"interp1lin": 1, "topk": 2, "iir": 1, "pagemtimes": 3,
                 "pagesolve": 1, "pageinv": 1, "pagenorm": 1}
 SPREAD_ROUNDS = 10
+SPARSE_WORKLOAD = "runmat_tpu_torch/workloads/sparse_poisson.m"
+# the sparse CG kernels and the line of runmat_tpu/sparse.py:_cg_device
+# each replaces (its body's product, alpha, updates and direction; the
+# scalars kernel also finishes beta and the loop's condition, 270-277)
+SPARSE_KERNELS = {"spmv_f64": "265", "cg_scalars": "266", "cg_update": "267",
+                  "cg_direction": "271"}
+# the loop's own test, norm(r) > tol * norm(b) on the recurrence's r
+SPARSE_TOL = 1e-10
+# the true residual norm(b - A x) / norm(b) of the kernels' x against
+# plain_cg's (the JAX loop in torch ops) on the same system: the
+# recurrence's r drifts from b - A x over thousands of iterations in both,
+# and the kernels' may not drift further by more than 1 %
+SPARSE_DRIFT = 1.01
+# sparse_poisson.m uploads its CSR (the CSC of A'), 1/diag(A) and b
+SPARSE_TRANSFER_LIMIT = 128 << 20
 
 
 class SmokeFailure(Exception):
@@ -621,25 +654,27 @@ def _sync_check(src: str, label: str) -> None:
 
 
 def _zero_launches() -> None:
-    from runmat_tpu_torch.ops import fused, histogram, iir, threefry
-    for mod in (histogram, threefry, fused, iir):
+    from runmat_tpu_torch.ops import fused, histogram, iir, spcg, threefry
+    for mod in (histogram, threefry, fused, iir, spcg):
         mod.launches = 0
         mod.launches_by.clear()
 
 
 def _read_launches() -> dict:
-    from runmat_tpu_torch.ops import fused, histogram, iir, threefry
+    from runmat_tpu_torch.ops import fused, histogram, iir, spcg, threefry
     return {"threefry": dict(threefry.launches_by),
             "histogram": dict(histogram.launches_by),
             "fused": dict(fused.launches_by),
-            "iir": dict(iir.launches_by)}
+            "iir": dict(iir.launches_by),
+            "spcg": dict(spcg.launches_by)}
 
 
 def _group(name: str) -> str:
     """The launch counter a kernel row reads."""
     return "threefry" if name.startswith("threefry") else \
         "histogram" if name.startswith("histcounts") else \
-        "iir" if name.startswith("iir") else "fused"
+        "iir" if name.startswith("iir") else \
+        "spcg" if name in SPARSE_KERNELS else "fused"
 
 
 def phase_fused_kernel() -> list:
@@ -1612,6 +1647,156 @@ def phase_pages_path() -> dict:
     return launches
 
 
+def _sparse_kernels() -> dict:
+    """spmv_f64 against plain_spmv bit for bit on rows that are empty, a
+    row of 5000 nonzeros, triangles that differ in the last bits and the
+    path's Poisson matrix; the whole solve against plain_cg on a 60^2
+    Poisson system and a seeded SPD sprandsym-style one (twice, bit for
+    bit the same); then each kernel of one iteration at the path's shape
+    held to the JAX body's torch ops and timed (runmat_tpu_torch/
+    spbench.py)."""
+    import torch
+
+    from runmat_tpu_torch import histbench, spbench
+    from runmat_tpu_torch.ops import spcg
+    dev = torch.device("cuda")
+    for label, *csr in spbench.spmv_cases(dev):
+        r = spbench.spmv_held(spcg, *csr)
+        check(r["equal"], f"spmv_f64 {label}: {r}")
+        print(f"kernel spmv_f64 {label}: equal to plain_spmv bit for bit")
+    for label, *system in spbench.cg_cases(dev):
+        r = spbench.cg_held(spcg, *system)
+        check(r["ok"], f"cg {label}: {r}")
+        print(f"kernel cg {label}: {r['iterations']} iterations (plain "
+              f"{r['plain_iterations']}), two solves bit-equal, x within "
+              f"{r['rel_err']:.3g} of plain's largest entry (limit "
+              f"{spbench.X_TOL:g}), residual {r['residual']:.3g}")
+    steps = spbench.step_rows(spcg, histbench.time_ms, TIMING_REPS)
+    check(steps["init_ok"] and all(r["ok"] for r in steps["rows"].values()),
+          f"a CG kernel against the JAX body's torch ops: {steps}")
+    for name, r in steps["rows"].items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"time {name} (sparse_poisson.m, n={steps['n']}, nnz="
+              f"{steps['nnz']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} "
+              f"bytes), share of bound {r['bound_ms'] / r['ms']:.3f}; max "
+              f"abs err against the body's torch ops {r['max_abs_err']:.3g}")
+    it = steps["iteration"]
+    print(f"time cg iteration (sparse_poisson.m): five launches "
+          f"{it['ms']:.4f} ms eagerly, {it['graph_ms']:.4f} ms an iteration "
+          f"of a replayed graph of {spcg.CHUNK}, plain {it['plain_ms']:.4f} "
+          f"ms, bound {it['bound_ms']:.4f} ms ({it['bound_by']}, "
+          f"{it['bytes']} bytes), share of bound "
+          f"{it['bound_ms'] / it['graph_ms']:.3f}; cuSPARSE's product alone "
+          f"{it['library_ms']:.4f} ms")
+    return steps["rows"]
+
+
+def phase_sparse_path() -> dict:
+    """sparse_poisson.m at its default N = 1024 (1,048,576 unknowns,
+    5,240,830 nonzeros) through Session.run_source: A\\b solved by the CG
+    kernels, every chunk of iterations a graph replay and one read of the
+    done flag; x held to plain_cg on the card, the residuals, the launches
+    and reads, the waits, the warm walls and a profile. After the kernels
+    against their plain versions."""
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, profile, spbench
+    from runmat_tpu_torch.ops import spcg
+    rows = _sparse_kernels()
+    src = open(SPARSE_WORKLOAD).read()
+    dev = torch.device("cuda")
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    _zero_launches()
+    t0 = time.perf_counter()
+    output = _run_source(s, src)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    st, reasons = dict(eng.stats), dict(eng.sync_reasons)
+    solves = [e for e in eng.launch_log if e["cat"] == "sparse_cg"]
+    check(len(solves) == 1, f"sparse_poisson: device solves {solves}")
+    k = solves[0]["iterations"]
+    chunks = max(1, -(-k // spcg.CHUNK))
+    reads = reasons.get("cg", 0)
+    check(reads == chunks == st["syncs"],
+          f"sparse_poisson: {reads} reads of the done flag, {st['syncs']} "
+          f"syncs, for {k} iterations in chunks of {spcg.CHUNK}")
+    it = chunks * spcg.CHUNK
+    want = {"spmv_f64": it, "cg_scalars": 1 + 2 * it, "cg_update": 1 + it,
+            "cg_direction": it}
+    check(launches["spcg"] == want,
+          f"sparse_poisson: launches {launches['spcg']}, want {want}")
+    check(st["host_fallbacks"] == 0,
+          f"sparse_poisson: {st['host_fallbacks']} host fallbacks")
+    check(st["upload_bytes"] < SPARSE_TRANSFER_LIMIT,
+          f"sparse_poisson: {st['upload_bytes']} bytes uploaded")
+    solver = eng.spcg_cache["solver"]
+    loop_res = (float(solver.sc[4]) / float(solver.sc[1])) ** 0.5
+    check(k < solver.maxit and loop_res <= SPARSE_TOL,
+          f"sparse_poisson: {k} iterations, the loop's residual {loop_res}")
+    A, x = s.get("A"), s.get("x")
+    bh = np.array(s.get("b").host(), dtype=np.float64).reshape(-1)
+    xh = np.array(x.host(), dtype=np.float64).reshape(-1)
+    check(xh.shape == (A.n,) and bool(np.isfinite(xh).all()),
+          f"sparse_poisson: x {xh.shape}, finite {np.isfinite(xh).all()}")
+    printed = _result_value(output, "POISSON")
+    check(abs(printed - xh.sum()) <= 1e-12 * abs(xh.sum()),
+          f"sparse_poisson: printed {printed!r}, sum(x) {xh.sum()!r}")
+    rowptr, col, val = spbench.csr_of(A, dev)
+    bv = torch.from_numpy(bh).to(dev)
+    invd = spbench.inverse_diagonal(rowptr, col, val)
+    t0 = time.perf_counter()
+    xp, kp = spcg.plain_cg(rowptr, col, val, bv, invd)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    xd = torch.from_numpy(xh).to(dev)
+    err = float((xd - xp).abs().max())
+    scale = float(xp.abs().max())
+    res = spbench.residual(rowptr, col, val, xd, bv)
+    res_plain = spbench.residual(rowptr, col, val, xp, bv)
+    check(err <= spbench.X_TOL * scale,
+          f"sparse_poisson: x {err:g} off plain_cg's (largest {scale:g})")
+    check(res <= SPARSE_DRIFT * res_plain,
+          f"sparse_poisson: residual {res:g}, plain_cg's {res_plain:g}")
+    print(f"port sparse_poisson: {output.strip()}; n={A.n}, nnz={A.nnz}; "
+          f"{k} iterations (plain_cg {kp}, {plain_s:.1f} s), the loop's "
+          f"residual {loop_res:.3g} (limit {SPARSE_TOL:g}), "
+          f"norm(b - A*x)/norm(b) {res:.3g} (plain_cg's x {res_plain:.3g}), "
+          f"x within {err:.3g} of plain_cg's (largest {scale:.6g}, limit "
+          f"{spbench.X_TOL:g} of it); {reads} reads of the done flag, "
+          f"launches {launches['spcg']}; {st['uploads']} uploads "
+          f"({st['upload_bytes']} bytes), {st['gathers']} gathers "
+          f"({st['gather_bytes']} bytes); the solve "
+          f"{solves[0]['enqueue_ms']:.1f} ms; first run {wall * 1e3:.1f} ms")
+    del s, A, x, xd, xp, bv, rowptr, col, val, invd, solver
+    runmat_tpu_torch.uninstall()
+    _sync_check(src, "sparse_poisson")
+    _walls(src, "sparse_poisson", preview=False)
+    prof = profile.profile_script(src, top=8)
+    print(f"profile sparse_poisson: wall {prof['wall_ms']:.1f} ms, "
+          f"{prof['device_items']} device items, busy {prof['busy_ms']:.3f} "
+          f"ms, idle share {prof['idle_share']:.3f}; device top " +
+          "; ".join(f"{ms:.3f} ms x{c} {key[:60]}"
+                    for key, ms, c in prof["device_top"]))
+    phase_sparse_path.kernels = [
+        {"name": name, "route": "cuda",
+         "source": "runmat_tpu_torch/csrc/spcg.cu",
+         "replaces": f"runmat_tpu/sparse.py:{line}",
+         "launches": 0, "launch_key": name,
+         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
+         "plain_ms": rows[name]["plain_ms"],
+         "bound_ms": rows[name]["bound_ms"],
+         "bound_by": rows[name]["bound_by"],
+         "library_ms": rows[name]["library_ms"]}
+        for name, line in SPARSE_KERNELS.items()]
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -1627,9 +1812,10 @@ def main() -> int:
             phase(phase_fused_kernel)
         paths = [phase(phase_main_path), phase(phase_statistics_path),
                  phase(phase_indexing_path),
-                 phase(phase_linalg_signal_path), phase(phase_pages_path)]
+                 phase(phase_linalg_signal_path), phase(phase_pages_path),
+                 phase(phase_sparse_path)]
         kernels += phase_linalg_signal_path.kernels + \
-            phase_pages_path.kernels
+            phase_pages_path.kernels + phase_sparse_path.kernels
         for k in kernels:
             key = k.pop("launch_key")
             on_path = k.pop("on_path", True)

@@ -357,6 +357,9 @@ class TorchEngine:
         # program structure (accel/loops.py: their captured CUDA graphs);
         # reset(gpuDevice) and `release` clear it
         self._jit_cache: dict = {}
+        # the sparse CG's buffers and captured graph (`ops/spcg.cg`): the
+        # last solve's, kept for the next of the same shape
+        self.spcg_cache: dict = {}
         self.stats = {"dispatches": 0, "compiles": 0, "cache_hits": 0,
                       "uploads": 0, "gathers": 0, "upload_bytes": 0,
                       "gather_bytes": 0, "host_fallbacks": 0,
@@ -385,6 +388,7 @@ class TorchEngine:
     def release(self) -> None:
         """Drop the captured graphs and their private memory pools."""
         self._jit_cache.clear()
+        self.spcg_cache.clear()
 
     def to_device(self, h: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor in physical shape (always a copy). To

@@ -101,6 +101,27 @@ SNIPPETS = [
      "f = parfeval(@(a) a * 2, 1, 21); r = fetchOutputs(f); d = isdone(f);"
      " h = spawn(@() 5); v = await(h); w = wait(f); clear f h;",
      EXACT),
+    ("sparse", "sparse_builtins",
+     "A = sparse([1 2 3 3], [1 2 3 1], [4 5 6 1]); F = full(A);"
+     " z = issparse(A); I = speye(3); O = spones(A); Z = spalloc(3, 3, 4);"
+     " D = spdiags([1 2 3; 4 5 6; 7 8 9], [-1 0 1], 3, 3); nz = nonzeros(A);"
+     " B = A' * I + A; y = B * [1; 2; 3]; x = A \\ [1; 2; 3];"
+     " rng(2); R = sprand(4, 5, 0.3); S = sprandsym(5, 0.3); after = rand;",
+     EXACT),
+    ("itersolve", "itersolve",
+     "n = 40; e = ones(n, 1); A = spdiags([-e 4*e -e], -1:1, n, n);"
+     " xt = (1:n)' / n; b = A * xt; [x, flag, relres, it] = pcg(A, b, 1e-10, 200);"
+     " L = ichol(A); [x2, f2] = pcg(A, b, 1e-10, 200, L, L');"
+     " [y, fy] = bicgstab(A, b, 1e-10, 200); [g, fg] = gmres(A, b, 10, 1e-10, 20);"
+     " [Li, Ui] = ilu(A);",
+     EXACT),
+    ("fea", "fea_builtins",
+     "m = femesh([2 1 1], [4 2 2]); i = femesh_info(m); c = fea_node_coords(m);"
+     " t = fea_boundary_nodes(m, 'x==L'); k = numel(t);"
+     " r = fea_linear_static(m, 1000, 0.3, 'x==0', [t, zeros(k, 2), (-0.01/k)*ones(k, 1)]);"
+     " u = r.max_displacement; th = fea_thermal(m, 3.7, {'x==0', 100; 'x==L', 0});"
+     " T = th.temperature; clear m;",
+     EXACT),
 ]
 
 # module -> the package its snippet needs beyond the port's own

@@ -18,13 +18,6 @@ from ...errors import MatError, bad_arg
 from ...values import MatArray, fortran_ravel, is_text, text_of
 from ..registry import builtin
 from .common import scalar_int, scalar_num
-from ...unported import not_ported
-
-
-def _sparse(a) -> bool:
-    """Whether `a` is a sparse.SparseMatrix: never here, since the port does
-    not carry `sparse.py` yet (ROADMAP A16) and so makes no sparse value."""
-    return False
 
 
 def _f(v) -> np.ndarray:
@@ -317,11 +310,12 @@ def m_rref(a, tol=None, nargout=1):
 def m_eigs(a, k=None, sigma=None, nargout=1):
     """k extremal eigenvalues. Dense path: full eig then select; sparse path:
     scipy ARPACK (host helper, like the reference's system LAPACK)."""
+    from ...sparse import SparseMatrix
     kk = scalar_int(k, "k") if k is not None else 6
     which = "lm"
     if sigma is not None and is_text(sigma):
         which = text_of(sigma).lower()
-    if _sparse(a):
+    if isinstance(a, SparseMatrix):
         import scipy.sparse as sps
         import scipy.sparse.linalg as spl
         S = a.to_scipy()
@@ -387,7 +381,8 @@ def m_lscov(a, b, w=None, nargout=1):
 @builtin("symrcm", category="math/linalg", min_in=1, max_in=1)
 def m_symrcm(a):
     """Reverse Cuthill-McKee ordering (bandwidth-reducing permutation)."""
-    if _sparse(a):
+    from ...sparse import SparseMatrix
+    if isinstance(a, SparseMatrix):
         import scipy.sparse as sps
         from scipy.sparse.csgraph import reverse_cuthill_mckee
         S = sps.csr_matrix(a.to_scipy())
@@ -506,10 +501,11 @@ def m_is_ill_conditioned(d):
 def m_svds(a, k=None, sigma=None, nargout=1):
     """k largest (or 'smallest') singular values / factors. Sparse path:
     ARPACK via the scipy host helper; dense: full SVD then select."""
+    from ...sparse import SparseMatrix
     kk = scalar_int(k, "k") if k is not None else 6
     smallest = sigma is not None and is_text(sigma) and \
         text_of(sigma).lower() in ("smallest", "smallestabs", "sm")
-    if _sparse(a) and min(a.m, a.n) > 2:
+    if isinstance(a, SparseMatrix) and min(a.m, a.n) > 2:
         import scipy.sparse.linalg as spl
         kk = min(kk, min(a.m, a.n) - 1)
         u, s, vt = spl.svds(a.to_scipy(), k=kk,
@@ -518,7 +514,7 @@ def m_svds(a, k=None, sigma=None, nargout=1):
         u, s, vt = u[:, order], s[order], vt[order]
     else:
         h = a.to_matarray().host().astype(np.float64) \
-            if _sparse(a) else _f(a)
+            if isinstance(a, SparseMatrix) else _f(a)
         u, s, vt = np.linalg.svd(h, full_matrices=False)
         if smallest:
             u, s, vt = u[:, ::-1], s[::-1], vt[::-1]
@@ -534,7 +530,8 @@ def m_svds(a, k=None, sigma=None, nargout=1):
 def m_condest(a, t=None):
     """1-norm condition estimate: norm1(A) * est(norm1(inv(A))) via the
     Hager/Higham one-norm estimator (scipy host helper on sparse LU)."""
-    if _sparse(a):
+    from ...sparse import SparseMatrix
+    if isinstance(a, SparseMatrix):
         import scipy.sparse.linalg as spl
         S = a.to_scipy().tocsc()
         if S.shape[0] != S.shape[1]:
@@ -565,8 +562,30 @@ def m_condest(a, t=None):
 def m_sprandsym(n_or_s, density=None, ctx=None):
     """sprandsym(n, density): random symmetric sparse; sprandsym(S):
     symmetric with the sparsity structure of S."""
-    # it builds a SparseMatrix, which the port does not carry yet
-    not_ported("sparse matrices", "A16")
+    from ...sparse import SparseMatrix
+    from ...ops import ctrng
+    if isinstance(n_or_s, SparseMatrix):
+        S = n_or_s
+        vals = ctrng.host_rand(ctx.session.rng, S.data.size, "double") * 2 - 1
+        A = SparseMatrix(S.m, S.n, S.indptr, S.rowind, vals).to_matarray()
+        h = A.host()
+        out = np.tril(h) + np.tril(h, -1).T
+        return SparseMatrix.from_dense(out)
+    n = scalar_int(n_or_s, "n")
+    d = float(density.host().reshape(-1)[0]) if density is not None else 0.1
+    nnz_target = max(1, int(round(d * n * n)))
+    m = (nnz_target + 1) // 2
+    draws = ctrng.host_rand(ctx.session.rng, 3 * m, "double")
+    ii = np.minimum((draws[:m] * n).astype(np.int64), n - 1)
+    jj = np.minimum((draws[m:2 * m] * n).astype(np.int64), n - 1)
+    vv = draws[2 * m:] * 2 - 1
+    lower = np.where(ii >= jj, True, False)
+    r = np.where(lower, ii, jj)
+    c = np.where(lower, jj, ii)
+    dense = np.zeros((n, n))
+    dense[r, c] = vv
+    out = np.tril(dense) + np.tril(dense, -1).T
+    return SparseMatrix.from_dense(out)
 
 
 @builtin("tensorprod", category="math/linalg", min_in=2, max_in=6)

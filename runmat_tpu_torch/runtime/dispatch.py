@@ -135,7 +135,10 @@ def binary(op: str, a, b):
     r = _obj_binop(op, a, b)
     if r is not None:
         return r
-    # sparse and datetime values: not yet ported (ROADMAP A16)
+    from ..sparse import SparseMatrix
+    if isinstance(a, SparseMatrix) or isinstance(b, SparseMatrix):
+        return _sparse_binary(op, a, b)
+    # datetime values: not yet ported (ROADMAP A16)
     if type(a).__name__ == "SymValue" or type(b).__name__ == "SymValue":
         from .builtins.symbolic import sym_binary
         r = sym_binary(op, a, b)
@@ -336,7 +339,12 @@ def unary(op: str, a):
         r = sym_unary(op, a)
         if r is not None:
             return r
-    # sparse values: not yet ported (ROADMAP A16)
+    from ..sparse import SparseMatrix
+    if isinstance(a, SparseMatrix):
+        fn = table.UNARY.get(op)
+        if fn is not None and float(fn(np, np.zeros(1))[0]) == 0.0:
+            return a.map_nonzeros(lambda d: fn(np, d)).prune()
+        return unary(op, a.to_matarray())
     return _unary_impl(op, a)
 
 
@@ -419,7 +427,18 @@ def mtimes(a, b):
     if type(a).__name__ in ("MatDatetime", "MatDuration") or \
             type(b).__name__ in ("MatDatetime", "MatDuration"):
         return binary("mul", a, b)
-    # sparse values: not yet ported (ROADMAP A16)
+    from ..sparse import SparseMatrix
+    if isinstance(a, SparseMatrix) or isinstance(b, SparseMatrix):
+        if isinstance(a, SparseMatrix) and isinstance(b, SparseMatrix):
+            return a.spmm(b)
+        if isinstance(a, SparseMatrix):
+            if getattr(b, "size", 0) == 1:
+                return a.map_nonzeros(lambda d: d * float(b.host().reshape(-1)[0])).prune()
+            return MatArray(a.matmul(b.host().astype(np.float64)), "double")
+        if getattr(a, "size", 0) == 1:
+            return b.map_nonzeros(lambda d: float(a.host().reshape(-1)[0]) * d).prune()
+        return MatArray(b.transpose().matmul(a.host().astype(np.float64).T).T.copy(),
+                        "double")
     a, b = as_matarray(a), as_matarray(b)
     if a.is_scalar or b.is_scalar:
         return binary("mul", a, b)
@@ -453,7 +472,13 @@ def mldivide(a, b):
     r = _obj_binop("mldivide", a, b)
     if r is not None:
         return r
-    # sparse values: not yet ported (ROADMAP A16)
+    from ..sparse import SparseMatrix
+    if isinstance(a, SparseMatrix):
+        bb = b.to_dense() if isinstance(b, SparseMatrix) else \
+            b.host().astype(np.float64)
+        return MatArray(a.solve(bb), "double")
+    if isinstance(b, SparseMatrix):
+        b = b.to_matarray()
     a, b = as_matarray(a), as_matarray(b)
     if a.is_scalar:
         return binary("ldiv", a, b)
@@ -549,6 +574,9 @@ def _mpower_impl(a, b) -> MatArray:
 # --------------------------------------------------------------------------- #
 
 def transpose(a):
+    from ..sparse import SparseMatrix
+    if isinstance(a, SparseMatrix):
+        return a.transpose()
     if type(a).__name__ in ("MatDatetime", "MatDuration"):
         if a.data.ndim > 2:
             raise MatError("MATLAB:transpose:NDArray",
@@ -565,6 +593,9 @@ def transpose(a):
 
 
 def ctranspose(a):
+    from ..sparse import SparseMatrix
+    if isinstance(a, SparseMatrix):
+        return a.transpose()   # sparse is real double: ' == .'
     if type(a).__name__ in ("MatDatetime", "MatDuration"):
         return transpose(a)    # timelike values are real: ' == .'
     a = as_matarray(a)
@@ -578,3 +609,30 @@ def ctranspose(a):
     r = h.conj().T if np.iscomplexobj(h) else h.T
     return MatArray(r.copy(), a.mclass)
 
+
+def _sparse_binary(op, a, b):
+    """Sparse elementwise semantics: ops where zeros stay zero keep sparsity;
+    everything else densifies (MATLAB rules for +,-,.*,&)."""
+    from ..sparse import SparseMatrix
+    sa = isinstance(a, SparseMatrix)
+    sb = isinstance(b, SparseMatrix)
+    if sa and sb:
+        if op in ("add", "sub"):
+            fn = (lambda x, y: x + y) if op == "add" else (lambda x, y: x - y)
+            return a._binary_sparse(b, fn)
+        if op in ("mul", "and"):
+            return a._binary_sparse(b, lambda x, y: x * y)
+        return binary(op, a.to_matarray(), b.to_matarray())
+    sp, dn = (a, b) if sa else (b, a)
+    dsize = getattr(dn, "size", None)
+    if op == "mul" and dsize == 1:
+        c = float(dn.host().reshape(-1)[0])
+        return sp.map_nonzeros(lambda d: d * c).prune()
+    if op == "mul" and getattr(dn, "shape", None) == sp.shape:
+        hd = dn.host().astype(np.float64)
+        ii, jj, vv = sp.triplets()
+        return SparseMatrix.from_triplets(ii, jj, vv * hd[ii, jj],
+                                          sp.m, sp.n).prune()
+    da = sp.to_matarray() if sa else a
+    db = sp.to_matarray() if sb else b
+    return binary(op, da if sa else a, b if sa else db)

@@ -309,6 +309,13 @@ def write_paren(base, args: list, rhs, in_place: bool = False):
         return base
     if hasattr(base, "_mat_paren_assign_"):
         return base._mat_paren_assign_(args, rhs)
+    if type(base).__name__ == "SparseMatrix":
+        from ..sparse import SparseMatrix
+        dense = base.to_matarray()
+        if type(rhs).__name__ == "SparseMatrix":
+            rhs = rhs.to_matarray()
+        out = write_paren(dense, args, rhs)
+        return SparseMatrix.from_dense(out.host())
     """A(args) = rhs. Returns the (possibly new) base value.
 
     in_place=True (VM passes it when the target binding is unshared — the

@@ -1338,3 +1338,102 @@ def test_parfeval_on_a_device_array_while_the_card_computes(card):
     got, want, eng = _card_and_host(src, names)
     assert got[0] == got[1]
     _held(names, got, want, 1e-9)
+
+
+# ------------------------------------------------- the sparse CG kernels
+# (csrc/spcg.cu via ops/spcg.py; runmat_tpu_torch/spbench.py makes the
+# cases): the product bit for bit against plain_spmv, a solve within 1e-8
+# of plain_cg's largest entry and bit for bit the same when repeated
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_spmv_kernel_matches_plain(card, case):
+    from runmat_tpu_torch import spbench
+    from runmat_tpu_torch.ops import spcg
+    label, *csr = spbench.spmv_cases(card)[case]
+    before = spcg.launches
+    r = spbench.spmv_held(spcg, *csr)
+    assert spcg.launches == before + 1
+    assert r["equal"], (label, r)
+
+
+@pytest.mark.parametrize("case", range(2))
+def test_cg_kernels_match_plain_and_repeat_bit_for_bit(card, case):
+    from runmat_tpu_torch import spbench
+    from runmat_tpu_torch.ops import spcg
+    label, *system = spbench.cg_cases(card)[case]
+    r = spbench.cg_held(spcg, *system)
+    assert r["ok"], (label, r)
+
+
+def test_each_cg_kernel_matches_the_jax_body(card):
+    from runmat_tpu_torch import histbench, spbench
+    from runmat_tpu_torch.ops import spcg
+    r = spbench.step_rows(spcg, histbench.time_ms, 3, N=128)
+    assert r["init_ok"]
+    assert all(row["ok"] for row in r["rows"].values()), r["rows"]
+
+
+def test_cg_zero_b_is_done_before_the_first_iteration(card):
+    from runmat_tpu_torch import spbench
+    from runmat_tpu_torch.ops import spcg
+    rowptr, col, val = spbench.poisson_csr(64, card)
+    invd = spbench.inverse_diagonal(rowptr, col, val)
+    before = collections.Counter(spcg.launches_by)
+    x, k = spcg.cg(rowptr, col, val, torch.zeros(64 * 64, dtype=torch.float64,
+                                                 device=card), invd)
+    assert k == 0 and not bool(x.any())
+    # the start's two launches, then one chunk in which nothing runs
+    assert collections.Counter(spcg.launches_by) - before == {
+        "cg_update": 1 + spcg.CHUNK, "cg_scalars": 1 + 2 * spcg.CHUNK,
+        "spmv_f64": spcg.CHUNK, "cg_direction": spcg.CHUNK}
+
+
+def test_sparse_solve_waits_equal_the_chunk_reads(card):
+    from runmat_tpu_torch import syncs
+    from runmat_tpu_torch.ops import spcg
+    src = "N = 48;\n" + open(
+        "runmat_tpu_torch/workloads/sparse_poisson.m").read()
+    r = syncs.script_syncs(src)
+    assert r["warnings"] == r["counted"], r
+    cg = [site for site in r["sites"] if site.startswith(
+        "runmat_tpu_torch/ops/spcg.py")]
+    assert len(cg) == 1 and r["sites"][cg[0]] == r["syncs"] >= 1, r
+    # the script's x against the host engine (its host CG)
+    got, want, eng = _card_and_host(src, ["x"])
+    k = [e["iterations"] for e in eng.launch_log if e["cat"] == "sparse_cg"]
+    assert len(k) == 1 and eng.sync_reasons["cg"] == \
+        max(1, -(-k[0] // spcg.CHUNK))
+    _held(["x"], got, want, 1e-8)
+
+
+def test_a_failed_launch_raises_and_nothing_falls_back(card, monkeypatch):
+    from runmat_tpu_torch import spbench
+    from runmat_tpu_torch.ops import spcg
+    rowptr, col, val = spbench.poisson_csr(64, card)
+    p = torch.ones(64 * 64, dtype=torch.float64, device=card)
+    with pytest.raises(RuntimeError, match="spmv_f64 kernel launch failed"):
+        spcg._spmv(-1, rowptr, col, val, p, p, None, None)
+    monkeypatch.setattr(spcg, "plain_cg", None)
+    monkeypatch.setattr(spcg, "plain_spmv", None)
+    monkeypatch.setattr(spcg, "_entries", {
+        "runmat_spmv_f64": lambda *a: 1, "runmat_cg_update": lambda *a: 0,
+        "runmat_cg_scalars": lambda *a: 0,
+        "runmat_cg_direction": lambda *a: 0})
+    with pytest.raises(RuntimeError, match="spmv_f64 kernel launch failed"):
+        spcg.cg(rowptr, col, val, p, spbench.inverse_diagonal(rowptr, col,
+                                                              val))
+
+
+def test_a_source_that_does_not_compile_raises(card, monkeypatch, tmp_path):
+    from runmat_tpu_torch.ops import _build, spcg
+    (tmp_path / "spcg.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(spcg, "_entries", {})
+    p = torch.ones(4, dtype=torch.float64, device=card)
+    rowptr = torch.arange(5, dtype=torch.int64, device=card)
+    col = torch.arange(4, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        spcg.spmv(rowptr, col, p, p)

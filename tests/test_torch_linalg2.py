@@ -130,15 +130,16 @@ def test_filter_of_order_39_matches_the_jax_scan():
     _dev(b, ["w"], 1e-13)
 
 
-def test_sprandsym_is_not_ported():
-    s = runmat_tpu_torch.session("cpu")
-    try:
-        r = s.execute("S = sprandsym(5, 0.3);")
-    finally:
-        runmat_tpu_torch.uninstall()
-    assert r.error is not None
-    assert r.error.identifier == "RunMat:notPorted"
-    assert "sparse matrices" in r.error.message
+def test_sprandsym_matches_the_jax_package():
+    # a seeded sprandsym(5, 0.3) and its symmetric refill sprandsym(S)
+    b = run_both("rng(11);", "S = sprandsym(5, 0.3); T = sprandsym(S);"
+                 " F = full(S); G = full(T); after = rand;")
+    same(b, ["F", "G", "after"])
+    for name in ("S", "T"):
+        got, want = b.ts.get(name), b.js.get(name)
+        assert type(got).__name__ == type(want).__name__ == "SparseMatrix"
+        for attr in ("indptr", "rowind", "data"):
+            assert np.array_equal(getattr(got, attr), getattr(want, attr))
 
 
 def test_resample_pages_script_matches_the_jax_package():

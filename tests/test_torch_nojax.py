@@ -1,9 +1,9 @@
 """The port runs where neither jax nor the JAX package can be imported: a
 subprocess with `jax` and `runmat_tpu` blocked in `sys.modules` imports
 runmat_tpu_torch and runs the three workloads and the statistics,
-indexing, linear algebra and spectral scripts
+indexing, linear algebra, spectral and sparse scripts
 (`runmat_tpu_torch/workloads/{histogram_stats,index_sets,dense_linalg,
-spectral}.m`) at small size on TorchEngine(device="cpu"), and a host
+spectral,sparse_poisson}.m`) at small size on TorchEngine(device="cpu"), and a host
 session without an engine; the profiling, sync-counting, timing and
 benchmark tools import there too. No module of the JAX package is loaded
 at the end."""
@@ -25,6 +25,9 @@ import runmat_tpu_torch.histbench
 import runmat_tpu_torch.ops.boxmuller
 import runmat_tpu_torch.ops.fused
 import runmat_tpu_torch.ops.iir
+import runmat_tpu_torch.ops.spcg
+import runmat_tpu_torch.fea
+import runmat_tpu_torch.spbench
 import runmat_tpu_torch.linalgbench
 import runmat_tpu_torch.profile
 import runmat_tpu_torch.rngbench
@@ -64,7 +67,8 @@ print(r.output.strip())
 print("index_sets folds", eng.stats["loop_folds"], eng.stats["while_folds"],
       "fallbacks", eng.stats["host_fallbacks"])
 runmat_tpu_torch.uninstall()
-for name, pre in (("dense_linalg", "N = 64;"), ("spectral", "N = 2^12;")):
+for name, pre in (("dense_linalg", "N = 64;"), ("spectral", "N = 2^12;"),
+                  ("sparse_poisson", "N = 48;")):
     s = runmat_tpu_torch.session("cpu", auto_offload=True,
                                  offload_threshold=1)
     eng = accel.active_engine()
@@ -94,7 +98,7 @@ def test_port_runs_without_jax():
     assert p.returncode == 0, p.stderr[-3000:]
     out = p.stdout
     for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK", "LINALG",
-                  "SPECTRAL"):
+                  "SPECTRAL", "POISSON"):
         assert f"RESULT_ok {label}=" in out, out
     assert "monte_carlo folds 1 fallbacks 0 plans" in out, out
     assert "elementwise_math folds 0 fallbacks 0 plans 4" in out, out
@@ -102,6 +106,7 @@ def test_port_runs_without_jax():
     assert "index_sets folds 1 1 fallbacks 0" in out, out
     assert "dense_linalg fallbacks 0" in out, out
     assert "spectral fallbacks 0" in out, out
+    assert "sparse_poisson fallbacks 0" in out, out
     assert "HOST_ok 5" in out, out
     assert "jax blocked: True" in out, out
     assert "runmat_tpu modules: []" in out, out

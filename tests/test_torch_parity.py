@@ -13,21 +13,12 @@ one snippet, and so are if/for/while, indexing and fprintf formatting.
 
 import re
 
-import numpy as np
 import pytest
 
-import runmat_tpu_torch
-from runmat_tpu import accel as jaccel
-from runmat_tpu.session import Session as JaxSession
-from runmat_tpu.utils import display as jax_display
-from runmat_tpu.utils.display import format_value as jax_format
-from runmat_tpu_torch import accel as taccel
 from runmat_tpu_torch.parity_snippets import SNIPPETS as MODULE_SNIPPETS
-from runmat_tpu_torch.session import Session as PortSession
-from runmat_tpu_torch.utils import display as port_display
-from runmat_tpu_torch.utils.display import format_value as port_format
 
-EXACT = 0.0
+from torch_both import EXACT, host_parity, no_engine  # noqa: F401
+
 F32_REDUCTION = 1e-6   # sums of f32 values in another order
 
 # (id, source, tolerance)
@@ -130,61 +121,10 @@ SNIPPETS = [
 SNIPPETS += [(sid, src, tol) for sid, _, src, tol in MODULE_SNIPPETS]
 
 
-@pytest.fixture
-def no_engine():
-    # both packages start from MATLAB's default display format: `format`
-    # sets a module-wide mode, and another test file on the same worker may
-    # have left the JAX package's at "long"
-    jprev, tprev = jaccel.active_engine(), taccel.active_engine()
-    jfmt, tfmt = jax_display._FORMAT["mode"], port_display._FORMAT["mode"]
-    jaccel.set_engine(None)
-    taccel.set_engine(None)
-    jax_display.set_format("short")
-    port_display.set_format("short")
-    yield
-    runmat_tpu_torch.uninstall()
-    jaccel.set_engine(jprev)
-    taccel.set_engine(tprev)
-    jax_display.set_format(jfmt)
-    port_display.set_format(tfmt)
-
-
-def _run_all(src: str) -> list:
-    runs = []
-    for make in (lambda: JaxSession(accelerate=False),
-                 lambda: PortSession(accelerate=False),
-                 lambda: runmat_tpu_torch.session("cpu")):
-        s = make()
-        r = s.execute(src)
-        runs.append((s, r))
-    runmat_tpu_torch.uninstall()
-    return runs
-
-
 @pytest.mark.parametrize("sid,src,tol", SNIPPETS,
                          ids=[s[0] for s in SNIPPETS])
 def test_snippet_matches_the_jax_host_path(no_engine, sid, src, tol):
-    (js, jr), *ports = _run_all(src)
-    for s, r in ports:
-        assert r.output == jr.output, (sid, r.output, jr.output)
-        assert (r.error is None) == (jr.error is None), (r.error, jr.error)
-        if jr.error is not None:
-            assert r.error.identifier == jr.error.identifier
-            assert r.error.message == jr.error.message
-        assert sorted(s.workspace_names()) == sorted(js.workspace_names())
-        for name in js.workspace_names():
-            want, got = js.get(name), s.get(name)
-            if hasattr(want, "host") and hasattr(want, "mclass"):
-                assert got.mclass == want.mclass, name
-                w, g = np.asarray(want.host()), np.asarray(got.host())
-                assert g.shape == w.shape and g.dtype == w.dtype, name
-                if tol == EXACT or w.dtype.kind not in "fc":
-                    assert np.array_equal(g, w, equal_nan=True), name
-                else:
-                    np.testing.assert_allclose(g, w, rtol=tol, err_msg=name)
-            else:
-                assert type(got).__name__ == type(want).__name__, name
-                assert port_format(name, got) == jax_format(name, want), name
+    host_parity(sid, src, tol)
 
 
 def test_every_carried_builtin_module_is_reached():

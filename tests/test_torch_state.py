@@ -66,3 +66,30 @@ def test_values_cross_as_the_ports_own():
     out[0, 0] = 99
     assert h[0, 0] == 0
     assert to_matarray(np.array([[True]])).mclass == "logical"
+
+
+def test_sparse_matrices_and_meshes_cross_as_the_ports_own(restore_engine):
+    from runmat_tpu_torch.fea.mesh import TetMesh
+    from runmat_tpu_torch.sparse import SparseMatrix
+    accel.set_engine(None)
+    js = Session(accelerate=False)
+    assert js.execute("A = sparse([1 2 3 3], [1 2 3 1], [4 5 6 1], 3, 3);"
+                      " m = femesh([2 1 1], [2 1 1]);").error is None
+    ts = runmat_tpu_torch.session("cpu")
+    carry_session(js, ts)
+    A, m = ts.get("A"), ts.get("m")
+    assert type(A) is SparseMatrix and type(m) is TetMesh
+    jA, jm = js.get("A"), js.get("m")
+    assert (A.m, A.n, A.mclass) == (jA.m, jA.n, jA.mclass)
+    for name in ("indptr", "rowind", "data"):
+        assert np.array_equal(getattr(A, name), getattr(jA, name))
+        assert getattr(A, name) is not getattr(jA, name)
+    assert np.array_equal(m.nodes, jm.nodes) and m.nodes is not jm.nodes
+    assert np.array_equal(m.tets, jm.tets) and tuple(m.dims) == \
+        tuple(jm.dims) and tuple(m.shape) == tuple(jm.shape)
+    # the port's own builtins take them: its isinstance checks see its class
+    r = ts.execute("B = A' * 2; z = issparse(B); f = full(A \\ [1; 2; 3]);"
+                   " i = femesh_info(m); n = i.elements;")
+    assert r.error is None, r.error
+    assert bool(np.asarray(ts.get("z").host()).reshape(-1)[0])
+    assert float(np.asarray(ts.get("n").host()).reshape(-1)[0]) == 12.0
