@@ -123,22 +123,28 @@ line is printed:
      builtin module the slice copied) in a card session against the
      host engine, skipping the one whose module needs a package this
      machine lacks (sympy);
-  9. sparse path: the sparse CG kernels (csrc/spcg.cu: spmv_f64,
-     cg_scalars, cg_update, cg_direction) against their plain versions
+  9. sparse path: the sparse CG kernels (csrc/spcg.cu: spmv_f64 with
+     its alpha tail, cg_update with its beta, k and done-flag tail,
+     cg_direction) against their plain versions
      (runmat_tpu_torch/spbench.py): the product bit for bit on rows that
      are empty, a row of 5000 nonzeros, triangles that differ in the last
-     bits and the path's matrix; the whole solve against plain_cg on a
-     60^2 Poisson system and a seeded SPD sprandsym-style matrix, twice
-     bit for bit the same, x within 1e-8 of plain's largest entry; each
-     kernel of one iteration at the path's shape against the JAX body's
-     torch ops on the same inputs, timed beside its bound, its plain
-     version and cuSPARSE's product or torch.add; then
+     bits and the path's matrix; the whole solve on a 60^2 Poisson system
+     and a seeded SPD sprandsym-style matrix, twice bit for bit the same,
+     x and k equal to plain_cg(ordered=True)'s (the kernels' order of
+     summing in torch ops) bit for bit and x within 1e-8 of plain_cg's
+     largest entry; each kernel of one iteration at the path's shape
+     against the JAX body's torch ops on the same inputs and each tail's
+     scalars against the ordered model, bit for bit, each timed beside
+     its bound, its plain version and cuSPARSE's product or torch.add,
+     and the product without its partials and the update without its
+     tail (the tails' times); then
      runmat_tpu_torch/workloads/sparse_poisson.m at N = 1024 (1,048,576
      unknowns) through Session.run_source: one device solve, its
      iterations in chunks of spcg.CHUNK, one read of the done flag a chunk
      (the engine's only syncs, and the waits torch sees equal the counted
      reads), each kernel launched as often as the chunks say, the loop's
-     residual under 1e-10, x within 1e-8 of plain_cg's on the card and its
+     residual under 1e-10, x and k equal to plain_cg(ordered=True)'s on
+     the card bit for bit, x within 1e-8 of plain_cg's on the card and its
      norm(b - A*x)/norm(b) no more than 1 % above plain_cg's, under 128 MB
      uploaded (the CSR, 1/diag(A) and b); the warm walls and a profile;
  10. one JSON line of kernel results, then the result line
@@ -271,10 +277,10 @@ PAGES_LINALG = {"interp1lin": 1, "topk": 2, "iir": 1, "pagemtimes": 3,
                 "pagesolve": 1, "pageinv": 1, "pagenorm": 1}
 SPREAD_ROUNDS = 10
 SPARSE_WORKLOAD = "runmat_tpu_torch/workloads/sparse_poisson.m"
-# the sparse CG kernels and the line of runmat_tpu/sparse.py:_cg_device
-# each replaces (its body's product, alpha, updates and direction; the
-# scalars kernel also finishes beta and the loop's condition, 270-277)
-SPARSE_KERNELS = {"spmv_f64": "265", "cg_scalars": "266", "cg_update": "267",
+# the sparse CG kernels and the lines of runmat_tpu/sparse.py:_cg_device
+# each replaces: the product with alpha; the updates with beta and the
+# loop's condition; the direction
+SPARSE_KERNELS = {"spmv_f64": "265-266", "cg_update": "267-270,276",
                   "cg_direction": "271"}
 # the loop's own test, norm(r) > tol * norm(b) on the recurrence's r
 SPARSE_TOL = 1e-10
@@ -1650,11 +1656,12 @@ def phase_pages_path() -> dict:
 def _sparse_kernels() -> dict:
     """spmv_f64 against plain_spmv bit for bit on rows that are empty, a
     row of 5000 nonzeros, triangles that differ in the last bits and the
-    path's Poisson matrix; the whole solve against plain_cg on a 60^2
-    Poisson system and a seeded SPD sprandsym-style one (twice, bit for
-    bit the same); then each kernel of one iteration at the path's shape
-    held to the JAX body's torch ops and timed (runmat_tpu_torch/
-    spbench.py)."""
+    path's Poisson matrix; the whole solve on a 60^2 Poisson system and a
+    seeded SPD sprandsym-style one (twice, bit for bit the same) against
+    plain_cg(ordered=True) bit for bit and plain_cg; then each kernel of
+    one iteration at the path's shape held to the JAX body's torch ops,
+    each tail's scalars to the ordered model, and timed, with and without
+    its tail (runmat_tpu_torch/spbench.py)."""
     import torch
 
     from runmat_tpu_torch import histbench, spbench
@@ -1668,12 +1675,15 @@ def _sparse_kernels() -> dict:
         r = spbench.cg_held(spcg, *system)
         check(r["ok"], f"cg {label}: {r}")
         print(f"kernel cg {label}: {r['iterations']} iterations (plain "
-              f"{r['plain_iterations']}), two solves bit-equal, x within "
+              f"{r['plain_iterations']}), two solves bit-equal and equal "
+              f"to the ordered model's x and k bit for bit, x within "
               f"{r['rel_err']:.3g} of plain's largest entry (limit "
               f"{spbench.X_TOL:g}), residual {r['residual']:.3g}")
     steps = spbench.step_rows(spcg, histbench.time_ms, TIMING_REPS)
-    check(steps["init_ok"] and all(r["ok"] for r in steps["rows"].values()),
-          f"a CG kernel against the JAX body's torch ops: {steps}")
+    check(steps["start_ok"] and steps["timed_ok"] and
+          all(r["ok"] for r in steps["rows"].values()),
+          f"a CG kernel against the JAX body's torch ops and the ordered "
+          f"model: {steps}")
     for name, r in steps["rows"].items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -1682,9 +1692,17 @@ def _sparse_kernels() -> dict:
               f"{r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} "
               f"bytes), share of bound {r['bound_ms'] / r['ms']:.3f}; max "
-              f"abs err against the body's torch ops {r['max_abs_err']:.3g}")
+              f"abs err against the body's torch ops {r['max_abs_err']:.3g}"
+              f", its tail's scalars equal the ordered model's")
+    code = spbench.tail_code()
+    for name, t in steps["tails"].items():
+        print(f"time {name} tail (sparse_poisson.m): {t['ms'] * 1e3:.2f} us "
+              f"(with it {steps['rows'][name]['ms']:.4f} ms, without "
+              f"{t['kernel_ms']:.4f} ms, bound without "
+              f"{t['kernel_bound_ms']:.6f} ms; {t['bytes']} bytes more); "
+              f"its machine code (sass.py): {code[name]}")
     it = steps["iteration"]
-    print(f"time cg iteration (sparse_poisson.m): five launches "
+    print(f"time cg iteration (sparse_poisson.m): three launches "
           f"{it['ms']:.4f} ms eagerly, {it['graph_ms']:.4f} ms an iteration "
           f"of a replayed graph of {spcg.CHUNK}, plain {it['plain_ms']:.4f} "
           f"ms, bound {it['bound_ms']:.4f} ms ({it['bound_by']}, "
@@ -1698,7 +1716,8 @@ def phase_sparse_path() -> dict:
     """sparse_poisson.m at its default N = 1024 (1,048,576 unknowns,
     5,240,830 nonzeros) through Session.run_source: A\\b solved by the CG
     kernels, every chunk of iterations a graph replay and one read of the
-    done flag; x held to plain_cg on the card, the residuals, the launches
+    done flag; x and k held to plain_cg(ordered=True) bit for bit and x to
+    plain_cg on the card, the residuals, the launches
     and reads, the waits, the warm walls and a profile. After the kernels
     against their plain versions."""
     import torch
@@ -1727,8 +1746,7 @@ def phase_sparse_path() -> dict:
           f"sparse_poisson: {reads} reads of the done flag, {st['syncs']} "
           f"syncs, for {k} iterations in chunks of {spcg.CHUNK}")
     it = chunks * spcg.CHUNK
-    want = {"spmv_f64": it, "cg_scalars": 1 + 2 * it, "cg_update": 1 + it,
-            "cg_direction": it}
+    want = {"spmv_f64": it, "cg_update": 1 + it, "cg_direction": it}
     check(launches["spcg"] == want,
           f"sparse_poisson: launches {launches['spcg']}, want {want}")
     check(st["host_fallbacks"] == 0,
@@ -1736,7 +1754,8 @@ def phase_sparse_path() -> dict:
     check(st["upload_bytes"] < SPARSE_TRANSFER_LIMIT,
           f"sparse_poisson: {st['upload_bytes']} bytes uploaded")
     solver = eng.spcg_cache["solver"]
-    loop_res = (float(solver.sc[4]) / float(solver.sc[1])) ** 0.5
+    loop_res = (float(solver.sc[spcg.SLOTS["rr"]]) /
+                float(solver.sc[spcg.SLOTS["bb"]])) ** 0.5
     check(k < solver.maxit and loop_res <= SPARSE_TOL,
           f"sparse_poisson: {k} iterations, the loop's residual {loop_res}")
     A, x = s.get("A"), s.get("x")
@@ -1754,7 +1773,14 @@ def phase_sparse_path() -> dict:
     xp, kp = spcg.plain_cg(rowptr, col, val, bv, invd)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xo, ko = spcg.plain_cg(rowptr, col, val, bv, invd, ordered=True)
+    torch.cuda.synchronize()
+    ordered_s = time.perf_counter() - t0
     xd = torch.from_numpy(xh).to(dev)
+    check(k == ko and bool(torch.equal(xd, xo)),
+          f"sparse_poisson: {k} iterations, the ordered model {ko}; x "
+          f"{float((xd - xo).abs().max()):g} off its x")
     err = float((xd - xp).abs().max())
     scale = float(xp.abs().max())
     res = spbench.residual(rowptr, col, val, xd, bv)
@@ -1764,7 +1790,9 @@ def phase_sparse_path() -> dict:
     check(res <= SPARSE_DRIFT * res_plain,
           f"sparse_poisson: residual {res:g}, plain_cg's {res_plain:g}")
     print(f"port sparse_poisson: {output.strip()}; n={A.n}, nnz={A.nnz}; "
-          f"{k} iterations (plain_cg {kp}, {plain_s:.1f} s), the loop's "
+          f"{k} iterations (plain_cg {kp}, {plain_s:.1f} s), x and k "
+          f"equal to the ordered model's bit for bit ({ordered_s:.1f} s), "
+          f"the loop's "
           f"residual {loop_res:.3g} (limit {SPARSE_TOL:g}), "
           f"norm(b - A*x)/norm(b) {res:.3g} (plain_cg's x {res_plain:.3g}), "
           f"x within {err:.3g} of plain_cg's (largest {scale:.6g}, limit "
@@ -1773,7 +1801,7 @@ def phase_sparse_path() -> dict:
           f"({st['upload_bytes']} bytes), {st['gathers']} gathers "
           f"({st['gather_bytes']} bytes); the solve "
           f"{solves[0]['enqueue_ms']:.1f} ms; first run {wall * 1e3:.1f} ms")
-    del s, A, x, xd, xp, bv, rowptr, col, val, invd, solver
+    del s, A, x, xd, xp, xo, bv, rowptr, col, val, invd, solver
     runmat_tpu_torch.uninstall()
     _sync_check(src, "sparse_poisson")
     _walls(src, "sparse_poisson", preview=False)

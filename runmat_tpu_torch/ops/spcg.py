@@ -9,13 +9,13 @@ vectors, all on one device. A CPU tensor takes the plain PyTorch versions
 below (`plain_cg`, `plain_spmv`); a CUDA tensor launches the kernels or
 raises: nothing falls back.
 
-On a card one iteration is five launches of four kernels, in this order:
+On a card one iteration is three launches of three kernels, in this order:
 
-    spmv_f64      Ap = A p, with the block partials of p.Ap
-    cg_scalars    alpha = (r.z) / (p.Ap)                     (one block)
-    cg_update     x += alpha p, r -= alpha Ap, z = invd r, the block
-                  partials of r.z and r.r
-    cg_scalars    beta = (rn.zn) / (r.z), k += 1, the done flag
+    spmv_f64      Ap = A p, the tile partials of p.Ap, and the tail of its
+                  last block: alpha = (r.z) / (p.Ap)
+    cg_update     x += alpha p, r -= alpha Ap, z = invd r, the tile
+                  partials of r.z and r.r, and the tail of its last block:
+                  beta = (rn.zn) / (r.z), k += 1, the done flag
                   !(sqrt(r.r) > tol sqrt(b.b) && k < maxit)
     cg_direction  p = z + beta p
 
@@ -24,11 +24,14 @@ so CHUNK iterations run as one captured CUDA graph, replayed until the
 host, reading the flag once a chunk (`count_read` is told of each read),
 finds it set; iterations past the last change nothing, and x is what the
 JAX while-loop returns after the same iteration. Every sum runs in a fixed
-order (a row's products in ascending column order; the block partials as
-a tree; the partials of all blocks by one block), with no floating-point
-atomics, so two solves give the same x bit for bit and the same count.
-The elementwise steps round each product and sum apart (no FMA), as the
-plain version's separate torch ops do.
+order (a row's products in ascending column order; each tile of THREADS
+rows by a tree; in the block that arrives last, lane t of THREADS adds
+the partials of tiles t, t + THREADS, ... in order, and the lanes by the
+tree), with no floating-point atomics, so two solves give the same x bit
+for bit and the same count. `ordered_sum` is that order in torch ops, and
+`plain_cg(..., ordered=True)` the kernels' solve, which they equal bit
+for bit. The elementwise steps round each product and sum apart (no FMA),
+as the plain version's separate torch ops do.
 
 `launches` counts the kernel launches the card executes and nothing else;
 `launches_by` splits them by kernel. A launch made while the stream is
@@ -50,8 +53,9 @@ launches_by: collections.Counter = collections.Counter()
 captured: collections.Counter = collections.Counter()
 
 CHUNK = 128              # iterations a captured graph holds
-THREADS = 256            # a block: rows of spmv, elements of the updates
-_INIT, _ALPHA, _BETA = 0, 1, 2       # cg_scalars' modes (csrc/spcg.cu)
+THREADS = 256            # rows a tile, and lanes (csrc/spcg.cu: kThreads)
+# the slots of the scalar state (csrc/spcg.cu: Slot)
+SLOTS = {"rz": 0, "bb": 1, "alpha": 2, "beta": 3, "rr": 4, "pap": 5}
 _SCALARS = 8                         # float64 slots of the scalar state
 _entries: dict = {}
 
@@ -71,7 +75,8 @@ _P, _I64, _INT, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
 
 
 def blocks(n: int) -> int:
-    """Blocks of THREADS a vector of n takes: the count of block partials."""
+    """Tiles of THREADS rows a vector of n takes: the count of tile
+    partials."""
     return max(1, -(-n // THREADS))
 
 
@@ -147,25 +152,70 @@ def plain_spmv(rowptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     return y
 
 
+def _tree(v: torch.Tensor) -> torch.Tensor:
+    """The kernels' tree over the last dimension (THREADS wide): at
+    s = 128, 64, ..., 1, v[t] += v[t + s] for t < s; v[0] is the sum."""
+    s = THREADS // 2
+    while s:
+        v = v[..., :s] + v[..., s:2 * s]
+        s //= 2
+    return v[..., 0]
+
+
+def _rows(v: torch.Tensor) -> torch.Tensor:
+    """v padded with 0.0 to whole rows of THREADS, as rows."""
+    pad = -v.numel() % THREADS
+    return torch.cat([v, v.new_zeros(pad)]).reshape(-1, THREADS)
+
+
+def ordered_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of v (float64, n values) in the kernels' order, as a 0-d
+    tensor: each tile of THREADS values (the last padded with 0.0) by the
+    kernels' tree into blocks(n) partials, then lane t adds the partials
+    of tiles t, t + THREADS, ... from 0.0 in that order, and the tree over
+    the lanes."""
+    part = _tree(_rows(v.reshape(-1)))
+    lanes = torch.zeros(THREADS, dtype=v.dtype, device=v.device)
+    for row in _rows(part):
+        lanes = lanes + row
+    return _tree(lanes)
+
+
+def ordered_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a.b in the kernels' order: each product rounded, then
+    `ordered_sum`."""
+    return ordered_sum(a * b)
+
+
 def plain_cg(rowptr, col, val, b, invd, tol: float = 1e-10,
-             maxit: int | None = None) -> tuple:
+             maxit: int | None = None, ordered: bool = False) -> tuple:
     """The JAX package's loop (`runmat_tpu/sparse.py:254-280`) in torch
-    ops, its condition read on the host each iteration. Returns (x, k)."""
+    ops, its condition read on the host each iteration. Returns (x, k).
+    ordered: each dot product by `ordered_dot`, and each norm the square
+    root of one: the kernels' solve, whose x and k they equal bit for
+    bit."""
     n = b.numel()
     maxit = maxit or 10 * n
+    if ordered:
+        dot = ordered_dot
+
+        def norm(v):
+            return torch.sqrt(ordered_dot(v, v))
+    else:
+        dot, norm = torch.dot, torch.linalg.norm
     x = torch.zeros_like(b)
     r = b
     z = invd * r
     p = z
     k = 0
-    bn = torch.linalg.norm(b)
-    while bool(torch.linalg.norm(r) > tol * bn) and k < maxit:
+    bn = norm(b)
+    while bool(norm(r) > tol * bn) and k < maxit:
         ap = plain_spmv(rowptr, col, val, p)
-        alpha = torch.dot(r, z) / torch.dot(p, ap)
+        alpha = dot(r, z) / dot(p, ap)
         xn = x + alpha * p
         rn = r - alpha * ap
         zn = invd * rn
-        beta = torch.dot(rn, zn) / torch.dot(r, z)
+        beta = dot(rn, zn) / dot(r, z)
         p = zn + beta * p
         x, r, z, k = xn, rn, zn, k + 1
     return x, k
@@ -184,28 +234,34 @@ def spmv(rowptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     if p.device.type != "cuda":
         raise ValueError(f"spmv: no kernel for device {p.device}")
     y = torch.empty(n, dtype=torch.float64, device=p.device)
-    _spmv(n, rowptr, col, val, p, y, None, None)
+    _spmv(n, rowptr, col, val, p, y)
     return y
 
 
-def _spmv(n, rowptr, col, val, p, y, part, ctl) -> None:
-    """The `spmv_f64` launch: y = A p, and where given, `part` (blocks(n)
-    values) the block partials of p.y, and `ctl` the done flag, which
-    stops the kernel before it writes."""
+def _spmv(n, rowptr, col, val, p, y, part=None, sc=None, count=None,
+          ctl=None) -> None:
+    """The `spmv_f64` launch: y = A p; where given, `part` (blocks(n)
+    values) the tile partials of p.y, `count` (one int32, 0 between
+    launches) the arrival counter of the alpha tail, which writes `sc`'s
+    p.Ap and alpha = r.z / p.Ap, and `ctl` the done flag, which stops the
+    kernel before it writes."""
     if n == 0:
         return
     fn = _entry("runmat_spmv_f64", [_I64, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _INT])
+                                     _P, _P, _INT])
     _launched("spmv_f64", fn(n, rowptr.data_ptr(), col.data_ptr(),
                              val.data_ptr(), p.data_ptr(), y.data_ptr(),
-                             _ptr(part), _ptr(ctl), *_stream(p)))
+                             _ptr(part), _ptr(sc), _ptr(count), _ptr(ctl),
+                             *_stream(p)))
 
 
 class _Solver:
     """A solve's state on the card at fixed addresses: the CSR, the
-    vectors, the block partials, the scalars (r.z, b.b, alpha, beta, r.r,
-    p.Ap) and `ctl` = [done, k] (int64); the graph of CHUNK iterations,
-    captured at its first solve."""
+    vectors, the tile partials, the scalars (`SLOTS`: r.z, b.b, alpha,
+    beta, r.r, p.Ap), `ctl` = [done, k] (int64) and the arrival counters
+    of spmv_f64's and cg_update's tails (int32, zeroed here and at each
+    start, reset by each tail); the graph of CHUNK iterations, captured at
+    its first solve."""
 
     def __init__(self, rowptr, col, val, tol: float, maxit: int):
         self.n = n = rowptr.numel() - 1
@@ -216,10 +272,11 @@ class _Solver:
         self.invd, self.x, self.r, self.z, self.p, self.ap = (
             torch.empty(n, dtype=torch.float64, device=dev)
             for _ in range(6))
-        self.nb = blocks(n)
-        self.part = torch.empty(2 * self.nb, dtype=torch.float64, device=dev)
+        self.part = torch.empty(2 * blocks(n), dtype=torch.float64,
+                                device=dev)
         self.sc = torch.zeros(_SCALARS, dtype=torch.float64, device=dev)
         self.ctl = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.count = torch.zeros(2, dtype=torch.int32, device=dev)
         self.tol, self.maxit = float(tol), int(maxit)
         self.graph, self.graph_launches = None, collections.Counter()
 
@@ -228,21 +285,22 @@ class _Solver:
                          (self.val, val), (self.invd, invd)):
             dst.copy_(src)
 
-    def _update(self, init: bool) -> None:
+    def _product(self) -> None:
+        """spmv_f64 with its tile partials and its alpha tail."""
+        _spmv(self.n, self.rowptr, self.col, self.val, self.p, self.ap,
+              self.part, self.sc, self.count[0:1], self.ctl)
+
+    def _update(self, init: bool, tail: bool = True) -> None:
+        """cg_update and, unless `tail` is False (for timing), its tail."""
         fn = _entry("runmat_cg_update", [_I64, _INT, _P, _P, _P, _P, _P, _P,
-                                          _P, _P, _P, _P, _INT])
+                                          _P, _P, _P, _P, _F64, _I64, _P,
+                                          _INT])
         _launched("cg_update", fn(
             self.n, int(init), self.sc.data_ptr(), self.x.data_ptr(),
             self.r.data_ptr(), self.z.data_ptr(), self.p.data_ptr(),
             self.ap.data_ptr(), self.invd.data_ptr(), self.part.data_ptr(),
-            self.ctl.data_ptr(), *_stream(self.x)))
-
-    def _scalars(self, mode: int) -> None:
-        fn = _entry("runmat_cg_scalars", [_INT, _I64, _P, _P, _P, _F64, _I64,
-                                           _P, _INT])
-        _launched("cg_scalars", fn(
-            mode, self.nb, self.part.data_ptr(), self.sc.data_ptr(),
-            self.ctl.data_ptr(), self.tol, self.maxit, *_stream(self.x)))
+            _ptr(self.count[1:2] if tail else None), self.ctl.data_ptr(),
+            self.tol, self.maxit, *_stream(self.x)))
 
     def _direction(self) -> None:
         fn = _entry("runmat_cg_direction", [_I64, _P, _P, _P, _P, _P, _INT])
@@ -251,22 +309,19 @@ class _Solver:
             self.ctl.data_ptr(), *_stream(self.x)))
 
     def start(self, b: torch.Tensor) -> None:
-        """x = 0, r = b, z = invd r, p = z, k = 0 and the condition before
-        the first iteration (a zero b is done at once)."""
+        """x = 0, r = b, z = invd r, p = z, k = 0, b.b, r.z, r.r and the
+        condition before the first iteration (a zero b is done at once)."""
         self.x.zero_()
         self.r.copy_(b)
         self.ctl.zero_()
+        self.count.zero_()
         self._update(init=True)
-        self._scalars(_INIT)
         self.p.copy_(self.z)
 
     def step(self) -> None:
-        """One iteration: five launches."""
-        _spmv(self.n, self.rowptr, self.col, self.val, self.p, self.ap,
-              self.part, self.ctl)
-        self._scalars(_ALPHA)
+        """One iteration: three launches."""
+        self._product()
         self._update(init=False)
-        self._scalars(_BETA)
         self._direction()
 
     def _capture(self) -> None:

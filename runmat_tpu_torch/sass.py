@@ -202,6 +202,26 @@ def find(mixes: dict, name: str, even: bool | None = None,
     return found[0]
 
 
+def tail_loads(insns: list) -> dict:
+    """The tail of a kernel whose blocks count themselves at an arrival
+    counter (`csrc/spcg.cu`): from its atomic add on, the loads through L2
+    (`__ldcg`, `LDG ... STRONG.GPU`) issued before the first float64 add,
+    which are in flight together, and all the tail's such loads and
+    float64 adds in the code."""
+    start = next((k for k, (_, op, _, _) in enumerate(insns)
+                  if op in ("ATOM", "ATOMG")), None)
+    if start is None:
+        raise LookupError("sass: the kernel has no atomic add")
+    tail = insns[start:]
+    first_add = next((k for k, i in enumerate(tail) if i[1] == "DADD"),
+                     len(tail))
+    loads = [k for k, (_, op, mods, _) in enumerate(tail)
+             if op == "LDG" and "STRONG.GPU" in mods]
+    return {"loads_before_first_add": sum(k < first_add for k in loads),
+            "loads": len(loads),
+            "adds": sum(i[1] == "DADD" for i in tail)}
+
+
 def loop_mixes() -> dict:
     """{mangled kernel name: the mix of its main loop}"""
     return {k: mix(main_loop(v)) for k, v in kernels(disassemble()).items()}

@@ -9,24 +9,29 @@ bit for bit (both add each row's products in ascending column order from
 matrix whose triangles differ in the last bits, and the main path's
 five-point Poisson matrix (`poisson_csr`, N = 1024: 2^20 rows, 5,240,830
 nonzeros). `cg_cases` makes the systems the whole solve (`spcg.cg`, the
-four kernels in captured graphs) is held to `plain_cg` on: a 60^2
-Poisson system and a seeded symmetric positive definite `sprandsym`-style
-matrix; x within `X_TOL` of the largest entry of plain's (the two sum
-their dot products in other orders), each residual at most 1e-10 of
-norm(b). `step_rows` runs one iteration's five launches one at a time
-from a solve's start on the Poisson matrix, holds each kernel to the torch
-ops of the JAX loop's body on the same inputs, and times each kernel, the
-whole iteration and its plain version with CUDA events
-(`histbench.time_ms`), beside the least time the card could take (each
-input read once and each output written once over 3.35 TB/s, or the
-flops over the float64 rate outside the tensor cores, 34 TFLOP/s,
-whichever is larger) and, where one PyTorch call computes the same
-function, that call: `torch.sparse_csr_tensor(...) @ p` (cuSPARSE) for
-the product, `torch.add(z, p, alpha=beta)` for the direction. Those calls
-are yardsticks; the port calls neither. Run as a script, this file imports
-`runmat_tpu_torch` from DIR (default: the checkout holding this file) and
-prints the card's name and power limit, a line a row and one JSON line.
-Needs a CUDA card.
+three kernels in captured graphs) is held to on: a 60^2 Poisson system
+and a seeded symmetric positive definite `sprandsym`-style matrix; x and
+k equal to `plain_cg(..., ordered=True)`'s bit for bit (the kernels'
+order of summing, in torch ops), x within `X_TOL` of the largest entry
+of `plain_cg`'s (the JAX loop's ops, whose dot products sum in another
+order), each residual at most 1e-10 of norm(b). `first_iteration` runs a
+solve's start and one iteration's three launches one at a time, holds
+each kernel's vectors to the torch ops of the JAX loop's body on the same
+inputs and each tail's scalars (p.Ap and alpha; r.z, r.r, beta, k and the
+done flag; at the start b.b) to the ordered model, bit for bit.
+`step_rows` does that on the path's matrix and times each kernel, the
+product without its partials and the update without its tail (the tails'
+times are the differences), the whole iteration and its plain version
+with CUDA events (`histbench.time_ms`), beside the least time the card
+could take (each input read once and each output written once over 3.35
+TB/s, or the flops over the float64 rate outside the tensor cores, 34
+TFLOP/s, whichever is larger) and, where one PyTorch call computes the
+same function, that call: `torch.sparse_csr_tensor(...) @ p` (cuSPARSE)
+for the product, `torch.add(z, p, alpha=beta)` for the direction. Those
+calls are yardsticks; the port calls neither. Run as a script, this file
+imports `runmat_tpu_torch` from DIR (default: the checkout holding this
+file) and prints the card's name and power limit, a line a row and one
+JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -45,9 +50,6 @@ BYTES_PER_S = 3.35e12
 F64_PER_S = 34e12               # float64 FMA rate outside the tensor cores
 X_TOL = 1e-8                    # of the largest entry of x
 RESIDUAL_TOL = 1e-10            # of norm(b), the loop's stopping test
-# each kernel's scalars against the plain version's dots, relative: the
-# same products summed in another order
-SCALAR_TOL = 1e-12
 
 
 def bound(nbytes: float, flops: float) -> tuple:
@@ -182,30 +184,107 @@ def residual(rowptr, col, val, x, b) -> float:
 
 
 def cg_held(spcg, rowptr, col, val, b, invd) -> dict:
-    """The kernels' solve (twice: bit for bit the same) against
-    plain_cg."""
+    """The kernels' solve (twice: bit for bit the same) against the
+    ordered model, bit for bit, and against plain_cg."""
     import torch
     x1, k1 = spcg.cg(rowptr, col, val, b, invd)
     x2, k2 = spcg.cg(rowptr, col, val, b, invd)
+    xo, ko = spcg.plain_cg(rowptr, col, val, b, invd, ordered=True)
     xp, kp = spcg.plain_cg(rowptr, col, val, b, invd)
     torch.cuda.synchronize()
     err = float((x1 - xp).abs().max())
     scale = float(xp.abs().max())
     res = residual(rowptr, col, val, x1, b)
     repeat = bool(torch.equal(x1, x2)) and k1 == k2
+    ordered = bool(torch.equal(x1, xo)) and k1 == ko
     return {"iterations": k1, "plain_iterations": kp, "repeat": repeat,
-            "max_abs_err": err, "rel_err": err / scale, "residual": res,
-            "ok": repeat and err <= X_TOL * scale and res <= RESIDUAL_TOL}
+            "ordered": ordered, "max_abs_err": err, "rel_err": err / scale,
+            "residual": res, "ok": repeat and ordered and
+            err <= X_TOL * scale and res <= RESIDUAL_TOL}
 
 
-def _rel(a, b) -> float:
-    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-300)
+def tridiagonal_csr(n: int, dev) -> tuple:
+    """The CSR of the n x n [-1 2 -1] stencil on `dev`: grids of one block
+    (n <= 256) and of two whose second holds one row (n = 257)."""
+    import torch
+    i = torch.arange(n, device=dev)
+    cols = i[:, None] + torch.tensor([-1, 0, 1], device=dev)
+    keep = (cols >= 0) & (cols < n)
+    rowptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    rowptr[1:] = torch.cumsum(keep.sum(1), 0)
+    vals = torch.tensor([-1.0, 2.0, -1.0], dtype=torch.float64, device=dev)
+    return (rowptr, cols[keep].to(torch.int32),
+            vals.expand(n, 3)[keep].contiguous())
+
+
+def _diff(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def first_iteration(spcg, s, b, invd) -> tuple:
+    """On the loaded solver `s`: a solve's start, then one iteration's
+    three launches one at a time. Each kernel's vectors against the JAX
+    body's torch ops on the same inputs, each tail's scalars, k and the
+    done flag against the ordered model (`spcg.ordered_dot`), bit for bit;
+    the arrival counters back at 0. Returns ({step: ok}, {step: max abs
+    err}), the steps "start" and the three kernels."""
+    import torch
+    dot, at = spcg.ordered_dot, spcg.SLOTS
+
+    def scalars(**want) -> bool:
+        return all(torch.equal(s.sc[at[k]], v) for k, v in want.items())
+
+    def ctl(rr, bb, k) -> list:
+        go = bool(torch.sqrt(rr) > s.tol * torch.sqrt(bb)) and k < s.maxit
+        return [0 if go else 1, k]
+
+    check, err = {}, {}
+    s.start(b)
+    z = invd * b
+    bb, rz = dot(b, b), dot(b, z)
+    check["start"] = torch.equal(s.z, z) and torch.equal(s.p, z) and \
+        scalars(bb=bb, rz=rz, rr=bb) and s.ctl.tolist() == ctl(bb, bb, 0)
+    err["start"] = max(_diff(s.z, z), _diff(s.sc[at["rz"]], rz))
+    # spmv_f64 and its tail: p.Ap, alpha
+    p = s.p.clone()
+    s._product()
+    ap = spcg.plain_spmv(s.rowptr, s.col, s.val, p)
+    pap = dot(p, ap)
+    alpha = rz / pap
+    check["spmv_f64"] = torch.equal(s.ap, ap) and scalars(pap=pap,
+                                                          alpha=alpha)
+    err["spmv_f64"] = max(_diff(s.ap, ap), _diff(s.sc[at["alpha"]], alpha))
+    # cg_update with the kernel's alpha, and its tail: r.z, r.r, beta, k,
+    # the flag
+    x0, r0 = s.x.clone(), s.r.clone()
+    s._update(init=False)
+    xw = x0 + alpha * p
+    rw = r0 - alpha * ap
+    zw = invd * rw
+    rzn, rr = dot(rw, zw), dot(rw, rw)
+    beta = rzn / rz
+    check["cg_update"] = torch.equal(s.x, xw) and torch.equal(s.r, rw) and \
+        torch.equal(s.z, zw) and scalars(rz=rzn, rr=rr, beta=beta, bb=bb) \
+        and s.ctl.tolist() == ctl(rr, bb, 1)
+    err["cg_update"] = max(_diff(s.x, xw), _diff(s.r, rw), _diff(s.z, zw),
+                           _diff(s.sc[at["beta"]], beta))
+    # cg_direction with the kernel's beta
+    p0 = s.p.clone()
+    s._direction()
+    pw = zw + beta * p0
+    check["cg_direction"] = torch.equal(s.p, pw)
+    err["cg_direction"] = _diff(s.p, pw)
+    counters = s.count.tolist() == [0, 0]
+    torch.cuda.synchronize()
+    return {k: bool(v) and counters for k, v in check.items()}, err
 
 
 def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON) -> dict:
-    """One iteration of sparse_poisson.m's solve, its five launches one at
-    a time, each held to the JAX body's torch ops on the same inputs and
-    timed; the rows of the kernel JSON line, and the iteration's."""
+    """One iteration of sparse_poisson.m's solve held by `first_iteration`,
+    then each kernel timed, the product without its partials and the
+    update without its tail (the tails' times are the differences), and
+    the iteration eagerly and in the replayed graph; the rows of the
+    kernel JSON line, the tails' and the iteration's."""
     import torch
     dev = torch.device("cuda")
     f64 = torch.float64
@@ -216,57 +295,20 @@ def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON) -> dict:
     invd = inverse_diagonal(rowptr, col, val)
     s = spcg._Solver(rowptr, col, val, RESIDUAL_TOL, 10 * n)
     s.load(rowptr, col, val, invd)
-    s.start(b)
-    rz0 = float(torch.dot(b, invd * b))
-    check = {"init": _rel(s.sc[0], rz0) <= SCALAR_TOL and
-             torch.equal(s.z, invd * b) and torch.equal(s.p, s.z) and
-             int(s.ctl[0]) == 0}
-    err = {}
-    # spmv_f64 with its partials
-    p = s.p.clone()
-    spcg._spmv(n, s.rowptr, s.col, s.val, s.p, s.ap, s.part, s.ctl)
-    want = spcg.plain_spmv(rowptr, col, val, p)
-    err["spmv_f64"] = float((s.ap - want).abs().max())
-    check["spmv_f64"] = torch.equal(s.ap, want)
-    # cg_scalars: alpha
-    s._scalars(spcg._ALPHA)
-    alpha = s.sc[2].clone()
-    plain_alpha = torch.dot(s.r, s.z) / torch.dot(p, want)
-    err["cg_scalars"] = _rel(alpha, plain_alpha)
-    # cg_update with the kernel's alpha
-    x0, r0 = s.x.clone(), s.r.clone()
-    s._update(init=False)
-    xw = x0 + alpha * p
-    rw = r0 - alpha * want
-    zw = invd * rw
-    err["cg_update"] = max(float((s.x - xw).abs().max()),
-                           float((s.r - rw).abs().max()),
-                           float((s.z - zw).abs().max()))
-    check["cg_update"] = torch.equal(s.x, xw) and torch.equal(s.r, rw) and \
-        torch.equal(s.z, zw)
-    # cg_scalars: beta, k, the flag
-    rz = s.sc[0].clone()
-    s._scalars(spcg._BETA)
-    plain_beta = torch.dot(rw, zw) / rz
-    err["cg_scalars"] = max(err["cg_scalars"], _rel(s.sc[3], plain_beta))
-    check["cg_scalars"] = err["cg_scalars"] <= SCALAR_TOL and \
-        s.ctl.tolist() == [0, 1]
-    # cg_direction with the kernel's beta
-    beta = s.sc[3].clone()
-    p0 = s.p.clone()
-    s._direction()
-    pw = zw + beta * p0
-    err["cg_direction"] = float((s.p - pw).abs().max())
-    check["cg_direction"] = torch.equal(s.p, pw)
-    torch.cuda.synchronize()
+    check, err = first_iteration(spcg, s, b, invd)
+    alpha = s.sc[spcg.SLOTS["alpha"]].clone()
+    beta = s.sc[spcg.SLOTS["beta"]].clone()
 
-    nb = spcg.blocks(n)
-    vec = 8 * n
-    work = {   # (bytes, flops) each input read once, each output written once
-        "spmv_f64": (8 * (n + 1) + 12 * nnz + vec + vec + 8 * nb,
-                     2 * nnz + 2 * n),
-        "cg_scalars": (8 * 2 * nb + 8 * 4, 2 * nb),
-        "cg_update": (5 * vec + 3 * vec + 8 * 2 * nb, 8 * n),
+    vec, tiles = 8 * n, 8 * spcg.blocks(n)
+    product = (8 * (n + 1) + 12 * nnz + 2 * vec, 2 * nnz)
+    update = (8 * vec + 2 * tiles, 9 * n)
+    work = {   # (bytes, flops) each input read once, each output written
+        # once; the tile partials written, and read back by the tail with
+        # its scalars
+        "spmv_f64": (product[0] + 2 * tiles + 8 * 3,
+                     product[1] + 2 * n + tiles // 8 + 1),
+        "cg_update": (update[0] + 2 * tiles + 8 * 7,
+                      update[1] + tiles // 4 + 4),
         "cg_direction": (3 * vec, 2 * n),
     }
     s.ctl.zero_()
@@ -276,18 +318,14 @@ def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON) -> dict:
                                       (n, n), check_invariants=False)
     beta_f = float(beta)
     runs = {
-        "spmv_f64": (lambda: spcg._spmv(n, s.rowptr, s.col, s.val, s.p,
-                                        s.ap, s.part, s.ctl),
+        "spmv_f64": (s._product,
                      lambda: spcg.plain_spmv(rowptr, col, val, s.p),
                      lambda: csr @ s.p),
-        "cg_scalars": (lambda: s._scalars(spcg._ALPHA),
-                       lambda: torch.dot(s.r, s.z) / torch.dot(s.p, s.ap),
-                       None),
         "cg_update": (lambda: s._update(init=False),
                       lambda: (s.x + alpha * s.p, s.r - alpha * s.ap,
                                invd * (s.r - alpha * s.ap)),
                       None),
-        "cg_direction": (lambda: s._direction(),
+        "cg_direction": (s._direction,
                          lambda: s.z + beta * s.p,
                          lambda: torch.add(s.z, s.p, alpha=beta_f)),
     }
@@ -299,11 +337,24 @@ def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON) -> dict:
         bms, by = bound(*work[name])
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bms, "bound_by": by, "bytes": work[name][0],
-                      "max_abs_err": err[name], "ok": bool(check[name])}
-    # one iteration: the five launches, eagerly and as CHUNK of them in the
-    # captured graph (the path's form), per iteration
-    # (each from a solve's start, so that no iteration timed is past the
-    # last, which would do nothing)
+                      "max_abs_err": err[name], "ok": check[name]}
+    # the kernels without their tails, the product without its partials
+    bare = {"spmv_f64": (lambda: spcg._spmv(n, s.rowptr, s.col, s.val, s.p,
+                                            s.ap, ctl=s.ctl), product),
+            "cg_update": (lambda: s._update(init=False, tail=False), update)}
+    tails = {}
+    for name, (kernel, w) in bare.items():
+        ms = time_ms(kernel, reps)
+        tails[name] = {"ms": rows[name]["ms"] - ms, "kernel_ms": ms,
+                       "kernel_bound_ms": bound(*w)[0],
+                       "bytes": work[name][0] - w[0]}
+    # no timed launch may have found the done flag set: it would have
+    # returned at once
+    timed_ok = s.ctl.tolist()[0] == 0
+    # one iteration: the three launches, eagerly and as CHUNK of them in the
+    # captured graph (the path's form), per iteration (each from a solve's
+    # start, so that no iteration timed is past the last, which would do
+    # nothing)
     s.start(b)
     it_ms = time_ms(s.step, reps)
     s.start(b)
@@ -318,15 +369,32 @@ def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON) -> dict:
         zn = invd * rn
         return xn, zn + (torch.dot(rn, zn) / torch.dot(s.r, s.z)) * s.p
 
-    ib = sum(work[k][0] for k in work) + work["cg_scalars"][0]
-    ifl = sum(work[k][1] for k in work) + work["cg_scalars"][1]
+    ib = sum(w[0] for w in work.values())
+    ifl = sum(w[1] for w in work.values())
     bms, by = bound(ib, ifl)
     iteration = {"ms": it_ms, "graph_ms": graph_ms,
                  "plain_ms": time_ms(plain_step, max(2, reps // 10)),
                  "bound_ms": bms, "bound_by": by, "bytes": ib,
                  "library_ms": rows["spmv_f64"]["library_ms"]}
-    return {"n": n, "nnz": nnz, "init_ok": bool(check["init"]),
-            "rows": rows, "iteration": iteration}
+    return {"n": n, "nnz": nnz, "start_ok": check["start"],
+            "timed_ok": timed_ok, "rows": rows, "tails": tails,
+            "iteration": iteration}
+
+
+def tail_code() -> dict:
+    """Each tail's loads of partials in flight before its first add, and
+    the kernel's registers, from the library's machine code
+    (`runmat_tpu_torch/sass.py`)."""
+    from runmat_tpu_torch import sass
+    code = sass.kernels(sass.disassemble())
+    res = sass.resources()
+    out = {}
+    for name, key in (("spmv_f64", "spmv_kernel"),
+                      ("cg_update", "update_kernel")):
+        (mangled,) = [k for k in code if key in k]
+        out[name] = {**sass.tail_loads(code[mangled]),
+                     "registers": res.get(mangled, {}).get("REG")}
+    return out
 
 
 def main() -> int:
@@ -355,7 +423,11 @@ def main() -> int:
     r = step_rows(spcg, histbench.time_ms, args.reps, args.N)
     for name, row in r["rows"].items():
         print(f"{name}: {row}")
+    for name, row in r["tails"].items():
+        print(f"{name} tail: {row}")
     print(f"iteration: {r['iteration']}")
+    r["tail_code"] = tail_code()
+    print(f"tail code: {r['tail_code']}")
     print(json.dumps({"tree": os.path.abspath(args.tree), "card": card,
                       **r}))
     return 0

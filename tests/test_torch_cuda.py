@@ -1343,7 +1343,9 @@ def test_parfeval_on_a_device_array_while_the_card_computes(card):
 # ------------------------------------------------- the sparse CG kernels
 # (csrc/spcg.cu via ops/spcg.py; runmat_tpu_torch/spbench.py makes the
 # cases): the product bit for bit against plain_spmv, a solve within 1e-8
-# of plain_cg's largest entry and bit for bit the same when repeated
+# of plain_cg's largest entry, bit for bit the same when repeated and bit
+# for bit plain_cg(ordered=True)'s (the kernels' order of summing), each
+# tail's scalars the ordered model's
 
 
 @pytest.mark.parametrize("case", range(4))
@@ -1370,7 +1372,7 @@ def test_each_cg_kernel_matches_the_jax_body(card):
     from runmat_tpu_torch import histbench, spbench
     from runmat_tpu_torch.ops import spcg
     r = spbench.step_rows(spcg, histbench.time_ms, 3, N=128)
-    assert r["init_ok"]
+    assert r["start_ok"] and r["timed_ok"]
     assert all(row["ok"] for row in r["rows"].values()), r["rows"]
 
 
@@ -1383,10 +1385,81 @@ def test_cg_zero_b_is_done_before_the_first_iteration(card):
     x, k = spcg.cg(rowptr, col, val, torch.zeros(64 * 64, dtype=torch.float64,
                                                  device=card), invd)
     assert k == 0 and not bool(x.any())
-    # the start's two launches, then one chunk in which nothing runs
+    # the start's one launch, then one chunk in which nothing runs
     assert collections.Counter(spcg.launches_by) - before == {
-        "cg_update": 1 + spcg.CHUNK, "cg_scalars": 1 + 2 * spcg.CHUNK,
-        "spmv_f64": spcg.CHUNK, "cg_direction": spcg.CHUNK}
+        "cg_update": 1 + spcg.CHUNK, "spmv_f64": spcg.CHUNK,
+        "cg_direction": spcg.CHUNK}
+
+
+def _cg_system(card, case: str) -> tuple:
+    """(rowptr, col, val, b, invd): the [-1 2 -1] stencil on a grid of one
+    block (200 rows) or of two whose second holds one row (257), or a
+    system of `spbench.cg_cases`, with a seeded b."""
+    from runmat_tpu_torch import spbench
+    if case.startswith("tridiagonal"):
+        n = int(case.split()[1])
+        rowptr, col, val = spbench.tridiagonal_csr(n, card)
+        b = torch.from_numpy(np.random.default_rng(n).standard_normal(
+            n)).to(card)
+        return rowptr, col, val, b, spbench.inverse_diagonal(rowptr, col, val)
+    return tuple(spbench.cg_cases(card)[int(case.split()[1])][1:])
+
+
+CG_SYSTEMS = ["tridiagonal 200", "tridiagonal 257", "case 0", "case 1"]
+
+
+@pytest.mark.parametrize("case", CG_SYSTEMS)
+def test_cg_tails_equal_the_ordered_model(card, case):
+    # a start, then one spmv_f64 and one cg_update launch: p.Ap, alpha,
+    # r.z, r.r and beta the ordered model's bit for bit, k = 1, not done
+    from runmat_tpu_torch import spbench
+    from runmat_tpu_torch.ops import spcg
+    rowptr, col, val, b, invd = _cg_system(card, case)
+    s = spcg._Solver(rowptr, col, val, 1e-10, 10 * b.numel())
+    s.load(rowptr, col, val, invd)
+    check, err = spbench.first_iteration(spcg, s, b, invd)
+    assert all(check.values()), (check, err)
+    assert s.ctl.tolist() == [0, 1] and s.count.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("case", CG_SYSTEMS)
+def test_cg_equals_the_ordered_model_bit_for_bit(card, case):
+    from runmat_tpu_torch.ops import spcg
+    rowptr, col, val, b, invd = _cg_system(card, case)
+    cache = {}
+    x1, k1 = spcg.cg(rowptr, col, val, b, invd, cache=cache)
+    x2, k2 = spcg.cg(rowptr, col, val, b, invd, cache=cache)
+    xo, ko = spcg.plain_cg(rowptr, col, val, b, invd, ordered=True)
+    assert k1 == k2 == ko > 0
+    assert torch.equal(x1, x2) and torch.equal(x1, xo)
+
+
+def test_cg_after_a_failed_launch_starts_with_zeroed_counters(card,
+                                                              monkeypatch):
+    # a launch fails while the graph is captured; the cached solver's
+    # counters are then left as a fault inside a tail would leave them,
+    # and the next solve is still the ordered model's
+    from runmat_tpu_torch.ops import spcg
+    rowptr, col, val, b, invd = _cg_system(card, "case 0")
+    cache, failed = {}, []
+    entry = spcg._entry
+
+    def fail_once(name, argtypes):
+        if name == "runmat_cg_direction" and not failed:
+            failed.append(name)
+            return lambda *a: 1
+        return entry(name, argtypes)
+
+    monkeypatch.setattr(spcg, "_entry", fail_once)
+    with pytest.raises(RuntimeError, match="cg_direction kernel launch"):
+        spcg.cg(rowptr, col, val, b, invd, cache=cache)
+    solver = cache["solver"]
+    assert solver.graph is None
+    solver.count.copy_(torch.tensor([3, 7], dtype=torch.int32))
+    x, k = spcg.cg(rowptr, col, val, b, invd, cache=cache)
+    xo, ko = spcg.plain_cg(rowptr, col, val, b, invd, ordered=True)
+    assert cache["solver"] is solver and k == ko and torch.equal(x, xo)
+    assert solver.count.tolist() == [0, 0]
 
 
 def test_sparse_solve_waits_equal_the_chunk_reads(card):
@@ -1418,7 +1491,6 @@ def test_a_failed_launch_raises_and_nothing_falls_back(card, monkeypatch):
     monkeypatch.setattr(spcg, "plain_spmv", None)
     monkeypatch.setattr(spcg, "_entries", {
         "runmat_spmv_f64": lambda *a: 1, "runmat_cg_update": lambda *a: 0,
-        "runmat_cg_scalars": lambda *a: 0,
         "runmat_cg_direction": lambda *a: 0})
     with pytest.raises(RuntimeError, match="spmv_f64 kernel launch failed"):
         spcg.cg(rowptr, col, val, p, spbench.inverse_diagonal(rowptr, col,
