@@ -147,13 +147,35 @@ line is printed:
      the card bit for bit, x within 1e-8 of plain_cg's on the card and its
      norm(b - A*x)/norm(b) no more than 1 % above plain_cg's, under 128 MB
      uploaded (the CSR, 1/diag(A) and b); the warm walls and a profile;
- 10. one JSON line of kernel results, then the result line
+ 10. deep learning path: the LSTM cell's forward and backward kernels
+     (runmat_tpu_torch/ops/lstm.py, Triton) at dl_vowels.m's (4*100, 27)
+     and two odd shapes, and the optimizer update (ops/optim.py, Triton;
+     Adam and SGDM, three steps) at both scripts' learnables, against
+     their plain versions bit for bit, each timed beside its byte bound and the
+     PyTorch call that computes the same function
+     (runmat_tpu_torch/dlbench.py); then
+     runmat_tpu_torch/workloads/dl_digits.m (MathWorks' digit CNN, 7,500
+     images of 28x28, 232 SGDM steps, 21,690 learnables) and dl_vowels.m
+     (the Japanese Vowels LSTM, 270 sequences of 26 steps, 500 Adam steps,
+     46,109 learnables) through Session.run_source: one capture of the
+     training step each, replayed for every step after the two warm-up
+     steps, each kernel launched as often as the steps say, the accuracy
+     printed over DL_ACCURACY, the waits equal to the counted reads (none
+     inside the loop); each network's first three steps on the card held
+     to the CPU's plain path from the same initial weights (within
+     dlbench.STEP_TOL of the largest learnable: 1e-4 for SGDM, 1e-3 for
+     Adam), two trainings on the
+     card and their largest difference, the step timed eagerly and
+     replayed with cuDNN's deterministic algorithms and without, its
+     device kernels counted, the warm walls and a profile; a dlfeval/
+     dlgradient snippet on the card against the CPU;
+ 11. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
 against that call in turns, ten rounds, for the run-to-run spread of
 both, and prints the layout of each float64 map of more than 2^20
 elements (8 warps a block since the layout sweep of fusebench.py). Each
-kernel's `launches` is read from the runs of phases 4 to 9, with the
+kernel's `launches` is read from the runs of phases 4 to 10, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches, or for its one where one program covers each
 segment); each generated group is a row of its own, counted by its
@@ -291,6 +313,13 @@ SPARSE_TOL = 1e-10
 SPARSE_DRIFT = 1.01
 # sparse_poisson.m uploads its CSR (the CSC of A'), 1/diag(A) and b
 SPARSE_TRANSFER_LIMIT = 128 << 20
+# the deep learning scripts' printed accuracy on their training data must
+# pass these (chance is 0.1 and 0.11): the loss fell
+DL_ACCURACY = {"dl_digits": 0.9, "dl_vowels": 0.9}
+DL_RESULT = {"dl_digits": "DIGITS", "dl_vowels": "VOWELS"}
+# a dlfeval/dlgradient snippet in float64, card against CPU: cuBLAS and
+# the CPU's BLAS sum the products in other orders
+DL_SNIPPET_TOL = 1e-12
 
 
 class SmokeFailure(Exception):
@@ -660,19 +689,23 @@ def _sync_check(src: str, label: str) -> None:
 
 
 def _zero_launches() -> None:
-    from runmat_tpu_torch.ops import fused, histogram, iir, spcg, threefry
-    for mod in (histogram, threefry, fused, iir, spcg):
+    from runmat_tpu_torch.ops import (fused, histogram, iir, lstm, optim,
+                                      spcg, threefry)
+    for mod in (histogram, threefry, fused, iir, spcg, lstm, optim):
         mod.launches = 0
         mod.launches_by.clear()
 
 
 def _read_launches() -> dict:
-    from runmat_tpu_torch.ops import fused, histogram, iir, spcg, threefry
+    from runmat_tpu_torch.ops import (fused, histogram, iir, lstm, optim,
+                                      spcg, threefry)
     return {"threefry": dict(threefry.launches_by),
             "histogram": dict(histogram.launches_by),
             "fused": dict(fused.launches_by),
             "iir": dict(iir.launches_by),
-            "spcg": dict(spcg.launches_by)}
+            "spcg": dict(spcg.launches_by),
+            "lstm": dict(lstm.launches_by),
+            "optim": dict(optim.launches_by)}
 
 
 def _group(name: str) -> str:
@@ -680,7 +713,9 @@ def _group(name: str) -> str:
     return "threefry" if name.startswith("threefry") else \
         "histogram" if name.startswith("histcounts") else \
         "iir" if name.startswith("iir") else \
-        "spcg" if name in SPARSE_KERNELS else "fused"
+        "spcg" if name in SPARSE_KERNELS else \
+        "lstm" if name.startswith("lstm") else \
+        "optim" if name.startswith("optim") else "fused"
 
 
 def phase_fused_kernel() -> list:
@@ -1550,11 +1585,13 @@ def _builders() -> None:
 def _module_snippets() -> None:
     """Each snippet of runmat_tpu_torch/parity_snippets.py (one a builtin
     module copied with the page slice) in a card session against the
-    port's host engine: the same output, error and workspace values."""
+    port's host engine: the same output, error and workspace values (equal,
+    or, where the snippet states a tolerance, within it of the largest
+    magnitude: the dlnetwork snippet's float32 sums)."""
     import runmat_tpu_torch
     from runmat_tpu_torch.parity_snippets import NEEDS, SNIPPETS
     from runmat_tpu_torch.session import Session
-    for sid, module, src, _ in SNIPPETS:
+    for sid, module, src, tol in SNIPPETS:
         need = NEEDS.get(module)
         if need and importlib.util.find_spec(need) is None:
             print(f"snippet {sid}: skipped, {module} needs {need}, which "
@@ -1579,7 +1616,10 @@ def _module_snippets() -> None:
                 wh, gh = np.asarray(w.host()), np.asarray(g.host())
                 check(g.mclass == w.mclass and gh.shape == wh.shape and
                       gh.dtype == wh.dtype and
-                      np.array_equal(gh, wh, equal_nan=True),
+                      (np.array_equal(gh, wh, equal_nan=True) if tol == 0
+                       or wh.dtype.kind not in "fc" else
+                       np.allclose(gh, wh, rtol=0, equal_nan=True,
+                                   atol=tol * np.abs(wh).max(initial=1.0))),
                       f"snippet {sid}: {name} {gh!r} against {wh!r}")
             else:
                 check(type(g).__name__ == type(w).__name__,
@@ -1825,6 +1865,133 @@ def phase_sparse_path() -> dict:
     return launches
 
 
+def _dl_kernels() -> dict:
+    """The LSTM cell and the optimizer update against their plain versions,
+    bit for bit, then timed (runmat_tpu_torch/dlbench.py)."""
+    import torch
+
+    from runmat_tpu_torch import dlbench, histbench
+    from runmat_tpu_torch.ops import lstm, optim
+    dev = torch.device("cuda")
+    held = {**dlbench.held_cell(lstm, dev), **dlbench.held_optim(optim, dev)}
+    for name, r in held.items():
+        check(r["equal"], f"{name} against its plain version: {r}")
+        print(f"kernel {name}: equal to its plain version bit for bit")
+    rows = dlbench.kernel_rows(lstm, optim, histbench.time_ms, TIMING_REPS,
+                               dev)
+    for name, r in rows.items():
+        r["max_abs_err"] = held[name]["max_abs_err"]
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"time {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib} {r['library_note']}, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} "
+              f"bytes), share of bound {r['bound_ms'] / r['ms']:.4f}")
+    return rows
+
+
+def phase_dl_path() -> dict:
+    """dl_digits.m and dl_vowels.m at their default sizes through
+    Session.run_source after the kernels against their plain versions:
+    the captured step, the launches, the accuracy, the waits, the first
+    three steps against the CPU, two trainings, the step's times, the
+    warm walls and a profile; then the dlfeval/dlgradient snippet."""
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, dlbench, histbench, profile
+    from runmat_tpu_torch.runtime.builtins.dl_layers import _TrainStep
+    rows = _dl_kernels()
+    launches: dict = {}
+    for name, path in dlbench.WORKLOADS.items():
+        src = open(path).read()
+        s = runmat_tpu_torch.session("cuda")
+        eng = accel.active_engine()
+        _zero_launches()
+        t0 = time.perf_counter()
+        output = _run_source(s, src)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read_launches()
+        for group in ("lstm", "optim"):
+            for k, v in got[group].items():
+                launches.setdefault(group, {})
+                launches[group][k] = launches[group].get(k, 0) + v
+        st = dict(eng.stats)
+        steps = dlbench.STEPS[name]
+        (step,) = s.get("net")._train_steps.values()
+        check(st["graph_captures"] == 1 and
+              st["graph_replays"] == steps - _TrainStep.WARMUP ==
+              step.replays and step.eager == _TrainStep.WARMUP,
+              f"{name}: {st['graph_captures']} captures, "
+              f"{st['graph_replays']} replays, {step.eager} eager steps "
+              f"for {steps} steps")
+        lstm_runs = dlbench.T * (steps + 1) if name == "dl_vowels" else 0
+        want = {"lstm": {"lstm_fwd": lstm_runs,
+                         "lstm_bwd": lstm_runs - dlbench.T} if lstm_runs
+                else {},
+                "optim": {"optim_adam" if name == "dl_vowels" else
+                          "optim_sgdm": steps}}
+        check(all(got[g] == w for g, w in want.items()),
+              f"{name}: launches {got['lstm']} {got['optim']}, want {want}")
+        acc = _result_value(output, DL_RESULT[name])
+        check(acc >= DL_ACCURACY[name],
+              f"{name}: accuracy {acc} (limit {DL_ACCURACY[name]})")
+        check(st["host_fallbacks"] == 0,
+              f"{name}: {st['host_fallbacks']} host fallbacks")
+        print(f"port {name}: {output.strip()}; {steps} steps, "
+              f"{st['graph_captures']} capture, {st['graph_replays']} "
+              f"replays; launches {got['lstm']} {got['optim']}; "
+              f"{st['uploads']} uploads ({st['upload_bytes']} bytes), "
+              f"{st['gathers']} gathers ({st['gather_bytes']} bytes), "
+              f"{st['syncs']} syncs; first run {wall * 1e3:.1f} ms")
+        del s, step
+        runmat_tpu_torch.uninstall()
+        _sync_check(src, name)
+        fs = dlbench.first_steps(name)
+        check(fs["rel_err"] <= fs["tol"],
+              f"{name}: first steps on the card against the CPU: {fs}")
+        rp = dlbench.repeat(name)
+        check(all(c == {"graph_captures": 1,
+                        "graph_replays": steps - _TrainStep.WARMUP}
+                  for c in rp["counts"]), f"{name}: two trainings {rp}")
+        print(f"{name}: the first {fs['steps']} steps on the card within "
+              f"{fs['rel_err']:.3g} of the CPU's plain path (of the largest "
+              f"learnable {fs['largest']:.4g}; limit {fs['tol']:g}); "
+              f"two trainings on the card differ by at most "
+              f"{rp['max_diff']:.3g}")
+        tm = dlbench.step_times(name, histbench.time_ms, 20)
+        print(f"time {name} step: replayed {tm['replay_det_ms']:.4f} ms "
+              f"(eager {tm['eager_det_ms']:.4f}) with cuDNN's deterministic "
+              f"algorithms, {tm['replay_free_ms']:.4f} ms (eager "
+              f"{tm['eager_free_ms']:.4f}) without; {tm['kernels_a_step']} "
+              f"device kernels a step")
+        _walls(src, name, preview=False)
+        prof = profile.profile_script(src, top=8)
+        print(f"profile {name}: wall {prof['wall_ms']:.1f} ms, "
+              f"{prof['device_items']} device items, busy "
+              f"{prof['busy_ms']:.3f} ms, idle share "
+              f"{prof['idle_share']:.3f}; device top " +
+              "; ".join(f"{ms:.3f} ms x{c} {key[:60]}"
+                        for key, ms, c in prof["device_top"]))
+    sn = dlbench.dlfeval_snippet()
+    check(sn["rel_err"] <= DL_SNIPPET_TOL,
+          f"dlfeval snippet on the card against the CPU: {sn}")
+    print(f"dlfeval snippet: the card's loss and gradients within "
+          f"{sn['rel_err']:.3g} of the CPU's (limit {DL_SNIPPET_TOL:g})")
+    phase_dl_path.kernels = [
+        {"name": name, "route": "triton",
+         "source": "runmat_tpu_torch/ops/" +
+                   ("lstm.py" if name.startswith("lstm") else "optim.py"),
+         "replaces": dlbench.REPLACES[name], "launches": 0,
+         "launch_key": name, "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for name, r in rows.items()]
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -1841,9 +2008,10 @@ def main() -> int:
         paths = [phase(phase_main_path), phase(phase_statistics_path),
                  phase(phase_indexing_path),
                  phase(phase_linalg_signal_path), phase(phase_pages_path),
-                 phase(phase_sparse_path)]
+                 phase(phase_sparse_path), phase(phase_dl_path)]
         kernels += phase_linalg_signal_path.kernels + \
-            phase_pages_path.kernels + phase_sparse_path.kernels
+            phase_pages_path.kernels + phase_sparse_path.kernels + \
+            phase_dl_path.kernels
         for k in kernels:
             key = k.pop("launch_key")
             on_path = k.pop("on_path", True)

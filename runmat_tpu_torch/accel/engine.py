@@ -360,6 +360,9 @@ class TorchEngine:
         # the sparse CG's buffers and captured graph (`ops/spcg.cg`): the
         # last solve's, kept for the next of the same shape
         self.spcg_cache: dict = {}
+        # the dlnetwork training steps' captured graphs, by step
+        # (runtime/builtins/dl_layers.py:_TrainStep)
+        self.dl_graphs: dict = {}
         self.stats = {"dispatches": 0, "compiles": 0, "cache_hits": 0,
                       "uploads": 0, "gathers": 0, "upload_bytes": 0,
                       "gather_bytes": 0, "host_fallbacks": 0,
@@ -389,6 +392,7 @@ class TorchEngine:
         """Drop the captured graphs and their private memory pools."""
         self._jit_cache.clear()
         self.spcg_cache.clear()
+        self.dl_graphs.clear()
 
     def to_device(self, h: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor in physical shape (always a copy). To

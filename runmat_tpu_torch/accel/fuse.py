@@ -308,7 +308,7 @@ def run_group_plain(eng, g: Group, program: list, args: list) -> list:
         op, static, dt, ins, in_shapes, out_shape = program[i]
         env[i] = eng._exec(op, static, dt, [env[j] for j in ins], in_shapes,
                            out_shape)
-        for j in ins:
+        for j in set(ins):      # an op may read one value twice (d .* d)
             if last[j] == i and j not in keep and j not in g.inputs:
                 del env[j]
     return [env[i] for i in g.outputs]

@@ -1,0 +1,387 @@
+"""Deep learning on the card: the LSTM cell and the optimizer update against
+their plain versions and timed, and the training of dl_digits.m and
+dl_vowels.m checked and timed.
+
+    python3 runmat_tpu_torch/dlbench.py
+
+`held_cell` and `held_optim` hold the kernels of `ops/lstm.py` (forward
+and backward, each variant) and `ops/optim.py` (Adam and SGDM, three
+steps) to their plain versions on the card, bit for bit where they are
+equal and with the largest difference either way; `kernel_rows` times each
+at the paths' shapes (CUDA events, the card spinning first:
+`histbench.time_ms`) beside its plain version, its bound (the bytes it must
+move over 3.35 TB/s: no kernel here does enough arithmetic a byte to be
+bound by operations) and the PyTorch call that computes the same function
+(`torch.ops.aten._thnn_fused_lstm_cell` and its backward, whose inputs are
+(N, 4H) gate sums; `torch._fused_adam_`, `torch._fused_sgd_`), a yardstick
+the port never calls. `first_steps` trains a workload's network three
+steps on the card and on the CPU from the same initial weights (the CPU
+through the plain versions); `repeat` trains it twice on the card;
+`step_times` times one training step eagerly and as a replay of its
+captured graph, with cuDNN's deterministic algorithms and without, and
+counts the device kernels of a replayed step with `torch.profiler`;
+`dlfeval_snippet` runs a dlfeval/dlgradient snippet in a card session and
+a CPU one. `chip_smoke.py`'s tenth phase calls all of these.
+"""
+
+from __future__ import annotations
+
+import io
+import sys
+
+WORKLOADS = {"dl_digits": "runmat_tpu_torch/workloads/dl_digits.m",
+             "dl_vowels": "runmat_tpu_torch/workloads/dl_vowels.m"}
+# each script's learnables and training steps at its default size: 58
+# full minibatches of 128 an epoch over 4 epochs; 10 of 27 over 50
+LEARNABLES = {"dl_digits": 21690, "dl_vowels": 46109}
+STEPS = {"dl_digits": 4 * 58, "dl_vowels": 50 * 10}
+H, N, T = 100, 27, 26          # dl_vowels' LSTM: hidden units, batch, steps
+BYTES_PER_S = 3.35e12
+# the first three steps on the card against the CPU's, of the largest
+# learnable, by solver: cuDNN and cuBLAS sum in other orders than the CPU.
+# An Adam step moves an element by up to its rate whatever the size of its
+# gradient (m/(sqrt(v) + eps) is near +-1), so an element whose gradient's
+# terms cancel to near eps moves by an amount rounding sets: after three
+# steps of dl_vowels the JAX package and the port differ by 9.1e-5 of the
+# largest learnable on the same CPU, and the card and the CPU by 9.8e-5
+STEP_TOL = {"sgdm": 1e-4, "adam": 1e-3}
+# the lines of the JAX package each kernel replaces (no Pallas twin: XLA
+# compiled them from jax code)
+REPLACES = {
+    "lstm_fwd": "runmat_tpu/runtime/builtins/dl_layers.py:380-391",
+    "lstm_bwd": "runmat_tpu/runtime/builtins/dl_layers.py:380-391",
+    "optim_adam": "runmat_tpu/runtime/builtins/dl_layers.py:629-638",
+    "optim_sgdm": "runmat_tpu/runtime/builtins/dl_layers.py:640-644"}
+# the kernel rows' main-path shapes: the cell at dl_vowels' (4H, N); the
+# update at the learnables of the script that runs it
+ROW_SIZES = {"optim_adam": LEARNABLES["dl_vowels"],
+             "optim_sgdm": LEARNABLES["dl_digits"]}
+SNIPPET = """
+function [loss, gw, gb] = f(w, b, x, y)
+h = relu(fullyconnect(x, w, b));
+loss = mse(h, y);
+[gw, gb] = dlgradient(loss, w, b);
+end
+rng(7); W = randn(16, 8); B = [zeros(8, 1); randn(8, 1)]; X = randn(8, 32);
+X(:, 1) = 0; Y = randn(16, 32);
+[l, gw, gb] = dlfeval(@f, dlarray(W), dlarray(B), dlarray(X), dlarray(Y));
+lv = extractdata(l); gwv = extractdata(gw); gbv = extractdata(gb);
+"""
+
+
+def _gen(dev, seed: int):
+    import torch
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _randn(shape, dev, gen):
+    import torch
+    return torch.randn(shape, dtype=torch.float32, device=dev, generator=gen)
+
+
+def cell_inputs(dev, h: int = H, n: int = N, seed: int = 0) -> dict:
+    """z (4h, n), c, dh' and dc' (h, n), float32 on `dev`."""
+    gen = _gen(dev, seed)
+    return {"z": 2 * _randn((4 * h, n), dev, gen),
+            "c": _randn((h, n), dev, gen),
+            "dh": _randn((h, n), dev, gen),
+            "dc2": _randn((h, n), dev, gen)}
+
+
+def _err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def held_cell(lstm, dev) -> dict:
+    """Each kernel variant against the plain version, at the path's (4H,
+    N) and two odd shapes: {kernel: {"equal", "max_abs_err"}}."""
+    import torch
+    out = {"lstm_fwd": {"equal": True, "max_abs_err": 0.0},
+           "lstm_bwd": {"equal": True, "max_abs_err": 0.0}}
+
+    def note(name, got, want):
+        out[name]["equal"] &= bool(torch.equal(got, want))
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       _err(got, want))
+
+    for h, n in ((H, N), (7, 3), (H, 1081)):
+        x = cell_inputs(dev, h, n, seed=h + n)
+        for save in (True, False):
+            got = lstm.forward(x["z"], x["c"], save)
+            want = lstm.plain_forward(x["z"], x["c"], save)
+            for g, w in zip(got, want):
+                if w is not None:
+                    note("lstm_fwd", g, w)
+        h2, c2, act = lstm.plain_forward(x["z"], x["c"])
+        for dh, dc2 in ((x["dh"], x["dc2"]), (x["dh"], None),
+                        (None, x["dc2"])):
+            got = lstm.backward(act, x["c"], c2, dh, dc2)
+            want = lstm.plain_backward(act, x["c"], c2, dh, dc2)
+            for g, w in zip(got, want):
+                note("lstm_bwd", g, w)
+    torch.cuda.synchronize()
+    return out
+
+
+def held_optim(optim, dev, steps: int = 3) -> dict:
+    """Adam and SGDM at both scripts' learnables, `steps` steps from zero
+    moments, kernel against plain: {kernel: {"equal", "max_abs_err"}}."""
+    import torch
+    out = {}
+    for solver in ("adam", "sgdm"):
+        name = f"optim_{solver}"
+        out[name] = {"equal": True, "max_abs_err": 0.0}
+        for n in sorted(LEARNABLES.values()):
+            gen = _gen(dev, n)
+            p0 = 0.1 * _randn((n,), dev, gen)
+            grads = [_randn((n,), dev, gen) * 10.0 ** -k for k in range(steps)]
+            runs = []
+            for fn in (optim.update, optim.plain_update):
+                p = p0.clone()
+                st = optim.State(solver, p, 0.01)
+                for g in grads:
+                    st.t.add_(1)
+                    fn(st, p, g)
+                runs.append([p, st.m] + ([st.v] if st.v is not None else []))
+            for g, w in zip(*runs):
+                out[name]["equal"] &= bool(torch.equal(g, w))
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                               _err(g, w))
+    torch.cuda.synchronize()
+    return out
+
+
+def _library(fn):
+    """A yardstick call, or None (with the reason) where this torch lacks
+    it or refuses these inputs."""
+    try:
+        fn()
+        return fn, ""
+    except (RuntimeError, TypeError, AttributeError) as e:
+        return None, f"{type(e).__name__}: {str(e)[:120]}"
+
+
+def kernel_rows(lstm, optim, time_ms, reps: int, dev) -> dict:
+    """{kernel: {"ms", "plain_ms", "library_ms", "library_note",
+    "bound_ms", "bound_by", "bytes"}} at the paths' shapes."""
+    import torch
+    rows = {}
+    x = cell_inputs(dev)
+    z, c, dh, dc2 = x["z"], x["c"], x["dh"], x["dc2"]
+    hn = H * N
+    h2, c2, act = lstm.forward(z, c)
+    ig = z.t().contiguous()
+    hg = torch.zeros_like(ig)
+    cx = c.t().contiguous()
+    aten = torch.ops.aten
+    fwd_lib, fwd_note = _library(
+        lambda: aten._thnn_fused_lstm_cell(ig, hg, cx))
+    ws = None
+    if fwd_lib is not None:
+        hy, cy, ws = aten._thnn_fused_lstm_cell(ig, hg, cx)
+        ghy, gcy = dh.t().contiguous(), dc2.t().contiguous()
+    bwd_lib, bwd_note = (None, fwd_note) if ws is None else _library(
+        lambda: aten._thnn_fused_lstm_cell_backward_impl(ghy, gcy, cx, cy,
+                                                          ws, False))
+    cases = {
+        "lstm_fwd": (lambda: lstm.forward(z, c),
+                     lambda: lstm.plain_forward(z, c), fwd_lib, fwd_note,
+                     11 * hn * 4),
+        "lstm_bwd": (lambda: lstm.backward(act, c, c2, dh, dc2),
+                     lambda: lstm.plain_backward(act, c, c2, dh, dc2),
+                     bwd_lib, bwd_note, 13 * hn * 4)}
+    for name, n in ROW_SIZES.items():
+        solver = name.split("_")[1]
+        gen = _gen(dev, 5)
+        p = 0.1 * _randn((n,), dev, gen)
+        g = _randn((n,), dev, gen)
+        st = optim.State(solver, p, 0.01)
+        st.t.fill_(1.0)
+        pl, gl, ml, vl = [p.clone()], [g], [st.m.clone()], \
+            [torch.zeros_like(p)]
+        if solver == "adam":
+            steps = [torch.ones((), dtype=torch.float32, device=dev)]
+            lib, note = _library(lambda: torch._fused_adam_(
+                pl, gl, ml, vl, [], steps, lr=0.01, beta1=0.9, beta2=0.999,
+                weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False))
+            nbytes = 7 * n * 4 + 8
+        else:
+            lib, note = _library(lambda: torch._fused_sgd_(
+                pl, gl, ml, weight_decay=0.0, momentum=0.9, lr=0.01,
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False))
+            nbytes = 5 * n * 4
+        cases[name] = ((lambda st=st, p=p, g=g: optim.update(st, p, g)),
+                       (lambda st=st, p=p, g=g: optim.plain_update(st, p, g)),
+                       lib, note, nbytes)
+    for name, (kern, plain, lib, note, nbytes) in cases.items():
+        rows[name] = {
+            "ms": time_ms(kern, reps), "plain_ms": time_ms(plain, reps),
+            "library_ms": None if lib is None else time_ms(lib, reps),
+            "library_note": note, "bytes": nbytes,
+            "bound_ms": nbytes / BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    return rows
+
+
+def _prefix(name: str) -> str:
+    """A workload's source up to its training (the data and the options)."""
+    src = open(WORKLOADS[name]).read()
+    return src[:src.index("net = trainNetwork")]
+
+
+def _setup(name: str):
+    """The workload's data, layers and options, made in a card session:
+    (session, layers list, opts, X, Y)."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    s = runmat_tpu_torch.session("cuda")
+    s.stdout = io.StringIO()
+    s.run_source(_prefix(name))
+    return (s, dl_layers._layers_list(s.get("layers")), s.get("opts"),
+            s.get("X"), s.get("Y"))
+
+
+def first_steps(name: str, steps: int = 3) -> dict:
+    """The workload's network trained `steps` steps on the card (the
+    warm-up steps and a replay of the captured step) and on the CPU (the
+    plain versions) from the same initial weights: the largest difference
+    of the learnables over the largest learnable."""
+    import numpy as np
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    s, layers, opts, X, Y = _setup(name)
+    try:
+        nets = {}
+        for dev in ("cuda", "cpu"):
+            net = dl_layers.DlNetwork(layers, device=dev)
+            hx, hy = dl_layers._train_data(net, X, Y)
+            dl_layers._train(net, hx, hy, opts, max_steps=steps)
+            nets[dev] = np.concatenate([a.reshape(-1)
+                                        for a in net.learnables_np()])
+    finally:
+        runmat_tpu_torch.uninstall()
+    scale = float(np.abs(nets["cpu"]).max())
+    return {"rel_err": float(np.abs(nets["cuda"] - nets["cpu"]).max())
+            / scale, "largest": scale, "steps": steps,
+            "tol": STEP_TOL[dl_layers._opt(opts, "Solver", "adam")]}
+
+
+def repeat(name: str) -> dict:
+    """The workload's network trained twice on the card over all its
+    steps, from the same initial weights: the largest difference of the
+    learnables, and each training's captures and replays."""
+    import numpy as np
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    s, layers, opts, X, Y = _setup(name)
+    eng = accel.active_engine()
+    try:
+        flats, counts = [], []
+        for _ in range(2):
+            before = dict(eng.stats)
+            net = dl_layers.DlNetwork(layers)
+            dl_layers._train(net, *dl_layers._train_data(net, X, Y), opts)
+            flats.append(np.concatenate([a.reshape(-1)
+                                         for a in net.learnables_np()]))
+            counts.append({k: eng.stats[k] - before[k]
+                           for k in ("graph_captures", "graph_replays")})
+    finally:
+        runmat_tpu_torch.uninstall()
+    return {"max_diff": float(np.abs(flats[0] - flats[1]).max()),
+            "counts": counts}
+
+
+def step_times(name: str, time_ms, reps: int) -> dict:
+    """One training step of the workload at its first minibatch: eagerly
+    (`_TrainStep.body`) and as a replay of its captured graph, with cuDNN's
+    deterministic algorithms ("det") and without ("free"); and the device
+    kernels of one replay (`torch.profiler`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    s, layers, opts, X, Y = _setup(name)
+    eng = accel.active_engine()
+    out = {}
+    try:
+        for mode in ("det", "free"):
+            net = dl_layers.DlNetwork(layers)
+            hx, hy = dl_layers._train_data(net, X, Y)
+            bs = int(dl_layers._opt(opts, "MiniBatchSize", 128))
+            step = dl_layers._TrainStep(
+                net, dl_layers._loss_fn(net),
+                dl_layers._opt(opts, "Solver", "adam"),
+                dl_layers._opt(opts, "InitialLearnRate", 0.001),
+                hx.shape[:-1] + (bs,), hy.shape[:-1] + (bs,), eng)
+            step.xb.copy_(torch.from_numpy(hx[..., :bs].astype("float32")))
+            step.yb.copy_(torch.from_numpy(hy[..., :bs].astype("float32")))
+            with dl_layers._precise(net.device, deterministic=mode == "det"):
+                for _ in range(step.WARMUP + 1):
+                    step.run(eng)
+                out[f"eager_{mode}_ms"] = time_ms(step.body, reps)
+            out[f"replay_{mode}_ms"] = time_ms(step.graph.replay, reps)
+            if mode == "det":
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    step.graph.replay()
+                    torch.cuda.synchronize()
+                out["kernels_a_step"] = sum(
+                    1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    finally:
+        runmat_tpu_torch.uninstall()
+    return out
+
+
+def dlfeval_snippet() -> dict:
+    """SNIPPET (a fully connected layer, relu with a tie at 0 and mse,
+    float64) in a card session and in a CPU one: the largest difference of
+    the loss and the gradients over their largest magnitude."""
+    import numpy as np
+
+    import runmat_tpu_torch
+    got = {}
+    for dev in ("cuda", "cpu"):
+        s = runmat_tpu_torch.session(dev)
+        try:
+            s.stdout = io.StringIO()
+            s.run_source(SNIPPET)
+            got[dev] = {k: np.asarray(s.get(k).host(), np.float64)
+                        for k in ("lv", "gwv", "gbv")}
+        finally:
+            runmat_tpu_torch.uninstall()
+    err = 0.0
+    for k, w in got["cpu"].items():
+        scale = max(float(np.abs(w).max()), 1e-300)
+        err = max(err, float(np.abs(got["cuda"][k] - w).max()) / scale)
+    return {"rel_err": err, "shapes": {k: v.shape
+                                       for k, v in got["cpu"].items()}}
+
+
+def main() -> int:
+    import torch
+
+    from runmat_tpu_torch import histbench
+    from runmat_tpu_torch.ops import lstm, optim
+    if not torch.cuda.is_available():
+        print("dlbench: no CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    for name, r in {**held_cell(lstm, dev), **held_optim(optim, dev)}.items():
+        print(f"{name}: equal to plain {r['equal']}, max abs err "
+              f"{r['max_abs_err']:.3g}")
+    for name, r in kernel_rows(lstm, optim, histbench.time_ms, 50,
+                               dev).items():
+        print(f"time {name}: {r}")
+    for name in WORKLOADS:
+        print(name, step_times(name, histbench.time_ms, 20))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,6 +12,9 @@ have it.
 """
 
 EXACT = 0.0
+# a network's float32 outputs and learnables: sums in another order (the
+# CPU's BLAS, cuBLAS, cuDNN) and three Adam steps
+DL_FLOAT32 = 1e-5
 
 SNIPPETS = [
     ("linalg2", "linalg2",
@@ -122,6 +125,46 @@ SNIPPETS = [
      " u = r.max_displacement; th = fea_thermal(m, 3.7, {'x==0', 100; 'x==L', 0});"
      " T = th.temperature; clear m;",
      EXACT),
+    ("ml", "ml",
+     "rng(4); X = [randn(20, 2); randn(20, 2) + 5]; [idx, C] = kmeans(X, 2);"
+     " [k, d] = knnsearch([0 0; 10 10; 5 5], [1 1; 9 8]);"
+     " t = fitctree([1 2; 2 1; 8 9; 9 8], [1; 1; 2; 2]); p = predict(t, [1.5 1.5; 8.5 8.5]);"
+     " b = regress([1; 3; 5; 7.5], [ones(4, 1), (1:4)']);"
+     " [M, order] = confusionmat([1 1 2 2 3], [1 2 2 2 3]);"
+     " c = cvpartition(10, 'KFold', 5); nt = sum(test(c, 1));"
+     " D = pdist([0 0; 3 4; 6 8]); Z = squareform(D); clear t c;",
+     EXACT),
+    ("dl-builtins", "dl_builtins",
+     "[p, v] = sgdmupdate([1 2], [0.5 0.5], [], 0.1, 0.9);"
+     " [w, m, s] = adamupdate([1; 2], [0.1; -0.2], [], [], 1, 0.01);"
+     " q = dlupdate(@(x) x * 2, [3 4]); r = relu([-1 0 2]); g = sigmoid([0 1]);"
+     " sm = softmax([1; 2; 3]); ce = crossentropy(sm, [0; 0; 1]);"
+     " e = mse([1 2], [2 4]) + l1loss([1 2], [2 4]) + huber([0 3], [0 0], 1);"
+     " y = fullyconnect([1; 2], [1 2; 3 4], [0.5; -0.5]);"
+     " l1 = struct('type', 'fc', 'W', [1 2; 3 4; 5 6], 'b', [0; 1; 2]);"
+     " model = struct('Layers', {{l1, struct('type', 'relu'), struct('type', 'softmax')}});"
+     " z = predict(model, [1 -1; 0.5 2]); a = isdlarray(z);",
+     EXACT),
+    ("dl-layers", "dl_layers",
+     "layers = {featureInputLayer(3), fullyConnectedLayer(5), reluLayer,"
+     " fullyConnectedLayer(2), softmaxLayer, classificationLayer};"
+     " g = layerGraph(layers); net = dlnetwork(g); info = analyzeNetwork(net);"
+     " rng(1); X = randn(12, 3); Y = [ones(6, 1); 2 * ones(6, 1)];"
+     " y0 = predict(net, X'); f0 = forward(net, X');"
+     " opts = trainingOptions('adam', 'MaxEpochs', 3, 'MiniBatchSize', 4);"
+     " net2 = trainNetwork(X, Y, layers, opts); y2 = net2.predict(X');"
+     " L = net2.Learnables; W1 = L{1};"
+     " c = {imageInputLayer([6 6 1]), convolution2dLayer(3, 2, 'Padding', 'same'),"
+     " batchNormalizationLayer, maxPooling2dLayer(2), averagePooling2dLayer(1),"
+     " globalAveragePooling2dLayer, flattenLayer, dropoutLayer(0.3),"
+     " layerNormalizationLayer, eluLayer, tanhLayer, sigmoidLayer, regressionLayer,"
+     " sequenceInputLayer(2), lstmLayer(3, 'OutputMode', 'last'),"
+     " bilstmLayer(2), convolution1dLayer(2, 3), globalAveragePooling1dLayer};"
+     " n = numel(c); [P, Mk] = padsequences({[1 2 3], [4 5]}, 2);"
+     " o = trainingOptions('sgdm'); lr = o.InitialLearnRate;"
+     " net3 = trainnet(X, Y, layers, 'mse'); y3 = predict(net3, X');"
+     " clear net net2 net3;",
+     DL_FLOAT32),
 ]
 
 # module -> the package its snippet needs beyond the port's own

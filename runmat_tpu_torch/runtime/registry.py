@@ -94,9 +94,10 @@ def ensure_loaded() -> None:
         elementwise, creation, reductions, arrays, linalg, rng, strings,
         io_console, introspection, control, cells_structs, gpu, stats,
         sets_sort, fft_signal, interp_poly, datetime_timing, logical_ops,
-        handles, ode_optim, sparse_builtins, async_builtins, fea_builtins,
-        symbolic, breadth2, breadth3, breadth4, stats2, strings2, linalg2,
-        signal2, optim2, timing2, validators, profiler, itersolve, stats3,
+        handles, dl_builtins, ode_optim, sparse_builtins, async_builtins,
+        fea_builtins, symbolic, breadth2, breadth3, breadth4, stats2,
+        strings2, linalg2, signal2, optim2, ml, timing2, dl_layers,
+        validators, profiler, itersolve, stats3,
     )
     # In the JAX package a later module, not carried yet, registers these
     # names over the carried definition; they stay undefined here until it

@@ -6,7 +6,8 @@ it would have computed in `src`. `src` may be a session of the port or of
 the JAX package: arrays cross as host numpy copies of whatever holds them
 (`to_matarray`), the RNG as `(seed, key, counter)`; a sparse matrix and a
 tetrahedral mesh of either package become the port's `SparseMatrix` and
-`TetMesh` over copies of their arrays. Nothing here imports the JAX
+`TetMesh` over copies of their arrays, and a dlnetwork the port's
+`DlNetwork` with the same learnables. Nothing here imports the JAX
 package; its values are read through their attributes.
 """
 
@@ -46,7 +47,33 @@ def to_port_value(v):
         from .fea.mesh import TetMesh
         return TetMesh(v.nodes.copy(), v.tets.copy(), copy.deepcopy(v.dims),
                        copy.deepcopy(v.shape))
+    if kind == "DlNetwork":
+        return _dlnetwork(v)
     return None
+
+
+def _leaves(p) -> list:
+    """A parameter pytree's arrays, depth first (`Learnables` order)."""
+    if isinstance(p, (tuple, list)):
+        return [a for e in p for a in _leaves(e)]
+    return [np.asarray(p, dtype=np.float32).reshape(-1)]
+
+
+def _dlnetwork(v):
+    """A dlnetwork of either package as the port's, on the active
+    engine's device: the same layers, loss and seed, its learnables
+    through numpy into the port's flat leaf in the same nesting."""
+    from .runtime.builtins.dl_layers import DlNetwork
+    layers = [{k: (to_matarray(x) if hasattr(x, "host") and
+                   hasattr(x, "mclass") else copy.deepcopy(x))
+               for k, x in ly.items()} for ly in v.layers]
+    arrays = v.learnables_np() if hasattr(v, "learnables_np") \
+        else _leaves(v.params)
+    flat = np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                           for a in arrays] or [np.zeros(0, np.float32)])
+    net = DlNetwork(layers, seed=getattr(v, "seed", 0), flat=flat)
+    net.loss_kind = v.loss_kind
+    return net
 
 
 def carry_session(src, dst) -> None:

@@ -3,7 +3,7 @@ mode and held to what the engine counts.
 
     python3 runmat_tpu_torch/syncs.py [--tree DIR] [--where] [SCRIPT ...]
 
-With no SCRIPT, the nine scripts `chip_smoke.py` runs, at their default
+With no SCRIPT, the eleven scripts `chip_smoke.py` runs, at their default
 sizes. Each runs once to warm up and once more under
 `torch.cuda.set_sync_debug_mode("warn")`, in one session, through
 `Session.run_source`. Every call that waits for the card (a blocking copy
@@ -35,7 +35,9 @@ SCRIPTS = ("benchmarks/elementwise_math.m", "benchmarks/monte_carlo.m",
            "runmat_tpu_torch/workloads/dense_linalg.m",
            "runmat_tpu_torch/workloads/spectral.m",
            "runmat_tpu_torch/workloads/resample_pages.m",
-           "runmat_tpu_torch/workloads/sparse_poisson.m")
+           "runmat_tpu_torch/workloads/sparse_poisson.m",
+           "runmat_tpu_torch/workloads/dl_digits.m",
+           "runmat_tpu_torch/workloads/dl_vowels.m")
 _MESSAGE = "synchronizing CUDA operation"
 
 

@@ -1509,3 +1509,131 @@ def test_a_source_that_does_not_compile_raises(card, monkeypatch, tmp_path):
     col = torch.arange(4, dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         spcg.spmv(rowptr, col, p, p)
+
+
+# ------------------------------------------------------------ deep learning
+
+
+def test_lstm_cell_kernels_match_plain(card):
+    # forward with and without the saved activations, backward with dh'
+    # and dc', either alone; at dl_vowels' (4*100, 27) and two odd shapes
+    from runmat_tpu_torch import dlbench
+    from runmat_tpu_torch.ops import lstm
+    before = dict(lstm.launches_by)
+    for name, r in dlbench.held_cell(lstm, card).items():
+        assert r["equal"], (name, r)
+        assert lstm.launches_by[name] > before.get(name, 0)
+
+
+def test_optim_kernel_matches_plain(card):
+    from runmat_tpu_torch import dlbench
+    from runmat_tpu_torch.ops import optim
+    for name, r in dlbench.held_optim(optim, card).items():
+        assert r["equal"], (name, r)
+        assert optim.launches_by[name] >= 6
+
+
+def _small_training(card, solver="adam", epochs=2):
+    """A small LSTM classifier and its data, on the card: (net, hx, hy,
+    opts) for dl_layers._train."""
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    from runmat_tpu_torch.values import MatArray, StructArray
+    layers = [{"Type": "sequenceInput", "InputSize": 3.0},
+              {"Type": "lstm", "NumHiddenUnits": 8.0, "OutputMode": "last"},
+              {"Type": "fc", "OutputSize": 4.0}, {"Type": "softmax"},
+              {"Type": "classification"}]
+    net = dl_layers.DlNetwork(layers, device=card)
+    rng = np.random.default_rng(0)
+    hx = rng.normal(size=(3, 6, 20))
+    hy = dl_layers._labels_to_onehot(rng.integers(1, 5, 20).astype(float), 4)
+    opts = StructArray.scalar({
+        "Solver": MatArray.char_from_str(solver),
+        "MaxEpochs": MatArray.scalar(float(epochs)),
+        "MiniBatchSize": MatArray.scalar(5.0),
+        "InitialLearnRate": MatArray.scalar(0.01)})
+    return net, hx, hy, opts
+
+
+def test_training_step_is_one_captured_graph(card):
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.ops import lstm, optim
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    runmat_tpu_torch.install("cuda")
+    try:
+        eng = accel.active_engine()
+        net, hx, hy, opts = _small_training(card, epochs=3)
+        fwd, adam = lstm.launches_by["lstm_fwd"], optim.launches_by["optim_adam"]
+        dl_layers._train(net, hx, hy, opts)
+        steps = 3 * 4
+        assert eng.stats["graph_captures"] == 1
+        assert eng.stats["graph_replays"] == steps - dl_layers._TrainStep.WARMUP
+        assert optim.launches_by["optim_adam"] - adam == steps
+        assert lstm.launches_by["lstm_fwd"] - fwd == 6 * steps
+        # a second training of the same network replays the same graph
+        dl_layers._train(net, hx, hy, opts)
+        assert eng.stats["graph_captures"] == 1
+        assert eng.stats["graph_replays"] == 2 * steps - 2
+    finally:
+        runmat_tpu_torch.uninstall()
+
+
+def test_a_failed_capture_raises(card, monkeypatch):
+    from runmat_tpu_torch.errors import MatError
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    net, hx, hy, opts = _small_training(card)
+    body = dl_layers._TrainStep.body
+
+    def waits(self):
+        g = body(self)
+        if torch.cuda.is_current_stream_capturing():
+            float(g.sum())          # a read back: refused inside a capture
+        return g
+
+    monkeypatch.setattr(dl_layers._TrainStep, "body", waits)
+    with pytest.raises(MatError, match="capture of the training step failed"):
+        dl_layers._train(net, hx, hy, opts)
+    torch.cuda.synchronize()
+
+
+def test_no_wait_inside_the_training_loop(card):
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    net, hx, hy, opts = _small_training(card, solver="sgdm")
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dl_layers._train(net, hx, hy, opts)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert np.isfinite(net.learnables_np()[0]).all()
+
+
+def test_two_trainings_on_the_card_agree(card):
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    flats = []
+    for _ in range(2):
+        net, hx, hy, opts = _small_training(card, epochs=4)
+        dl_layers._train(net, hx, hy, opts)
+        flats.append(np.concatenate([a.reshape(-1)
+                                     for a in net.learnables_np()]))
+    assert np.array_equal(flats[0], flats[1])
+
+
+def test_three_steps_on_the_card_match_the_cpu(card):
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        net, hx, hy, opts = _small_training(dev)
+        dl_layers._train(net, hx, hy, opts, max_steps=3)
+        out[dev.type] = np.concatenate([a.reshape(-1)
+                                        for a in net.learnables_np()])
+    from runmat_tpu_torch import dlbench
+    scale = float(np.abs(out["cpu"]).max())
+    assert float(np.abs(out["cuda"] - out["cpu"]).max()) <= \
+        dlbench.STEP_TOL["adam"] * scale
+
+
+def test_dlgradient_on_the_card_matches_the_cpu(card):
+    from runmat_tpu_torch import dlbench
+    r = dlbench.dlfeval_snippet()
+    assert r["rel_err"] <= 1e-12, r

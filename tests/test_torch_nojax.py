@@ -3,9 +3,11 @@ subprocess with `jax` and `runmat_tpu` blocked in `sys.modules` imports
 runmat_tpu_torch and runs the three workloads and the statistics,
 indexing, linear algebra, spectral and sparse scripts
 (`runmat_tpu_torch/workloads/{histogram_stats,index_sets,dense_linalg,
-spectral,sparse_poisson}.m`) at small size on TorchEngine(device="cpu"), and a host
-session without an engine; the profiling, sync-counting, timing and
-benchmark tools import there too. No module of the JAX package is loaded
+spectral,sparse_poisson,dl_digits,dl_vowels}.m`) at small size on
+TorchEngine(device="cpu"), and a host session without an engine; the
+profiling, sync-counting, timing and benchmark tools import there too, and
+so do the deep-learning modules (their initial weights drawn without
+jax). No module of the JAX package is loaded
 at the end."""
 
 import os
@@ -34,6 +36,15 @@ import runmat_tpu_torch.rngbench
 import runmat_tpu_torch.sass
 import runmat_tpu_torch.syncs
 import runmat_tpu_torch.walls
+import runmat_tpu_torch.dlbench
+import runmat_tpu_torch.dl.autodiff
+import runmat_tpu_torch.dl.onnx
+import runmat_tpu_torch.ops.jaxrandom
+import runmat_tpu_torch.ops.lstm
+import runmat_tpu_torch.ops.optim
+import runmat_tpu_torch.runtime.builtins.dl_layers
+import runmat_tpu_torch.runtime.builtins.dl_builtins
+import runmat_tpu_torch.runtime.builtins.ml
 from runmat_tpu_torch import accel
 from runmat_tpu_torch.session import Session
 
@@ -78,6 +89,17 @@ for name, pre in (("dense_linalg", "N = 64;"), ("spectral", "N = 2^12;"),
     print(r.output.strip())
     print(name, "fallbacks", eng.stats["host_fallbacks"])
     runmat_tpu_torch.uninstall()
+for name, pre in (("dl_digits", "N = 256; EPOCHS = 1; NP = 64;"),
+                  ("dl_vowels", "EPOCHS = 1;")):
+    s = runmat_tpu_torch.session("cpu", auto_offload=True,
+                                 offload_threshold=1)
+    eng = accel.active_engine()
+    r = s.execute(pre + "\n" +
+                  open(f"runmat_tpu_torch/workloads/{name}.m").read())
+    assert r.error is None, r.error
+    print(r.output.strip())
+    print(name, "learnables", s.get("net").numel())
+    runmat_tpu_torch.uninstall()
 h = Session(accelerate=False)
 r = h.execute("x = rand(1, 5); fprintf('HOST_ok %d\\n', numel(x));")
 assert r.error is None, r.error
@@ -98,7 +120,7 @@ def test_port_runs_without_jax():
     assert p.returncode == 0, p.stderr[-3000:]
     out = p.stdout
     for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK", "LINALG",
-                  "SPECTRAL", "POISSON"):
+                  "SPECTRAL", "POISSON", "DIGITS", "VOWELS"):
         assert f"RESULT_ok {label}=" in out, out
     assert "monte_carlo folds 1 fallbacks 0 plans" in out, out
     assert "elementwise_math folds 0 fallbacks 0 plans 4" in out, out
@@ -107,6 +129,8 @@ def test_port_runs_without_jax():
     assert "dense_linalg fallbacks 0" in out, out
     assert "spectral fallbacks 0" in out, out
     assert "sparse_poisson fallbacks 0" in out, out
+    assert "dl_digits learnables 21690" in out, out
+    assert "dl_vowels learnables 46109" in out, out
     assert "HOST_ok 5" in out, out
     assert "jax blocked: True" in out, out
     assert "runmat_tpu modules: []" in out, out
