@@ -147,8 +147,18 @@ line is printed:
      the card bit for bit, x within 1e-8 of plain_cg's on the card and its
      norm(b - A*x)/norm(b) no more than 1 % above plain_cg's, under 128 MB
      uploaded (the CSR, 1/diag(A) and b); the warm walls and a profile;
- 10. deep learning path: the LSTM cell's forward and backward kernels
-     (runmat_tpu_torch/ops/lstm.py, Triton) at dl_vowels.m's (4*100, 27)
+ 10. deep learning path: the LSTM recurrence's cluster kernels
+     (runmat_tpu_torch/csrc/lstm_seq.cu via ops/lstm_seq.py: a direction's
+     T steps, forward or backward, in one launch) timed at dl_vowels.m's
+     layer at every cluster size, held to plain_seq_forward/
+     plain_seq_backward(ordered=True) bit for bit at every size that runs
+     (dlbench.SEQ_SHAPES, both directions, 'last' and 'sequence', with and
+     without what the backward needs), and timed at the route's size
+     beside their bound, their plain versions, the earlier design (a
+     product and a cell a step), cuDNN's LSTM and their time at T = 1;
+     the LSTM cell's forward and backward kernels (ops/lstm.py, Triton;
+     the per-step path of layers too wide for a cluster, which no script
+     reaches) at dl_vowels.m's (4*100, 27)
      and two odd shapes, and the optimizer update (ops/optim.py, Triton;
      Adam and SGDM, three steps) at both scripts' learnables, against
      their plain versions bit for bit, each timed beside its byte bound and the
@@ -159,7 +169,9 @@ line is printed:
      (the Japanese Vowels LSTM, 270 sequences of 26 steps, 500 Adam steps,
      46,109 learnables) through Session.run_source: one capture of the
      training step each, replayed for every step after the two warm-up
-     steps, each kernel launched as often as the steps say, the accuracy
+     steps, each kernel launched as often as the steps say (dl_vowels:
+     the forward cluster kernel once a step and once in predict, the
+     backward once a step, the cell kernels never), the accuracy
      printed over DL_ACCURACY, the waits equal to the counted reads (none
      inside the loop); each network's first three steps on the card held
      to the CPU's plain path from the same initial weights (within
@@ -181,8 +193,10 @@ for its pair of launches, or for its one where one program covers each
 segment); each generated group is a row of its own, counted by its
 kernel, so its `launches` are those of one run of its script. Every
 kernel of the paths must launch; the sequential IIR kernel, which no
-script reaches since the warp kernel took orders 33-64, keeps its row
-with its launches (0). `bound_ms` is the larger of the bytes
+script reaches since the warp kernel took orders 33-64, and the LSTM
+cell's two kernels, which no script reaches since the cluster kernels
+took the recurrence, keep their rows with their launches (0). `bound_ms`
+is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over the card's rate
 for them (runmat_tpu_torch/sass.py: for Threefry, the warp cycles of the
 kernel's own loop read from its machine code, which holds no call and no
@@ -689,22 +703,24 @@ def _sync_check(src: str, label: str) -> None:
 
 
 def _zero_launches() -> None:
-    from runmat_tpu_torch.ops import (fused, histogram, iir, lstm, optim,
-                                      spcg, threefry)
-    for mod in (histogram, threefry, fused, iir, spcg, lstm, optim):
+    from runmat_tpu_torch.ops import (fused, histogram, iir, lstm, lstm_seq,
+                                      optim, spcg, threefry)
+    for mod in (histogram, threefry, fused, iir, spcg, lstm, optim,
+                lstm_seq):
         mod.launches = 0
         mod.launches_by.clear()
 
 
 def _read_launches() -> dict:
-    from runmat_tpu_torch.ops import (fused, histogram, iir, lstm, optim,
-                                      spcg, threefry)
+    from runmat_tpu_torch.ops import (fused, histogram, iir, lstm, lstm_seq,
+                                      optim, spcg, threefry)
     return {"threefry": dict(threefry.launches_by),
             "histogram": dict(histogram.launches_by),
             "fused": dict(fused.launches_by),
             "iir": dict(iir.launches_by),
             "spcg": dict(spcg.launches_by),
             "lstm": dict(lstm.launches_by),
+            "lstm_seq": dict(lstm_seq.launches_by),
             "optim": dict(optim.launches_by)}
 
 
@@ -714,6 +730,7 @@ def _group(name: str) -> str:
         "histogram" if name.startswith("histcounts") else \
         "iir" if name.startswith("iir") else \
         "spcg" if name in SPARSE_KERNELS else \
+        "lstm_seq" if name.startswith("lstm_seq") else \
         "lstm" if name.startswith("lstm") else \
         "optim" if name.startswith("optim") else "fused"
 
@@ -1866,20 +1883,53 @@ def phase_sparse_path() -> dict:
 
 
 def _dl_kernels() -> dict:
-    """The LSTM cell and the optimizer update against their plain versions,
-    bit for bit, then timed (runmat_tpu_torch/dlbench.py)."""
+    """The LSTM recurrence's cluster kernels swept over the cluster sizes
+    and held to their ordered plain versions bit for bit at every size
+    that runs, then the cell and the optimizer update against their plain
+    versions, bit for bit; all timed (runmat_tpu_torch/dlbench.py)."""
     import torch
 
     from runmat_tpu_torch import dlbench, histbench
-    from runmat_tpu_torch.ops import lstm, optim
+    from runmat_tpu_torch.ops import lstm, lstm_seq, optim
     dev = torch.device("cuda")
-    held = {**dlbench.held_cell(lstm, dev), **dlbench.held_optim(optim, dev)}
+    sweep = dlbench.seq_sweep(lstm_seq, histbench.time_ms, TIMING_REPS, dev)
+    for c, r in sweep.items():
+        print(f"lstm_seq cluster {c}: " + ("; ".join(
+            f"{k} {v:.4f} ms" for k, v in r.items())
+            if "error" not in r else f"does not run ({r['error']})"))
+    runs = [c for c, r in sweep.items() if "error" not in r]
+    cluster = lstm_seq.layout(dlbench.H, dlbench.N)[0]
+    check(cluster in runs, f"lstm_seq: the layout's cluster {cluster} does "
+                           f"not run: {sweep}")
+    held_seq = dlbench.held_seq(lstm_seq, dev, runs)
+    for name, r in held_seq.items():
+        check(r["equal"], f"{name} against plain_seq(ordered=True): {r}")
+        print(f"kernel {name}: equal to its ordered plain version bit for "
+              f"bit at clusters {runs} over {len(dlbench.SEQ_SHAPES)} "
+              f"shapes, both directions, 'last' and 'sequence'")
+    held = {**held_seq, **dlbench.held_cell(lstm, dev),
+            **dlbench.held_optim(optim, dev)}
     for name, r in held.items():
         check(r["equal"], f"{name} against its plain version: {r}")
-        print(f"kernel {name}: equal to its plain version bit for bit")
-    rows = dlbench.kernel_rows(lstm, optim, histbench.time_ms, TIMING_REPS,
-                               dev)
+        if name not in held_seq:
+            print(f"kernel {name}: equal to its plain version bit for bit")
+    rows = dlbench.seq_rows(lstm, lstm_seq, histbench.time_ms, TIMING_REPS,
+                            dev)
     for name, r in rows.items():
+        r["max_abs_err"] = held[name]["max_abs_err"]
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"time {name} (cluster {r['cluster']}): kernel {r['ms']:.4f} "
+              f"ms, at T = 1 {r['t1_ms']:.4f} ms, a step "
+              f"{r['step_ms'] * 1e3:.3f} us, plain {r['plain_ms']:.3f} ms, "
+              f"the earlier design (a product and a cell a step) "
+              f"{r['earlier_ms']:.4f} ms, library {lib} "
+              f"{r['library_note']}, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}; {r['bytes']} bytes, {r['ops']} "
+              f"operations), share of bound {r['bound_ms'] / r['ms']:.4f}")
+    cell = dlbench.kernel_rows(lstm, optim, histbench.time_ms, TIMING_REPS,
+                               dev)
+    for name, r in cell.items():
         r["max_abs_err"] = held[name]["max_abs_err"]
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -1887,7 +1937,7 @@ def _dl_kernels() -> dict:
               f"{r['plain_ms']:.4f} ms, library {lib} {r['library_note']}, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} "
               f"bytes), share of bound {r['bound_ms'] / r['ms']:.4f}")
-    return rows
+    return {**rows, **cell}
 
 
 def phase_dl_path() -> dict:
@@ -1913,7 +1963,7 @@ def phase_dl_path() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = _read_launches()
-        for group in ("lstm", "optim"):
+        for group in ("lstm", "lstm_seq", "optim"):
             for k, v in got[group].items():
                 launches.setdefault(group, {})
                 launches[group][k] = launches[group].get(k, 0) + v
@@ -1926,14 +1976,16 @@ def phase_dl_path() -> dict:
               f"{name}: {st['graph_captures']} captures, "
               f"{st['graph_replays']} replays, {step.eager} eager steps "
               f"for {steps} steps")
-        lstm_runs = dlbench.T * (steps + 1) if name == "dl_vowels" else 0
-        want = {"lstm": {"lstm_fwd": lstm_runs,
-                         "lstm_bwd": lstm_runs - dlbench.T} if lstm_runs
-                else {},
-                "optim": {"optim_adam" if name == "dl_vowels" else
-                          "optim_sgdm": steps}}
+        # dl_vowels: its direction one cluster launch a training step and
+        # one in predict, its backward one a step, the cell kernel never
+        vowels = name == "dl_vowels"
+        want = {"lstm": {},
+                "lstm_seq": {"lstm_seq_fwd": steps + 1,
+                             "lstm_seq_bwd": steps} if vowels else {},
+                "optim": {"optim_adam" if vowels else "optim_sgdm": steps}}
         check(all(got[g] == w for g, w in want.items()),
-              f"{name}: launches {got['lstm']} {got['optim']}, want {want}")
+              f"{name}: launches {got['lstm']} {got['lstm_seq']} "
+              f"{got['optim']}, want {want}")
         acc = _result_value(output, DL_RESULT[name])
         check(acc >= DL_ACCURACY[name],
               f"{name}: accuracy {acc} (limit {DL_ACCURACY[name]})")
@@ -1941,7 +1993,7 @@ def phase_dl_path() -> dict:
               f"{name}: {st['host_fallbacks']} host fallbacks")
         print(f"port {name}: {output.strip()}; {steps} steps, "
               f"{st['graph_captures']} capture, {st['graph_replays']} "
-              f"replays; launches {got['lstm']} {got['optim']}; "
+              f"replays; launches {got['lstm_seq']} {got['optim']}; "
               f"{st['uploads']} uploads ({st['upload_bytes']} bytes), "
               f"{st['gathers']} gathers ({st['gather_bytes']} bytes), "
               f"{st['syncs']} syncs; first run {wall * 1e3:.1f} ms")
@@ -1979,12 +2031,17 @@ def phase_dl_path() -> dict:
           f"dlfeval snippet on the card against the CPU: {sn}")
     print(f"dlfeval snippet: the card's loss and gradients within "
           f"{sn['rel_err']:.3g} of the CPU's (limit {DL_SNIPPET_TOL:g})")
+    # the cell kernels keep their rows: the route sends no script's layer
+    # to the per-step path since the cluster kernels took the recurrence
     phase_dl_path.kernels = [
-        {"name": name, "route": "triton",
-         "source": "runmat_tpu_torch/ops/" +
-                   ("lstm.py" if name.startswith("lstm") else "optim.py"),
+        {"name": name,
+         "route": "cuda" if name.startswith("lstm_seq") else "triton",
+         "source": "runmat_tpu_torch/" + (
+             "csrc/lstm_seq.cu" if name.startswith("lstm_seq") else
+             "ops/lstm.py" if name.startswith("lstm") else "ops/optim.py"),
          "replaces": dlbench.REPLACES[name], "launches": 0,
-         "launch_key": name, "max_abs_err": r["max_abs_err"],
+         "launch_key": name, "on_path": name not in ("lstm_fwd", "lstm_bwd"),
+         "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
@@ -2017,8 +2074,9 @@ def main() -> int:
             on_path = k.pop("on_path", True)
             k["launches"] = sum(p.get(_group(k["name"]), {}).get(key, 0)
                                 for p in paths)
-            # the sequential IIR kernel is held and timed, but no script
-            # reaches an order above 64 since the warp kernel took 33-64
+            # the sequential IIR kernel and the LSTM cell are held and
+            # timed, but no script reaches an order above 64 since the
+            # warp kernel took 33-64, nor a layer too wide for a cluster
             check(k["launches"] > 0 or not on_path,
                   f"{k['name']}: no launch on the paths")
     except SmokeFailure as e:

@@ -1,10 +1,22 @@
-"""Deep learning on the card: the LSTM cell and the optimizer update against
-their plain versions and timed, and the training of dl_digits.m and
-dl_vowels.m checked and timed.
+"""Deep learning on the card: the LSTM recurrence, the LSTM cell and the
+optimizer update against their plain versions and timed, and the training
+of dl_digits.m and dl_vowels.m checked and timed.
 
     python3 runmat_tpu_torch/dlbench.py
 
-`held_cell` and `held_optim` hold the kernels of `ops/lstm.py` (forward
+`held_seq` holds the cluster kernels of `ops/lstm_seq.py` (a direction's
+forward with and without what the backward needs, 'last' and 'sequence',
+both directions of a BiLSTM, and its backward) to `plain_seq_forward`/
+`plain_seq_backward(ordered=True)` bit for bit at SEQ_SHAPES, at each
+cluster size given; `seq_sweep` times both kernels at dl_vowels' layer for
+every cluster size; `seq_rows` times them at the route's cluster beside
+their bound (bytes or operations, whichever is larger), their plain
+versions, the earlier design (a `torch.addmm` and a cell kernel a step,
+forward, and autograd's backward through it), cuDNN's LSTM
+(`torch.nn.LSTM`, which also does the input product) and the same kernel
+at T = 1, whose difference over T - 1 steps is the cost of a step. The
+earlier design runs as the replay of a captured graph, as it ran inside
+the training step's graph. `held_cell` and `held_optim` hold the kernels of `ops/lstm.py` (forward
 and backward, each variant) and `ops/optim.py` (Adam and SGDM, three
 steps) to their plain versions on the card, bit for bit where they are
 equal and with the largest difference either way; `kernel_rows` times each
@@ -26,7 +38,9 @@ a CPU one. `chip_smoke.py`'s tenth phase calls all of these.
 
 from __future__ import annotations
 
+import contextlib
 import io
+import os
 import sys
 
 WORKLOADS = {"dl_digits": "runmat_tpu_torch/workloads/dl_digits.m",
@@ -36,7 +50,18 @@ WORKLOADS = {"dl_digits": "runmat_tpu_torch/workloads/dl_digits.m",
 LEARNABLES = {"dl_digits": 21690, "dl_vowels": 46109}
 STEPS = {"dl_digits": 4 * 58, "dl_vowels": 50 * 10}
 H, N, T = 100, 27, 26          # dl_vowels' LSTM: hidden units, batch, steps
+F = 12                         # dl_vowels' features
 BYTES_PER_S = 3.35e12
+FLOPS_F32 = 67e12              # the H100's float32 rate outside tensor cores
+# (T, H, N) the sequence kernels are held at: dl_vowels' layer, the CPU
+# tests' odd shapes, an H no cluster size divides, a batch of one, and
+# dl_vowels' predict (all 270 sequences: the columns shared by clusters)
+SEQ_SHAPES = ((T, H, N), (7, 8, 5), (1, 1, 1), (5, 37, 9), (3, H, 1),
+              (T, H, 270))
+# operations of the cell a (unit, column) a step, besides the products:
+# forward 3 sigmoids of 4, 2 tanh, 3 multiplies and an add; backward a
+# tanh, 19 multiplies and subtractions, 2 adds and the dc product
+CELL_OPS = {"lstm_seq_fwd": 18, "lstm_seq_bwd": 24}
 # the first three steps on the card against the CPU's, of the largest
 # learnable, by solver: cuDNN and cuBLAS sum in other orders than the CPU.
 # An Adam step moves an element by up to its rate whatever the size of its
@@ -48,6 +73,8 @@ STEP_TOL = {"sgdm": 1e-4, "adam": 1e-3}
 # the lines of the JAX package each kernel replaces (no Pallas twin: XLA
 # compiled them from jax code)
 REPLACES = {
+    "lstm_seq_fwd": "runmat_tpu/runtime/builtins/dl_layers.py:376-397",
+    "lstm_seq_bwd": "runmat_tpu/runtime/builtins/dl_layers.py:376-397",
     "lstm_fwd": "runmat_tpu/runtime/builtins/dl_layers.py:380-391",
     "lstm_bwd": "runmat_tpu/runtime/builtins/dl_layers.py:380-391",
     "optim_adam": "runmat_tpu/runtime/builtins/dl_layers.py:629-638",
@@ -121,6 +148,221 @@ def held_cell(lstm, dev) -> dict:
                 note("lstm_bwd", g, w)
     torch.cuda.synchronize()
     return out
+
+
+def seq_inputs(dev, t: int = T, h: int = H, n: int = N,
+               seed: int = 0) -> dict:
+    """zx (4h, t, n), Wh (4h, h) and the gradients of the outputs, dhs
+    (h, t, n) and dhlast (h, 1, n), float32 on `dev`."""
+    gen = _gen(dev, seed)
+    return {"zx": _randn((4 * h, t, n), dev, gen),
+            "wh": 0.1 * _randn((4 * h, h), dev, gen),
+            "dhs": _randn((h, t, n), dev, gen),
+            "dhlast": _randn((h, 1, n), dev, gen)}
+
+
+def held_seq(lstm_seq, dev, clusters) -> dict:
+    """The sequence kernels at each cluster size of `clusters` against the
+    ordered plain versions at SEQ_SHAPES, forward and reverse (the flipped
+    sequence, as lstm_dir runs a BiLSTM's second direction), 'last' and
+    'sequence', the forward with and without `save`, the backward from the
+    plain forward's saved tensors: {kernel: {"equal", "max_abs_err"}}."""
+    import torch
+    out = {"lstm_seq_fwd": {"equal": True, "max_abs_err": 0.0},
+           "lstm_seq_bwd": {"equal": True, "max_abs_err": 0.0}}
+
+    def note(name, got, want):
+        out[name]["equal"] &= bool(torch.equal(got, want))
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       _err(got, want))
+
+    for t, h, n in SEQ_SHAPES:
+        x = seq_inputs(dev, t, h, n, seed=t + h + n)
+        wh = x["wh"]
+        for reverse in (False, True):
+            zx = torch.flip(x["zx"], (1,)) if reverse else x["zx"]
+            for last in (True, False):
+                dout = x["dhlast"] if last else x["dhs"]
+                want, saved = lstm_seq.plain_seq_forward(zx, wh, True, True,
+                                                         last)
+                dz, dwh = lstm_seq.plain_seq_backward(wh, saved, dout, last,
+                                                      True)
+                for c in clusters:
+                    got, got_saved = lstm_seq.forward(zx, wh, True, last, c)
+                    note("lstm_seq_fwd", got, want)
+                    for g, w in zip(got_saved, saved):
+                        note("lstm_seq_fwd", g, w)
+                    note("lstm_seq_fwd",
+                         lstm_seq.forward(zx, wh, False, last, c)[0], want)
+                    for g, w in zip(lstm_seq.backward(wh, saved, dout, last,
+                                                      c), (dz, dwh)):
+                        note("lstm_seq_bwd", g, w)
+    torch.cuda.synchronize()
+    return out
+
+
+def _seq_calls(lstm_seq, x: dict, cluster=None) -> dict:
+    """The two kernels on dl_vowels' layer ('last', saving for the
+    backward), as the training step launches them."""
+    fwd = (lambda: lstm_seq.forward(x["zx"], x["wh"], True, True, cluster))
+    _, (hbuf, cs, act) = fwd()
+    bwd = (lambda: lstm_seq.backward_dz(x["wh"], cs, act, x["dhlast"], True,
+                                        cluster))
+    return {"lstm_seq_fwd": fwd, "lstm_seq_bwd": bwd}
+
+
+def seq_sweep(lstm_seq, time_ms, reps: int, dev) -> dict:
+    """{cluster size: {kernel: ms} or {"error": why}} at dl_vowels'
+    layer, for every size of lstm_seq.CLUSTER_SIZES."""
+    from runmat_tpu_torch.errors import MatError
+    out = {}
+    x = seq_inputs(dev)
+    for c in lstm_seq.CLUSTER_SIZES:
+        try:
+            calls = _seq_calls(lstm_seq, x, c)
+            out[c] = {k: time_ms(fn, reps) for k, fn in calls.items()}
+        except MatError as e:      # a size the card cannot run: recorded
+            out[c] = {"error": str(e)[:200]}
+    return out
+
+
+def _seq_work(name: str, t: int, h: int, n: int) -> tuple:
+    """(bytes, operations) a kernel must move and do on dl_vowels' layer
+    ('last', saving): each input read once, each output written once."""
+    if name == "lstm_seq_fwd":
+        floats = (4 * h * t * n + 4 * h * h + h * (t + 1) * n + h * n +
+                  t * h * n + 4 * h * t * n)
+        ops = 2 * 4 * h * h * n * t + CELL_OPS[name] * h * n * t
+    else:
+        floats = 4 * h * h + t * h * n + 4 * h * t * n + h * n + \
+            4 * h * t * n
+        ops = 2 * 4 * h * h * n * (t - 1) + CELL_OPS[name] * h * n * t
+    return 4 * floats, ops
+
+
+def _cudnn(dev, x: dict):
+    """cuDNN's LSTM of dl_vowels' layer (F 12 -> H 100, 'last'), its TF32
+    off: (forward, backward) as calls, or (None, why)."""
+    import torch
+    try:
+        mod = torch.nn.LSTM(F, H).to(dev)
+        with torch.no_grad():
+            mod.weight_hh_l0.copy_(x["wh"])
+            mod.bias_hh_l0.zero_()
+        mod.flatten_parameters()
+        xs = torch.randn((T, N, F), device=dev, requires_grad=True)
+        params = [xs] + list(mod.parameters())
+        out = mod(xs)[0][-1]
+        g = x["dhlast"][:, 0, :].t().contiguous()
+        torch.autograd.grad(out, params, g, retain_graph=True)
+        return (lambda: mod(xs),
+                lambda: torch.autograd.grad(out, params, g,
+                                            retain_graph=True)), ""
+    except (RuntimeError, TypeError, AttributeError) as e:
+        return None, f"{type(e).__name__}: {str(e)[:120]}"
+
+
+def _graphed(fn, side):
+    """fn captured as a CUDA graph on the stream `side` (after a warm-up
+    there, as the training step is): its replay, a call whose time is the
+    card's and not the host's launches."""
+    import torch
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        graph.capture_begin()
+        fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph.replay
+
+
+def _per_step(lstm, x: dict):
+    """The earlier design on dl_vowels' layer as replays of captured
+    graphs, as the training step ran it: (forward, backward). Forward:
+    `torch.addmm` and the cell kernel a step, saving for the backward;
+    backward: autograd through that chain (the cell's backward, the
+    products' gradients and their sums, a step), built on the stream that
+    captures it (autograd runs a backward op on its forward op's
+    stream)."""
+    import torch
+    zxt = x["zx"].permute(1, 0, 2).contiguous()      # (T, 4H, N)
+    wh = x["wh"]
+
+    def fwd():
+        h = torch.zeros((H, N), dtype=torch.float32, device=wh.device)
+        c = h
+        for t in range(T):
+            h, c, _ = lstm.forward(torch.addmm(zxt[t], wh, h), c, True)
+        return h
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a, w = zxt.clone().requires_grad_(), wh.clone().requires_grad_()
+        h = torch.zeros((H, N), dtype=torch.float32, device=wh.device)
+        c = h
+        for t in range(T):
+            h, c = lstm.cell(torch.addmm(a[t], w, h), c)
+    g = x["dhlast"][:, 0, :]
+    return _graphed(fwd, side), _graphed(
+        lambda: torch.autograd.grad(h, (a, w), g, retain_graph=True), side)
+
+
+@contextlib.contextmanager
+def _rnn_ieee():
+    """cuDNN's RNNs in full float32 inside the block (torch runs them in
+    TF32 by default where it has the switch)."""
+    import torch
+    rnn = getattr(torch.backends.cudnn, "rnn", None)
+    holder, attr, value = (rnn, "fp32_precision", "ieee") \
+        if hasattr(rnn, "fp32_precision") else \
+        (torch.backends.cudnn, "allow_tf32", False)
+    prev = getattr(holder, attr)
+    setattr(holder, attr, value)
+    try:
+        yield
+    finally:
+        setattr(holder, attr, prev)
+
+
+def seq_rows(lstm, lstm_seq, time_ms, reps: int, dev) -> dict:
+    """{kernel: {"ms", "t1_ms", "step_ms", "plain_ms", "earlier_ms",
+    "library_ms", "library_note", "bound_ms", "bound_by", "bytes", "ops",
+    "cluster"}} at dl_vowels' layer and the route's cluster size."""
+    x = seq_inputs(dev)
+    one = {k: (v[:, :1] if k in ("zx", "dhs") else v).contiguous()
+           for k, v in x.items()}
+    calls, short = _seq_calls(lstm_seq, x), _seq_calls(lstm_seq, one)
+    zx, wh = x["zx"], x["wh"]
+    _, saved = lstm_seq.plain_seq_forward(zx, wh, True, True, True)
+    plain = {"lstm_seq_fwd": lambda: lstm_seq.plain_seq_forward(
+                 zx, wh, True, True, True),
+             "lstm_seq_bwd": lambda: lstm_seq.plain_seq_backward(
+                 wh, saved, x["dhlast"], True, True)}
+    earlier = dict(zip(("lstm_seq_fwd", "lstm_seq_bwd"), _per_step(lstm, x)))
+    with _rnn_ieee():
+        lib, note = _cudnn(dev, x)
+        lib_ms = {} if lib is None else {
+            "lstm_seq_fwd": time_ms(lib[0], reps),
+            "lstm_seq_bwd": time_ms(lib[1], reps)}
+    rows = {}
+    for name, fn in calls.items():
+        nbytes, ops = _seq_work(name, T, H, N)
+        by_bytes, by_ops = nbytes / BYTES_PER_S * 1e3, ops / FLOPS_F32 * 1e3
+        ms, t1 = time_ms(fn, reps), time_ms(short[name], reps)
+        rows[name] = {
+            "ms": ms, "t1_ms": t1, "step_ms": (ms - t1) / (T - 1),
+            "plain_ms": time_ms(plain[name], 2),
+            "earlier_ms": time_ms(earlier[name], reps),
+            "library_ms": lib_ms.get(name), "library_note":
+                "cuDNN through torch.nn.LSTM, the input product included "
+                "(TF32 off)" if lib is not None else note,
+            "bytes": nbytes, "ops": ops, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "cluster": lstm_seq.layout(H, N)[0]}
+    return rows
 
 
 def held_optim(optim, dev, steps: int = 3) -> dict:
@@ -364,14 +606,29 @@ def dlfeval_snippet() -> dict:
 
 
 def main() -> int:
+    # run as a script: the package's parent, not the package, on the path
+    sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     import torch
 
     from runmat_tpu_torch import histbench
-    from runmat_tpu_torch.ops import lstm, optim
+    from runmat_tpu_torch.ops import lstm, lstm_seq, optim
     if not torch.cuda.is_available():
         print("dlbench: no CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    import subprocess
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    sweep = seq_sweep(lstm_seq, histbench.time_ms, 50, dev)
+    print(f"cluster sweep: {sweep}")
+    runs = [c for c, r in sweep.items() if "error" not in r]
+    for name, r in held_seq(lstm_seq, dev, runs).items():
+        print(f"{name} at clusters {runs}: equal to ordered plain "
+              f"{r['equal']}, max abs err {r['max_abs_err']:.3g}")
+    for name, r in seq_rows(lstm, lstm_seq, histbench.time_ms, 50,
+                            dev).items():
+        print(f"time {name}: {r}")
     for name, r in {**held_cell(lstm, dev), **held_optim(optim, dev)}.items():
         print(f"{name}: equal to plain {r['equal']}, max abs err "
               f"{r['max_abs_err']:.3g}")

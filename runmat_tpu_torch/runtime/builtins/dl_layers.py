@@ -9,7 +9,9 @@ loop with provider adam_update hooks. The JAX package compiles a network's
 forward and its whole Adam/SGDM step into jitted XLA programs. Here a
 dlnetwork's learnables are one flat float32 tensor on the card; the
 forward is torch (cuDNN convolutions, cuBLAS products) around the
-hand-written LSTM cell (`ops/lstm.py`); the training step (forward, loss,
+hand-written LSTM recurrence (`ops/lstm_seq.py`: a direction one launch
+of a thread-block cluster; a layer too wide for one runs a product and the
+cell of `ops/lstm.py` a step); the training step (forward, loss,
 `torch.autograd.grad`, the hand-written optimizer update of `ops/optim.py`)
 is captured once as a CUDA graph and replayed for every minibatch, and the
 loop reads nothing back. The layer constructors, layerGraph,
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 
 from ...accel import active_engine
 from ...errors import MatError, bad_arg
-from ...ops import jaxrandom, lstm, optim
+from ...ops import jaxrandom, lstm, lstm_seq, optim
 from ...values import (CellArray, MatArray, StructArray, is_text, text_of)
 from ..registry import builtin
 from .common import scalar_int, scalar_num
@@ -433,7 +435,15 @@ class DlNetwork:
             Wx, Wh, b = p
             h_units = Wh.shape[1]
             seq = torch.flip(x, (1,)) if reverse else x   # (F, T, N)
-            n_t, n = seq.shape[1], seq.shape[2]
+            n_f, n_t, n = seq.shape
+            if lstm_seq.layout(h_units, n)[0]:
+                # Wx x_t + b for every step in one product, (4H, T, N);
+                # the recurrence is one launch (ops/lstm_seq.py)
+                zx = torch.matmul(Wx, seq.reshape(n_f, n_t * n)) + b[:, None]
+                hs = lstm_seq.sequence(zx.view(-1, n_t, n), Wh,
+                                       last and not reverse)
+                return torch.flip(hs, (1,)) if reverse else hs
+            # too wide for a cluster: a product and a cell a step,
             # Wx x_t + b for every step in one product: (T, 4H, N)
             zx = torch.matmul(Wx, seq.permute(1, 0, 2)) + b[:, None]
             h = torch.zeros((h_units, n), dtype=x.dtype, device=x.device)
@@ -546,6 +556,7 @@ class DlNetwork:
         return fwd
 
     def predict_np(self, x: np.ndarray) -> np.ndarray:
+        _check_features(self.layers, np.shape(x))
         fwd = self.forward_fn()
         xt = _upload(np.asarray(x, np.float32), self.device)
         with torch.no_grad(), _precise(self.device):
@@ -618,6 +629,46 @@ def _views(spec: list, flat: torch.Tensor) -> list:
 # the layers that take an NCHW image as it is (or any layout)
 _IMAGE_LAYERS = ("conv2d", "maxpool2d", "avgpool2d", "batchnorm", "relu",
                  "elu", "tanh", "sigmoid", "dropout", "gap2d", "flatten")
+
+
+# the layers that keep their input's shape, and those that multiply it by
+# learnables sized by the input layer's width
+_WIDTH_KEEPING = ("relu", "elu", "tanh", "sigmoid", "softmax", "dropout")
+_PRODUCTS = ("fc", "lstm", "bilstm")
+_NORMS = ("layernorm", "batchnorm")
+
+
+def _check_features(layers: list, shape: tuple) -> None:
+    """Raise where the first layers that read X's feature width would fail
+    on X's shape, as the JAX package's jax ops do (torch raises a
+    RuntimeError, which the VM maps to RunMat:builtin:internalError): a
+    product whose width is not X's, a TypeError there (jax's dot_general,
+    MATLAB:invalidType); a normalization's (width, 1) scale that does not
+    broadcast against X, a TypeError where X has two dimensions (lax's
+    mul) and a ValueError where it has another number (jnp's own rule,
+    MATLAB:sizeDimensionsMustMatch). Where the scale broadcasts, X takes
+    the broadcast shape, as in both packages' forwards."""
+    if not layers or not shape or \
+            layers[0]["Type"] not in ("featureInput", "sequenceInput"):
+        return
+    want = int(layers[0]["InputSize"])
+    shape = tuple(shape)
+    for ly in layers[1:]:
+        if ly["Type"] in _NORMS:
+            try:
+                shape = np.broadcast_shapes(shape, (want, 1))
+            except ValueError:
+                err = TypeError if len(shape) == 2 else ValueError
+                raise err(f"{ly['Type']}: Incompatible shapes for "
+                          f"broadcasting: shapes={[shape, (want, 1)]}"
+                          ) from None
+        elif ly["Type"] in _PRODUCTS:
+            if shape[0] != want:
+                raise TypeError(f"{ly['Type']}: the input has {shape[0]} "
+                                f"features, the network takes {want}")
+            return
+        elif ly["Type"] not in _WIDTH_KEEPING:
+            return
 
 
 def _same_pads(size: int, k: int, s: int) -> tuple:
@@ -760,6 +811,8 @@ class _TrainStep:
 
     WARMUP = 2
     _ids = itertools.count()
+    # the kernel modules whose launches a replay of the step repeats
+    _COUNTED = (lstm, optim, lstm_seq)
 
     def __init__(self, net: DlNetwork, loss_fn, solver: str, lr: float,
                  xshape: tuple, yshape: tuple, eng=None):
@@ -809,8 +862,8 @@ class _TrainStep:
         except RuntimeError as e:
             raise MatError("RunMat:dlGraph",
                            f"replay of the training step failed: {e}") from e
-        lstm.replayed(self.kernels[0], 1)
-        optim.replayed(self.kernels[1], 1)
+        for mod, kernels in zip(self._COUNTED, self.kernels):
+            mod.replayed(kernels, 1)
         self.replays += 1
         if eng is not None:
             eng.stats["graph_replays"] += 1
@@ -820,8 +873,7 @@ class _TrainStep:
         collector off: an unreachable graph it freed there would invalidate
         this capture. (`torch.cuda.graph` runs a whole collection first
         instead, at every capture.)"""
-        before = (collections.Counter(lstm.captured),
-                  collections.Counter(optim.captured))
+        before = [collections.Counter(m.captured) for m in self._COUNTED]
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
@@ -845,8 +897,8 @@ class _TrainStep:
                 gc.enable()
         current.wait_stream(self.side)
         self.graphs[self.key] = graph
-        self.kernels = (collections.Counter(lstm.captured) - before[0],
-                        collections.Counter(optim.captured) - before[1])
+        self.kernels = tuple(collections.Counter(m.captured) - b
+                             for m, b in zip(self._COUNTED, before))
         if eng is not None:
             eng.stats["graph_captures"] += 1
         return graph
@@ -890,6 +942,7 @@ def _train(net: DlNetwork, X: np.ndarray, Y: np.ndarray, opts,
               if min(bs, n - s) == bs or n < bs]
     if not starts or epochs <= 0 or max_steps == 0:
         return net
+    _check_features(net.layers, X.shape)
     dev = net.device
     Xd = _upload(X.astype(np.float32), dev)
     Yd = _upload(Y.astype(np.float32), dev)

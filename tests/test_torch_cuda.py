@@ -1525,6 +1525,109 @@ def test_lstm_cell_kernels_match_plain(card):
         assert lstm.launches_by[name] > before.get(name, 0)
 
 
+def test_lstm_sequence_kernels_match_ordered_plain(card):
+    # both kernels bit-equal to plain_seq_*(ordered=True) at dl_vowels'
+    # layer, (7, 8, 5), (1, 1, 1), H = 37 (no cluster size divides it), a
+    # batch of one and dl_vowels' predict (270 sequences over three
+    # clusters); forward and reverse, 'last' and 'sequence', the forward
+    # with and without what the backward needs
+    from runmat_tpu_torch import dlbench
+    from runmat_tpu_torch.ops import lstm_seq
+    before = dict(lstm_seq.launches_by)
+    cluster = lstm_seq.layout(dlbench.H, dlbench.N)[0]
+    for name, r in dlbench.held_seq(lstm_seq, card, [cluster]).items():
+        assert r["equal"], (name, r)
+        assert lstm_seq.launches_by[name] > before.get(name, 0)
+
+
+def test_lstm_sequence_smem_formula_is_the_kernels(card):
+    from runmat_tpu_torch.ops import lstm_seq
+    for h, n in ((100, 27), (1, 1), (37, 9), (8, 5), (250, 27), (100, 1081)):
+        for c in lstm_seq.CLUSTER_SIZES:
+            assert lstm_seq.kernel_smem(h, n, c) == \
+                lstm_seq.smem_bytes(h, n, c)
+
+
+def _seq_run(lstm_seq, x, last):
+    out, saved = lstm_seq.forward(x["zx"], x["wh"], True, last)
+    dz = lstm_seq.backward_dz(x["wh"], saved[1], saved[2],
+                              x["dhlast"] if last else x["dhs"], last)
+    return [out, *saved, dz]
+
+
+@pytest.mark.parametrize("last", [True, False], ids=["last", "sequence"])
+def test_lstm_sequence_kernels_repeat_and_replay_bit_equal(card, last):
+    # two launches give the same bits, and so does a replay of both
+    # launched inside a captured CUDA graph
+    from runmat_tpu_torch import dlbench
+    from runmat_tpu_torch.ops import lstm_seq
+    x = dlbench.seq_inputs(card, seed=5)
+    first = _seq_run(lstm_seq, x, last)
+    second = _seq_run(lstm_seq, x, last)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = dict(lstm_seq.captured)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        held = _seq_run(lstm_seq, x, last)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    assert lstm_seq.captured["lstm_seq_fwd"] == \
+        before.get("lstm_seq_fwd", 0) + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(held, first))
+
+
+@pytest.mark.parametrize("h,n,seq", [(512, 4, False), (100, 270, True)],
+                         ids=["too-wide", "clusters-share-the-batch"])
+def test_the_layer_runs_the_path_its_shape_routes_to(card, h, n, seq):
+    # H = 512: no cluster's shared memory holds one column's slices, so
+    # the layer takes addmm and the cell kernel a step; dl_vowels' predict
+    # (270 sequences) is one launch of clusters that share the columns
+    from runmat_tpu_torch.ops import lstm, lstm_seq
+    from runmat_tpu_torch.runtime.builtins import dl_layers
+    assert bool(lstm_seq.layout(h, n)[0]) == seq
+    layers = [{"Type": "sequenceInput", "InputSize": 2.0},
+              {"Type": "lstm", "NumHiddenUnits": float(h),
+               "OutputMode": "sequence"}]
+    net = dl_layers.DlNetwork(layers, device=card)
+    fwd, sfwd = lstm.launches_by["lstm_fwd"], \
+        lstm_seq.launches_by["lstm_seq_fwd"]
+    x = np.random.default_rng(1).normal(size=(2, 3, n))
+    y = net.predict_np(x)
+    assert y.shape == (h, 3, n) and np.isfinite(y).all()
+    assert lstm.launches_by["lstm_fwd"] - fwd == (0 if seq else 3)
+    assert lstm_seq.launches_by["lstm_seq_fwd"] - sfwd == (1 if seq else 0)
+    cpu = dl_layers.DlNetwork(layers, device=torch.device("cpu"))
+    assert np.allclose(y, cpu.predict_np(x), rtol=1e-5, atol=1e-5)
+
+
+def test_a_failed_sequence_launch_raises(card, monkeypatch):
+    # a cluster the card refuses raises MatError; neither the cell kernel
+    # nor the plain version runs in its place
+    from runmat_tpu_torch import dlbench
+    from runmat_tpu_torch.errors import MatError
+    from runmat_tpu_torch.ops import lstm, lstm_seq
+    x = dlbench.seq_inputs(card, t=3, h=8, n=5)
+    cell, seq = lstm.launches, lstm_seq.launches
+    monkeypatch.setattr(lstm_seq, "plain_seq_forward", None)
+    with pytest.raises(MatError, match="preparing a cluster of 32"):
+        lstm_seq.forward(x["zx"], x["wh"], True, False, 32)
+    dev = torch.cuda.current_device()
+    monkeypatch.setattr(lstm_seq, "_prepared", {(dev, 8, 5, 32)})
+    with pytest.raises(MatError, match="lstm_seq_fwd launch failed"):
+        lstm_seq.forward(x["zx"], x["wh"], True, False, 32)
+    torch.cuda.synchronize()
+    assert lstm.launches == cell and lstm_seq.launches == seq
+    # the card is still usable
+    out, _ = lstm_seq.forward(x["zx"], x["wh"], True, False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+
+
 def test_optim_kernel_matches_plain(card):
     from runmat_tpu_torch import dlbench
     from runmat_tpu_torch.ops import optim
@@ -1557,19 +1660,24 @@ def _small_training(card, solver="adam", epochs=2):
 def test_training_step_is_one_captured_graph(card):
     import runmat_tpu_torch
     from runmat_tpu_torch import accel
-    from runmat_tpu_torch.ops import lstm, optim
+    from runmat_tpu_torch.ops import lstm, lstm_seq, optim
     from runmat_tpu_torch.runtime.builtins import dl_layers
     runmat_tpu_torch.install("cuda")
     try:
         eng = accel.active_engine()
         net, hx, hy, opts = _small_training(card, epochs=3)
         fwd, adam = lstm.launches_by["lstm_fwd"], optim.launches_by["optim_adam"]
+        sfwd, sbwd = (lstm_seq.launches_by["lstm_seq_fwd"],
+                      lstm_seq.launches_by["lstm_seq_bwd"])
         dl_layers._train(net, hx, hy, opts)
         steps = 3 * 4
         assert eng.stats["graph_captures"] == 1
         assert eng.stats["graph_replays"] == steps - dl_layers._TrainStep.WARMUP
         assert optim.launches_by["optim_adam"] - adam == steps
-        assert lstm.launches_by["lstm_fwd"] - fwd == 6 * steps
+        # the layer's 6 steps are one cluster launch each way a step
+        assert lstm_seq.launches_by["lstm_seq_fwd"] - sfwd == steps
+        assert lstm_seq.launches_by["lstm_seq_bwd"] - sbwd == steps
+        assert lstm.launches_by["lstm_fwd"] == fwd
         # a second training of the same network replays the same graph
         dl_layers._train(net, hx, hy, opts)
         assert eng.stats["graph_captures"] == 1

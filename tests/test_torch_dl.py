@@ -35,7 +35,7 @@ import runmat_tpu_torch
 from runmat_tpu.runtime.builtins import dl_layers as jdl
 from runmat_tpu.session import Session as JaxSession
 from runmat_tpu_torch import state
-from runmat_tpu_torch.ops import jaxrandom, lstm, optim
+from runmat_tpu_torch.ops import jaxrandom, lstm, lstm_seq, optim
 from runmat_tpu_torch.runtime.builtins import dl_layers as tdl
 from runmat_tpu_torch.session import Session as PortSession
 
@@ -43,6 +43,9 @@ from torch_both import no_engine, run_both  # noqa: F401
 
 FORWARD_TOL = 1e-5      # float32 forward, sums in another order
 CELL_TOL = 1e-6         # one LSTM step and its gradient, float32
+# a direction of up to 26 steps and its gradient, of the largest magnitude:
+# the products' sums in another order than XLA's, compounded over the steps
+SEQ_TOL = 1e-5
 OPTIM_TOL = 1e-6        # three optimizer steps, of the largest learnable
 TRAIN_TOL = 1e-4        # three training steps, of the largest learnable
 
@@ -205,6 +208,219 @@ def test_lstm_cell_without_grad_saves_nothing():
     with torch.no_grad():
         hh, cc = lstm.cell(z.requires_grad_(), c)
     assert not hh.requires_grad and torch.equal(hh, h2)
+
+
+# ------------------------------------------------------- LSTM recurrence
+
+
+def _jax_dir(zx, wh, reverse):
+    # dl_layers.py:376-397 with zx (T, 4H, N) in place of Wx x_t + b: the
+    # scan's outputs h_t, c_t and the gate activations, in step order
+    def step(carry, zt):
+        h, c = carry
+        z = zt + wh @ h
+        hu = c.shape[0]
+        i = jax.nn.sigmoid(z[:hu])
+        f2 = jax.nn.sigmoid(z[hu:2 * hu])
+        g = jnp.tanh(z[2 * hu:3 * hu])
+        o = jax.nn.sigmoid(z[3 * hu:])
+        c2 = f2 * c + i * g
+        h2 = o * jnp.tanh(c2)
+        return (h2, c2), (h2, c2, jnp.concatenate([i, f2, g, o]))
+
+    h0 = jnp.zeros((wh.shape[1], zx.shape[2]), zx.dtype)
+    _, out = jax.lax.scan(step, (h0, h0), zx, reverse=reverse)
+    return out
+
+
+def _near(got, want, tol):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got - want).max()) <= tol * scale
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("last", [True, False], ids=["last", "sequence"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("t,h,n", [(7, 8, 5), (1, 1, 1), (26, 100, 27)])
+def test_lstm_sequence_plain_matches_jax_scan(t, h, n, reverse, last,
+                                              ordered):
+    rng = np.random.default_rng(t * h * n + 7 * reverse + 3 * last)
+    zx = rng.normal(0, 1, (t, 4 * h, n)).astype(np.float32)
+    wh = rng.normal(0, 0.3, (4 * h, h)).astype(np.float32)
+    dout = rng.normal(size=(h, 1 if last else t, n)).astype(np.float32)
+    jzx, jwh = jnp.asarray(zx), jnp.asarray(wh)
+    jh, jc, jact = _jax_dir(jzx, jwh, reverse)
+
+    # the port walks a reverse direction over the flipped sequence, as
+    # lstm_dir does; a 'last' direction returns the scan's final h
+    def port_order(a):             # (T, ...) in the port's step order
+        return a[::-1] if reverse else a
+
+    tzx = torch.from_numpy(port_order(zx).transpose(1, 0, 2).copy())
+    twh = torch.from_numpy(wh)
+    out, saved = lstm_seq.plain_seq_forward(tzx, twh, ordered, True, last)
+    hbuf, cs, act = saved
+    _near(hbuf[:, 1:].permute(1, 0, 2), port_order(np.asarray(jh)), SEQ_TOL)
+    _near(cs, port_order(np.asarray(jc)), SEQ_TOL)
+    _near(act, port_order(np.asarray(jact)), SEQ_TOL)
+    assert torch.equal(hbuf[:, 0], torch.zeros(h, n))
+    want_out = np.asarray(jh)[0 if reverse else -1][:, None, :] if last \
+        else port_order(np.asarray(jh)).transpose(1, 0, 2)
+    _near(out, want_out, SEQ_TOL)
+    nolast = lstm_seq.plain_seq_forward(tzx, twh, ordered, False, last)
+    assert nolast[1] is None and torch.equal(nolast[0], out)
+
+    def jout(a, w):
+        hs = _jax_dir(a, w, reverse)[0]
+        return hs[0 if reverse else -1][:, None, :] if last \
+            else jnp.moveaxis(hs, 0, 1)
+
+    jdout = dout if last or not reverse else dout[:, ::-1]
+    _, vjp = jax.vjp(jout, jzx, jwh)
+    jdzx, jdwh = vjp(jnp.asarray(jdout.copy()))
+    dz, dwh = lstm_seq.plain_seq_backward(twh, saved, torch.from_numpy(dout),
+                                          last, ordered)
+    _near(dz.permute(1, 0, 2), port_order(np.asarray(jdzx)), SEQ_TOL)
+    _near(dwh, jdwh, SEQ_TOL)
+
+
+def test_lstm_sequence_function_gradients_equal_plain():
+    # LSTMSeq's backward is plain_seq_backward on the CPU
+    rng = np.random.default_rng(3)
+    zx = torch.from_numpy(rng.normal(size=(4 * 5, 6, 3)).astype(np.float32))
+    wh = torch.from_numpy(rng.normal(0, 0.3, (4 * 5, 5)).astype(np.float32))
+    for last in (True, False):
+        a, w = zx.clone().requires_grad_(), wh.clone().requires_grad_()
+        out = lstm_seq.sequence(a, w, last)
+        dout = torch.ones_like(out)
+        ga, gw = torch.autograd.grad(out, (a, w), dout)
+        want_out, saved = lstm_seq.plain_seq_forward(zx, wh, last=last)
+        dz, dwh = lstm_seq.plain_seq_backward(wh, saved, dout, last)
+        assert torch.equal(out, want_out)
+        assert torch.equal(ga, dz) and torch.equal(gw, dwh)
+    with torch.no_grad():
+        assert not lstm_seq.sequence(zx.requires_grad_(), wh, False).requires_grad
+
+
+# (H, N) -> whether the sequence kernels take it: dl_vowels' layer, its
+# predict (all 270 sequences: the columns shared by clusters), the odd
+# shapes of the tests, H not a multiple of a cluster, a wide batch; an H
+# whose slices for one column no cluster's shared memory holds keeps the
+# per-step path
+@pytest.mark.parametrize("h,n,fits", [
+    (100, 27, True), (100, 270, True), (8, 5, True), (1, 1, True),
+    (37, 9, True), (200, 27, True), (100, 1081, True), (300, 64, True),
+    (512, 27, False), (450, 1, False), (1024, 3, False)])
+def test_lstm_route_by_shape(h, n, fits):
+    c, g = lstm_seq.layout(h, n)
+    assert bool(c) == fits and bool(g) == fits
+    if fits:
+        assert c == lstm_seq.CLUSTER
+        share = -(-n // g)
+        assert max(lstm_seq.smem_bytes(h, share, c)) <= lstm_seq.SMEM_LIMIT
+        # the fewest clusters: one fewer would not fit
+        assert g == 1 or max(lstm_seq.smem_bytes(
+            h, -(-n // (g - 1)), c)) > lstm_seq.SMEM_LIMIT
+    else:
+        assert all(max(lstm_seq.smem_bytes(h, 1, s)) > lstm_seq.SMEM_LIMIT
+                   for s in lstm_seq.CLUSTER_SIZES)
+    assert (lstm_seq.layout(100, 27), lstm_seq.layout(100, 270)) == \
+        ((16, 1), (16, 3))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["cluster", "per-step"])
+def test_lstm_layer_follows_the_route(no_engine, monkeypatch, wide):
+    # a shape the route refuses runs a product and the cell a step; both
+    # paths give the JAX package's forward
+    src = "{sequenceInputLayer(3), bilstmLayer(6), fullyConnectedLayer(2)}"
+    if wide:
+        monkeypatch.setattr(lstm_seq, "SMEM_LIMIT", 0)
+    calls = {"cell": 0, "sequence": 0}
+    for mod, name in ((lstm, "cell"), (lstm_seq, "sequence")):
+        def counted(*a, _f=getattr(mod, name), _k=name):
+            calls[_k] += 1
+            return _f(*a)
+        monkeypatch.setattr(mod, name, counted)
+    jnet = jdl.DlNetwork(jdl._layers_list(_layers(JaxSession, src)), 2)
+    tnet = state.to_port_value(jnet)
+    x = np.random.default_rng(4).normal(size=(3, 5, 4))
+    want = jnet.predict_np(x)
+    got = tnet.predict_np(x)
+    assert float(np.abs(got - want).max()) <= \
+        FORWARD_TOL * float(np.abs(want).max())
+    assert calls == ({"cell": 2 * 5, "sequence": 0} if wide
+                     else {"cell": 0, "sequence": 2})
+
+
+# ROADMAP Queue C 1: a deep-learning input of the wrong feature size
+WRONG_FEATURES = [
+    ("fc-dlarray",
+     "net = dlnetwork({featureInputLayer(3), fullyConnectedLayer(2)});",
+     "y = predict(net, dlarray(randn(4, 2)));"),
+    ("trained-obs-by-features",
+     "rng(1); X = randn(5, 3); Y = randi(2, 5, 1); net = trainNetwork(X, Y,"
+     " {featureInputLayer(3), fullyConnectedLayer(2), softmaxLayer,"
+     " classificationLayer}, trainingOptions('adam', 'MaxEpochs', 1,"
+     " 'MiniBatchSize', 5));",
+     "y = predict(net, X);"),
+    ("train-wrong-x",
+     "rng(1); X = randn(6, 4); Y = randi(2, 6, 1);",
+     "net = trainNetwork(X, Y, {featureInputLayer(3), fullyConnectedLayer(2),"
+     " softmaxLayer, classificationLayer}, trainingOptions('adam',"
+     " 'MaxEpochs', 1, 'MiniBatchSize', 3));"),
+    ("lstm-sequence",
+     "net = dlnetwork({sequenceInputLayer(3), lstmLayer(4),"
+     " fullyConnectedLayer(2)});",
+     "y = predict(net, randn(2, 5, 3));"),
+]
+
+
+@pytest.mark.parametrize("cid,setup,call", WRONG_FEATURES,
+                         ids=[c[0] for c in WRONG_FEATURES])
+def test_wrong_feature_size_same_identifier(cid, setup, call):
+    b = run_both(setup, f"try; {call} id = 'none'; catch e; id ="
+                        f" e.identifier; end")
+    assert b.jr.error is None and b.tr.error is None, (b.jr.error,
+                                                       b.tr.error)
+    assert b.js.get("id").to_str() == b.ts.get("id").to_str() == \
+        "MATLAB:invalidType"
+
+
+# a normalization's (width, 1) scale meets X by broadcasting in both
+# packages: a width of 1 on either side runs (X takes the broadcast shape,
+# and a later product may then refuse it); two widths that do not broadcast
+# fail as jax does: in lax's mul where X has two dimensions, in jnp's
+# broadcasting rule where it has three
+NORM_WIDTHS = [
+    ("layernorm-x1", "featureInputLayer(3), layerNormalizationLayer,"
+     " fullyConnectedLayer(2)", "randn(1, 4)", "none"),
+    ("batchnorm-x1", "featureInputLayer(3), batchNormalizationLayer,"
+     " fullyConnectedLayer(2)", "randn(1, 4)", "none"),
+    ("layernorm-net1", "featureInputLayer(1), layerNormalizationLayer,"
+     " reluLayer, fullyConnectedLayer(2)", "randn(3, 4)",
+     "MATLAB:invalidType"),
+    ("batchnorm-x4", "featureInputLayer(3), batchNormalizationLayer,"
+     " fullyConnectedLayer(2)", "randn(4, 4)", "MATLAB:invalidType"),
+    ("layernorm-seq", "sequenceInputLayer(3), layerNormalizationLayer,"
+     " lstmLayer(4), fullyConnectedLayer(2)", "randn(3, 5, 2)",
+     "MATLAB:sizeDimensionsMustMatch"),
+]
+
+
+@pytest.mark.parametrize("cid,layers,x,want", NORM_WIDTHS,
+                         ids=[c[0] for c in NORM_WIDTHS])
+def test_norm_layer_widths_same_identifier(cid, layers, x, want):
+    b = run_both(f"rng(2); net = dlnetwork({{{layers}}}); X = {x};",
+                 "try; y = predict(net, X); id = 'none'; sz = size(y);"
+                 " catch e; id = e.identifier; sz = [0 0]; end")
+    assert b.jr.error is None and b.tr.error is None, (b.jr.error,
+                                                       b.tr.error)
+    assert b.js.get("id").to_str() == b.ts.get("id").to_str() == want
+    assert np.array_equal(np.asarray(b.js.get("sz").host()),
+                          np.asarray(b.ts.get("sz").host()))
 
 
 # -------------------------------------------------------------- optimizer
