@@ -159,11 +159,14 @@ line is printed:
      the LSTM cell's forward and backward kernels (ops/lstm.py, Triton;
      the per-step path of layers too wide for a cluster, which no script
      reaches) at dl_vowels.m's (4*100, 27)
-     and two odd shapes, and the optimizer update (ops/optim.py, Triton;
-     Adam and SGDM, three steps) at both scripts' learnables, against
+     and two odd shapes, and the optimizer update (runmat_tpu_torch/
+     csrc/optim.cu via ops/optim.py, CUDA C++; Adam and SGDM, three steps,
+     t advanced once a launch) at both scripts' learnables, against
      their plain versions bit for bit, each timed beside its byte bound and the
      PyTorch call that computes the same function
-     (runmat_tpu_torch/dlbench.py); then
+     (runmat_tpu_torch/dlbench.py), and the update's machine code read
+     (no contracted fma.rn.f32 in its PTX, Adam's loads before its pows'
+     DFMAs); then
      runmat_tpu_torch/workloads/dl_digits.m (MathWorks' digit CNN, 7,500
      images of 28x28, 232 SGDM steps, 21,690 learnables) and dl_vowels.m
      (the Japanese Vowels LSTM, 270 sequences of 26 steps, 500 Adam steps,
@@ -1910,9 +1913,18 @@ def _dl_kernels() -> dict:
     held = {**held_seq, **dlbench.held_cell(lstm, dev),
             **dlbench.held_optim(optim, dev)}
     for name, r in held.items():
-        check(r["equal"], f"{name} against its plain version: {r}")
+        check(r["equal"] and r.get("t_ok", True),
+              f"{name} against its plain version: {r}")
         if name not in held_seq:
-            print(f"kernel {name}: equal to its plain version bit for bit")
+            print(f"kernel {name}: equal to its plain version bit for bit" +
+                  (", t advanced once a launch" if "t_ok" in r else ""))
+    # no float32 product and sum contracted; Adam issues its loads (p, g,
+    # m, v and t at least) before its pows
+    for name, c in dlbench.optim_code().items():
+        check(c["fma.rn.f32"] == 0 and (
+            "adam" not in name or c["ldg_before_dfma"] >= 5),
+            f"{name}: machine code {c}")
+        print(f"kernel {name}: machine code (sass.py) {c}")
     rows = dlbench.seq_rows(lstm, lstm_seq, histbench.time_ms, TIMING_REPS,
                             dev)
     for name, r in rows.items():
@@ -1986,6 +1998,9 @@ def phase_dl_path() -> dict:
         check(all(got[g] == w for g, w in want.items()),
               f"{name}: launches {got['lstm']} {got['lstm_seq']} "
               f"{got['optim']}, want {want}")
+        check(float(step.state.t) == steps,
+              f"{name}: the optimizer's step count {float(step.state.t)} "
+              f"after {steps} steps")
         acc = _result_value(output, DL_RESULT[name])
         check(acc >= DL_ACCURACY[name],
               f"{name}: accuracy {acc} (limit {DL_ACCURACY[name]})")
@@ -2035,10 +2050,10 @@ def phase_dl_path() -> dict:
     # to the per-step path since the cluster kernels took the recurrence
     phase_dl_path.kernels = [
         {"name": name,
-         "route": "cuda" if name.startswith("lstm_seq") else "triton",
+         "route": "triton" if name in ("lstm_fwd", "lstm_bwd") else "cuda",
          "source": "runmat_tpu_torch/" + (
              "csrc/lstm_seq.cu" if name.startswith("lstm_seq") else
-             "ops/lstm.py" if name.startswith("lstm") else "ops/optim.py"),
+             "ops/lstm.py" if name.startswith("lstm") else "csrc/optim.cu"),
          "replaces": dlbench.REPLACES[name], "launches": 0,
          "launch_key": name, "on_path": name not in ("lstm_fwd", "lstm_bwd"),
          "max_abs_err": r["max_abs_err"],

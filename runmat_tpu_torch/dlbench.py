@@ -16,9 +16,11 @@ forward, and autograd's backward through it), cuDNN's LSTM
 (`torch.nn.LSTM`, which also does the input product) and the same kernel
 at T = 1, whose difference over T - 1 steps is the cost of a step. The
 earlier design runs as the replay of a captured graph, as it ran inside
-the training step's graph. `held_cell` and `held_optim` hold the kernels of `ops/lstm.py` (forward
-and backward, each variant) and `ops/optim.py` (Adam and SGDM, three
-steps) to their plain versions on the card, bit for bit where they are
+the training step's graph. `held_cell` and `held_optim` hold the Triton
+kernels of `ops/lstm.py` (forward and backward, each variant) and the CUDA
+C++ update of `ops/optim.py` (`csrc/optim.cu`; Adam and SGDM, three steps
+from t = 0 and from t = LATE_T, t counted) to their plain versions on the
+card, bit for bit where they are
 equal and with the largest difference either way; `kernel_rows` times each
 at the paths' shapes (CUDA events, the card spinning first:
 `histbench.time_ms`) beside its plain version, its bound (the bytes it must
@@ -33,7 +35,8 @@ through the plain versions); `repeat` trains it twice on the card;
 captured graph, with cuDNN's deterministic algorithms and without, and
 counts the device kernels of a replayed step with `torch.profiler`;
 `dlfeval_snippet` runs a dlfeval/dlgradient snippet in a card session and
-a CPU one. `chip_smoke.py`'s tenth phase calls all of these.
+a CPU one; `optim_code` reads the update's loads and FMAs from its
+machine code. `chip_smoke.py`'s tenth phase calls all of these.
 """
 
 from __future__ import annotations
@@ -79,6 +82,11 @@ REPLACES = {
     "lstm_bwd": "runmat_tpu/runtime/builtins/dl_layers.py:380-391",
     "optim_adam": "runmat_tpu/runtime/builtins/dl_layers.py:629-638",
     "optim_sgdm": "runmat_tpu/runtime/builtins/dl_layers.py:640-644"}
+# the update's bytes besides its elements': t read and written, 8 each
+FOLD_BYTES = 16
+# a step count near dl_vowels' last (500 Adam steps), from which the held
+# update also runs: the bias corrections' pows at large t
+LATE_T = 497
 # the kernel rows' main-path shapes: the cell at dl_vowels' (4H, N); the
 # update at the learnables of the script that runs it
 ROW_SIZES = {"optim_adam": LEARNABLES["dl_vowels"],
@@ -365,30 +373,36 @@ def seq_rows(lstm, lstm_seq, time_ms, reps: int, dev) -> dict:
     return rows
 
 
-def held_optim(optim, dev, steps: int = 3) -> dict:
-    """Adam and SGDM at both scripts' learnables, `steps` steps from zero
-    moments, kernel against plain: {kernel: {"equal", "max_abs_err"}}."""
+def held_optim(optim, dev, steps: int = 3, sizes=None) -> dict:
+    """Adam and SGDM at `sizes` learnables (default: both scripts'),
+    `steps` steps from zero moments, kernel against plain, once from t = 0
+    and once from t = LATE_T (the bias corrections at a script's last
+    steps): {kernel: {"equal", "max_abs_err", "t_ok"}}; t_ok: each run's t
+    counts the steps."""
     import torch
     out = {}
     for solver in ("adam", "sgdm"):
         name = f"optim_{solver}"
-        out[name] = {"equal": True, "max_abs_err": 0.0}
-        for n in sorted(LEARNABLES.values()):
+        out[name] = {"equal": True, "max_abs_err": 0.0, "t_ok": True}
+        for n in sizes or sorted(LEARNABLES.values()):
             gen = _gen(dev, n)
             p0 = 0.1 * _randn((n,), dev, gen)
             grads = [_randn((n,), dev, gen) * 10.0 ** -k for k in range(steps)]
-            runs = []
-            for fn in (optim.update, optim.plain_update):
-                p = p0.clone()
-                st = optim.State(solver, p, 0.01)
-                for g in grads:
-                    st.t.add_(1)
-                    fn(st, p, g)
-                runs.append([p, st.m] + ([st.v] if st.v is not None else []))
-            for g, w in zip(*runs):
-                out[name]["equal"] &= bool(torch.equal(g, w))
-                out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
-                                               _err(g, w))
+            for t0 in (0, LATE_T):
+                runs = []
+                for fn in (optim.update, optim.plain_update):
+                    p = p0.clone()
+                    st = optim.State(solver, p, 0.01)
+                    st.t.fill_(t0)
+                    for g in grads:
+                        fn(st, p, g)
+                    out[name]["t_ok"] &= float(st.t) == t0 + steps
+                    runs.append([p, st.m] + ([st.v] if st.v is not None
+                                             else []))
+                for g, w in zip(*runs):
+                    out[name]["equal"] &= bool(torch.equal(g, w))
+                    out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                                   _err(g, w))
     torch.cuda.synchronize()
     return out
 
@@ -446,13 +460,13 @@ def kernel_rows(lstm, optim, time_ms, reps: int, dev) -> dict:
             lib, note = _library(lambda: torch._fused_adam_(
                 pl, gl, ml, vl, [], steps, lr=0.01, beta1=0.9, beta2=0.999,
                 weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False))
-            nbytes = 7 * n * 4 + 8
+            nbytes = 7 * n * 4 + FOLD_BYTES
         else:
             lib, note = _library(lambda: torch._fused_sgd_(
                 pl, gl, ml, weight_decay=0.0, momentum=0.9, lr=0.01,
                 dampening=0.0, nesterov=False, maximize=False,
                 is_first_step=False))
-            nbytes = 5 * n * 4
+            nbytes = 5 * n * 4 + FOLD_BYTES
         cases[name] = ((lambda st=st, p=p, g=g: optim.update(st, p, g)),
                        (lambda st=st, p=p, g=g: optim.plain_update(st, p, g)),
                        lib, note, nbytes)
@@ -463,6 +477,26 @@ def kernel_rows(lstm, optim, time_ms, reps: int, dev) -> dict:
             "library_note": note, "bytes": nbytes,
             "bound_ms": nbytes / BYTES_PER_S * 1e3, "bound_by": "bytes"}
     return rows
+
+
+def optim_code() -> dict:
+    """Each solver's kernel, from the library's machine code
+    (`runmat_tpu_torch/sass.py`): its loads, how many come before the
+    first DFMA, its DFMAs, FFMAs and registers, and the fma.rn.f32
+    (contractions), div.rn.f32 and sqrt.rn.f32 of its PTX:
+    {"optim_adam": {...}, "optim_sgdm": {...}}."""
+    from runmat_tpu_torch import sass
+    code = sass.kernels(sass.disassemble())
+    res = sass.resources()
+    ptx = sass.ptx_ops("optim.cu")
+    out = {}
+    for solver, key in (("adam", "ILb1EE"), ("sgdm", "ILb0EE")):
+        (mangled,) = [k for k in code if "optim_kernel" in k and key in k]
+        (entry,) = [k for k in ptx if "optim_kernel" in k and key in k]
+        out[f"optim_{solver}"] = {
+            **sass.load_order(code[mangled]), **ptx[entry],
+            "registers": res.get(mangled, {}).get("REG")}
+    return out
 
 
 def _prefix(name: str) -> str:

@@ -1,5 +1,6 @@
-"""The optimizer update of a network's learnables: a hand-written Triton
-kernel, one launch over every learnable, and its plain PyTorch version.
+"""The optimizer update of a network's learnables: a hand-written CUDA C++
+kernel (`csrc/optim.cu`), one launch over every learnable, and its plain
+PyTorch version.
 
 The JAX package's training step (`runmat_tpu/runtime/builtins/
 dl_layers.py:629-646`) updates each leaf of the parameter pytree with
@@ -17,32 +18,39 @@ pass, in the JAX order of operations:
 with c1 = 1 - b1^t and c2 = 1 - b2^t computed in float64 from the step
 count t and rounded to float32 (the JAX package runs with x64 on: its
 `1 - b1 ** t` is a float64 scalar that meets a float32 array). The
-constants are the float32 values JAX's weak-typed Python floats take. t is
-read from device memory (a float64 0-d tensor the training step adds one
-to before the update), so a captured CUDA graph of the step replays the
-right bias correction. Every product, sum and quotient is rounded apart
-(no FMA contraction; `tl.div_rn`, `sqrt_rn`), as the plain version's
-separate torch ops compute them on the card, and the kernel equals it
-bit for bit there (`dlbench.held_optim`, three steps, on an H100 with
-torch 2.11 and CUDA 12.8). XLA on the CPU contracts the JAX step's
-products and sums into FMAs, so the plain version differs from the JAX
-package's step by a few float32 ulps.
+constants are the float32 values JAX's weak-typed Python floats take. t
+lives in device memory (a float64 0-d tensor), so a captured CUDA graph of
+the step replays the right bias correction, and `update` advances it by
+one before the step's arithmetic: the kernel does so inside its launch
+(SGDM: one thread adds one; Adam: each block loads t, then adds a share
+of one to it, and takes floor(what it loaded) + 1, the shares summing to
+exactly one), so the step holds no launch of its own for it. Every
+product, sum and quotient is rounded apart (no FMA contraction), as the
+plain version's separate torch ops compute them on the card, and the
+kernel equals it bit for bit there (`dlbench.held_optim`, three steps,
+on an H100 with torch 2.11 and CUDA 12.8). XLA on the CPU contracts the
+JAX step's products and sums into FMAs, so the plain version differs from
+the JAX package's step by a few float32 ulps.
 
-One lane an element, no reduction and no reuse: bytes bound it (Adam reads
-p, g, m, v and writes p, m, v: 28 bytes an element; SGDM 20). At the
-paths' 21,690 and 46,109 learnables that is 0.2-0.4 us at 3.35 TB/s, so a
-launch's fixed cost sets its time.
+One element a thread, 512 threads a block, no reduction and no reuse:
+bytes bound it (Adam reads p, g, m, v and writes p, m, v: 28 bytes an
+element; SGDM 20). At the paths' 21,690 and 46,109 learnables that is
+0.13-0.39 us at 3.35 TB/s, so a launch's fixed cost and a thread's chain
+of IEEE divisions set its time.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises (`MatError`). `launches` counts the launches the card executes and
-`launches_by` splits them ("optim_adam", "optim_sgdm"); a launch into a
-graph being captured counts in `captured`, and `replayed` adds a graph's
-launches for each replay.
+raises (`MatError`): a failed build or launch, or a buffer that is not
+contiguous float32 on p's device.
+`launches` counts the launches the card executes and `launches_by` splits
+them ("optim_adam", "optim_sgdm"); a launch into a graph being captured
+counts in `captured`, and `replayed` adds a graph's launches for each
+replay.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import numpy as np
 import torch
@@ -53,44 +61,8 @@ launches = 0
 launches_by: collections.Counter = collections.Counter()
 captured: collections.Counter = collections.Counter()
 
-BLOCK = 1024
-WARPS = 4
 B1, B2, EPS, MOMENTUM = 0.9, 0.999, 1e-8, 0.9
-
-SOURCE = '''"""The optimizer update (runmat_tpu_torch/ops/optim.py)."""
-import triton
-import triton.language as tl
-from triton.language.extra import libdevice
-
-
-@triton.jit
-def optim_update(p, g, m, v, t, n, lr, b1, omb1, b2, omb2, eps,
-                 ADAM: tl.constexpr, B1: tl.constexpr, B2: tl.constexpr,
-                 BLOCK: tl.constexpr):
-    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    gv = tl.load(g + offs, mask=mask, other=0.0)
-    mv = tl.load(m + offs, mask=mask, other=0.0)
-    pv = tl.load(p + offs, mask=mask, other=0.0)
-    if ADAM:
-        vv = tl.load(v + offs, mask=mask, other=0.0)
-        # the bias corrections once a program, broadcast over its lanes
-        tt = tl.load(t + tl.arange(0, 1))
-        c1 = (1.0 - libdevice.pow(tl.full([1], B1, tl.float64), tt)
-              ).to(tl.float32)
-        c2 = (1.0 - libdevice.pow(tl.full([1], B2, tl.float64), tt)
-              ).to(tl.float32)
-        mv = b1 * mv + omb1 * gv
-        vv = b2 * vv + (omb2 * gv) * gv
-        den = libdevice.sqrt_rn(tl.div_rn(vv, c2)) + eps
-        pv = pv - tl.div_rn(lr * tl.div_rn(mv, c1), den)
-        tl.store(v + offs, vv, mask=mask)
-    else:
-        mv = b1 * mv + gv
-        pv = pv - lr * mv
-    tl.store(m + offs, mv, mask=mask)
-    tl.store(p + offs, pv, mask=mask)
-'''
+_entries: dict = {}
 
 
 def f32(x: float) -> float:
@@ -120,7 +92,8 @@ class State:
 
 
 def plain_update(st: State, p: torch.Tensor, g: torch.Tensor) -> None:
-    """The update in torch ops, in place on p, m, v."""
+    """The update in torch ops, in place on p, m, v, after t += 1."""
+    st.t.add_(1)
     lr = f32(st.lr)
     if st.solver == "adam":
         b = torch.full((), B1, dtype=torch.float64, device=p.device)
@@ -139,9 +112,9 @@ def plain_update(st: State, p: torch.Tensor, g: torch.Tensor) -> None:
 
 
 def update(st: State, p: torch.Tensor, g: torch.Tensor) -> None:
-    """One optimizer step over the flat learnables p with gradient g (t is
-    the step's count, already advanced). A CPU tensor takes the plain
-    version; a CUDA one launches `optim_update` once."""
+    """One optimizer step over the flat learnables p with gradient g: t
+    advances by one, then p, m and v are updated. A CPU tensor takes the
+    plain version; a CUDA one launches the kernel once."""
     global launches
     if p.shape != g.shape or p.ndim != 1:
         raise MatError("RunMat:optimKernel",
@@ -156,22 +129,37 @@ def update(st: State, p: torch.Tensor, g: torch.Tensor) -> None:
             raise MatError("RunMat:optimKernel",
                            "optim update takes contiguous float32 tensors "
                            "on one device")
-    from . import fused
-    adam = st.solver == "adam"
-    b1 = f32(B1) if adam else f32(MOMENTUM)
-    args = [p, g, st.m, st.v if adam else st.m, st.t, p.numel(), f32(st.lr),
-            b1, f32(1 - B1), f32(B2), f32(1 - B2), f32(EPS)]
-    try:
-        fused._run(fused.module(SOURCE), "optim_update",
-                   (-(-p.numel() // BLOCK),), args,
-                   {"ADAM": adam, "B1": B1, "B2": B2, "BLOCK": BLOCK}, WARPS)
-    except MatError:
-        raise
-    except Exception as e:      # boundary: compile or launch
+    if st.t.dtype != torch.float64 or st.t.device != p.device:
         raise MatError("RunMat:optimKernel",
-                       f"optim_update failed: {type(e).__name__}: "
-                       f"{str(e)[-1500:]}") from e
+                       "optim update: the step count is not a float64 on "
+                       "p's device")
+    fn = _entries.get("update")
+    if fn is None:
+        from ._build import library
+        try:
+            fn = library().runmat_optim_update
+        except (RuntimeError, OSError, AttributeError) as e:
+            raise MatError("RunMat:optimKernel",
+                           f"the optimizer kernel could not be built or "
+                           f"loaded: {str(e)[-1500:]}") from e
+        P, F = ctypes.c_void_p, ctypes.c_float
+        fn.argtypes = [ctypes.c_int, ctypes.c_int64] + [P] * 5 + [F] * 6 + \
+            [P, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _entries["update"] = fn
+    adam = st.solver == "adam"
+    dev = p.device.index if p.device.index is not None \
+        else torch.cuda.current_device()
+    rc = fn(int(adam), p.numel(), p.data_ptr(), g.data_ptr(),
+            st.m.data_ptr(), st.v.data_ptr() if adam else None,
+            st.t.data_ptr(), f32(st.lr),
+            f32(B1) if adam else f32(MOMENTUM), f32(1 - B1), f32(B2),
+            f32(1 - B2), f32(EPS), torch.cuda.current_stream(dev).cuda_stream,
+            dev)
     name = "optim_adam" if adam else "optim_sgdm"
+    if rc != 0:
+        raise MatError("RunMat:optimKernel",
+                       f"{name} launch failed: CUDA error {rc}")
     if torch.cuda.is_current_stream_capturing():
         captured[name] += 1
     else:

@@ -797,8 +797,8 @@ class _TrainStep:
     the network's flat learnables and the optimizer's state
     (`ops/optim.State`). `body` runs the forward, the loss,
     `torch.autograd.grad` into one flat gradient and the update (`ops/
-    optim.update`, after t += 1 on the device); nothing in it waits for the
-    card. On the CPU `run` calls it eagerly (the plain versions). On a card
+    optim.update`, which advances t on the device inside its launch);
+    nothing in it waits for the card. On the CPU `run` calls it eagerly (the plain versions). On a card
     the first WARMUP steps run eagerly on a side stream (they compile the
     kernels and set up cuBLAS and cuDNN), then one step is captured as a
     `torch.cuda.CUDAGraph` and every later step is one replay of it. A
@@ -837,7 +837,6 @@ class _TrainStep:
         leaf = self.flat.detach().requires_grad_()
         loss = self.loss_fn(_views(self.spec, leaf), self.xb, self.yb)
         (g,) = torch.autograd.grad(loss, leaf)
-        self.state.t.add_(1)
         optim.update(self.state, self.flat, g)
         return g
 

@@ -18,10 +18,11 @@ by pipe and the cycles one warp needs per iteration on one SM
 sub-partition (SMSP) of an H100 (`loop_cycles`): the largest of one issue
 slot per instruction, two cycles per integer-ALU instruction (16 lanes),
 two per FP64 instruction (16 lanes) and eight per MUFU instruction (4
-lanes). `chip_smoke.py` and
-`rngbench.py` turn that into a bound: warp iterations x `loop_cycles` over
-4 SMSPs x 132 SMs x the 1.98 GHz boost clock. Needs the card's toolkit
-(nvcc, cuobjdump).
+lanes); and each kernel's loads, DFMAs and FFMAs (`load_order`).
+`chip_smoke.py` and `rngbench.py` turn the loop into a bound: warp
+iterations x `loop_cycles` over 4 SMSPs x 132 SMs x the 1.98 GHz boost
+clock. `ptx_ops` counts a source's contracted float32 FMAs in its PTX.
+Needs the card's toolkit (nvcc, cuobjdump).
 """
 
 from __future__ import annotations
@@ -222,6 +223,52 @@ def tail_loads(insns: list) -> dict:
             "adds": sum(i[1] == "DADD" for i in tail)}
 
 
+def load_order(insns: list) -> dict:
+    """A kernel's loads from device memory (`LDG`, and `LD` through a
+    generic address, as a relaxed load of one scalar compiles; `ldg128`
+    the 16-byte ones), how many of them come before its first float64 FMA
+    (`DFMA`) in the code, its DFMAs and its float32 FMAs (`FFMA`, which
+    IEEE division and square root expand into): the optimizer update
+    (`csrc/optim.cu`) issues its loads before the bias corrections'
+    pows."""
+    first = next((k for k, i in enumerate(insns) if i[1] == "DFMA"),
+                 len(insns))
+    loads = [(k, mods) for k, (_, op, mods, _) in enumerate(insns)
+             if op in ("LDG", "LD")]
+    return {"ldg": len(loads), "ldg_before_dfma": sum(k < first
+                                                      for k, _ in loads),
+            "ldg128": sum(".128" in mods for _, mods in loads),
+            "dfma": sum(i[1] == "DFMA" for i in insns),
+            "ffma": sum(i[1] == "FFMA" for i in insns)}
+
+
+def ptx_ops(source: str, ops: tuple = ("fma.rn.f32", "div.rn.f32",
+                                       "sqrt.rn.f32")) -> dict:
+    """{kernel entry: {op: count}} in the PTX nvcc makes of `csrc/<source>`
+    with the package's flags: where a float32 product and sum were
+    contracted, the PTX holds an `fma.rn.f32` (ptxas keeps `mul.rn` and
+    `add.rn` apart; the FFMAs of the machine code may be an IEEE division's
+    own)."""
+    from runmat_tpu_torch.ops._build import BUILD_DIR, CSRC, nvcc
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{Path(source).stem}.ptx"
+    subprocess.run([nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx",
+                    "-o", str(out), str(CSRC / source)], check=True,
+                   capture_output=True, text=True)
+    counts: dict = {}
+    current = None
+    for line in out.read_text().splitlines():
+        m = re.search(r"\.entry\s+(\S+?)\(", line)
+        if m:
+            current = counts.setdefault(m.group(1), dict.fromkeys(ops, 0))
+            continue
+        if current is not None:
+            m = re.match(r"\s*(?:@!?%p\d+\s+)?([a-z0-9.]+)\s", line)
+            if m and m.group(1) in current:
+                current[m.group(1)] += 1
+    return counts
+
+
 def loop_mixes() -> dict:
     """{mangled kernel name: the mix of its main loop}"""
     return {k: mix(main_loop(v)) for k, v in kernels(disassemble()).items()}
@@ -232,9 +279,10 @@ def main() -> int:
     ap.add_argument("--kernel", default="", help="part of a kernel's name")
     args = ap.parse_args()
     res = resources()
-    for name, m in sorted(loop_mixes().items()):
+    for name, insns in sorted(kernels(disassemble()).items()):
         if args.kernel in name:
-            print(json.dumps({"kernel": name, **m,
+            print(json.dumps({"kernel": name, **mix(main_loop(insns)),
+                              **load_order(insns),
                               "resources": res.get(name, {})}))
     return 0
 

@@ -1632,8 +1632,94 @@ def test_optim_kernel_matches_plain(card):
     from runmat_tpu_torch import dlbench
     from runmat_tpu_torch.ops import optim
     for name, r in dlbench.held_optim(optim, card).items():
-        assert r["equal"], (name, r)
-        assert optim.launches_by[name] >= 6
+        assert r["equal"] and r["t_ok"], (name, r)
+        assert optim.launches_by[name] >= 12
+
+
+# a thread takes one element, a block 512: 1 to 5 fill a few threads of
+# one block; the scripts' 21690 and 46109 and 2^20 + 3 (several waves'
+# worth) end in a part block
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 21690, 46109, (1 << 20) + 3])
+def test_optim_kernel_bit_equal_at_every_size(card, n):
+    from runmat_tpu_torch import dlbench
+    from runmat_tpu_torch.ops import optim
+    before = dict(optim.launches_by)
+    for name, r in dlbench.held_optim(optim, card, sizes=[n]).items():
+        assert r["equal"] and r["t_ok"], (name, n, r)
+        # three steps from t = 0 and three from dlbench.LATE_T
+        assert optim.launches_by[name] - before.get(name, 0) == 6
+
+
+def test_optim_kernel_takes_a_view_at_offset_1(card, monkeypatch):
+    # a view at offset 1 is contiguous but not 16-byte aligned: the
+    # kernel's loads are 4 bytes wide, so it takes it, bit-equal to plain,
+    # and nothing outside the view is written
+    from runmat_tpu_torch.ops import optim
+    plain = optim.plain_update
+    monkeypatch.setattr(optim, "plain_update", None)
+    for solver in ("adam", "sgdm"):
+        base = torch.zeros(101, device=card)
+        p = base[1:]
+        st = optim.State(solver, p, 0.01)
+        g = torch.zeros(101, device=card)[1:].fill_(0.5)
+        q = torch.zeros(100, device=card)
+        ref = optim.State(solver, q, 0.01)
+        before = optim.launches
+        optim.update(st, p, g)
+        plain(ref, q, g)
+        torch.cuda.synchronize()
+        assert optim.launches == before + 1
+        assert torch.equal(p, q) and torch.equal(st.m, ref.m)
+        assert st.v is None or torch.equal(st.v, ref.v)
+        assert float(st.t) == 1 and not base[0]
+
+
+@pytest.mark.parametrize("solver", ["adam", "sgdm"])
+def test_optim_t_advances_once_a_launch_and_a_replay(card, solver):
+    from runmat_tpu_torch.ops import optim
+    n = 46109
+    p = torch.zeros(n, device=card)
+    g = torch.full((n,), 0.5, device=card)
+    st = optim.State(solver, p, 0.01)
+    for k in range(1, 4):
+        optim.update(st, p, g)
+        torch.cuda.synchronize()
+        assert float(st.t) == k
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        optim.update(st, p, g)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert float(st.t) == 3          # a capture runs nothing
+    for k in range(1, 6):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert float(st.t) == 3 + k
+    # the replays computed what eager steps compute
+    q = torch.zeros(n, device=card)
+    ref = optim.State(solver, q, 0.01)
+    for _ in range(8):
+        optim.plain_update(ref, q, g)
+    assert torch.equal(p, q) and torch.equal(st.m, ref.m)
+
+
+def test_optim_states_interleaved_keep_their_counts(card):
+    # two Adam states (1 and 181 blocks) and an SGDM one, launched in turns
+    from runmat_tpu_torch.ops import optim
+    sizes = (100, 46109, 1000)
+    ps = [torch.zeros(n, device=card) for n in sizes]
+    sts = [optim.State(s, p, 0.01)
+           for s, p in zip(("adam", "adam", "sgdm"), ps)]
+    for k in range(6):
+        for j, (st, p) in enumerate(zip(sts, ps)):
+            if k % (j + 1) == 0:
+                optim.update(st, p, torch.ones_like(p))
+    torch.cuda.synchronize()
+    assert [float(st.t) for st in sts] == [6, 3, 2]
 
 
 def _small_training(card, solver="adam", epochs=2):
@@ -1674,6 +1760,8 @@ def test_training_step_is_one_captured_graph(card):
         assert eng.stats["graph_captures"] == 1
         assert eng.stats["graph_replays"] == steps - dl_layers._TrainStep.WARMUP
         assert optim.launches_by["optim_adam"] - adam == steps
+        (step,) = net._train_steps.values()
+        assert float(step.state.t) == steps
         # the layer's 6 steps are one cluster launch each way a step
         assert lstm_seq.launches_by["lstm_seq_fwd"] - sfwd == steps
         assert lstm_seq.launches_by["lstm_seq_bwd"] - sbwd == steps
@@ -1682,6 +1770,7 @@ def test_training_step_is_one_captured_graph(card):
         dl_layers._train(net, hx, hy, opts)
         assert eng.stats["graph_captures"] == 1
         assert eng.stats["graph_replays"] == 2 * steps - 2
+        assert float(step.state.t) == steps
     finally:
         runmat_tpu_torch.uninstall()
 

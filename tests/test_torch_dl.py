@@ -426,8 +426,9 @@ def test_norm_layer_widths_same_identifier(cid, layers, x, want):
 # -------------------------------------------------------------- optimizer
 
 
-def _jax_steps(solver, p, grads, lr):
-    # the tree_map lambdas of dl_layers.py:629-643, one leaf
+def _jax_steps(solver, p, grads, lr, t0=0):
+    # the tree_map lambdas of dl_layers.py:629-643, one leaf, from step
+    # count t0
     def adam(p, m, v, t, g):
         b1, b2, eps = 0.9, 0.999, 1e-8
         m = b1 * m + (1 - b1) * g
@@ -443,13 +444,15 @@ def _jax_steps(solver, p, grads, lr):
     step = jax.jit(adam if solver == "adam" else sgdm)
     p = jnp.asarray(p)
     m = v = jnp.zeros_like(p)
-    for t, g in enumerate(grads, 1):
+    for t, g in enumerate(grads, t0 + 1):
         p, m, v = step(p, m, v, t, jnp.asarray(g))
     return [np.asarray(a) for a in ((p, m, v) if solver == "adam"
                                     else (p, m))]
 
 
-@pytest.mark.parametrize("n", [1, 1000, 21690])
+# 1 and 3 fill a few of a block's 512 threads; 21690 (dl_digits'
+# learnables) and 46109 (dl_vowels') end in a part block
+@pytest.mark.parametrize("n", [1, 3, 1000, 21690, 46109])
 @pytest.mark.parametrize("solver", ["adam", "sgdm"])
 def test_optim_update_matches_jax(solver, n):
     rng = np.random.default_rng(n)
@@ -461,7 +464,6 @@ def test_optim_update_matches_jax(solver, n):
     p = torch.from_numpy(p0.copy())
     st = optim.State(solver, p, lr)
     for g in grads:
-        st.t.add_(1)
         optim.update(st, p, torch.from_numpy(g))
     got = [p, st.m] + ([st.v] if solver == "adam" else [])
     for gv, wv in zip(got, want):
@@ -470,10 +472,49 @@ def test_optim_update_matches_jax(solver, n):
     assert float(st.t) == 3.0
 
 
+@pytest.mark.parametrize("solver", ["adam", "sgdm"])
+def test_optim_update_matches_jax_at_late_t(solver):
+    # from t = 497: the bias corrections at dl_vowels' last steps
+    from runmat_tpu_torch import dlbench
+    n, t0 = 1000, dlbench.LATE_T
+    rng = np.random.default_rng(t0)
+    p0 = rng.normal(0, 0.1, n).astype(np.float32)
+    grads = [rng.normal(0, 10.0 ** -k, n).astype(np.float32)
+             for k in range(3)]
+    want = _jax_steps(solver, p0, grads, 0.001, t0)
+    p = torch.from_numpy(p0.copy())
+    st = optim.State(solver, p, 0.001)
+    st.t.fill_(t0)
+    for g in grads:
+        optim.update(st, p, torch.from_numpy(g))
+    got = [p, st.m] + ([st.v] if solver == "adam" else [])
+    for gv, wv in zip(got, want):
+        scale = max(float(np.abs(wv).max()), 1e-30)
+        assert float(np.abs(gv.numpy() - wv).max()) <= OPTIM_TOL * scale
+    assert float(st.t) == t0 + 3
+
+
+@pytest.mark.parametrize("solver", ["adam", "sgdm"])
+def test_optim_update_advances_t_once_a_call(solver):
+    p = torch.ones(5)
+    st = optim.State(solver, p, 0.1)
+    for k in range(1, 4):
+        optim.update(st, p, torch.full((5,), 0.5))
+        assert float(st.t) == k
+    st.reset()
+    assert float(st.t) == 0 and not st.m.any()
+    # after a reset the first step's bias correction is t = 1's again
+    q = torch.ones(5)
+    fresh = optim.State(solver, q, 0.1)
+    optim.update(fresh, q, torch.full((5,), 0.5))
+    p.fill_(1.0)
+    optim.update(st, p, torch.full((5,), 0.5))
+    assert torch.equal(p, q) and float(st.t) == 1
+
+
 def test_optim_state_reset_and_refusals():
     p = torch.ones(4)
     st = optim.State("adam", p, 0.1)
-    st.t.add_(1)
     optim.update(st, p, torch.ones(4))
     st.reset()
     assert float(st.t) == 0 and not st.m.any() and not st.v.any()
