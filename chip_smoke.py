@@ -184,13 +184,31 @@ line is printed:
      replayed with cuDNN's deterministic algorithms and without, its
      device kernels counted, the warm walls and a profile; a dlfeval/
      dlgradient snippet on the card against the CPU;
- 11. one JSON line of kernel results, then the result line
+ 11. records path: runmat_tpu_torch/workloads/sensor_log.m (a month of
+     1 Hz readings of 8 channels, 20,736,000 float64 values drawn on the
+     card, summarised per day there and in two histograms, then carried
+     through datetime, a table, a timetable, a CSV, a MAT file and a report
+     written by fprintf on the host) at its default size through
+     Session.run_source against the port's host engine: SENSOR within a
+     relative 1e-9, the report and the file round trips as on the host, at
+     least one normal f64 draw, one search f64 and one direct f32
+     histogram launch, x a CUDA tensor, every host fallback logged with its
+     reason, the arrays a host module moved off the card printed, the
+     waits equal to the counted reads (with their sites), the warm walls
+     and a profile; a MAT file written by a card session loaded bit for
+     bit in the host session and in a subprocess with jax and runmat_tpu
+     blocked; a classdef handle object summing card arrays against the
+     host engine; and the path's three kernel calls at its shapes (normal
+     f64 at 20,736,000, search f64 and direct f32 over them at 64 bins)
+     held to their plain versions and timed beside them, their bounds,
+     torch.randn and torch.histc;
+ 12. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
 against that call in turns, ten rounds, for the run-to-run spread of
 both, and prints the layout of each float64 map of more than 2^20
 elements (8 warps a block since the layout sweep of fusebench.py). Each
-kernel's `launches` is read from the runs of phases 4 to 10, with the
+kernel's `launches` is read from the runs of phases 4 to 11, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches, or for its one where one program covers each
 segment); each generated group is a row of its own, counted by its
@@ -210,13 +228,17 @@ runmat_tpu.
 from __future__ import annotations
 
 import collections
+import hashlib
 import importlib.util
 import io
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -337,6 +359,46 @@ DL_RESULT = {"dl_digits": "DIGITS", "dl_vowels": "VOWELS"}
 # a dlfeval/dlgradient snippet in float64, card against CPU: cuBLAS and
 # the CPU's BLAS sum the products in other orders
 DL_SNIPPET_TOL = 1e-12
+SENSOR_WORKLOAD = "runmat_tpu_torch/workloads/sensor_log.m"
+# sensor_log.m's defaults: 30 days of 86400 samples, 8 channels
+SENSOR_N = 30 * 86400 * 8
+# double sums in another order (SLICE_RTOL's tolerance)
+SENSOR_RTOL = 1e-9
+# a classdef handle object summing card arrays: cuda's sums against the
+# host's, of sum(abs(x(:)))
+CLASSDEF_TOL = 1e-12
+CLASSDEF_ACC = ("classdef Acc < handle\nproperties\ntotal = 0\nn = 0\nend\n"
+                "methods\nfunction add(obj, x)\n"
+                "obj.total = obj.total + sum(x(:));\nobj.n = obj.n + "
+                "numel(x);\nend\nend\nend\n")
+CLASSDEF_USE = ("rng(5); x = randn(4096, 64); a = Acc(); a.add(x);"
+                " a.add(x .* 2); t = a.total; n = a.n; w = sum(abs(x(:)));")
+# a MAT file a card session writes: every class the records path saves
+RECORDS_MAT = ("rng(7); x = randn(86400, 8); mu = mean(x);"
+               " n = histcounts(single(x), single(-8:0.25:8));"
+               " s = single(x(1:1000, :)); k = int32(round(x(1:100, 1) * 1000));"
+               " b = x(1:10, 1) > 0;")
+RECORDS_MAT_NAMES = ("x", "mu", "n", "s", "k", "b")
+# the subprocess that loads it with jax and runmat_tpu blocked
+NOJAX_LOAD = r"""
+import hashlib, json, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["runmat_tpu"] = None
+import numpy as np
+from runmat_tpu_torch.session import Session
+s = Session(accelerate=False)
+s.run_source("W = load('%s');")
+out = {}
+for name in %r:
+    v = s.get("W").get_scalar_field(name)
+    h = np.ascontiguousarray(v.host())
+    out[name] = [v.mclass, list(h.shape), str(h.dtype),
+                 hashlib.sha256(h.tobytes()).hexdigest()]
+print(json.dumps(out))
+print("runmat_tpu modules:", sorted(m for m in sys.modules
+      if m.split(".")[0] == "runmat_tpu" and sys.modules[m]))
+"""
 
 
 class SmokeFailure(Exception):
@@ -2064,6 +2126,238 @@ def phase_dl_path() -> dict:
     return launches
 
 
+def _records_kernels(x) -> None:
+    """The records path's three kernel calls at its shapes (x its card
+    array, 20,736,000 float64 values; 64 bins of width 0.25 from -8), each
+    held to its plain version and timed beside it, its bound and the
+    PyTorch call: the normal f64 draw (torch.randn draws Philox, another
+    stream), search f64 and direct f32 (torch.histc over the same 64 equal
+    bins, its counts compared with the kernel's)."""
+    import torch
+
+    from runmat_tpu_torch import histbench, rngbench, sass
+    from runmat_tpu_torch.ops import histogram, threefry
+    (r,) = rngbench.measure(threefry, sass, (("randn", "float64", SENSOR_N),),
+                            TIMING_REPS, plain_reps=5)
+    check(r["ok"], f"randn float64 n={SENSOR_N}: differs from plain by "
+          f"{r['max_abs_err']:g}")
+    print(f"time randn float64 n={SENSOR_N} (sensor_log's draw): kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.randn "
+          f"(Philox, another stream) {r['philox_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+          f"{r['share']:.3f}; max_abs_err {r['max_abs_err']:g}")
+    x = x.reshape(-1)
+    e64 = torch.arange(-32, 33, dtype=torch.float64, device=x.device) * 0.25
+    xs, e32 = x.float(), e64.float()
+    affine = histogram.affine_edge_params(e32.cpu().numpy())
+    check(affine is not None, "sensor_log's single edges are not affine")
+    for mode, v, e, aff in (("search f64", x, e64, None),
+                            ("direct f32", xs, e32, affine)):
+        nb = e.numel() - 1
+        got = histogram.histcounts(v, e, aff)
+        want = histogram.plain_histcounts(v, e) if aff is None else \
+            histogram.plain_histcounts_affine(v, nb, *aff)
+        check(torch.equal(got, want), f"histcounts {mode} n={SENSOR_N}: "
+              f"differs from plain by {int((got - want).abs().max())}")
+        lib = torch.histc(v, bins=nb, min=-8.0, max=8.0)
+        ms = histbench.time_ms(lambda: histogram.histcounts(v, e, aff),
+                               TIMING_REPS)
+        plain = histbench.time_ms(
+            (lambda: histogram.plain_histcounts(v, e)) if aff is None else
+            (lambda: histogram.plain_histcounts_affine(v, nb, *aff)), 5)
+        lib_ms = histbench.time_ms(
+            lambda: torch.histc(v, bins=nb, min=-8.0, max=8.0), TIMING_REPS)
+        bound = sass.bound(v.numel() * v.element_size()
+                           + e.numel() * e.element_size() + nb * 8)
+        print(f"time histcounts {mode} n={SENSOR_N} B={nb} (sensor_log's "
+              f"call): kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.histc "
+              f"{lib_ms:.4f} ms (its counts "
+              f"{'equal' if torch.equal(lib.long(), got) else 'differ from'}"
+              f" the kernel's), bound {bound[0]:.4f} ms ({bound[1]}), share "
+              f"of bound {bound[0] / ms:.3f}; max_abs_err 0")
+        del got, want, lib
+    torch.cuda.empty_cache()
+
+
+def _records_mat() -> None:
+    """A MAT file written by a card session loads, bit for bit, in the
+    port's host session and in a subprocess where jax and runmat_tpu
+    cannot be imported."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch.session import Session
+    d = tempfile.mkdtemp()
+    try:
+        path = os.path.join(d, "records.mat")
+        s = runmat_tpu_torch.session("cuda")
+        try:
+            _run_source(s, RECORDS_MAT + f" save('{path}', "
+                        + ", ".join(f"'{n}'" for n in RECORDS_MAT_NAMES)
+                        + ");")
+            card = {n: s.get(n) for n in RECORDS_MAT_NAMES}
+        finally:
+            runmat_tpu_torch.uninstall()
+        want = {n: [v.mclass, list(np.shape(v.host())), str(v.host().dtype),
+                    hashlib.sha256(np.ascontiguousarray(v.host()).tobytes())
+                    .hexdigest()] for n, v in card.items()}
+        host = Session(accelerate=False, stdout=io.StringIO())
+        host.run_source(f"W = load('{path}');")
+        for n, v in card.items():
+            h = host.get("W").get_scalar_field(n)
+            check(h.mclass == v.mclass and h.host().dtype == v.host().dtype
+                  and np.array_equal(h.host(), v.host()),
+                  f"records MAT: {n} loads as {h.mclass} "
+                  f"{h.host().dtype} {h.host().shape} on the host")
+        p = subprocess.run(
+            [sys.executable, "-c", NOJAX_LOAD % (path, RECORDS_MAT_NAMES)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        check(p.returncode == 0, f"records MAT without jax: {p.stderr[-2000:]}")
+        lines = p.stdout.strip().splitlines()
+        check(json.loads(lines[0]) == want and
+              lines[1] == "runmat_tpu modules: []",
+              f"records MAT without jax: {p.stdout[-2000:]} against {want}")
+        print(f"records MAT: {os.path.getsize(path)} bytes written by the "
+              f"card session ({', '.join(RECORDS_MAT_NAMES)}) load bit for "
+              f"bit in the host session and with jax and runmat_tpu blocked")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _records_classdef() -> None:
+    """A handle class whose method adds sum(x(:)) of a card array to a
+    property, on the card against the host engine."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.session import Session
+    host = Session(accelerate=False, stdout=io.StringIO())
+    host.run_source(CLASSDEF_ACC)
+    host.run_source(CLASSDEF_USE)
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    try:
+        _run_source(s, CLASSDEF_ACC)
+        _run_source(s, CLASSDEF_USE)
+        on_card = s.get("x").on_device
+        got = {n: float(s.get(n).host().reshape(-1)[0]) for n in "tnw"}
+        st = dict(eng.stats)
+    finally:
+        runmat_tpu_torch.uninstall()
+    want = {n: float(host.get(n).host().reshape(-1)[0]) for n in "tnw"}
+    err = abs(got["t"] - want["t"]) / want["w"]
+    check(on_card and got["n"] == want["n"] and err <= CLASSDEF_TOL,
+          f"classdef on the card: {got} against the host {want} (x on the "
+          f"card: {on_card})")
+    check(st["host_fallbacks"] == 0,
+          f"classdef on the card: {st['host_fallbacks']} host fallbacks")
+    print(f"classdef on the card: Acc.total {got['t']!r} against the host "
+          f"{want['t']!r} (off by {err:.3g} of sum(abs(x(:)))), n "
+          f"{int(got['n'])}, x a card array; {st['gathers']} gathers")
+
+
+def phase_records_path() -> dict:
+    """sensor_log.m at its default size (30 days of 86400 samples, 8
+    channels) through Session.run_source against the port's host engine,
+    its kernels' launches, where its values leave the card, its waits,
+    its warm walls and a profile; then a MAT file from a card session, a
+    classdef object over card arrays, and the path's kernel calls at its
+    shapes."""
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, profile, syncs
+    from runmat_tpu_torch.errors import MatError
+    from runmat_tpu_torch.values import MatArray
+
+    src = open(SENSOR_WORKLOAD).read()
+    laps = [("start", time.perf_counter())]
+    out, host = _host_reference(src)
+    laps.append(("host reference", time.perf_counter()))
+    ref = _result_value(out, "SENSOR")
+    print(f"host sensor_log: {out.strip()} "
+          f"({laps[-1][1] - laps[-2][1]:.1f} s)")
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        output = _run_source(s, src)
+    except MatError as e:
+        raise SmokeFailure(f"sensor_log: {e}") from e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    st, log = dict(eng.stats), list(eng.launch_log)
+    xt = eng.materialize(s.get("x").dev) if s.get("x").on_device else None
+    runmat_tpu_torch.uninstall()
+    got = _result_value(output, "SENSOR")
+    check(abs(got - ref) <= SENSOR_RTOL * abs(ref),
+          f"sensor_log: SENSOR={got!r} against host {ref!r}")
+    for name in ("csv_ok", "mat_ok"):
+        check(bool(s.get(name).host().reshape(-1)[0]),
+              f"sensor_log: {name} is false on the card")
+    check(s.get("txt").to_str() == host.get("txt").to_str(),
+          f"sensor_log: report {s.get('txt').to_str()!r} against the "
+          f"host's {host.get('txt').to_str()!r}")
+    hist, draws = launches["histogram"], launches["threefry"]
+    check(draws.get("randn float64", 0) >= 1 and
+          hist.get("search f64", 0) >= 1 and hist.get("direct f32", 0) >= 1,
+          f"sensor_log: threefry {draws}, histogram {hist}")
+    check(xt is not None and xt.is_cuda, "sensor_log: x is not on the card")
+    fallbacks = [e for e in log if e["cat"] == "host_fallback"]
+    check(st["host_fallbacks"] == len(fallbacks),
+          f"sensor_log: {st['host_fallbacks']} host fallbacks, "
+          f"{len(fallbacks)} logged")
+    arrays = {k: v for k, v in s.base_frame.vars.items()
+              if isinstance(v, MatArray) and v.size > 1}
+    moved = sorted(k for k, v in arrays.items() if not v.on_device)
+    kept = sorted(k for k, v in arrays.items() if v.on_device)
+    print(f"port sensor_log: {output.strip()} (host {ref!r}, rel err "
+          f"{abs(got - ref) / abs(ref):.3g}); launches threefry {draws}, "
+          f"histogram {hist}, generated {dict(launches['fused'])}; "
+          f"{st['uploads']} uploads ({st['upload_bytes']} bytes), "
+          f"{st['gathers']} gathers ({st['gather_bytes']} bytes), "
+          f"{st['syncs']} syncs {dict(eng.sync_reasons)}; first run "
+          f"{wall * 1e3:.1f} ms")
+    print(f"port sensor_log: arrays on the card {kept}; arrays a host "
+          f"module's MatArray.host() moved to the host for good {moved}")
+    for e in fallbacks:
+        print(f"port sensor_log: host fallback {e['ops']}: {e['reason']}")
+    print(f"port sensor_log: eager ops {dict(eng.eager_by_op)}")
+    del s, host
+    laps.append(("card run", time.perf_counter()))
+    r = syncs.script_syncs(src)
+    check(r["warnings"] == r["counted"],
+          f"sensor_log: {r['warnings']} synchronizing calls, the engine "
+          f"counted {r['counted']}: {r['sites']}")
+    print(f"syncs sensor_log: {r['warnings']} synchronizing calls, the "
+          f"engine counted {r['counted']} ({r['syncs']} syncs, "
+          f"{r['gathers']} gathers), where: {json.dumps(r['sites'])}")
+    laps.append(("syncs", time.perf_counter()))
+    _walls(src, "sensor_log", preview=False)
+    laps.append(("walls", time.perf_counter()))
+    prof = profile.profile_script(src, top=8)
+    print(f"profile sensor_log: wall {prof['wall_ms']:.1f} ms, "
+          f"{prof['device_items']} device items, busy "
+          f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f}; "
+          f"device top " + "; ".join(f"{ms:.3f} ms x{c} {key[:60]}"
+                                     for key, ms, c in prof["device_top"])
+          + "; host top " + "; ".join(f"{ms:.1f} ms x{c} {key[:40]}"
+                                      for key, ms, c in prof["host_top"]))
+    laps.append(("profile", time.perf_counter()))
+    _records_mat()
+    laps.append(("MAT file", time.perf_counter()))
+    _records_classdef()
+    laps.append(("classdef", time.perf_counter()))
+    _records_kernels(xt)
+    laps.append(("kernels", time.perf_counter()))
+    del xt
+    torch.cuda.empty_cache()
+    print("records path, seconds: " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f}" for i, (name, t) in
+        enumerate(laps[1:])))
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2080,7 +2374,8 @@ def main() -> int:
         paths = [phase(phase_main_path), phase(phase_statistics_path),
                  phase(phase_indexing_path),
                  phase(phase_linalg_signal_path), phase(phase_pages_path),
-                 phase(phase_sparse_path), phase(phase_dl_path)]
+                 phase(phase_sparse_path), phase(phase_dl_path),
+                 phase(phase_records_path)]
         kernels += phase_linalg_signal_path.kernels + \
             phase_pages_path.kernels + phase_sparse_path.kernels + \
             phase_dl_path.kernels

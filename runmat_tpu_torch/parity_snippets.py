@@ -167,5 +167,88 @@ SNIPPETS = [
      DL_FLOAT32),
 ]
 
+# the datetime, classdef, file and table modules: values of their own
+# types stay in the workspace where they display as MATLAB does; a value
+# that displays as its Python class (a categorical, a dictionary, a
+# tokenized document, an inputParser) is cleared; files go under tempname
+# and are deleted
+SNIPPETS += [
+    ("datetime", "datetime_builtins",
+     "d = datetime(2026, 3, 14, 15, 9, 26); s = datestr(d); y = isdatetime(d);"
+     " du = duration(2, 30, 0); h = isduration(du); d2 = d + du;"
+     " w = weekday(d); n = datenum(2026, 1, 1); g = d2 > d;",
+     EXACT),
+    ("datetime2", "datetime2",
+     "d = datetime(2024, 1, 31); e = dateshift(d, 'end', 'month');"
+     " x = d + calmonths(1); y = d + calyears(1) + caldays(3);"
+     " [yy, mm, dd] = ymd(d); [hh, mi, ss] = hms(d + hours(1.5));"
+     " k = week(d); j = juliandate(d); p = posixtime(d); xl = exceltime(d);"
+     " b = isbetween(d, datetime(2024, 1, 1), datetime(2024, 2, 1));",
+     EXACT),
+    ("datetime3", "datetime3",
+     "v = datevec(datenum(2024, 7, 4, 6, 30, 0)); e = eomday(2024, 2);"
+     " c = calendarDuration(0, 2, 3); q = iscalendarduration(c);"
+     " b = isbusday(datenum(2024, 7, 4)); n = busdays(datenum(2024, 12, 23),"
+     " datenum(2024, 12, 27)); d = daysdif(datenum(2024, 1, 1),"
+     " datenum(2024, 3, 1)); h = holidays(datenum(2024, 6, 1),"
+     " datenum(2024, 7, 31)); f = fbusdate(2024, 9); z = isnat(NaT);",
+     EXACT),
+    ("oop", "oop_builtins",
+     "s.a = 1; o = isobject(s); v = isvalid(5); h = ishandle_object(5);",
+     EXACT),
+    ("file-io", "file_io",
+     "p = [tempname '.txt']; fid = fopen(p, 'w'); fprintf(fid, 'a,%d\\n', 1:3);"
+     " fclose(fid); t = fileread(p); fid = fopen(p, 'r'); l = fgetl(fid);"
+     " fclose(fid); q = [tempname '.csv']; csvwrite(q, [1 2; 3 4]);"
+     " M = csvread(q); m = [tempname '.mat']; x = magic(4); save(m, 'x');"
+     " S = load(m); j = jsonencode(struct('k', [1 2])); J = jsondecode(j);"
+     " f = fullfile('a', 'b.m'); delete(p); delete(q); delete(m);"
+     " clear fid p q m",
+     EXACT),
+    ("io2", "io2",
+     "[d, n, e] = fileparts('/x/y/z.txt'); p = [tempname '.txt'];"
+     " writelines([\"one\" \"two\"], p); L = readlines(p); f = isfile(p);"
+     " g = isfolder(p); q = [tempname '.txt']; dlmwrite(q, [1 2; 3 4]);"
+     " D = dlmread(q); u = urlencode('a b&c'); w = urldecode(u);"
+     " delete(p); delete(q); clear p q",
+     EXACT),
+    ("data-api", "data_api",
+     "r = tempname; schema.arrays.x.shape = [2 2];"
+     " ds = data_create(r, schema); tx = ds.begin(); tx.write('x', [1 2; 3 4]);"
+     " tx.commit(); ds.refresh(); M = ds.array('x').read(); v = ds.version;"
+     " e = data_exists(r); data_delete(r); g = data_exists(r);"
+     " clear ds tx r ans",
+     EXACT),
+    ("introspection2", "introspection2",
+     "p = inputParser; p.addRequired('x'); p.addParameter('scale', 2);"
+     " p.parse(5, 'scale', 7); r = p.Results; k = iskeyword('for');"
+     " n = namelengthmax; t = underlyingType(single(1)); m = ismethod(5, 'x');"
+     " f = memoize(@sin); a = f(1); b = f(1); clear p f",
+     EXACT),
+    ("tables", "table_builtins",
+     "T = array2table([3 1; 1 2; 2 3], 'VariableNames', {'a', 'b'});"
+     " S = sortrows(T, 'a', 'descend'); h = height(S); w = width(S);"
+     " U = addvars(T, [7; 8; 9], 'NewVariableNames', {'c'});"
+     " A = table2array(U); R = renamevars(T, 'a', 'z'); H = head(T, 2);"
+     " V = removevars(U, 'b'); s = table2struct(T); q = istable(T);",
+     EXACT),
+    ("table2", "table2",
+     "c = categorical({'r', 'b', 'r'}); m = c == 'r'; k = categories(c);"
+     " n = countcats(c); tt = timetable(datetime(2024, 1, 1) + hours([1 2 25])',"
+     " [2; 4; 10]); w = retime(tt, 'daily', 'mean'); v = w.Var1;"
+     " d = dictionary([\"a\" \"b\"], [1 2]); x = d(\"b\");"
+     " T = cell2table({1, 'a'; 2, 'b'}, 'VariableNames', {'n', 's'});"
+     " C = table2cell(T); g = groupsummary(table([1; 1; 2], [3; 4; 5],"
+     " 'VariableNames', {'k', 'v'}), 'k', 'mean'); clear c d",
+     EXACT),
+    ("textanalytics", "textanalytics",
+     "docs = tokenizedDocument([\"the quick fox\" \"the lazy dog\"]);"
+     " bag = bagOfWords(docs); n = bag.NumWords; v = bag.Vocabulary;"
+     " r = removeStopWords(docs); j = joinWords(r); s = stopWords;"
+     " ns = numel(s); enc = wordEncoding(docs); i = word2ind(enc, \"fox\");"
+     " clear docs bag r enc",
+     EXACT),
+]
+
 # module -> the package its snippet needs beyond the port's own
 NEEDS = {"symbolic": "sympy"}

@@ -24,8 +24,13 @@ def m_class(x):
 
 @builtin("isa", category="introspection", min_in=2, max_in=2, pass_ctx=True)
 def m_isa(x, cls, ctx=None):
-    # classdef objects: not yet ported (ROADMAP A16)
+    from ... import oop
     c = text_of(cls)
+    if isinstance(x, (oop.MatObject, oop.HandleObject)):
+        if c == "handle":
+            return MatArray.logical_scalar(x.cls.handle_semantics(ctx.session))
+        names = {k.name for k in x.cls.mro(ctx.session)}
+        return MatArray.logical_scalar(c in names)
     k = class_name(x)
     if c == "numeric":
         return MatArray.logical_scalar(dtypes.is_numeric_class(k))

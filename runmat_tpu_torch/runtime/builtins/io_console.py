@@ -13,7 +13,6 @@ import numpy as np
 from ...errors import MatError, bad_arg
 from ...values import (CellArray, MatArray, StringArray, StructArray, is_char,
                        is_text, text_of)
-from ...unported import not_ported
 from ..registry import builtin
 from .strings import format_matlab
 
@@ -55,7 +54,8 @@ def m_fprintf(*args, ctx=None):
     if fid in (1, 2):
         ctx.session.write(s)
     else:
-        not_ported("fprintf to a file", "A16")
+        from .file_io import write_fid
+        write_fid(fid, s)
     return None
 
 

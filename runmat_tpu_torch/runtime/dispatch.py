@@ -138,7 +138,12 @@ def binary(op: str, a, b):
     from ..sparse import SparseMatrix
     if isinstance(a, SparseMatrix) or isinstance(b, SparseMatrix):
         return _sparse_binary(op, a, b)
-    # datetime values: not yet ported (ROADMAP A16)
+    if type(a).__name__ in ("MatDatetime", "MatDuration") or \
+            type(b).__name__ in ("MatDatetime", "MatDuration"):
+        from .builtins.datetime_builtins import dt_binary
+        r = dt_binary(op, a, b)
+        if r is not None:
+            return r
     if type(a).__name__ == "SymValue" or type(b).__name__ == "SymValue":
         from .builtins.symbolic import sym_binary
         r = sym_binary(op, a, b)

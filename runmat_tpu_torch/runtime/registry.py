@@ -94,10 +94,12 @@ def ensure_loaded() -> None:
         elementwise, creation, reductions, arrays, linalg, rng, strings,
         io_console, introspection, control, cells_structs, gpu, stats,
         sets_sort, fft_signal, interp_poly, datetime_timing, logical_ops,
-        handles, dl_builtins, ode_optim, sparse_builtins, async_builtins,
+        file_io, handles, dl_builtins, oop_builtins, ode_optim,
+        sparse_builtins, table_builtins, datetime_builtins, async_builtins,
         fea_builtins, symbolic, breadth2, breadth3, breadth4, stats2,
-        strings2, linalg2, signal2, optim2, ml, timing2, dl_layers,
-        validators, profiler, itersolve, stats3,
+        strings2, linalg2, signal2, io2, optim2, ml, introspection2,
+        timing2, dl_layers, table2, data_api, textanalytics, validators,
+        profiler, datetime2, itersolve, datetime3, stats3,
     )
     # In the JAX package a later module, not carried yet, registers these
     # names over the carried definition; they stay undefined here until it
@@ -107,6 +109,4 @@ def ensure_loaded() -> None:
 
 
 # name -> the JAX package's builtin module that defines it last
-_REGISTERED_LATER = {"isobject": "oop_builtins", "hold": "plotting",
-                     "addpath": "file_io", "sortrows": "table_builtins",
-                     "datestr": "datetime_builtins", "peaks": "plotting3"}
+_REGISTERED_LATER = {"hold": "plotting", "peaks": "plotting3"}

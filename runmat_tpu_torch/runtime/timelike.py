@@ -23,7 +23,6 @@ from __future__ import annotations
 import numpy as np
 
 from ..errors import MatError
-from ..unported import not_ported
 from ..values import MatArray
 
 # first output decodes to the class of the first timelike input
@@ -68,9 +67,15 @@ def encode(v) -> MatArray:
 
 
 def decode(arr, cls_name: str):
-    # no datetime or duration value exists in the port yet, so `applies`
-    # is always False and nothing reaches here (ROADMAP A16)
-    not_ported("datetime and duration values", "A16")
+    from .builtins.datetime_builtins import MatDatetime, MatDuration
+    if not isinstance(arr, MatArray) or arr.mclass not in ("double", "single") \
+            or arr.is_complex:
+        return arr                      # index/logical/count outputs
+    h = arr.host().astype(np.float64)
+    ints = np.where(np.isnan(h), _NAT, np.round(h)).astype(np.int64)
+    if cls_name == "MatDatetime":
+        return MatDatetime(ints.astype("datetime64[us]"))
+    return MatDuration(ints.astype("timedelta64[us]"))
 
 
 def shim(b, args: list, nargout: int, invoke):

@@ -18,7 +18,6 @@ from typing import Optional
 
 from .errors import MatError
 from .frontend.parser import parse
-from .unported import not_ported
 from .values import MatArray
 from .vm.bytecode import CompiledProgram
 from .vm.compiler import Compiler
@@ -208,7 +207,7 @@ class Session:
         outcome.warnings = rec.warnings
         outcome.workspace_delta = workspace_delta(before,
                                                   self.base_frame.vars)
-        # plotting is not ported (ROADMAP A16): no run touches a figure
+        # plotting is not carried yet (ROADMAP A 5): no run touches a figure
         if err is not None:
             outcome.ok = False
             outcome.error = {"identifier": err.identifier,
@@ -240,8 +239,9 @@ class Session:
             self._compile_cache[source] = compiled
         for fname, fcode in compiled.functions.items():
             self.functions[fname] = fcode
-        if compiled.classes:
-            not_ported("classdef", "A16")
+        for cname, cd in compiled.classes.items():
+            from .oop import build_class
+            self.classes[cname] = build_class(cd)
         old_prog = self.program
         self.program = compiled
         try:
@@ -279,8 +279,9 @@ class Session:
                     return None
                 for fname, fcode in compiled.functions.items():
                     self.functions[fname] = fcode
-                if compiled.classes:
-                    not_ported("classdef", "A16")
+                for cname, cd in compiled.classes.items():
+                    from .oop import build_class
+                    self.classes[cname] = build_class(cd)
                 if name in self.functions:
                     return ("user", self.functions[name])
                 if name in self.classes:
@@ -302,10 +303,16 @@ class Session:
         """Persist the base workspace to a MAT-file (≙ the reference's
         runtime_export_workspace_state replay, runmat-runtime/src/replay/
         workspace.rs)."""
-        not_ported("MAT-file export", "A16")
+        from .matio import save_mat
+        vars_ = {k: v for k, v in self.base_frame.vars.items()
+                 if not k.startswith("@")}
+        save_mat(path, vars_)
 
     def import_workspace(self, path: str, replace: bool = False) -> None:
-        not_ported("MAT-file import", "A16")
+        from .matio import load_mat
+        if replace:
+            self.base_frame.vars.clear()
+        self.base_frame.vars.update(load_mat(path))
 
     def clear(self, *names: str) -> None:
         if not names:

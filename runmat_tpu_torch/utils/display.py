@@ -60,8 +60,6 @@ def _format_body(v, indent: str = "    ") -> str:
     if tn == "SymValue":
         from ..runtime.builtins.symbolic import sym_display
         return sym_display(v)
-    # classdef objects and class references: not yet ported (ROADMAP
-    # A16)
     if tn == "MatTable":
         widths = [max(len(nm), 8) for nm in v.varnames]
         lines = [indent + "    ".join(nm.rjust(w) for nm, w in
@@ -97,6 +95,20 @@ def _format_body(v, indent: str = "    ") -> str:
         lines = [f"{indent}({ii[k]+1},{jj[k]+1})\t{vv[k]:g}"
                  for k in order[:25]]
         return "\n".join(lines) if lines else f"{indent}All zero sparse: {v.m}x{v.n}"
+    from ..oop import ClassRef, HandleObject, Listener, MatObject
+    if isinstance(v, (MatObject, HandleObject)):
+        lines = [f"{indent}{v.cls.name} with properties:", ""]
+        for pname in v.props:
+            pv = v.props[pname]
+            brief = _format_body(pv, "").strip()
+            if "\n" in brief:
+                brief = f"[{'x'.join(map(str, getattr(pv, 'shape', ())))}]"
+            lines.append(f"{indent}    {pname}: {brief}")
+        return "\n".join(lines)
+    if isinstance(v, ClassRef):
+        return f"{indent}<class {v.cls.name}>"
+    if isinstance(v, Listener):
+        return f"{indent}listener for event '{v.event}'"
     if isinstance(v, MatArray):
         if v.mclass == "char":
             s = v.to_str()

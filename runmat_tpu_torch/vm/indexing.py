@@ -298,6 +298,43 @@ def _coerce_write_classes(base: MatArray, rhs: MatArray) -> tuple[np.ndarray, np
                    f"Cannot assign {rcls} values into a {bcls} array.")
 
 
+def _write_table_paren(base, args: list, rhs):
+    """t(rows, vars) = [] (deletion) or = 1-row table/values (row assign)."""
+    from ..tables import MatTable, _take_rows
+    if len(args) != 2:
+        raise MatError("MATLAB:table:badSubscript",
+                       "Tables require two subscripts: t(rows, vars).")
+    ri = base._row_indices(args[0])
+    if _is_empty_literal(rhs):
+        keep = np.setdiff1d(np.arange(base.height, dtype=np.int64), ri)
+        return MatTable(list(base.varnames),
+                        [_take_rows(c, keep) for c in base.cols])
+    vi = base._var_indices(args[1])
+    src = rhs
+    new_cols = list(base.cols)
+    for k, col_idx in enumerate(vi):
+        col = new_cols[col_idx]
+        if isinstance(src, MatTable):
+            val = src.cols[k]
+        else:
+            h = np.atleast_2d(src.host())
+            val = type(col)(h[:, k:k + 1].astype(col.host().dtype)
+                            if isinstance(col, MatArray) else h[:, k:k + 1],
+                            col.mclass) if isinstance(col, MatArray) else src
+        if isinstance(col, MatArray):
+            hc = col.host().copy()
+            hv = val.host() if hasattr(val, "host") else np.asarray(val)
+            hc[ri, ...] = hv.reshape(len(ri), -1)[:, :hc.shape[1] if hc.ndim > 1 else 1].reshape(hc[ri, ...].shape)
+            new_cols[col_idx] = MatArray(hc, col.mclass)
+        else:
+            d = col.data.copy()
+            vals = val.data if hasattr(val, "data") else None
+            if vals is not None:
+                d[ri, ...] = vals.reshape(len(ri), -1)
+            new_cols[col_idx] = type(col)(d)
+    return MatTable(list(base.varnames), new_cols)
+
+
 def _is_empty_literal(rhs) -> bool:
     return isinstance(rhs, MatArray) and rhs.size == 0 and rhs.mclass == "double"
 
@@ -309,6 +346,8 @@ def write_paren(base, args: list, rhs, in_place: bool = False):
         return base
     if hasattr(base, "_mat_paren_assign_"):
         return base._mat_paren_assign_(args, rhs)
+    if type(base).__name__ == "MatTable":
+        return _write_table_paren(base, args, rhs)
     if type(base).__name__ == "SparseMatrix":
         from ..sparse import SparseMatrix
         dense = base.to_matarray()

@@ -146,6 +146,15 @@ class Interp:
         f = self.session.functions.get(name)
         if f is not None:
             return ("user", f)
+        # imported package members (import pkg.fn / pkg.*) shadow builtins
+        # and path functions, per MATLAB import precedence
+        if getattr(self.session, "imports", None):
+            from ..packages import resolve_import
+            hit = resolve_import(self.session, name)
+            if hit is not None:
+                if hit[0] == "class":
+                    return ("class", hit[1])
+                return ("user", hit[1])
         b = registry.lookup(name)
         if b is not None:
             if b.extension and getattr(self.session, "compat",
@@ -169,13 +178,26 @@ class Interp:
             sibs = getattr(frame.code, "siblings", None)
             if sibs and name in sibs:
                 return self.call_user(sibs[name], args, nargout)
-        # classdef objects and their methods: not yet ported (ROADMAP A16)
+        # method dispatch on the dominant (object) argument takes precedence
+        # over path functions (MATLAB resolution order; ≙ vm/object/resolve.rs)
+        from .. import oop
+        for a in args:
+            if isinstance(a, (oop.MatObject, oop.HandleObject)):
+                m = a.cls.find_method(self.session, name)
+                if m is not None:
+                    return self.call_user(m, args, nargout)
+                break
+        cls = self.session.classes.get(name)
+        if cls is not None:
+            return [oop.construct(self, frame, cls, args)]
         r = self.resolve_function(name)
         if r is None:
             r = self.session.resolve_path_function(name)
         if r is None:
             raise undefined(name)
         kind, f = r
+        if kind == "class":
+            return [oop.construct(self, frame, f, args)]
         if kind == "user":
             return self.call_user(f, args, nargout)
         return self.call_builtin(f, args, nargout, frame)
@@ -437,12 +459,33 @@ class Interp:
                 elif op == B.LOADC:
                     v = self._load_name(frame, a)
                     if v is NOVALUE:
-                        # class references, packages and class-name
-                        # receivers (double.empty): not yet ported
-                        # (ROADMAP A16)
-                        stack.append(self._call_or_undef(a, frame))
+                        cls = session.classes.get(a)
+                        if cls is not None:
+                            from ..oop import ClassRef
+                            stack.append(ClassRef(cls))
+                        else:
+                            from ..packages import find_package
+                            pkg = find_package(session, a)
+                            if pkg is not None:
+                                stack.append(pkg)
+                            else:
+                                from ..oop import (BUILTIN_EMPTY_CLASSES,
+                                                   BuiltinClassRef)
+                                nxt = instrs[pc][0] if pc < n else None
+                                if a in BUILTIN_EMPTY_CLASSES and \
+                                        (b == "recv" or nxt == B.FIELD):
+                                    # string.empty / double.empty(0, 3):
+                                    # the bare class name is a static-
+                                    # access receiver, not a ctor call
+                                    stack.append(BuiltinClassRef(a))
+                                else:
+                                    stack.append(
+                                        self._call_or_undef(a, frame))
                     else:
                         if isinstance(v, MatArray):
+                            v.shared = True
+                        from ..oop import MatObject
+                        if isinstance(v, MatObject):
                             v.shared = True
                         stack.append(v)
                 elif op == B.CALL_METHOD:
@@ -663,6 +706,9 @@ class Interp:
         if r is None:
             raise undefined(name)
         kind, f = r
+        if kind == "class":
+            from .. import oop
+            return oop.construct(self, frame, f, [])
         res = (self.call_user(f, [], 1) if kind == "user"
                else self.call_builtin(f, [], 1, frame))
         return res[0] if res else NOVALUE
@@ -827,7 +873,30 @@ class Interp:
             r = base._mat_call_method_(self, frame, fname, args, nargout)
             if r is not NotImplemented:
                 return r
-        # classdef objects and class references: not yet ported (ROADMAP A16)
+        from .. import oop
+        if isinstance(base, (oop.MatObject, oop.HandleObject)):
+            m = base.cls.find_method(self.session, fname)
+            if m is not None:
+                return oop.call_method(self, frame, m, base, args, nargout)
+            m = base.cls.find_static(self.session, fname)
+            if m is not None:
+                return self.call_user(m, args, nargout)
+            v = oop.prop_read(base, fname)
+            return [IX.read_paren(v, args) if args else v]
+        if isinstance(base, oop.ClassRef):
+            m = base.cls.find_static(self.session, fname)
+            if m is None:
+                raise MatError("MATLAB:class:noStatic",
+                               f"Unrecognized static method '{fname}' for "
+                               f"class '{base.cls.name}'.")
+            return self.call_user(m, args, nargout)
+        if isinstance(base, oop.BuiltinClassRef):
+            if fname == "empty":
+                dims = [int(a.host().reshape(-1)[0]) for a in args]
+                return [base.empty(dims)]
+            raise MatError("MATLAB:class:noStatic",
+                           f"Unrecognized static method '{fname}' for "
+                           f"class '{base.name}'.")
         v = self._field_read(base, fname)
         if isinstance(v, FunctionHandle):
             return self.call_value(v, args, nargout, frame)
@@ -845,8 +914,41 @@ class Interp:
             r = base._mat_call_method_(self, None, fname, [], 1)
             if r is not NotImplemented:
                 return r[0] if r else NOVALUE
-        # tables, classdef objects and class references: not yet ported
-        # (ROADMAP A16)
+        from ..tables import MatTable
+        if isinstance(base, MatTable):
+            if fname == "Properties":
+                from ..values import CellArray
+                data = np.empty((1, len(base.varnames)), dtype=object)
+                for i, nm in enumerate(base.varnames):
+                    data[0, i] = MatArray.char_from_str(nm)
+                return StructArray.scalar({
+                    "VariableNames": CellArray(data),
+                })
+            return base.col(fname)
+        from .. import oop
+        if isinstance(base, (oop.MatObject, oop.HandleObject)):
+            if fname in base.props:
+                return oop.prop_read(base, fname)
+            m = base.cls.find_method(self.session, fname)
+            if m is not None:
+                # MATLAB: obj.m == obj.m() — dot access invokes the method
+                res = oop.call_method(self, None, m, base, [], 1)
+                return res[0] if res else NOVALUE
+            return oop.prop_read(base, fname)   # raises the right error
+        if isinstance(base, oop.ClassRef):
+            m = base.cls.find_static(self.session, fname)
+            if m is not None:
+                res = self.call_user(m, [], 1)
+                return res[0] if res else NOVALUE
+            raise MatError("MATLAB:class:noStatic",
+                           f"Unrecognized static method '{fname}' for class "
+                           f"'{base.cls.name}'.")
+        if isinstance(base, oop.BuiltinClassRef):
+            if fname == "empty":
+                return base.empty()
+            raise MatError("MATLAB:class:noStatic",
+                           f"Unrecognized static method '{fname}' for class "
+                           f"'{base.name}'.")
         if isinstance(base, StructArray):
             if fname not in base.fields:
                 raise MatError("MATLAB:nonExistentField",
@@ -941,7 +1043,24 @@ class Interp:
                 r = cur._mat_set_field_(fname, rhs)
                 if r is not NotImplemented:
                     return cur
-            # tables and classdef objects: not yet ported (ROADMAP A16)
+            from ..tables import MatTable
+            if isinstance(cur, MatTable):
+                if fname == "Properties" and rest and rest[0][0][0] in (
+                        "field", "dynfield"):
+                    # T.Properties.VariableNames/RowNames = ... (≙ the
+                    # reference's table.subsasgn metadata surface)
+                    return _table_set_property(cur, rest[0][1], rhs)
+                if rest:
+                    old = cur.col(fname)
+                    return cur.set_col(fname, self._path_write(old, rest, rhs))
+                return cur.set_col(fname, rhs)
+            from .. import oop
+            if isinstance(cur, (oop.MatObject, oop.HandleObject)):
+                if rest:
+                    old = oop.prop_read(cur, fname)
+                    newf = self._path_write(old, rest, rhs)
+                    return oop.prop_write(cur, fname, newf)
+                return oop.prop_write(cur, fname, rhs)
             if cur is None or (isinstance(cur, MatArray) and cur.size == 0):
                 cur = StructArray.scalar()
             if not isinstance(cur, StructArray):
@@ -1086,7 +1205,9 @@ def _truthy_scalar(v) -> bool:
 
 
 def _make_range(start, step, stop) -> MatArray:
-    # datetime ranges: not yet ported (ROADMAP A16)
+    if type(start).__name__ == "MatDatetime" or \
+            type(stop).__name__ == "MatDatetime":
+        return _make_datetime_range(start, step, stop)
     s = start.scalar_double() if isinstance(start, MatArray) else float(start)
     e = stop.scalar_double() if isinstance(stop, MatArray) else float(stop)
     d = 1.0 if step is None else (step.scalar_double() if isinstance(step, MatArray) else float(step))
@@ -1114,6 +1235,87 @@ def _make_range(start, step, stop) -> MatArray:
         from .. import dtypes as _dt
         arr = _dt.cast_to_class(arr, out_class)
     return MatArray(arr, out_class)
+
+
+def _table_set_property(tbl, prop: str, rhs):
+    from ..values import CellArray, text_of as _tof
+    from ..tables import MatTable
+    def _names(v):
+        if isinstance(v, CellArray):
+            return [_tof(x) for x in v.data.reshape(-1, order="F")]
+        from ..values import StringArray
+        if isinstance(v, StringArray):
+            return [str(x) for x in v.data.reshape(-1, order="F")]
+        raise MatError("MATLAB:table:InvalidPropertyValue",
+                       f"Invalid value for table property '{prop}'.")
+    if prop == "VariableNames":
+        names = _names(rhs)
+        if len(names) != len(tbl.varnames):
+            raise MatError("MATLAB:table:IncorrectNumberOfVarNames",
+                           "The VariableNames property must contain one "
+                           "name for each variable in the table.")
+        return MatTable(names, list(tbl.cols), tbl.rownames)
+    if prop == "RowNames":
+        return MatTable(list(tbl.varnames), list(tbl.cols), _names(rhs))
+    raise MatError("MATLAB:table:UnknownProperty",
+                   f"Unrecognized table property '{prop}'.")
+
+
+def _make_datetime_range(start, step, stop):
+    """t1:t2 / t1:dur:t2 / t1:caldur:t2 — MATLAB datetime colon; the
+    default step is one calendar day."""
+    from ..runtime.builtins.datetime_builtins import MatDatetime, MatDuration
+    if not (isinstance(start, MatDatetime) and isinstance(stop, MatDatetime)
+            and start.data.size == 1 and stop.data.size == 1):
+        raise MatError("MATLAB:datetime:colon",
+                       "Colon endpoints must be scalar datetime values.")
+    s = start.data.reshape(-1)[0].astype("datetime64[us]")
+    e = stop.data.reshape(-1)[0].astype("datetime64[us]")
+    if isinstance(step, MatDuration):
+        d = step.data.reshape(-1)[0].astype("timedelta64[us]")
+    elif step is None:
+        d = np.timedelta64(86_400_000_000, "us")        # one day
+    elif isinstance(step, MatArray) and not step.is_complex:
+        # numeric step counts days (serial-datenum convention)
+        d = np.timedelta64(
+            int(round(step.scalar_double() * 86_400_000_000)), "us")
+    else:
+        from ..runtime.builtins.datetime2 import is_caldur
+        if is_caldur(step):
+            # calendar-duration stepping: repeated caldur_add
+            from ..runtime.builtins.datetime2 import caldur_add
+            out, cur, k = [], MatDatetime(start.data.copy()), 0
+            while cur.data.reshape(-1)[0].astype("datetime64[us]") <= e:
+                out.append(cur.data.reshape(-1)[0])
+                k += 1
+                cur = caldur_add(MatDatetime(start.data.copy()),
+                                 _scale_caldur(step, k), 1.0)
+                if k > 1_000_000:
+                    raise MatError("MATLAB:pmaxsize",
+                                   "Requested range is too large.")
+            return MatDatetime(np.array(out,
+                                        dtype="datetime64[us]").reshape(1, -1))
+        raise MatError("MATLAB:datetime:colon",
+                       "Colon step must be a duration, calendarDuration, "
+                       "or numeric day count.")
+    dz = d.astype(np.int64)
+    sz, ez = s.astype(np.int64), e.astype(np.int64)
+    if dz == 0 or (dz > 0 and sz > ez) or (dz < 0 and sz < ez):
+        return MatDatetime(np.empty((1, 0), dtype="datetime64[us]"))
+    n = (ez - sz) // dz + 1
+    vals = sz + dz * np.arange(n, dtype=np.int64)
+    return MatDatetime(vals.astype("datetime64[us]").reshape(1, -1))
+
+
+def _scale_caldur(cd, k: int):
+    from ..values import MatArray as _MA, StructArray as _SA
+    months = cd.get_scalar_field("months").host() * k
+    days = cd.get_scalar_field("days").host() * k
+    return _SA.scalar({
+        "_calendarDuration": _MA.logical_scalar(True),
+        "months": _MA(months, "double"),
+        "days": _MA(days, "double"),
+    })
 
 
 def _end_value(base, dim: int, nargs: int) -> MatArray:

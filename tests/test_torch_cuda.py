@@ -1834,3 +1834,96 @@ def test_dlgradient_on_the_card_matches_the_cpu(card):
     from runmat_tpu_torch import dlbench
     r = dlbench.dlfeval_snippet()
     assert r["rel_err"] <= 1e-12, r
+
+
+# ------------------------------------------------------------ records path
+
+SENSOR_SMALL = "D = 3; F = 4096; C = 4;\n"
+
+
+def test_sensor_log_small_matches_the_host_engine(card):
+    """sensor_log.m at 3 days of 4096 samples and 4 channels on the card:
+    SENSOR within 1e-9 of the host engine, the daily statistics within
+    1e-12 of their largest magnitude, the counts equal, its three kernel
+    kinds launched, no host fallback, and every wait counted."""
+    from runmat_tpu_torch import syncs
+    from runmat_tpu_torch.ops import histogram, threefry
+    src = SENSOR_SMALL + open("runmat_tpu_torch/workloads/sensor_log.m").read()
+    names = ["mu", "sd", "mx", "n64", "n32"]
+    draws = collections.Counter(threefry.launches_by)
+    hist = collections.Counter(histogram.launches_by)
+    got, want, eng = _card_and_host(src, names + ["res"])
+    assert collections.Counter(threefry.launches_by)["randn float64"] > \
+        draws["randn float64"]
+    moved = collections.Counter(histogram.launches_by) - hist
+    assert moved["search f64"] >= 1 and moved["direct f32"] >= 1
+    assert eng.stats["host_fallbacks"] == 0
+    res, ref = float(got[-1].reshape(-1)[0]), float(want[-1].reshape(-1)[0])
+    assert abs(res - ref) <= 1e-9 * abs(ref)
+    _held(names[:3], got[:3], want[:3], 1e-12)
+    assert np.array_equal(got[3], want[3])
+    assert np.array_equal(got[4].astype(np.float64), want[4])
+    r = syncs.script_syncs(src)
+    assert r["warnings"] == r["counted"], r["sites"]
+
+
+def test_a_table_of_card_arrays(card):
+    src = ("rng(1); x = randn(64, 3); y = x .^ 2; T = array2table([x y]);"
+           " S = sortrows(T, 'Var4', 'descend'); A = table2array(S);"
+           " h = height(S); TT = table2timetable(T, 'RowTimes',"
+           " datetime(2026, 1, 1) + hours(0:63)'); W = retime(TT, 'daily',"
+           " 'mean'); m = W.Var1;")
+    got, want, eng = _card_and_host(src, ["A", "h", "m"])
+    assert eng.stats["host_fallbacks"] == 0
+    _held(["A", "h", "m"], got, want, 1e-12)
+
+
+def test_save_and_load_of_a_card_array(card, tmp_path):
+    """A MAT file of card arrays (saving moves them to the host, as in the
+    JAX package) loads bit for bit in the host engine."""
+    from runmat_tpu_torch.session import Session
+    p = str(tmp_path / "card.mat")
+    src = (f"rng(2); x = randn(1000, 7); s = single(x); k = int16(x * 100);"
+           f" save('{p}', 'x', 's', 'k'); L = load('{p}');")
+    (x, s, k), _ = _on("cuda", src, ["x", "s", "k"])
+    host = Session(accelerate=False, stdout=io.StringIO())
+    assert host.execute(f"W = load('{p}');").error is None
+    for name, v in (("x", x), ("s", s), ("k", k)):
+        h = np.asarray(host.get("W").get_scalar_field(name).host())
+        assert h.dtype == v.dtype and np.array_equal(h, v), name
+
+
+def test_a_handle_class_with_a_card_property(card):
+    """A handle object holding a card array in a property and adding
+    sum(x(:)) of card arrays to another, against the host engine. Through
+    run_source: `execute`'s workspace preview formats the object's
+    properties, which moves a card property to the host (as in the JAX
+    package)."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.session import Session
+    cls = ("classdef Acc < handle\nproperties\ndata = []\ntotal = 0\nend\n"
+           "methods\nfunction add(obj, x)\nobj.data = x;\n"
+           "obj.total = obj.total + sum(x(:));\nend\nend\nend\n")
+    use = ("rng(5); x = randn(2048, 32); a = Acc(); a.add(x); a.add(x * 3);"
+           " t = a.total; d = a.data; w = sum(abs(x(:)));")
+    host = Session(accelerate=False, stdout=io.StringIO())
+    for src in (cls, use):
+        assert host.execute(src).error is None
+    prev = accel.active_engine()
+    try:
+        s = runmat_tpu_torch.session("cuda", auto_offload=True,
+                                     offload_threshold=1)
+        s.stdout = io.StringIO()
+        for src in (cls, use):
+            s.run_source(src)
+        assert s.get("a").props["data"].on_device
+        t, d = (np.asarray(s.get(n).host()) for n in ("t", "d"))
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+    w = float(host.get("w").host()[0, 0])
+    assert abs(float(t.reshape(-1)[0]) - float(host.get("t").host()[0, 0])) \
+        <= 1e-12 * w
+    np.testing.assert_allclose(d, host.get("d").host(), rtol=0,
+                               atol=1e-13 * w)

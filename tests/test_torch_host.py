@@ -5,8 +5,6 @@ engine registry they run on.
   engine counts every copy to the host (`gathers`, `gather_bytes`).
 * The workspace preview of `Session.execute` gives a host array above
   `PREVIEW_MAX_ELEMENTS` a one-line `[RxC class]` and never formats it.
-* What the port does not carry yet raises `MatError("RunMat:notPorted")`
-  naming its ROADMAP item.
 * `install`/`uninstall`/`session` touch only the port's engine registry;
   `init_engine` needs a card and a session that does not require one runs
   on the host without it; a `while` loop of device math folds, and a
@@ -112,25 +110,6 @@ def test_execute_previews_a_large_host_array_by_shape(restore_engine):
     want = jax_value_meta(JaxMatArray(np.array([[1.0, 2.0, 3.0]]), "double"),
                           preview_lines=1)
     assert meta["y"]["preview"] == want["preview"]
-
-
-@pytest.mark.parametrize("src,what", [
-    ("fprintf(3, 'to a file');", "fprintf to a file"),
-    ("classdef Foo\nend", "classdef"),
-])
-def test_what_is_not_carried_raises_not_ported(src, what):
-    r = Session(accelerate=False).execute(src)
-    assert r.error is not None
-    assert r.error.identifier == "RunMat:notPorted"
-    assert what in r.error.message and "ROADMAP A16" in r.error.message
-
-
-def test_mat_files_are_not_ported(tmp_path):
-    s = Session(accelerate=False)
-    for call in (lambda: s.export_workspace(str(tmp_path / "w.mat")),
-                 lambda: s.import_workspace(str(tmp_path / "w.mat"))):
-        with pytest.raises(MatError, match="not yet ported"):
-            call()
 
 
 def test_install_touches_only_the_ports_registry(restore_engine):

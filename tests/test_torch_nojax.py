@@ -3,8 +3,11 @@ subprocess with `jax` and `runmat_tpu` blocked in `sys.modules` imports
 runmat_tpu_torch and runs the three workloads and the statistics,
 indexing, linear algebra, spectral and sparse scripts
 (`runmat_tpu_torch/workloads/{histogram_stats,index_sets,dense_linalg,
-spectral,sparse_poisson,dl_digits,dl_vowels}.m`) at small size on
-TorchEngine(device="cpu"), and a host session without an engine; the
+spectral,sparse_poisson,dl_digits,dl_vowels,sensor_log}.m`) at small
+size on TorchEngine(device="cpu"), and a host session without an engine
+(sensor_log through both, the same checksum, and a MAT file saved under
+the engine loaded on the host); the host modules of datetime, classdef,
+files and tables import there, and the
 profiling, sync-counting, timing and benchmark tools import there too, and
 so do the deep-learning modules (their initial weights drawn without
 jax). No module of the JAX package is loaded
@@ -45,6 +48,18 @@ import runmat_tpu_torch.ops.optim
 import runmat_tpu_torch.runtime.builtins.dl_layers
 import runmat_tpu_torch.runtime.builtins.dl_builtins
 import runmat_tpu_torch.runtime.builtins.ml
+import runmat_tpu_torch.fs
+import runmat_tpu_torch.matio
+import runmat_tpu_torch.oop
+import runmat_tpu_torch.packages
+import runmat_tpu_torch.tables
+from runmat_tpu_torch.runtime.registry import ensure_loaded
+ensure_loaded()   # first, in the registry's order: table_builtins and
+                  # sets_sort both register sortrows
+for m in ("datetime_builtins", "datetime2", "datetime3", "oop_builtins",
+          "file_io", "io2", "data_api", "introspection2", "table_builtins",
+          "table2", "textanalytics"):
+    __import__("runmat_tpu_torch.runtime.builtins." + m)
 from runmat_tpu_torch import accel
 from runmat_tpu_torch.session import Session
 
@@ -100,6 +115,24 @@ for name, pre in (("dl_digits", "N = 256; EPOCHS = 1; NP = 64;"),
     print(r.output.strip())
     print(name, "learnables", s.get("net").numel())
     runmat_tpu_torch.uninstall()
+sensor = open("runmat_tpu_torch/workloads/sensor_log.m").read()
+s = runmat_tpu_torch.session("cpu", auto_offload=True, offload_threshold=1)
+eng = accel.active_engine()
+r = s.execute("D = 3; F = 1024; C = 4;\n" + sensor)
+assert r.error is None, r.error
+print(r.output.strip())
+print("sensor_log fallbacks", eng.stats["host_fallbacks"])
+import os
+mat = os.path.join(os.environ["PORT_TEST_DIR"], "sensor.mat")
+assert s.execute(f"save('{mat}', 'mu', 'n64', 'n32');").error is None
+runmat_tpu_torch.uninstall()
+h = Session(accelerate=False)
+assert h.execute(f"L = load('{mat}');").error is None
+print("mat reloaded", h.get("L").get_scalar_field("mu").host().shape)
+h = Session(accelerate=False)
+r = h.execute("D = 3; F = 1024; C = 4;\n" + sensor)
+assert r.error is None, r.error
+print("host", r.output.strip())
 h = Session(accelerate=False)
 r = h.execute("x = rand(1, 5); fprintf('HOST_ok %d\\n', numel(x));")
 assert r.error is None, r.error
@@ -111,16 +144,17 @@ print("runmat_tpu modules:", loaded)
 """
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     # the port runs without jax and without runmat_tpu
     env = dict(os.environ)
+    env["PORT_TEST_DIR"] = str(tmp_path)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     p = subprocess.run([sys.executable, "-c", CODE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=600)
     assert p.returncode == 0, p.stderr[-3000:]
     out = p.stdout
     for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK", "LINALG",
-                  "SPECTRAL", "POISSON", "DIGITS", "VOWELS"):
+                  "SPECTRAL", "POISSON", "DIGITS", "VOWELS", "SENSOR"):
         assert f"RESULT_ok {label}=" in out, out
     assert "monte_carlo folds 1 fallbacks 0 plans" in out, out
     assert "elementwise_math folds 0 fallbacks 0 plans 4" in out, out
@@ -131,6 +165,12 @@ def test_port_runs_without_jax():
     assert "sparse_poisson fallbacks 0" in out, out
     assert "dl_digits learnables 21690" in out, out
     assert "dl_vowels learnables 46109" in out, out
+    assert "sensor_log fallbacks 0" in out, out
+    assert "mat reloaded (3, 4)" in out, out
+    # the host engine prints the same checksum as the CPU engine
+    sensor = [ln.split("=")[1] for ln in out.splitlines()
+              if "RESULT_ok SENSOR=" in ln]
+    assert len(sensor) == 2 and sensor[0] == sensor[1], out
     assert "HOST_ok 5" in out, out
     assert "jax blocked: True" in out, out
     assert "runmat_tpu modules: []" in out, out

@@ -1,7 +1,14 @@
 """carry_session: a session of the JAX package started under JaxEngine and
 continued in the port draws the same continuation of the RNG stream; the
 port's state module converts values of either package and numpy arrays
-without importing the JAX package.
+without importing the JAX package. Each kind of workspace value (datetime,
+duration, calendarDuration, categorical, dictionary, table, timetable,
+value and handle objects with their classes, cells, structs, strings and
+function handles) crosses as the port's own: no object of a JAX-package
+class is left under it, its values equal the JAX package's exactly, a
+script continued in the port prints and computes what the JAX session
+does, a shared handle stays shared, and a value the port cannot carry
+raises.
 
 Tolerances: carried arrays exact; the f32 normals of the continuation
 atol=rtol=2e-6 (libm); RNG counters equal."""
@@ -93,3 +100,121 @@ def test_sparse_matrices_and_meshes_cross_as_the_ports_own(restore_engine):
     assert r.error is None, r.error
     assert bool(np.asarray(ts.get("z").host()).reshape(-1)[0])
     assert float(np.asarray(ts.get("n").host()).reshape(-1)[0]) == 12.0
+
+
+# (id, the JAX session's source, a source that uses the carried values)
+KINDS = [
+    ("datetime", "d = datetime(2026, 1, 1) + days(0:2)';",
+     "d2 = d + hours(6); y = year(d2); s = datestr(d2(2)); b = isbusday(d);"),
+    ("duration", "du = hours([1 2.5]); dm = minutes(90);",
+     "t = du + dm; h = hours(t);"),
+    ("calendarDuration", "cm = calmonths(2); cdd = caldays(3);",
+     "d = datetime(2026, 1, 31) + cm + cdd; v = datevec(d);"),
+    ("categorical", "c = categorical({'red', 'blue', 'red'});",
+     "m = c == 'red'; k = categories(c); n = countcats(c);"),
+    ("dictionary", "k = dictionary([\"a\" \"b\"], [1 2]);",
+     "x = k(\"b\"); k(\"c\") = 9; n = k.numEntries;"),
+    ("table", "T = array2table([3 1; 1 2; 2 3], 'VariableNames', {'a', 'b'});",
+     "S = sortrows(T, 'a'); h = height(S); b = S.b; A = table2array(T);"),
+    ("timetable", "tt = timetable(datetime(2024,1,1) + hours([1 2 25])',"
+                  " [2; 4; 10]);",
+     "w = retime(tt, 'daily', 'mean'); v = w.Var1; q = istimetable(w);"),
+    ("value-object",
+     "classdef Pt\nproperties\nx = 0\nend\nmethods\nfunction obj = Pt(a)\n"
+     "obj.x = a;\nend\nfunction d = twice(obj)\nd = 2 * obj.x;\nend\nend\n"
+     "end\n|p = Pt(4);",
+     "q = p; q.x = 7; a = p.twice(); b = q.twice(); k = class(p);"),
+    ("handle-object",
+     "classdef Acc < handle\nproperties\ntotal = 0\nend\nmethods\n"
+     "function add(obj, x)\nobj.total = obj.total + sum(x(:));\nend\nend\n"
+     "end\n|a = Acc(); a.add([1 2]); b = a;",
+     "b.add(5); t = a.total; h = isa(a, 'handle');"),
+    ("cell-struct-string",
+     "c = {1, 'two', {datetime(2026, 2, 3)}}; s.a = [1 2]; s.t = \"txt\";"
+     " st = [\"x\" \"y\"]; f = @(z) z + s.a;",
+     "c2 = c{3}{1} + days(1); w = f(1); u = upper(st); n = numel(c);"),
+]
+
+
+def _carried(setup: str):
+    accel.set_engine(None)
+    js = Session(accelerate=False)
+    for part in setup.split("|"):
+        assert js.execute(part).error is None, part
+    from runmat_tpu_torch.session import Session as PortSession
+    port_accel.set_engine(None)
+    ts = PortSession(accelerate=False)
+    carry_session(js, ts)
+    return js, ts
+
+
+def _jax_objects(v, path, seen, found):
+    """Every object under `v` whose class lives in the JAX package."""
+    if id(v) in seen:
+        return
+    seen.add(id(v))
+    mod = type(v).__module__
+    if mod == "runmat_tpu" or mod.startswith("runmat_tpu."):
+        found.append((path, type(v)))
+    if isinstance(v, np.ndarray):
+        if v.dtype == object:
+            for i, x in np.ndenumerate(v):
+                _jax_objects(x, f"{path}{list(i)}", seen, found)
+        return
+    if isinstance(v, (list, tuple, set, frozenset)):
+        for i, x in enumerate(v):
+            _jax_objects(x, f"{path}[{i}]", seen, found)
+        return
+    if isinstance(v, dict):
+        for k, x in v.items():
+            _jax_objects(k, f"{path}.key", seen, found)
+            _jax_objects(x, f"{path}[{k!r}]", seen, found)
+        return
+    for k in type(v).__mro__:
+        sl = k.__dict__.get("__slots__", ())
+        for n in ((sl,) if isinstance(sl, str) else sl):
+            if hasattr(v, n) and n not in ("__dict__", "__weakref__"):
+                _jax_objects(getattr(v, n), f"{path}.{n}", seen, found)
+    for n, x in getattr(v, "__dict__", {}).items():
+        _jax_objects(x, f"{path}.{n}", seen, found)
+
+
+@pytest.mark.parametrize("kind,setup,use", KINDS, ids=[k for k, _, _ in KINDS])
+def test_each_kind_of_value_crosses_as_the_ports_own(restore_engine, kind,
+                                                     setup, use):
+    """A workspace of the JAX package carried into the port holds no object
+    of a JAX-package class, the values equal the JAX package's, and a script
+    continued in the port computes what the JAX session computes."""
+    from torch_paired import same_value
+    js, ts = _carried(setup)
+    found = []
+    for n, v in ts.base_frame.vars.items():
+        _jax_objects(v, n, set(), found)
+    for n, c in ts.classes.items():
+        _jax_objects(c, "class " + n, set(), found)
+    assert found == [], found
+    assert sorted(ts.workspace_names()) == sorted(js.workspace_names())
+    for n in js.workspace_names():
+        same_value(js.get(n), ts.get(n), n)
+    assert sorted(ts.classes) == sorted(js.classes)
+    rj, rt = js.execute(use), ts.execute(use)
+    assert rj.error is None and rt.error is None, (rj.error, rt.error)
+    assert rt.output == rj.output
+    for n in js.workspace_names():
+        same_value(js.get(n), ts.get(n), n)
+
+
+def test_a_shared_handle_stays_shared(restore_engine):
+    js, ts = _carried(KINDS[8][1])
+    assert ts.get("a") is ts.get("b")
+    assert ts.get("a").cls is ts.classes["Acc"]
+
+
+def test_a_value_the_port_cannot_carry_raises(restore_engine):
+    accel.set_engine(None)
+    js = Session(accelerate=False)
+    assert js.execute("g = onCleanup(@() disp(1));").error is None
+    from runmat_tpu_torch.session import Session as PortSession
+    with pytest.raises(TypeError, match="cannot be carried"):
+        carry_session(js, PortSession(accelerate=False))
+    js.base_frame.vars.clear()   # no cleanup output at exit
