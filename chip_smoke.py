@@ -202,13 +202,32 @@ line is printed:
      f64 at 20,736,000, search f64 and direct f32 over them at 64 bins)
      held to their plain versions and timed beside them, their bounds,
      torch.randn and torch.histc;
- 12. one JSON line of kernel results, then the result line
+ 12. plot path: runmat_tpu_torch/workloads/field_plot.m (a 1080 x 1920
+     float64 field drawn on the card, smoothed there by imfilter with a
+     15 x 15 Gaussian and the edge replicated, colormapped there for
+     imagesc by the colormap kernel, a row profile in a second figure, the
+     heat map printed to a PNG and saved as an SVG, gpuInfo) at its
+     default size through Session.run_source against the port's host
+     engine: FIELD within a relative 1e-12, imfilter and cmap in the
+     launch log with no host fallback, the colormap kernel launched, the
+     card's heat map bit for bit the plain colormap of the card's own Y
+     carried to the CPU, the waits equal to the counted reads, the warm
+     walls (runmat_tpu_torch/walls.py) and a profile; then the colormap
+     kernel (runmat_tpu_torch/csrc/cmap.cu via ops/cmap.py) against its
+     plain version bit for bit in float64 and float32 at 1080 x 1920 and
+     2160 x 3840 over a normal field, NaNs, +-Inf, a constant and an
+     all-NaN field and every colormap of plot/colors.py
+     (runmat_tpu_torch/plotbench.py), timed there beside its bound, its
+     range pass alone, its plain version and torch.aminmax (the
+     yardstick of its reduction), and imfilter's library call timed beside
+     its bound;
+ 13. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
 against that call in turns, ten rounds, for the run-to-run spread of
 both, and prints the layout of each float64 map of more than 2^20
 elements (8 warps a block since the layout sweep of fusebench.py). Each
-kernel's `launches` is read from the runs of phases 4 to 11, with the
+kernel's `launches` is read from the runs of phases 4 to 12, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches, or for its one where one program covers each
 segment); each generated group is a row of its own, counted by its
@@ -379,6 +398,12 @@ RECORDS_MAT = ("rng(7); x = randn(86400, 8); mu = mean(x);"
                " s = single(x(1:1000, :)); k = int32(round(x(1:100, 1) * 1000));"
                " b = x(1:10, 1) > 0;")
 RECORDS_MAT_NAMES = ("x", "mu", "n", "s", "k", "b")
+FIELD_WORKLOAD = "runmat_tpu_torch/workloads/field_plot.m"
+# std(Y(:)) of the smoothed field: cuDNN's sums of the 225 products in
+# another order than the host's loop
+FIELD_RTOL = 1e-12
+# the line of the JAX builder the colormap kernel replaces
+CMAP_REPLACES = "runmat_tpu/accel/dense.py:1064"
 # the subprocess that loads it with jax and runmat_tpu blocked
 NOJAX_LOAD = r"""
 import hashlib, json, sys
@@ -768,17 +793,17 @@ def _sync_check(src: str, label: str) -> None:
 
 
 def _zero_launches() -> None:
-    from runmat_tpu_torch.ops import (fused, histogram, iir, lstm, lstm_seq,
-                                      optim, spcg, threefry)
+    from runmat_tpu_torch.ops import (cmap, fused, histogram, iir, lstm,
+                                      lstm_seq, optim, spcg, threefry)
     for mod in (histogram, threefry, fused, iir, spcg, lstm, optim,
-                lstm_seq):
+                lstm_seq, cmap):
         mod.launches = 0
         mod.launches_by.clear()
 
 
 def _read_launches() -> dict:
-    from runmat_tpu_torch.ops import (fused, histogram, iir, lstm, lstm_seq,
-                                      optim, spcg, threefry)
+    from runmat_tpu_torch.ops import (cmap, fused, histogram, iir, lstm,
+                                      lstm_seq, optim, spcg, threefry)
     return {"threefry": dict(threefry.launches_by),
             "histogram": dict(histogram.launches_by),
             "fused": dict(fused.launches_by),
@@ -786,7 +811,8 @@ def _read_launches() -> dict:
             "spcg": dict(spcg.launches_by),
             "lstm": dict(lstm.launches_by),
             "lstm_seq": dict(lstm_seq.launches_by),
-            "optim": dict(optim.launches_by)}
+            "optim": dict(optim.launches_by),
+            "cmap": dict(cmap.launches_by)}
 
 
 def _group(name: str) -> str:
@@ -797,7 +823,8 @@ def _group(name: str) -> str:
         "spcg" if name in SPARSE_KERNELS else \
         "lstm_seq" if name.startswith("lstm_seq") else \
         "lstm" if name.startswith("lstm") else \
-        "optim" if name.startswith("optim") else "fused"
+        "optim" if name.startswith("optim") else \
+        "cmap" if name.startswith("cmap") else "fused"
 
 
 def phase_fused_kernel() -> list:
@@ -2358,6 +2385,168 @@ def phase_records_path() -> dict:
     return launches
 
 
+def _plot_kernels() -> dict:
+    """The colormap kernel against its plain version on every test field
+    (plotbench.held), timed at 1080 x 1920 and 2160 x 3840 in both types
+    beside its bound, its range pass, the plain version and torch.aminmax;
+    imfilter's library call timed at field_plot.m's shapes. Returns the
+    1080p float64 row (field_plot.m's call)."""
+    import torch
+
+    from runmat_tpu_torch import plotbench
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    try:
+        n = plotbench.held(dev)
+    except AssertionError as e:
+        raise SmokeFailure(f"cmap kernel against plain: {e}") from e
+    print(f"cmap kernel: {n} fields bit for bit equal to plain_cmap (lo, "
+          f"hi, hi2 and the image; {', '.join(plotbench.CASES)} in float64 "
+          f"and float32 at {plotbench.SHAPES}, every colormap on the normal "
+          f"field) in {time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for shape in plotbench.SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            a = plotbench.field("normal", shape, dtype, device=dev)
+            r = plotbench.cmap_row(a)
+            check(r["max_abs_err"] == 0, f"cmap {r}: differs from plain")
+            rows[(shape, dtype)] = r
+            print(f"time cmap {r['dtype']} {shape[0]}x{shape[1]}: kernel "
+                  f"{r['ms']:.4f} ms (range pass alone {r['range_ms']:.4f}),"
+                  f" plain {r['plain_ms']:.4f} ms, torch.aminmax (the "
+                  f"reduction alone) {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of "
+                  f"bound {r['share']:.3f}; max_abs_err 0")
+            del a
+    x = plotbench.field("normal", plotbench.SHAPES[0], torch.float64,
+                        device=dev)
+    ax = torch.arange(15, dtype=torch.float64, device=dev) - 7
+    k = torch.exp(-(ax[:, None] ** 2 + ax[None, :] ** 2) / 18)
+    k = k / k.sum()
+    f = plotbench.imfilter_row(x, k)
+    print(f"time imfilter float64 {f['shape'][0]}x{f['shape'][1]} with a "
+          f"15x15 kernel (F.pad + cuDNN conv2d, a library call): "
+          f"{f['ms']:.4f} ms, bound {f['bound_ms']:.4f} ms "
+          f"({f['bound_by']}), share of bound {f['share']:.3f}")
+    torch.cuda.empty_cache()
+    return rows[(plotbench.SHAPES[0], torch.float64)]
+
+
+def phase_plot_path() -> dict:
+    """field_plot.m at its default size (1080 x 1920) through
+    Session.run_source against the port's host engine, its launches, its
+    heat map against the plain colormap of its own Y, its waits, warm
+    walls and a profile; then the colormap kernel against plain and timed,
+    and imfilter timed."""
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, profile, syncs, walls
+    from runmat_tpu_torch.errors import MatError
+    from runmat_tpu_torch.ops import cmap
+    from runmat_tpu_torch.plot import figure as figmod
+
+    src = open(FIELD_WORKLOAD).read()
+    laps = [("start", time.perf_counter())]
+    out, host = _host_reference(src)
+    laps.append(("host reference", time.perf_counter()))
+    ref = _result_value(out, "FIELD")
+    print(f"host field_plot: {out.strip()} "
+          f"({laps[-1][1] - laps[-2][1]:.1f} s)")
+    figmod.close_all()
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        output = _run_source(s, src)
+    except MatError as e:
+        raise SmokeFailure(f"field_plot: {e}") from e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    st, log = dict(eng.stats), list(eng.launch_log)
+    y = eng.materialize(s.get("Y").dev) if s.get("Y").on_device else None
+    image = figmod._FIGURES[int(s.get("f1").host()[0, 0])].ax.children[0]
+    info = {k: s.get("g").get_scalar_field(k) for k in ("Name", "Platform")}
+    runmat_tpu_torch.uninstall()
+    figmod.close_all()
+    got = _result_value(output, "FIELD")
+    check(abs(got - ref) <= FIELD_RTOL * abs(ref),
+          f"field_plot: FIELD={got!r} against host {ref!r}")
+    for name in ("png_ok", "svg_ok"):
+        check(bool(s.get(name).host().reshape(-1)[0]),
+              f"field_plot: {name} is false on the card")
+    check(y is not None and y.is_cuda, "field_plot: Y is not on the card")
+    linalg = [e["ops"] for e in log if e["cat"] == "linalg"]
+    check(["imfilter"] in linalg and ["cmap"] in linalg,
+          f"field_plot: the card's linalg calls {linalg}")
+    check(st["host_fallbacks"] == 0,
+          f"field_plot: {st['host_fallbacks']} host fallbacks: "
+          f"{[e for e in log if e['cat'] == 'host_fallback']}")
+    check(launches["cmap"].get("cmap f64", 0) >= 1 and
+          launches["threefry"].get("randn float64", 0) >= 1,
+          f"field_plot: cmap {launches['cmap']}, threefry "
+          f"{launches['threefry']}")
+    # the heat map the card drew, as its bytes, against the plain colormap
+    # of the card's own Y on the CPU
+    u8 = np.rint(image.data[::-1] * 255).astype(np.uint8)
+    want, _ = cmap.plain_cmap(y.cpu(), torch.from_numpy(cmap.table("parula")))
+    check(np.array_equal(u8, want.numpy()),
+          f"field_plot: the heat map differs from plain_cmap of Y in "
+          f"{int((u8 != want.numpy()).sum())} bytes")
+    print(f"port field_plot: {output.strip()} (host {ref!r}, rel err "
+          f"{abs(got - ref) / abs(ref):.3g}); launches cmap "
+          f"{launches['cmap']}, threefry {launches['threefry']}, generated "
+          f"{dict(launches['fused'])}; linalg calls {linalg}; "
+          f"{st['uploads']} uploads ({st['upload_bytes']} bytes), "
+          f"{st['gathers']} gathers ({st['gather_bytes']} bytes), "
+          f"{st['syncs']} syncs {dict(eng.sync_reasons)}; heat map "
+          f"{u8.shape} bit for bit plain_cmap of the card's Y; gpuInfo "
+          f"{info['Name'].to_str()!r} on {info['Platform'].to_str()!r}; "
+          f"first run {wall * 1e3:.1f} ms")
+    print(f"port field_plot: eager ops {dict(eng.eager_by_op)}")
+    del s, host, y
+    laps.append(("card run", time.perf_counter()))
+    r = syncs.script_syncs(src)
+    check(r["warnings"] == r["counted"],
+          f"field_plot: {r['warnings']} synchronizing calls, the engine "
+          f"counted {r['counted']}: {r['sites']}")
+    print(f"syncs field_plot: {r['warnings']} synchronizing calls, the "
+          f"engine counted {r['counted']} ({r['syncs']} syncs, "
+          f"{r['gathers']} gathers), where: {json.dumps(r['sites'])}")
+    laps.append(("syncs", time.perf_counter()))
+    w = walls.script_walls(src, 4)
+    print(f"wall field_plot (run_source, walls.py): first "
+          f"{w['walls_ms'][0]:.1f} ms, warm median of 3 "
+          f"{w['warm_median_ms']:.1f} ms ("
+          + ", ".join(f"{x:.1f}" for x in w["walls_ms"][1:]) + ")")
+    laps.append(("walls", time.perf_counter()))
+    prof = profile.profile_script(src, top=8)
+    print(f"profile field_plot: wall {prof['wall_ms']:.1f} ms, "
+          f"{prof['device_items']} device items, busy "
+          f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f}; "
+          f"device top " + "; ".join(f"{ms:.3f} ms x{c} {key[:60]}"
+                                     for key, ms, c in prof["device_top"])
+          + "; host top " + "; ".join(f"{ms:.1f} ms x{c} {key[:40]}"
+                                      for key, ms, c in prof["host_top"]))
+    laps.append(("profile", time.perf_counter()))
+    figmod.close_all()
+    row = _plot_kernels()
+    laps.append(("kernels", time.perf_counter()))
+    print("plot path, seconds: " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f}" for i, (name, t) in
+        enumerate(laps[1:])))
+    phase_plot_path.kernels = [{
+        "name": "cmap f64", "route": "cuda",
+        "source": "runmat_tpu_torch/csrc/cmap.cu",
+        "replaces": CMAP_REPLACES, "launches": 0, "launch_key": "cmap f64",
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None}]
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2375,10 +2564,10 @@ def main() -> int:
                  phase(phase_indexing_path),
                  phase(phase_linalg_signal_path), phase(phase_pages_path),
                  phase(phase_sparse_path), phase(phase_dl_path),
-                 phase(phase_records_path)]
+                 phase(phase_records_path), phase(phase_plot_path)]
         kernels += phase_linalg_signal_path.kernels + \
             phase_pages_path.kernels + phase_sparse_path.kernels + \
-            phase_dl_path.kernels
+            phase_dl_path.kernels + phase_plot_path.kernels
         for k in kernels:
             key = k.pop("launch_key")
             on_path = k.pop("on_path", True)

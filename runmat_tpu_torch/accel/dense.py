@@ -28,9 +28,12 @@ Builders (kind -> (engine, opts) -> fn(*tensors)):
     `(wr, wi, flags)` and plane-stack contracts, not its Francis QR),
     `lu`, `trisolve`, `trace`, `ishermitian`, `norm`, `rank`;
   * `fft`, `fft2`, `hilbert` and `spectrogram` through `torch.fft`
-    (cuFFT); `conv1`, `conv2` and `fir` through `torch.nn.functional`
-    convolutions (cuDNN), with float32 convolutions in true FP32 (TF32 off
-    around the call); `iir` on the hand-written kernel of `ops/iir.py`.
+    (cuFFT); `conv1`, `conv2`, `imfilter` and `fir` through
+    `torch.nn.functional` convolutions (cuDNN), with float32 convolutions
+    in true FP32 (TF32 off around the call); `iir` on the hand-written
+    kernel of `ops/iir.py`;
+  * `cmap` (imagesc's colormap) on the hand-written kernel of
+    `ops/cmap.py`, its image, lo and hi returned on the host.
 Each keeps its JAX builder's output contract (tuple arity, shapes), so the
 copied builtins use them unchanged. `spectrogram` returns its result on
 the host, as the builtin reads it with `np.asarray` there (a counted
@@ -70,7 +73,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import histogram, iir
+from ..ops import cmap, histogram, iir
 from ..values import MatArray, normalize_shape
 from .lazy import LazyNode
 
@@ -828,6 +831,24 @@ def _b_conv2(eng, opts):
     return f
 
 
+def _b_imfilter(eng, opts):
+    """imfilter: the same-size correlation (the kernel not flipped) with a
+    zero or replicated boundary (`dense.py:669`): pad k//2 before and
+    k-1-k//2 after on each axis (an even kernel's uneven padding), then a
+    valid conv2d with TF32 off."""
+    (boundary,) = opts
+    mode = "replicate" if boundary == "replicate" else "constant"
+
+    def f(x, k):
+        kh, kw = k.shape
+        pr, pc = kh // 2, kw // 2
+        xp = torch.nn.functional.pad(
+            x[None, None], (pc, kw - 1 - pc, pr, kh - 1 - pr), mode=mode)
+        with tf32(False, "conv"):
+            return torch.nn.functional.conv2d(xp, k[None, None])[0, 0]
+    return f
+
+
 def _b_fir(eng, opts):
     """filter(b, 1, x): the causal convolution's first n samples."""
     def f(x, b):
@@ -1032,6 +1053,26 @@ def _b_topk(eng, opts):
     return f
 
 
+def _b_cmap(eng, opts):
+    """Colormapping of an image-style plot on the device (`dense.py:1064`):
+    the hand-written kernel of `ops/cmap.py` normalises by the field's
+    nanmin and nanmax and looks the colormap's bytes up. The builtin reads
+    the image, lo and hi on the host (`np.asarray`), so they come back
+    here as numpy arrays: the image copied into pinned memory without a
+    wait, then lo and hi with the one wait, counted as one gather of their
+    bytes."""
+    (name,) = opts
+
+    def f(a):
+        rgb, sc = cmap.cmap(a, name)
+        eng.stats["gathers"] += 1
+        eng.stats["gather_bytes"] += int(rgb.nbytes + sc.nbytes)
+        rgb = rgb.to("cpu", non_blocking=True)
+        lo, hi = sc.cpu().numpy()[:2]
+        return rgb.numpy(), np.asarray(lo), np.asarray(hi)
+    return f
+
+
 _BUILDERS = {"diff": _b_diff, "trapz": _b_trapz, "movwin": _b_movwin,
              "histcounts": _b_histcounts, "sort": _b_sort,
              "unique": _b_unique, "setop": _b_setop, "mode": _b_mode,
@@ -1044,7 +1085,8 @@ _BUILDERS = {"diff": _b_diff, "trapz": _b_trapz, "movwin": _b_movwin,
              "rank": _b_rank, "fft": _b_fft,
              "fft2": _b_fft2, "hilbert": _b_hilbert,
              "spectrogram": _b_spectrogram, "conv1": _b_conv1,
-             "conv2": _b_conv2, "fir": _b_fir, "iir": _b_iir,
+             "conv2": _b_conv2, "imfilter": _b_imfilter, "fir": _b_fir,
+             "iir": _b_iir, "cmap": _b_cmap,
              "pagemtimes": _b_pagemtimes, "pageinv": _b_pageinv,
              "pagesolve": _b_pagesolve, "pagenorm": _b_pagenorm,
              "pagectranspose": _b_pagectranspose,

@@ -250,5 +250,50 @@ SNIPPETS += [
      EXACT),
 ]
 
+# the plotting, control, image and graph modules: figures are closed and
+# graphics handles, models and graphs cleared (they display as their
+# Python class); files go under tempname and are deleted
+SNIPPETS += [
+    ("plotting", "plotting",
+     "close all; f = figure; x = linspace(0, 1, 20); plot(x, x.^2, 'r--'); hold on;"
+     " scatter(x, x); bar([1 2 3]); hold off; title('t'); xlabel('x');"
+     " ylabel('y'); legend('a'); grid on; imagesc(magic(4)); colorbar;"
+     " colormap('jet'); p = [tempname '.png']; print('-dpng', p);"
+     " e = exist(p, 'file'); delete(p); close(f); clear p",
+     EXACT),
+    ("plotting2", "plotting2",
+     "close all; f = figure; h = plot(1:3); set(h, 'LineWidth', 2);"
+     " w = get(h, 'LineWidth'); xlim([0 4]); xl = xlim; g = isgraphics(h);"
+     " close(f); clear h",
+     EXACT),
+    ("plotting3", "plotting3",
+     "Z = peaks(8); [X, Y, S] = sphere(6); [x, y, z] = meshgrid(1:3);"
+     " fv = isosurface(x, y, z, x + y + z, 6); nf = size(fv.faces, 1);"
+     " V = smooth3(x .* y); close all",
+     EXACT),
+    ("control2", "control2",
+     "sys = tf(1, [1 2 1]); p = pole(sys); k = dcgain(sys);"
+     " y = step(sys, 0:0.5:3); s = isstable(sys); clear sys",
+     EXACT),
+    ("misc2", "misc2",
+     "F = griddedInterpolant([1 2 3], [2 4 8]); v = F(2.5);"
+     " c = namedargs2cell(struct('a', 1)); e = empty(0, 3);"
+     " T = delaunay([0 1 0 1], [0 0 1 1]); q = interp1q([1; 2], [3; 5], 1.5);"
+     " clear F",
+     EXACT),
+    ("domains", "domains",
+     "k = fspecial('gaussian', 5, 1); X = reshape(1:36, 6, 6);"
+     " Y = imfilter(X, k, 'replicate'); Z = imfilter(X, ones(2) / 4);"
+     " G = graph([1 2 3], [2 3 4]); n = numnodes(G); P = shortestpath(G, 1, 4);"
+     " c = blsprice(100, 95, 0.05, 1, 0.2); m = qammod([0 1 2 3], 4);"
+     " clear G",
+     EXACT),
+    ("graph2", "graph2",
+     "G = graph([1 1 2], [2 3 3]); v = bfsearch(G, 1); b = conncomp(G);"
+     " D = distances(G); [g, id] = findgroups([3 1 3 2]');"
+     " h = rgb2hsv([1 0 0]); clear G",
+     EXACT),
+]
+
 # module -> the package its snippet needs beyond the port's own
 NEEDS = {"symbolic": "sympy"}

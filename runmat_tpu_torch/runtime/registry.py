@@ -84,8 +84,8 @@ _LOADED = False
 
 def ensure_loaded() -> None:
     """Import the builtin modules the port carries, exactly once (they
-    self-register), in the JAX package's order. The others are still to be
-    copied (ROADMAP A16); a name only they define is undefined here."""
+    self-register), in the JAX package's order. fea2 is still to be copied
+    (ROADMAP A 7); a name only it defines is undefined here."""
     global _LOADED
     if _LOADED:
         return
@@ -95,11 +95,12 @@ def ensure_loaded() -> None:
         io_console, introspection, control, cells_structs, gpu, stats,
         sets_sort, fft_signal, interp_poly, datetime_timing, logical_ops,
         file_io, handles, dl_builtins, oop_builtins, ode_optim,
-        sparse_builtins, table_builtins, datetime_builtins, async_builtins,
-        fea_builtins, symbolic, breadth2, breadth3, breadth4, stats2,
-        strings2, linalg2, signal2, io2, optim2, ml, introspection2,
-        timing2, dl_layers, table2, data_api, textanalytics, validators,
-        profiler, datetime2, itersolve, datetime3, stats3,
+        sparse_builtins, table_builtins, datetime_builtins, plotting,
+        async_builtins, domains, fea_builtins, symbolic, breadth2, breadth3,
+        breadth4, stats2, strings2, linalg2, signal2, graph2, io2, optim2,
+        ml, control2, introspection2, timing2, dl_layers, table2, plotting2,
+        plotting3, data_api, textanalytics, misc2, validators, profiler,
+        datetime2, itersolve, datetime3, stats3,
     )
     # In the JAX package a later module, not carried yet, registers these
     # names over the carried definition; they stay undefined here until it
@@ -108,5 +109,6 @@ def ensure_loaded() -> None:
         _REGISTRY.pop(name, None)
 
 
-# name -> the JAX package's builtin module that defines it last
-_REGISTERED_LATER = {"hold": "plotting", "peaks": "plotting3"}
+# name -> the JAX package's builtin module that defines it last (fea2, the
+# one module not carried yet, takes over no carried name)
+_REGISTERED_LATER: dict = {}

@@ -185,6 +185,8 @@ class Session:
         self.stdout = buf
         self._recorder = rec
         before = workspace_signature(self.base_frame.vars)
+        from .plot import figure as figmod
+        fig_mark = figmod.touch_log_len()
         from .accel import active_engine
         eng = active_engine()
         stats0 = dict(eng.stats) if eng is not None else None
@@ -207,7 +209,7 @@ class Session:
         outcome.warnings = rec.warnings
         outcome.workspace_delta = workspace_delta(before,
                                                   self.base_frame.vars)
-        # plotting is not carried yet (ROADMAP A 5): no run touches a figure
+        outcome.figures_touched = figmod.touched_since(fig_mark)
         if err is not None:
             outcome.ok = False
             outcome.error = {"identifier": err.identifier,

@@ -3,7 +3,7 @@ mode and held to what the engine counts.
 
     python3 runmat_tpu_torch/syncs.py [--tree DIR] [--where] [SCRIPT ...]
 
-With no SCRIPT, the twelve scripts `chip_smoke.py` runs, at their default
+With no SCRIPT, the thirteen scripts `chip_smoke.py` runs, at their default
 sizes. Each runs once to warm up and once more under
 `torch.cuda.set_sync_debug_mode("warn")`, in one session, through
 `Session.run_source`. Every call that waits for the card (a blocking copy
@@ -38,7 +38,8 @@ SCRIPTS = ("benchmarks/elementwise_math.m", "benchmarks/monte_carlo.m",
            "runmat_tpu_torch/workloads/sparse_poisson.m",
            "runmat_tpu_torch/workloads/dl_digits.m",
            "runmat_tpu_torch/workloads/dl_vowels.m",
-           "runmat_tpu_torch/workloads/sensor_log.m")
+           "runmat_tpu_torch/workloads/sensor_log.m",
+           "runmat_tpu_torch/workloads/field_plot.m")
 _MESSAGE = "synchronizing CUDA operation"
 
 

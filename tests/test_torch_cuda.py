@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from runmat_tpu_torch import fusebench
+from runmat_tpu_torch import fusebench, plotbench
 
 pytestmark = pytest.mark.cuda
 
@@ -1927,3 +1927,108 @@ def test_a_handle_class_with_a_card_property(card):
         <= 1e-12 * w
     np.testing.assert_allclose(d, host.get("d").host(), rtol=0,
                                atol=1e-13 * w)
+
+
+# ------------------------------------------- the colormap kernel, imfilter
+
+CMAP_SHAPES = ((1, 1), (3, 5), (33, 65), (1081, 1921))
+
+
+@pytest.mark.parametrize("shape", CMAP_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", plotbench.CASES)
+def test_cmap_kernel_matches_plain(card, case, dtype, shape):
+    # the image bit for bit, lo, hi and hi2 equal (NaN where plain has it)
+    from runmat_tpu_torch.ops import cmap
+    from runmat_tpu_torch.plotbench import field
+    a = field(case, shape, dtype, seed=shape[1], device=card)
+    before = cmap.launches
+    rgb, sc = cmap.cmap(a, "parula")
+    want, wsc = cmap.plain_cmap(a, cmap.device_table("parula", card))
+    torch.cuda.synchronize()
+    assert cmap.launches == before + 1
+    assert rgb.shape == tuple(shape) + (3,) and rgb.dtype == torch.uint8
+    assert torch.equal(rgb, want)
+    assert torch.equal(sc.isnan(), wsc.isnan())
+    assert torch.equal(sc.nan_to_num(), wsc.nan_to_num())
+
+
+@pytest.mark.parametrize("name", plotbench.COLORMAPS)
+def test_cmap_kernel_matches_plain_for_every_colormap(card, name):
+    from runmat_tpu_torch.ops import cmap
+    ramp = torch.linspace(-1, 2, 3 * 256 * 7, dtype=torch.float64,
+                          device=card).reshape(48, 112)
+    for a in (ramp, ramp.float(), ramp[:, 1:]):   # the last not 16-aligned
+        rgb, _ = cmap.cmap(a, name)
+        want, _ = cmap.plain_cmap(a, cmap.device_table(name, card))
+        assert torch.equal(rgb, want), (name, a.dtype)
+
+
+def test_cmap_kernel_refuses_what_it_does_not_take(card):
+    from runmat_tpu_torch.errors import MatError
+    from runmat_tpu_torch.ops import cmap
+    for a in (torch.zeros(4, dtype=torch.int32, device=card),
+              torch.zeros(0, dtype=torch.float64, device=card)):
+        with pytest.raises(MatError) as ei:
+            cmap.cmap(a, "parula")
+        assert ei.value.identifier == "RunMat:cmapKernel"
+
+
+@pytest.mark.parametrize("boundary", ["constant", "replicate"])
+@pytest.mark.parametrize("ksize", [(3, 3), (4, 4), (2, 5), (15, 15)])
+def test_imfilter_on_the_card_matches_the_cpu(card, ksize, boundary):
+    # cuDNN's sums in another order than the CPU's: within 1e-12 of the
+    # largest output
+    from runmat_tpu_torch.accel.dense import _b_imfilter
+    g = torch.Generator().manual_seed(ksize[0] * 10 + ksize[1])
+    x = torch.randn(270, 481, dtype=torch.float64, generator=g)
+    k = torch.randn(ksize, dtype=torch.float64, generator=g)
+    f = _b_imfilter(None, (boundary,))
+    want = f(x, k)
+    got = f(x.to(card), k.to(card)).cpu()
+    assert got.shape == want.shape == x.shape
+    assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+FIELD_SMALL = "H = 270; W = 480;\n"
+
+
+def test_field_plot_small_matches_the_host_engine(card, tmp_path):
+    """field_plot.m at 270 x 480 on the card: FIELD within 1e-12 of the
+    host engine, imfilter and the colormap kernel on the card, no host
+    fallback, the heat map bit for bit the plain colormap of the card's own
+    Y, and every wait counted."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, syncs
+    from runmat_tpu_torch.ops import cmap
+    from runmat_tpu_torch.plot import figure as figmod
+    from runmat_tpu_torch.session import Session
+    src = FIELD_SMALL + open("runmat_tpu_torch/workloads/field_plot.m").read()
+    r = Session(accelerate=False, stdout=io.StringIO()).execute(src)
+    assert r.error is None, r.error
+    ref = float(re.search(r"FIELD=(\S+)", r.output).group(1))
+    prev = accel.active_engine()
+    before = cmap.launches
+    try:
+        s = runmat_tpu_torch.session("cuda")
+        eng = accel.active_engine()
+        r = s.execute(src)
+        assert r.error is None, r.error
+        got = float(re.search(r"FIELD=(\S+)", r.output).group(1))
+        y = eng.materialize(s.get("Y").dev).cpu()
+        img = figmod._FIGURES[int(s.get("f1").host()[0, 0])].ax.children[0]
+        log = [e["ops"] for e in eng.launch_log if e["cat"] == "linalg"]
+        fallbacks = eng.stats["host_fallbacks"]
+        assert s.get("png_ok").host().all() and s.get("svg_ok").host().all()
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+        figmod.close_all()
+    assert abs(got - ref) <= 1e-12 * abs(ref)
+    assert ["imfilter"] in log and ["cmap"] in log and fallbacks == 0
+    assert cmap.launches == before + 1
+    u8 = np.rint(img.data[::-1] * 255).astype(np.uint8)
+    want, _ = cmap.plain_cmap(y, torch.from_numpy(cmap.table("parula")))
+    assert np.array_equal(u8, want.numpy())
+    r = syncs.script_syncs(src)
+    assert r["warnings"] == r["counted"], r["sites"]

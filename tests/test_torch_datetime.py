@@ -1,10 +1,9 @@
 """Datetime types, calendar arithmetic and the datetime columns of tables in the port, held to the JAX package.
 
 Every test of `tests/test_datetime3.py` and `tests/test_table_datetime.py`
-but one (it plots, and plotting is Queue A 5) runs with each of its
-sessions a `torch_paired.PairedSession`: the same sources through both
-packages' host sessions, output, errors, workspaces and the files they
-write held equal exactly.
+runs with each of its sessions a `torch_paired.PairedSession`: the same
+sources through both packages' host sessions, output, errors, workspaces,
+the files they write and the figures they touch held equal exactly.
 """
 
 import pytest
@@ -13,11 +12,8 @@ import test_datetime3
 import test_table_datetime
 from torch_paired import run_paired, session_tests
 
-# plot is plotting's builtin, not carried yet (ROADMAP Queue A 5)
-NEEDS_PLOT = {"test_datetick_is_accepted_noop"}
-
 CASES = [(m, n) for m in (test_datetime3, test_table_datetime)
-         for n in session_tests(m) if n not in NEEDS_PLOT]
+         for n in session_tests(m)]
 
 
 @pytest.mark.parametrize("module,name", CASES,

@@ -138,18 +138,18 @@ def test_histcounts_returns_device_counts_of_the_data_class(restore_engine,
 
 
 def test_imagesc_of_a_device_array_runs(restore_engine):
-    # imagesc's builtin module (plotting) is not copied into the port yet
-    # (ROADMAP A16); the colormap call it makes on a device array declines
-    # in the engine, counted because the operand is on the device, so
-    # imagesc will take its host path once it is copied
+    # imagesc colormaps a device array on the device (the cmap builder over
+    # ops/cmap.py): no host fallback, one colormap call in the launch log
     s, eng = _run(_torch, "", _inputs("double"))
-    r = s.execute("imagesc(Md);")
-    assert r.error.identifier == "MATLAB:UndefinedFunction"
-    d = s.get("Md")
-    assert eng.dense.call("cmap", [d], ("parula",)) is None
-    assert eng.stats["host_fallbacks"] == 1
-    assert any(e["cat"] == "host_fallback" and e["ops"] == ["cmap"]
-               for e in eng.launch_log)
+    try:
+        r = s.execute("imagesc(Md);")
+        assert r.error is None, r.error
+        assert s.get("Md").on_device
+        assert eng.stats["host_fallbacks"] == 0
+        assert [e["ops"] for e in eng.launch_log
+                if e["cat"] == "linalg"] == [["cmap"]]
+    finally:
+        s.execute("close all")
 
 
 def test_inv_of_a_device_matrix_declines_with_one_fallback(restore_engine):
@@ -159,7 +159,7 @@ def test_inv_of_a_device_matrix_declines_with_one_fallback(restore_engine):
     before = eng.stats["host_fallbacks"]
     assert eng.route_linalg(d) is True
     # inv has a builder since the linalg slice (tests/test_torch_linalg.py),
-    # topk since breadth4 was copied; cmap (ROADMAP: plotting.py) has none
-    # yet and declines
-    assert eng.linalg("cmap", [d], ("parula",)) is None
+    # topk since breadth4 was copied; cond, whose JAX builder no builtin
+    # reaches, has none and declines
+    assert eng.linalg("cond", [d]) is None
     assert eng.stats["host_fallbacks"] == before + 1

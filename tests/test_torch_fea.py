@@ -4,8 +4,10 @@ JAX package's, through both packages' host sessions.
 The snippets are those of the JAX package's `tests/test_sparse.py`,
 `tests/test_itersolve.py`, `tests/test_fea.py`, `tests/test_fea_solvers.py`,
 `tests/test_fea_buckling_harmonic.py` and `tests/test_delaunay_mesh.py`
-that need no `fea2`, `domains` or `graph2` (which the port does not carry
-yet), at their sizes. Each runs through `torch_both.host_parity`: the JAX
+that need no `fea2` (which the port does not carry yet), at their sizes,
+and the sparse graph snippets of `tests/test_sparse_graph_depth.py` and
+`tests/test_domains_async.py`, whose graphs are `domains`' and whose
+algorithms are `graph2`'s (none of the six files above calls either). Each runs through `torch_both.host_parity`: the JAX
 package's host session, the port's, and the port's session on
 `TorchEngine("cpu")`, held equal exactly (the same numpy, scipy and LAPACK
 calls on the same data). A mesh is cleared before the comparison: it
@@ -123,6 +125,24 @@ SNIPPETS = [
      " nodes = fea_node_coords(m); nn = size(nodes, 1);"
      " r = fea_linear_static(m, 210e9, 0.3, 'x==0', [nn 0 0 -1e4]);"
      " mx = max(abs(r.displacement(:))); clear m;"),
+    # tests/test_sparse_graph_depth.py
+    ("maxflow", "G = digraph([1 1 2 3], [2 3 4 4], [10 5 5 10]);"
+     " r1 = maxflow(G, 1, 4); H = digraph([1 2], [2 3], [7 3]);"
+     " r2 = maxflow(H, 1, 3); K = digraph([1], [2], [4]); K = addnode(K, 1);"
+     " r3 = maxflow(K, 1, 3); clear G H K;"),
+    ("centrality", "G = graph([1 2], [2 3]); cd = centrality(G, 'degree');"
+     " cb = centrality(G, 'betweenness'); cc = centrality(G, 'closeness');"
+     " D = digraph([1 2 3], [2 3 1]); cp = centrality(D, 'pagerank');"
+     " clear G D;"),
+    # tests/test_domains_async.py
+    ("graph-shortestpath", "G = graph([1 2 3 1], [2 3 4 4], [1 1 1 5]);"
+     " [p, d] = shortestpath(G, 1, 4); n = numnodes(G); e = numedges(G);"
+     " A = adjacency(G); sa = issparse(A); F = full(A); dg = degree(G);"
+     " clear G A;"),
+    ("graph-sparse-matrix", "A = sparse([1 2 3 4], [2 3 4 5], ones(1, 4),"
+     " 5, 5); G = graph(A + A'); n = numnodes(G); e = numedges(G);"
+     " [bins, sizes] = conncomp(G); v = bfsearch(G, 1); d = distances(G);"
+     " clear G;"),
 ]
 
 

@@ -11,8 +11,7 @@ exactly. Not in that list:
 * the MAT codec's own tests, which call `runmat_tpu.matio` directly: the
   tests below save in each package and load in the other, exactly;
 * the filesystem-provider tests, which set the JAX package's provider
-  (the port has its own `fs` module): the tests below set both;
-* `imwrite`/`imread`, which are domains' builtins (ROADMAP Queue A 6).
+  (the port has its own `fs` module): the tests below set both.
 
 Where a value holds the clock or a fresh id it is left out of the comparison (`LOOSE`);
 the test itself still checks it in the JAX package.
@@ -42,7 +41,6 @@ CODEC = {"test_numeric_classes_roundtrip", "test_complex_roundtrip",
          "test_sparse_roundtrip", "test_string_array_saves_as_cellstr",
          "test_scipy_reads_our_files", "test_we_read_scipy_files"}
 PROVIDERS = {"test_memory_fs_provider", "test_sandbox_fs_provider"}
-NEEDS_DOMAINS = {"test_imwrite_jpeg"}
 
 # values that hold the clock or a fresh id: `dir`'s file times (the files
 # are put back between the two runs), timeit's time, the profiler's times
@@ -54,7 +52,7 @@ LOOSE = {"test_isfile_isfolder_dir": ("e",), "test_timeit": ("t",),
 CASES = [(m, n) for m in (test_matfile, test_io2, test_data_api,
                           test_introspection2)
          for n in session_tests(m)
-         if n not in CODEC | PROVIDERS | NEEDS_DOMAINS]
+         if n not in CODEC | PROVIDERS]
 
 
 @pytest.mark.parametrize("module,name", CASES,

@@ -6,8 +6,10 @@ indexing, linear algebra, spectral and sparse scripts
 spectral,sparse_poisson,dl_digits,dl_vowels,sensor_log}.m`) at small
 size on TorchEngine(device="cpu"), and a host session without an engine
 (sensor_log through both, the same checksum, and a MAT file saved under
-the engine loaded on the host); the host modules of datetime, classdef,
-files and tables import there, and the
+the engine loaded on the host), and field_plot (plotting, imfilter and
+the colormap on the engine, the same checksum on the host); the host
+modules of datetime, classdef, files, tables, plotting, control, image
+and graphs import there, and the
 profiling, sync-counting, timing and benchmark tools import there too, and
 so do the deep-learning modules (their initial weights drawn without
 jax). No module of the JAX package is loaded
@@ -58,8 +60,12 @@ ensure_loaded()   # first, in the registry's order: table_builtins and
                   # sets_sort both register sortrows
 for m in ("datetime_builtins", "datetime2", "datetime3", "oop_builtins",
           "file_io", "io2", "data_api", "introspection2", "table_builtins",
-          "table2", "textanalytics"):
+          "table2", "textanalytics", "plotting", "plotting2", "plotting3",
+          "control2", "misc2", "domains", "graph2"):
     __import__("runmat_tpu_torch.runtime.builtins." + m)
+import runmat_tpu_torch.plot.webgl
+import runmat_tpu_torch.plot.volumetric
+import runmat_tpu_torch.plotbench
 from runmat_tpu_torch import accel
 from runmat_tpu_torch.session import Session
 
@@ -133,6 +139,20 @@ h = Session(accelerate=False)
 r = h.execute("D = 3; F = 1024; C = 4;\n" + sensor)
 assert r.error is None, r.error
 print("host", r.output.strip())
+field = "H = 270; W = 480;\n" + open(
+    "runmat_tpu_torch/workloads/field_plot.m").read()
+s = runmat_tpu_torch.session("cpu", auto_offload=True)
+eng = accel.active_engine()
+r = s.execute(field)
+assert r.error is None, r.error
+print(r.output.strip())
+print("field_plot fallbacks", eng.stats["host_fallbacks"], "linalg",
+      [e["ops"][0] for e in eng.launch_log if e["cat"] == "linalg"])
+runmat_tpu_torch.uninstall()
+h = Session(accelerate=False)
+r = h.execute(field)
+assert r.error is None, r.error
+print("host", r.output.strip())
 h = Session(accelerate=False)
 r = h.execute("x = rand(1, 5); fprintf('HOST_ok %d\\n', numel(x));")
 assert r.error is None, r.error
@@ -154,7 +174,8 @@ def test_port_runs_without_jax(tmp_path):
     assert p.returncode == 0, p.stderr[-3000:]
     out = p.stdout
     for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK", "LINALG",
-                  "SPECTRAL", "POISSON", "DIGITS", "VOWELS", "SENSOR"):
+                  "SPECTRAL", "POISSON", "DIGITS", "VOWELS", "SENSOR",
+                  "FIELD"):
         assert f"RESULT_ok {label}=" in out, out
     assert "monte_carlo folds 1 fallbacks 0 plans" in out, out
     assert "elementwise_math folds 0 fallbacks 0 plans 4" in out, out
@@ -167,6 +188,10 @@ def test_port_runs_without_jax(tmp_path):
     assert "dl_vowels learnables 46109" in out, out
     assert "sensor_log fallbacks 0" in out, out
     assert "mat reloaded (3, 4)" in out, out
+    assert "field_plot fallbacks 0 linalg ['imfilter', 'cmap']" in out, out
+    field = [ln.split("=")[1] for ln in out.splitlines()
+             if "RESULT_ok FIELD=" in ln]
+    assert len(field) == 2 and field[0] == field[1], out
     # the host engine prints the same checksum as the CPU engine
     sensor = [ln.split("=")[1] for ln in out.splitlines()
               if "RESULT_ok SENSOR=" in ln]

@@ -4,10 +4,8 @@ Every test of `tests/test_oop.py` and `tests/test_packages.py` runs with
 each of its sessions a `torch_paired.PairedSession`: the same sources
 through both packages' host sessions, output, errors and workspaces held
 equal exactly (objects field by field, their classes by name, properties,
-methods and events). The tests of `import` wait for the `import` builtin,
-which is misc2's (ROADMAP Queue A 5): in the port they raise where the JAX
-package imports, so they are not in the list; the `LOADC` and
-`resolve_import` branches they would reach are copied.
+methods and events), the tests of `import` (misc2's builtin, which the
+copied `LOADC` and `resolve_import` branches reach) among them.
 """
 
 import pytest
@@ -18,13 +16,7 @@ from test_packages import pkgdir  # noqa: F401  (the fixture its tests take)
 from torch_both import no_engine  # noqa: F401
 from torch_paired import PairedSession, run_paired, session_tests
 
-# `import` is misc2's builtin, not carried yet (ROADMAP Queue A 5)
-NEEDS_IMPORT = {"test_import_statement_unqualified", "test_import_wildcard",
-                "test_functional_import_and_listing",
-                "test_variable_shadows_import"}
-
-CASES = [(m, n) for m in (test_oop, test_packages) for n in session_tests(m)
-         if n not in NEEDS_IMPORT]
+CASES = [(m, n) for m in (test_oop, test_packages) for n in session_tests(m)]
 
 
 @pytest.mark.parametrize("module,name", CASES,

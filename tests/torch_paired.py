@@ -26,7 +26,18 @@ package's values):
   them.
 
 `loose` names workspace values not compared (each test file says why:
-the clock, a fresh id).
+the clock, a fresh id); `clock` names struct fields not compared (they
+hold the clock); `near` maps a workspace name to a relative tolerance for
+a floating value that a library computes differently from call to call
+(class, shape and dtype still exactly, values within the tolerance of the
+largest magnitude, at least 1).
+
+Each package keeps its figures in its own `plot.figure` module. Around
+each run the figures it touched are taken from that package's touch log:
+both runs must touch the same figure numbers and end on the same current
+figure, and each touched figure must hold the same object tree in both
+(`same_value`: its axes, their children and their properties, class names
+equal and arrays exactly).
 """
 
 import inspect
@@ -39,9 +50,11 @@ import tempfile
 import numpy as np
 
 import helpers
+from runmat_tpu.plot import figure as jax_figures
 from runmat_tpu.session import Session as JaxSession
 from runmat_tpu.utils.display import format_value as jax_format
 from runmat_tpu_torch.errors import MatError as PortError
+from runmat_tpu_torch.plot import figure as port_figures
 from runmat_tpu_torch.session import Session as PortSession
 from runmat_tpu_torch.utils.display import format_value as port_format
 
@@ -51,6 +64,7 @@ _ADDRESS = re.compile(r" at 0x[0-9a-f]+")
 _VOLATILE_KEYS = {"dataset_id", "created_at", "updated_at", "txn_id"}
 _BINARY = (".zip", ".xlsx", ".gz", ".tar", ".tgz", ".h5", ".hdf5")
 _SNAPSHOT_LIMIT = 64 << 20
+_CLOCK: frozenset = frozenset()   # struct fields holding the clock (run_paired)
 _START = os.path.realpath(os.getcwd())
 
 
@@ -200,7 +214,7 @@ def same_value(want, got, path="", seen=None) -> None:
         assert isinstance(got, dict), path
         assert list(got) == list(want), (path, list(got), list(want))
         for k in want:
-            if k not in _VOLATILE_KEYS:
+            if k not in _VOLATILE_KEYS and k not in _CLOCK:
                 same_value(want[k], got[k], f"{path}[{k!r}]", seen)
         return
     kind = type(want).__name__
@@ -229,6 +243,25 @@ def same_value(want, got, path="", seen=None) -> None:
             same_value(w[n], g[n], f"{path}.{n}", seen)
 
 
+def same_figures(jax_touched: list, port_touched: list) -> None:
+    """The figures a run touched hold the same trees in both packages."""
+    assert port_touched == jax_touched, (port_touched, jax_touched)
+    assert port_figures._CURRENT == jax_figures._CURRENT, \
+        (port_figures._CURRENT, jax_figures._CURRENT)
+    for num in jax_touched:
+        same_value(jax_figures._FIGURES.get(num),
+                   port_figures._FIGURES.get(num), f"figure {num}")
+
+
+def _near(want, got, tol: float, name: str) -> None:
+    assert got.mclass == want.mclass, name
+    w, g = np.asarray(want.host()), np.asarray(got.host())
+    assert g.shape == w.shape and g.dtype == w.dtype, (name, g.shape, w.shape)
+    scale = max(float(np.max(np.abs(w), initial=0.0)), 1.0)
+    assert float(np.max(np.abs(g - w), initial=0.0)) <= tol * scale, \
+        (name, g, w)
+
+
 class _Mirror(list):
     """A list whose writes go to the JAX session's list too (search_path)."""
 
@@ -252,6 +285,7 @@ class PairedSession:
 
     runs = 0
     loose: tuple = ()
+    near: dict = {}
 
     def __init__(self, *args, **kw):
         self.__dict__["_jax"] = JaxSession(*args, **kw)
@@ -272,12 +306,15 @@ class PairedSession:
         src = call.source
         dirs = _dirs(src)
         before, cwd0 = _snapshot(dirs), os.getcwd()
-        out = []
-        for i, s in enumerate((self._jax, self._port)):
+        out, touched = [], []
+        for i, (s, figs) in enumerate(((self._jax, jax_figures),
+                                       (self._port, port_figures))):
+            mark = figs.touch_log_len()
             try:
                 out.append((call(s), None))
             except Exception as e:   # a MatError of either package
                 out.append((None, e))
+            touched.append(figs.touched_since(mark))
             after, cwd = _snapshot(_dirs(src)), os.getcwd()
             if i == 0:
                 jafter, jcwd = after, cwd
@@ -287,6 +324,7 @@ class PairedSession:
         _same_files(jafter, after)
         _restore(jafter)
         os.chdir(jcwd)
+        same_figures(*touched)
         type(self).runs += 1
         return out
 
@@ -297,6 +335,9 @@ class PairedSession:
             if name in type(self).loose:
                 continue
             want, got = js.get(name), ts.get(name)
+            if name in type(self).near:
+                _near(want, got, type(self).near[name], name)
+                continue
             same_value(want, got, name)
             if type(want).__name__ != "MatArray":
                 assert shown(port_format(name, got)) == \
@@ -347,13 +388,16 @@ def session_tests(module) -> list:
             if n.startswith("test_") and inspect.isfunction(f)]
 
 
-def run_paired(request, monkeypatch, module, name, loose=()) -> None:
+def run_paired(request, monkeypatch, module, name, loose=(), clock=(),
+               near=None) -> None:
     fn = getattr(module, name)
     monkeypatch.setattr(helpers, "Session", PairedSession)
     if hasattr(module, "Session"):
         monkeypatch.setattr(module, "Session", PairedSession)
     monkeypatch.setattr(PairedSession, "runs", 0)
     monkeypatch.setattr(PairedSession, "loose", tuple(loose))
+    monkeypatch.setattr(PairedSession, "near", dict(near or {}))
+    monkeypatch.setitem(globals(), "_CLOCK", frozenset(clock))
     kw = {p.name: request.getfixturevalue(p.name)
           for p in inspect.signature(fn).parameters.values()
           if p.default is inspect.Parameter.empty}
