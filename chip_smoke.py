@@ -221,13 +221,38 @@ line is printed:
      range pass alone, its plain version and torch.aminmax (the
      yardstick of its reduction), and imfilter's library call timed beside
      its bound;
- 13. one JSON line of kernel results, then the result line
+ 13. fea path: runmat_tpu_torch/workloads/fea_thermal.m (a 1 m steel cube
+     meshed at R = 64 edges a side, 274,625 nodes and 1,572,864 TET4
+     elements, held at 300 K and 400 K on two faces; fea.run's conduction
+     solve of 266,175 unknowns by the CG kernels, histcounts of the
+     temperatures on the card, fea.plot printed to a PNG, an evidence
+     artifact and its replay, a second solve of 270,400 unknowns; then a
+     plate with a bore from plate_bore.step, its faces listed, meshed and
+     solved with the bore selected by its face id) through the port's
+     command line in a subprocess (`python -m runmat_tpu_torch.cli`, HOME a
+     directory of its own, after `accel-info --json` names the card) and
+     in process through Session.run_source: THERMAL and PLATE printed alike
+     by both card runs; the cube's system rebuilt from the port's
+     assemble_diffusion and apply_dirichlet on the same mesh, T and THERMAL
+     within spbench.X_TOL of the host engine's solve of it (its CG loop,
+     with scipy's product for the loop over columns) and the free
+     temperatures bit for bit plain_cg(ordered=True)'s on the card; a
+     sparse_cg entry for each solve of more than 2048 unknowns, the CG
+     kernels launched as the chunks say and one read of the done flag a
+     chunk, one histogram launch, no host fallback, the waits under torch's
+     sync debug mode equal the counted ones, and the run's profile; then
+     the CG kernels at the cube's matrix (spbench.step_rows: each against
+     the JAX body's torch ops and the ordered model, timed beside its
+     bound, plain and cuSPARSE, and an iteration of the replayed graph),
+     and its histcounts call held to plain and timed beside its bound and
+     torch.histc;
+ 14. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
 against that call in turns, ten rounds, for the run-to-run spread of
 both, and prints the layout of each float64 map of more than 2^20
 elements (8 warps a block since the layout sweep of fusebench.py). Each
-kernel's `launches` is read from the runs of phases 4 to 12, with the
+kernel's `launches` is read from the runs of phases 4 to 13, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches, or for its one where one program covers each
 segment); each generated group is a row of its own, counted by its
@@ -404,6 +429,16 @@ FIELD_WORKLOAD = "runmat_tpu_torch/workloads/field_plot.m"
 FIELD_RTOL = 1e-12
 # the line of the JAX builder the colormap kernel replaces
 CMAP_REPLACES = "runmat_tpu/accel/dense.py:1064"
+THERMAL_WORKLOAD = "runmat_tpu_torch/workloads/fea_thermal.m"
+# fea_thermal.m's cube: R edges a side, k, the two faces' temperatures and
+# fea.run's source (100 at each node), as the script and fea2.py set them
+THERMAL_R = 64
+THERMAL_K = 45.0
+THERMAL_FACES = (300.0, 400.0)
+THERMAL_HEAT = 100.0
+# graph replays timed at the cube's matrix: a warm-up and these, CHUNK
+# iterations each, stay short of its 438 iterations
+THERMAL_GRAPH_REPS = 2
 # the subprocess that loads it with jax and runmat_tpu blocked
 NOJAX_LOAD = r"""
 import hashlib, json, sys
@@ -2547,6 +2582,277 @@ def phase_plot_path() -> dict:
     return launches
 
 
+def _thermal_free_system(R: int):
+    """The cube's free system as fea.run builds it (fea2.py:m_fea_run with
+    the script's two conditions; fea/pipelines.py:run_thermal), from the
+    port's box_mesh, assemble_diffusion and apply_dirichlet: the reduced
+    matrix, the right side, the free nodes and the fixed values."""
+    from runmat_tpu_torch.fea.assembly import (apply_dirichlet,
+                                               assemble_diffusion)
+    from runmat_tpu_torch.fea.mesh import box_mesh
+    mesh = box_mesh((1.0, 1.0, 1.0), (R, R, R))
+    x = mesh.nodes[:, 0]
+    span = float(x.max() - x.min()) or 1.0
+    fixed = {}
+    for val, temp in zip((x.min(), x.max()), THERMAL_FACES):
+        for i in np.where(np.abs(x - val) < 1e-9 * span + 1e-12)[0]:
+            fixed[int(i)] = temp
+    K, _ = assemble_diffusion(mesh, THERMAL_K)
+    nodes = np.asarray(sorted(fixed), dtype=np.int64)
+    temps = np.asarray([fixed[i] for i in sorted(fixed)], dtype=np.float64)
+    f = np.full(mesh.n_nodes, THERMAL_HEAT)
+    return apply_dirichlet(K, f, nodes, temps)
+
+
+def _host_engine_cg(A, b, tol=1e-10) -> np.ndarray:
+    """The host engine's solve (sparse.py:_cg_device with no engine: the
+    JAX package's Jacobi-preconditioned loop in numpy), its product by
+    scipy's CSR in place of SparseMatrix.matmul's loop over the columns,
+    which at 266,175 columns would take hours."""
+    import scipy.sparse as sps
+    ii, jj, vv = A.triplets()
+    S = sps.csr_matrix((vv, (ii, jj)), shape=(A.m, A.n))
+    diag = np.ones(A.n)
+    on = ii == jj
+    diag[ii[on]] = vv[on]
+    inv_d = 1.0 / np.where(diag == 0, 1.0, diag)
+    x = np.zeros(A.n)
+    r = b.astype(np.float64)
+    z = inv_d * r
+    p = z.copy()
+    rz = r @ z
+    for _ in range(10 * A.n):
+        Ap = S @ p
+        alpha = rz / (p @ Ap)
+        x += alpha * p
+        r -= alpha * Ap
+        if np.linalg.norm(r) <= tol * np.linalg.norm(b):
+            break
+        z = inv_d * r
+        rz_new = r @ z
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+    return x
+
+
+def _fea_histogram(t: np.ndarray, edges: np.ndarray) -> None:
+    """fea_thermal.m's histcounts at its shape (the cube's temperatures,
+    float64, 64 bins over their range): the search-mode kernel held to its
+    plain version and timed beside it, its bound and torch.histc over the
+    same range."""
+    import torch
+
+    from runmat_tpu_torch import histbench, sass
+    from runmat_tpu_torch.ops import histogram
+    x = torch.from_numpy(np.ascontiguousarray(t)).cuda()
+    e = torch.from_numpy(np.ascontiguousarray(edges.reshape(-1))).cuda()
+    nb, lo, hi = e.numel() - 1, float(edges.min()), float(edges.max())
+    got = histogram.histcounts(x, e)
+    want = histogram.plain_histcounts(x, e)
+    check(torch.equal(got, want), f"histcounts search f64 n={x.numel()}: "
+          f"differs from plain by {int((got - want).abs().max())}")
+    lib = torch.histc(x, bins=nb, min=lo, max=hi)
+    ms = histbench.time_ms(lambda: histogram.histcounts(x, e), TIMING_REPS)
+    plain = histbench.time_ms(lambda: histogram.plain_histcounts(x, e), 5)
+    lib_ms = histbench.time_ms(
+        lambda: torch.histc(x, bins=nb, min=lo, max=hi), TIMING_REPS)
+    bound = sass.bound(x.numel() * 8 + e.numel() * 8 + nb * 8)
+    print(f"time histcounts search f64 n={x.numel()} B={nb} (fea_thermal's "
+          f"call): kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.histc "
+          f"{lib_ms:.4f} ms (its counts "
+          f"{'equal' if torch.equal(lib.long(), got) else 'differ from'} "
+          f"the kernel's), bound {bound[0]:.6f} ms ({bound[1]}), share of "
+          f"bound {bound[0] / ms:.3f}; max_abs_err 0")
+
+
+def phase_fea_path() -> dict:
+    """fea_thermal.m at its default size (R = 64) through the port's CLI in
+    a subprocess and through Session.run_source; the cube's temperatures
+    against the host engine's solve and its free temperatures against the
+    ordered model on the rebuilt system; the solves, launches, reads and
+    waits (the run is under torch's sync debug mode and the profiler); then
+    the CG kernels timed at the cube's matrix."""
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, histbench, profile, spbench, syncs
+    from runmat_tpu_torch.errors import MatError
+    from runmat_tpu_torch.ops import spcg
+    from runmat_tpu_torch.plot import figure as figmod
+
+    src = open(THERMAL_WORKLOAD).read()
+    home = tempfile.mkdtemp(prefix="fea_home_")
+    old_home = os.environ.get("HOME")
+    os.environ["HOME"] = home        # fea.run's registry and evidence chain
+    laps = [("start", time.perf_counter())]
+    try:
+        env = dict(os.environ, HOME=home)
+        cli = [sys.executable, "-m", "runmat_tpu_torch.cli"]
+        p = subprocess.run(cli + ["accel-info", "--json"], capture_output=True,
+                           text=True, env=env, timeout=300)
+        check(p.returncode == 0, f"fea: accel-info failed: {p.stderr[-2000:]}")
+        card = json.loads(p.stdout)["card"]
+        check(card["name"] == torch.cuda.get_device_name(0),
+              f"fea: accel-info names {card}")
+        p = subprocess.run(cli + [THERMAL_WORKLOAD], capture_output=True,
+                           text=True, env=env, timeout=900)
+        check(p.returncode == 0, f"fea: the CLI run failed: {p.stderr[-2000:]}")
+        cli_out = p.stdout
+        laps.append(("cli run", time.perf_counter()))
+        print(f"cli fea_thermal: accel-info {card}; "
+              f"{cli_out.strip().splitlines()[-1]} "
+              f"({laps[-1][1] - laps[-2][1]:.1f} s with the process start)")
+        # the run on the card, under torch's sync debug mode and the
+        # profiler: a run costs over a minute of host work, and a second
+        # would repeat the first's device work (its three solves differ in
+        # size, so each captures its graph again), so one run serves
+        s = runmat_tpu_torch.session("cuda")
+        eng = accel.active_engine()
+        _zero_launches()
+        prof: dict = {}
+        try:
+            n_waits, sites = syncs.count_syncs(lambda: prof.update(
+                profile.profile_script(src, top=8, session=s)))
+        except MatError as e:
+            raise SmokeFailure(f"fea_thermal: {e}") from e
+        output = s.stdout.getvalue()
+        laps.append(("card run", time.perf_counter()))
+        launches = _read_launches()
+        st, why = dict(eng.stats), dict(eng.sync_reasons)
+        solves = [e for e in eng.launch_log if e["cat"] == "sparse_cg"]
+        t = np.array(s.get("T").host(), dtype=np.float64).reshape(-1)
+        edges = np.array(s.get("edges").host(), dtype=np.float64)
+        figmod.close_all()
+        for label in ("THERMAL", "PLATE"):
+            check(_result_value(cli_out, label) ==
+                  _result_value(output, label),
+                  f"fea_thermal: {label} {_result_value(output, label)!r} "
+                  f"in process, {_result_value(cli_out, label)!r} through "
+                  f"the CLI")
+        R = THERMAL_R
+        want_n = [(R + 1) ** 3 - 2 * (R + 1) ** 2, (R + 1) ** 3 - (R + 1) ** 2]
+        ns = [e["n"] for e in solves]
+        check(ns[:2] == want_n and len(ns) <= 3 and
+              all(n > 2048 for n in ns[2:]),
+              f"fea_thermal: device solves of {ns}, want the cube's "
+              f"{want_n[0]}, the replay's {want_n[1]} and the plate's if it "
+              f"has more than 2048 unknowns")
+        chunks = [max(1, -(-e["iterations"] // spcg.CHUNK)) for e in solves]
+        it = sum(chunks) * spcg.CHUNK
+        want = {"spmv_f64": it, "cg_update": len(solves) + it,
+                "cg_direction": it}
+        check(launches["spcg"] == want,
+              f"fea_thermal: launches {launches['spcg']}, want {want}")
+        check(why.get("cg", 0) == sum(chunks),
+              f"fea_thermal: {why.get('cg', 0)} reads of the done flag for "
+              f"{sum(chunks)} chunks")
+        check(sum(launches["histogram"].values()) == 1,
+              f"fea_thermal: histogram launches {launches['histogram']}")
+        check(st["host_fallbacks"] == 0,
+              f"fea_thermal: {st['host_fallbacks']} host fallbacks")
+        counted = st["syncs"] + st["gathers"]
+        check(n_waits == counted, f"fea_thermal: {n_waits} synchronizing "
+              f"calls, the engine counted {counted}: {dict(sites)}")
+        # the cube's system rebuilt on the same mesh: the host engine's
+        # solve of it, and the ordered model on the card
+        Kff, ff, free, u_fixed = _thermal_free_system(R)
+        laps.append(("rebuilt system", time.perf_counter()))
+        th = u_fixed.copy()
+        th[free] = _host_engine_cg(Kff, ff)
+        laps.append(("host engine's solve", time.perf_counter()))
+        got, ref = _result_value(output, "THERMAL"), float(np.sum(th))
+        scale = float(np.abs(th).max())
+        err = float(np.abs(t - th).max())
+        check(t.shape == th.shape and err <= spbench.X_TOL * scale and
+              abs(got - ref) <= spbench.X_TOL * abs(ref),
+              f"fea_thermal: T {err:g} off the host engine's (largest "
+              f"{scale:g}); THERMAL {got!r} against {ref!r}")
+        dev = eng.device
+        rowptr, col, val = spbench.csr_of(Kff, dev)
+        bv = torch.from_numpy(np.ascontiguousarray(ff, np.float64)).to(dev)
+        invd = spbench.inverse_diagonal(rowptr, col, val)
+        t0 = time.perf_counter()
+        xo, ko = spcg.plain_cg(rowptr, col, val, bv, invd, ordered=True)
+        torch.cuda.synchronize()
+        ordered_s = time.perf_counter() - t0
+        xd = torch.from_numpy(np.ascontiguousarray(t[free])).to(dev)
+        check(ko == solves[0]["iterations"] and bool(torch.equal(xd, xo)),
+              f"fea_thermal: {solves[0]['iterations']} iterations, the "
+              f"ordered model {ko}; x {float((xd - xo).abs().max()):g} off")
+        res = spbench.residual(rowptr, col, val, xd, bv)
+        laps.append(("ordered model", time.perf_counter()))
+        print(f"port fea_thermal: {output.strip()}")
+        print(f"port fea_thermal: THERMAL and PLATE equal through the CLI "
+              f"and in process; THERMAL within {abs(got - ref) / abs(ref):.3g}"
+              f" of the host engine's solve, T within {err:.3g} (largest "
+              f"{scale:.6g}); solves " + ", ".join(
+                  f"n={e['n']} nnz={e['nnz']} {e['iterations']} iterations "
+                  f"{e['enqueue_ms']:.1f} ms" for e in solves)
+              + f"; the cube's free temperatures bit for bit the ordered "
+              f"model's ({ordered_s:.1f} s), norm(b - A*x)/norm(b) "
+              f"{res:.3g}; {sum(chunks)} reads of the done flag, launches "
+              f"{launches['spcg']}, histogram {launches['histogram']}; "
+              f"{st['uploads']} uploads ({st['upload_bytes']} bytes), "
+              f"{st['gathers']} gathers ({st['gather_bytes']} bytes), "
+              f"{st['syncs']} syncs {why}")
+        print(f"syncs fea_thermal: {n_waits} synchronizing calls, the "
+              f"engine counted {counted} ({st['syncs']} syncs, "
+              f"{st['gathers']} gathers), where: {json.dumps(dict(sites))}")
+        print(f"wall fea_thermal (run_source, profiled, under the sync debug "
+              f"mode): {prof['wall_ms']:.1f} ms; through the CLI "
+              f"{(laps[1][1] - laps[0][1]) * 1e3:.1f} ms with the process")
+        print(f"profile fea_thermal: wall {prof['wall_ms']:.1f} ms, "
+              f"{prof['device_items']} device items, busy "
+              f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.4f};"
+              f" device top " + "; ".join(
+                  f"{ms:.3f} ms x{c} {key[:60]}"
+                  for key, ms, c in prof["device_top"])
+              + "; host top " + "; ".join(
+                  f"{ms:.1f} ms x{c} {key[:40]}"
+                  for key, ms, c in prof["host_top"]))
+        del s, xd, xo, invd, Kff
+        runmat_tpu_torch.uninstall()
+        figmod.close_all()
+        # the CG kernels at this matrix, each beside its bound, plain and
+        # cuSPARSE, and an iteration of the replayed graph
+        steps = spbench.step_rows(spcg, histbench.time_ms, TIMING_REPS,
+                                  system=(rowptr, col, val, bv),
+                                  graph_reps=THERMAL_GRAPH_REPS)
+        check(steps["start_ok"] and steps["timed_ok"] and
+              all(r["ok"] for r in steps["rows"].values()),
+              f"fea_thermal: a CG kernel at the cube's matrix against the "
+              f"JAX body's torch ops and the ordered model: {steps}")
+        for name, r in steps["rows"].items():
+            lib = "none" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f} ms"
+            print(f"time {name} (fea_thermal.m, n={steps['n']}, nnz="
+                  f"{steps['nnz']}): kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} "
+                  f"bytes), share of bound {r['bound_ms'] / r['ms']:.3f}")
+        it = steps["iteration"]
+        print(f"time cg iteration (fea_thermal.m): three launches "
+              f"{it['ms']:.4f} ms eagerly, {it['graph_ms']:.4f} ms an "
+              f"iteration of a replayed graph of {spcg.CHUNK}, plain "
+              f"{it['plain_ms']:.4f} ms, bound {it['bound_ms']:.4f} ms "
+              f"({it['bound_by']}, {it['bytes']} bytes), share of bound "
+              f"{it['bound_ms'] / it['graph_ms']:.3f}; cuSPARSE's product "
+              f"alone {it['library_ms']:.4f} ms")
+        _fea_histogram(t, edges)
+        laps.append(("kernels at its shapes", time.perf_counter()))
+        del rowptr, col, val, bv
+    finally:
+        if old_home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = old_home
+        shutil.rmtree(home, ignore_errors=True)
+    print("fea path, seconds: " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f}" for i, (name, t) in
+        enumerate(laps[1:])))
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2564,7 +2870,8 @@ def main() -> int:
                  phase(phase_indexing_path),
                  phase(phase_linalg_signal_path), phase(phase_pages_path),
                  phase(phase_sparse_path), phase(phase_dl_path),
-                 phase(phase_records_path), phase(phase_plot_path)]
+                 phase(phase_records_path), phase(phase_plot_path),
+                 phase(phase_fea_path)]
         kernels += phase_linalg_signal_path.kernels + \
             phase_pages_path.kernels + phase_sparse_path.kernels + \
             phase_dl_path.kernels + phase_plot_path.kernels

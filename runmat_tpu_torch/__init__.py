@@ -23,6 +23,8 @@ from .session import Session
 
 __all__ = ["Session", "TorchEngine", "install", "uninstall", "session"]
 
+__version__ = "0.1.0"
+
 _previous: list = []
 
 

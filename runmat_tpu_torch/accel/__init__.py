@@ -2,9 +2,9 @@
 
 `active_engine`/`set_engine`/`reset_engine` are those of
 `runmat_tpu/accel/__init__.py:12-35`. `init_engine` creates a `TorchEngine`
-on the card ("cuda"); without one it raises, and a session that did not
-require acceleration runs on the host. Tests choose the CPU explicitly with
-`TorchEngine("cpu")`.
+on the card ("cuda"); without one it raises, and so does a `Session` that
+did not ask for the host (`accelerate=False`). Tests choose the CPU
+explicitly with `TorchEngine("cpu")`.
 """
 
 from __future__ import annotations

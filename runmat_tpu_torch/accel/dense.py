@@ -144,7 +144,7 @@ class DenseOps:
         eng = self.eng
         build = _BUILDERS.get(kind)
         if build is None:
-            eng._declines(kind, f"{kind} not ported (A7)", *xs)
+            eng._declines(kind, f"{kind} has no device builder", *xs)
             return None
         dt = self.work_dtype(*xs)
         args = [self._mat(x, dt) for x in xs]

@@ -76,6 +76,7 @@ from __future__ import annotations
 import collections
 import functools
 import inspect
+import json
 import os
 import threading
 import time
@@ -308,6 +309,26 @@ def _serialised(cls):
     return cls
 
 
+def calibration_path() -> str:
+    """Where the CLI's accel-calibrate keeps its result for the port. The
+    JAX package's `~/.runmat_tpu/calibration.json` (the TPU's) is never
+    read."""
+    return os.path.expanduser("~/.runmat_tpu/torch_calibration.json")
+
+
+def _calibrated_threshold(platform: str, name: str) -> Optional[int]:
+    """The persisted offload threshold for this kind of device, if any
+    (≙ the auto-offload calibration cache, native_auto.rs:706-724)."""
+    try:
+        with open(calibration_path()) as f:
+            cal = json.load(f)
+        if cal.get("platform") == platform and cal.get("device") == name:
+            return int(cal["offload_threshold"])
+    except (OSError, ValueError, KeyError, TypeError):
+        pass
+    return None
+
+
 @_serialised
 class TorchEngine:
     def __init__(self, device="cuda", auto_offload: Optional[bool] = None,
@@ -329,8 +350,9 @@ class TorchEngine:
                            f"Unsupported device {device}.")
         self.device = device
         self.lock = threading.RLock()
-        # offload policy of JaxEngine (engine.py:133-154), without its
-        # TPU calibration file
+        # offload policy of JaxEngine (engine.py:133-154), with the port's
+        # own calibration file (the CLI's accel-calibrate) where the JAX
+        # engine reads the TPU's
         env_auto = os.environ.get("RUNMAT_TPU_AUTO_OFFLOAD")
         if auto_offload is None:
             auto_offload = (env_auto == "1") if env_auto is not None else \
@@ -338,7 +360,9 @@ class TorchEngine:
         self.auto_offload = bool(auto_offload)
         if offload_threshold is None:
             env_thr = os.environ.get("RUNMAT_TPU_OFFLOAD_THRESHOLD")
-            offload_threshold = int(env_thr) if env_thr is not None else None
+            offload_threshold = int(env_thr) if env_thr is not None else \
+                _calibrated_threshold(self.platform,
+                                      self.device_info()["name"])
         self.offload_threshold = offload_threshold or 32768
         # the JAX engine's resolution (engine.py:199-203)
         mm = os.environ.get("RUNMAT_TPU_MATMUL_PRECISION") or matmul_precision
@@ -1559,9 +1583,10 @@ class TorchEngine:
             props = torch.cuda.get_device_properties(self.device)
             return {"name": props.name, "platform": self.platform,
                     "count": torch.cuda.device_count(),
+                    "capability": f"{props.major}.{props.minor}",
                     "memory": int(props.total_memory)}
         return {"name": "cpu", "platform": self.platform, "count": 1,
-                "memory": 0}
+                "capability": None, "memory": 0}
 
     def telemetry(self) -> dict:
         return dict(self.stats)

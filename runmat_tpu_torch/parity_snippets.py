@@ -295,5 +295,20 @@ SNIPPETS += [
      EXACT),
 ]
 
+# fea2: the study API without fea.run (which writes the run registry under
+# HOME), finance and the subsref/subsasgn function forms
+SNIPPETS += [
+    ("fea2", "fea2",
+     "g.box = [1 0.5 0.5]; g.resolution = 2;"
+     " m = fea.model(g, fea.material('k', 45),"
+     " fea.boundaryCondition('temperature', 'x=min', 300));"
+     " st = fea.study(m, 'thermal'); p = fea.plan(st); ne = p.numElements;"
+     " v = fea.validate(st); ok = v.valid;"
+     " iv = blsimpv(100, 100, 0.05, 1, 10); [l, sg] = macd(1:40);"
+     " A = [1 2; 3 4]; x = subsref(A, substruct('()', {2, 1}));"
+     " B = subsasgn(A, substruct('()', {1, 2}), 9); clear g m st p v",
+     EXACT),
+]
+
 # module -> the package its snippet needs beyond the port's own
 NEEDS = {"symbolic": "sympy"}

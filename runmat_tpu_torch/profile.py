@@ -19,16 +19,21 @@ import subprocess
 import time
 
 
-def profile_script(src: str, top: int = 12, trace: str | None = None) -> dict:
+def profile_script(src: str, top: int = 12, trace: str | None = None,
+                   session=None) -> dict:
+    """The profiled run's numbers. `session`: a card session that has run
+    `src` already, profiled as it stands (no warm-up run of its own, and
+    its engine left installed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import runmat_tpu_torch
 
-    s = runmat_tpu_torch.session("cuda")
+    s = session or runmat_tpu_torch.session("cuda")
     try:
         s.stdout = io.StringIO()
-        s.run_source(src)
+        if session is None:
+            s.run_source(src)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -37,7 +42,8 @@ def profile_script(src: str, top: int = 12, trace: str | None = None) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        runmat_tpu_torch.uninstall()
+        if session is None:
+            runmat_tpu_torch.uninstall()
     items = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in items) / 1e3

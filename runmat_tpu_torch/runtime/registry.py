@@ -83,9 +83,8 @@ _LOADED = False
 
 
 def ensure_loaded() -> None:
-    """Import the builtin modules the port carries, exactly once (they
-    self-register), in the JAX package's order. fea2 is still to be copied
-    (ROADMAP A 7); a name only it defines is undefined here."""
+    """Import all builtin modules exactly once (they self-register), in the
+    JAX package's order."""
     global _LOADED
     if _LOADED:
         return
@@ -99,16 +98,16 @@ def ensure_loaded() -> None:
         async_builtins, domains, fea_builtins, symbolic, breadth2, breadth3,
         breadth4, stats2, strings2, linalg2, signal2, graph2, io2, optim2,
         ml, control2, introspection2, timing2, dl_layers, table2, plotting2,
-        plotting3, data_api, textanalytics, misc2, validators, profiler,
+        plotting3, data_api, textanalytics, misc2, fea2, validators, profiler,
         datetime2, itersolve, datetime3, stats3,
     )
     # In the JAX package a later module, not carried yet, registers these
-    # names over the carried definition; they stay undefined here until it
-    # is copied, so no script gets another function than it would there.
+    # names over a carried definition; they stay undefined here until it is
+    # copied, so no script gets another function than it would there.
     for name in _REGISTERED_LATER:
         _REGISTRY.pop(name, None)
 
 
-# name -> the JAX package's builtin module that defines it last (fea2, the
-# one module not carried yet, takes over no carried name)
+# name -> the JAX package's builtin module that defines it last (every
+# builtin module is carried, so none)
 _REGISTERED_LATER: dict = {}

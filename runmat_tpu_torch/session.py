@@ -58,8 +58,11 @@ class ExecutionResult:
 
 class Session:
     def __init__(self, accelerate: Optional[bool] = None, stdout=None):
-        """accelerate: None = auto (enable if a TPU/accelerator engine
-        initializes), True/False forces."""
+        """accelerate: None or True = the card (the active engine, else a
+        new one on "cuda"; without a card it raises), False = the host.
+        Unlike the JAX package's auto mode, None never falls back to the
+        host on its own: the host runs only where the caller asks for it
+        (accelerate=False, or the config's provider "none")."""
         _install_warning_filters()
         self.global_vars: dict = {}
         self.persistents: dict = {}
@@ -102,16 +105,16 @@ class Session:
             from . import accel
             try:
                 accel.init_engine(
-                    required=bool(accelerate),
-                    platform=self.config.get("accelerate", "platform"),
                     auto_offload=self.config.get("accelerate", "auto_offload"),
                     offload_threshold=self.config.get("accelerate",
                                                       "offload_threshold"),
                     matmul_precision=self.config.get("accelerate",
                                                      "matmul_precision"))
-            except Exception:
-                if accelerate:
-                    raise
+            except MatError as e:
+                raise MatError(e.identifier, f"{e.message} Pass "
+                               "accelerate=False (the CLI's --no-accel, or "
+                               'the config\'s provider = "none") to run on '
+                               "the host.") from e
             # the XLA warmup-manifest replay of the JAX package is not
             # ported (ROADMAP A15)
         # consent-gated product telemetry (≙ runmat-telemetry

@@ -279,19 +279,28 @@ def first_iteration(spcg, s, b, invd) -> tuple:
     return {k: bool(v) and counters for k, v in check.items()}, err
 
 
-def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON) -> dict:
-    """One iteration of sparse_poisson.m's solve held by `first_iteration`,
+def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON,
+              system=None, graph_reps: int | None = None) -> dict:
+    """One iteration of sparse_poisson.m's solve (or of `system`, a card
+    CSR and right side (rowptr, col, val, b)) held by `first_iteration`,
     then each kernel timed, the product without its partials and the
     update without its tail (the tails' times are the differences), and
-    the iteration eagerly and in the replayed graph; the rows of the
-    kernel JSON line, the tails' and the iteration's."""
+    the iteration eagerly and in the replayed graph (`graph_reps` replays
+    after a warm-up one, default max(2, reps // 10): (1 + graph_reps) *
+    CHUNK iterations must not reach the end of the solve, or the last
+    ones would return at once; `timed_ok` is false if they did); the rows
+    of the kernel JSON line, the tails' and the iteration's."""
     import torch
     dev = torch.device("cuda")
     f64 = torch.float64
-    rowptr, col, val = poisson_csr(N, dev)
+    if system is None:
+        rowptr, col, val = poisson_csr(N, dev)
+        n = rowptr.numel() - 1
+        b = (1 + torch.sin(torch.arange(1, n + 1, dtype=f64, device=dev) *
+                           np.pi / N)) / (N + 1) ** 2
+    else:
+        rowptr, col, val, b = system
     n, nnz = rowptr.numel() - 1, val.numel()
-    b = (1 + torch.sin(torch.arange(1, n + 1, dtype=f64, device=dev) *
-                       np.pi / N)) / (N + 1) ** 2
     invd = inverse_diagonal(rowptr, col, val)
     s = spcg._Solver(rowptr, col, val, RESIDUAL_TOL, 10 * n)
     s.load(rowptr, col, val, invd)
@@ -359,7 +368,9 @@ def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON) -> dict:
     it_ms = time_ms(s.step, reps)
     s.start(b)
     s._capture()
-    graph_ms = time_ms(s.graph.replay, max(2, reps // 10)) / spcg.CHUNK
+    graph_ms = time_ms(s.graph.replay, graph_reps or max(2, reps // 10)) \
+        / spcg.CHUNK
+    timed_ok = timed_ok and s.ctl.tolist()[0] == 0
     s.start(b)
 
     def plain_step():

@@ -2032,3 +2032,139 @@ def test_field_plot_small_matches_the_host_engine(card, tmp_path):
     assert np.array_equal(u8, want.numpy())
     r = syncs.script_syncs(src)
     assert r["warnings"] == r["counted"], r["sites"]
+
+
+THERMAL = "runmat_tpu_torch/workloads/fea_thermal.m"
+
+
+@pytest.mark.parametrize("R", [16, 32])
+def test_fea_thermal_on_the_card_matches_the_cpu_engine(card, R, tmp_path,
+                                                        monkeypatch):
+    """fea_thermal.m at R = 16 and 32 (its STEP plate at edge length 0.35)
+    on the card against TorchEngine("cpu"): T within spbench.X_TOL of the
+    largest temperature, the device CG for the cube and the replay (its
+    kernels launched as the chunks say), one histogram launch, the same
+    counts, no host fallback, and every wait counted."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, spbench, syncs
+    from runmat_tpu_torch.ops import histogram, spcg
+    monkeypatch.setenv("HOME", str(tmp_path))
+    src = f"R = {R}; hs = 0.35;\n" + open(THERMAL).read()
+    prev = accel.active_engine()
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            spcg.launches_by.clear()
+            hist = collections.Counter(histogram.launches_by)
+            s = runmat_tpu_torch.session(dev)
+            eng = accel.active_engine()
+            r = s.execute(src)
+            assert r.error is None, r.error
+            solves = [e for e in eng.launch_log if e["cat"] == "sparse_cg"]
+            out[dev] = (np.array(s.get("T").host()), np.array(s.get("n").host()),
+                        solves, dict(spcg.launches_by),
+                        collections.Counter(histogram.launches_by) - hist,
+                        dict(eng.stats), dict(eng.sync_reasons))
+            runmat_tpu_torch.uninstall()
+    finally:
+        accel.set_engine(prev)
+    (tc, nc, sc, _, _, _, _), (tg, ng, sg, lg, hg, st, why) = \
+        out["cpu"], out["cuda"]
+    assert [e["n"] for e in sg] == [e["n"] for e in sc] == \
+        [(R + 1) ** 3 - 2 * (R + 1) ** 2, (R + 1) ** 3 - (R + 1) ** 2]
+    chunks = sum(-(-e["iterations"] // spcg.CHUNK) for e in sg)
+    assert lg["spmv_f64"] == lg["cg_direction"] == chunks * spcg.CHUNK
+    assert lg["cg_update"] == chunks * spcg.CHUNK + len(sg)
+    assert why["cg"] == chunks
+    assert sum(hg.values()) == 1 and st["host_fallbacks"] == 0
+    scale = float(np.abs(tc).max())
+    assert float(np.abs(tg - tc).max()) <= spbench.X_TOL * scale
+    assert np.array_equal(ng, nc) and ng.sum() == tg.size
+    r = syncs.script_syncs(src)
+    assert r["warnings"] == r["counted"], r["sites"]
+
+
+def test_the_cli_on_the_card(card, tmp_path):
+    """The port's CLI without --no-accel takes the card: accel-info names
+    it, and a -e run computes on it."""
+    import json
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, HOME=str(tmp_path))
+    run = (lambda *a: subprocess.run(
+        [sys.executable, "-m", "runmat_tpu_torch.cli", *a],
+        capture_output=True, text=True, env=env, timeout=300))
+    p = run("accel-info", "--json")
+    assert p.returncode == 0, p.stderr
+    info = json.loads(p.stdout)
+    props = torch.cuda.get_device_properties(0)
+    assert info["provider"]["platform"] == "gpu"
+    assert info["card"]["name"] == torch.cuda.get_device_name(0)
+    assert info["card"]["capability"] == f"{props.major}.{props.minor}"
+    assert info["card"]["memory"] == props.total_memory
+    p = run("-e", "x = gpuArray(1:10); fprintf('CARD_ok %g %d\\n', "
+                  "gather(sum(x .^ 2)), isgpuarray(x));")
+    assert p.returncode == 0, p.stderr
+    assert "CARD_ok 385 1" in p.stdout
+
+
+def test_the_spiller_under_a_small_budget_on_the_card(card):
+    """A 4 MB budget: three 2.4 MB card arrays spill the coldest to the
+    host, which read back equal and compute again on the card."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.accel.residency import make_workspace_spiller
+    from runmat_tpu_torch.session import Session
+    prev = accel.active_engine()
+    try:
+        eng = runmat_tpu_torch.install("cuda")
+        eng.residency.budget_bytes = 4_000_000
+        s = Session(accelerate=True, stdout=io.StringIO())
+        eng.residency.pressure_hooks.append(make_workspace_spiller(s))
+        s.run_source("rng(3); a = gpuArray(rand(300000, 1));"
+                     " b = gpuArray(rand(300000, 1));"
+                     " c = gpuArray(rand(300000, 1)); d = a + b + c;"
+                     " t = gather(sum(d));", "t")
+        import gc
+        gc.collect()
+        spilled = [n for n in "abcd" if not s.get(n).on_device]
+        assert eng.residency.pressure_events >= 1 and spilled
+        assert eng.residency.snapshot()["live_bytes"] <= 4_000_000
+        host = Session(accelerate=False, stdout=io.StringIO())
+        host.run_source("rng(3); a = rand(300000, 1); b = rand(300000, 1);"
+                        " c = rand(300000, 1); d = a + b + c;", "t")
+        for n in "abcd":
+            assert np.array_equal(np.asarray(s.get(n).host()),
+                                  np.asarray(host.get(n).host())), n
+        s.run_source(f"u = gather(sum(gpuArray({spilled[0]}) * 2));", "t")
+        want = 2 * np.asarray(host.get(spilled[0]).host()).sum()
+        assert abs(float(s.get("u").host()[0, 0]) - want) <= 1e-9 * want
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+
+
+def test_accel_calibrate_on_the_card(card, tmp_path, monkeypatch):
+    """accel-calibrate writes the port's own file for this card, and a new
+    engine on the card reads its threshold back."""
+    import contextlib
+    import json
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, cli
+    from runmat_tpu_torch.accel.engine import TorchEngine, calibration_path
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("RUNMAT_TPU_OFFLOAD_THRESHOLD", raising=False)
+    prev = accel.active_engine()
+    try:
+        runmat_tpu_torch.install("cuda")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["accel-calibrate"]) == 0
+    finally:
+        runmat_tpu_torch.uninstall()
+        accel.set_engine(prev)
+    cal = json.loads(open(calibration_path()).read())
+    assert cal["platform"] == "gpu"
+    assert cal["device"] == torch.cuda.get_device_name(0)
+    assert TorchEngine("cuda").offload_threshold == cal["offload_threshold"]

@@ -163,3 +163,15 @@ def test_inv_of_a_device_matrix_declines_with_one_fallback(restore_engine):
     # reaches, has none and declines
     assert eng.linalg("cond", [d]) is None
     assert eng.stats["host_fallbacks"] == before + 1
+
+
+def test_a_declined_kind_names_no_queue_item(restore_engine):
+    """A kind with no device builder declines with a reason that says so,
+    and names no ROADMAP item (the queue's numbers move between slices)."""
+    s, eng = _run(_torch, "", _inputs("double"))
+    d = s.get("Md")
+    assert eng.linalg("cond", [d]) is None
+    last = eng.launch_log[-1]
+    assert last["cat"] == "host_fallback" and last["ops"] == ["cond"]
+    assert last["reason"] == "cond has no device builder"
+    assert "A7" not in last["reason"] and "ROADMAP" not in last["reason"]

@@ -128,11 +128,18 @@ def test_init_engine_needs_a_card(restore_engine):
     with pytest.raises(MatError) as ei:
         accel.init_engine()
     assert ei.value.identifier == "parallel:gpu:device:NoDevice"
-    s = Session()                       # accelerate=None: host without it
+    # accelerate=None means the card: it raises, naming how to ask for the
+    # host, and never falls back to the host on its own
+    with pytest.raises(MatError) as ei:
+        Session()
+    assert ei.value.identifier == "parallel:gpu:device:NoDevice"
+    assert "accelerate=False" in ei.value.message
     assert accel.active_engine() is None
-    assert s.execute("y = sum([1 2 3]);").error is None
     with pytest.raises(MatError):
         Session(accelerate=True)
+    s = Session(accelerate=False)       # the host, asked for
+    assert s.execute("y = sum([1 2 3]);").error is None
+    assert accel.active_engine() is None
 
 
 # `x ./ 2`: `x / 2` compiles to a matrix divide, which no fold traces

@@ -101,8 +101,12 @@ def _defines(module: str, name: str) -> bool:
     path = os.path.join(REPO, rel, "__init__.py")
     if not os.path.exists(path):
         path = os.path.join(REPO, rel + ".py")
+    tree = _tree(os.path.relpath(path, REPO))
     return any(isinstance(n, (ast.FunctionDef, ast.ClassDef)) and n.name == name
-               for n in ast.walk(_tree(os.path.relpath(path, REPO))))
+               for n in ast.walk(tree)) or \
+        any(isinstance(n, ast.Assign) and
+            any(getattr(t, "id", None) == name for t in n.targets)
+            for n in tree.body)
 
 
 COPIED = [f for f in _port_files()
@@ -158,3 +162,13 @@ def test_names_a_later_module_takes_stay_undefined():
     for name, module in treg._REGISTERED_LATER.items():
         assert name not in port_all
         assert jax_all[name].fn.__module__.endswith("builtins." + module)
+
+
+def test_the_registry_is_the_jax_packages_name_for_name():
+    """Every builtin module is carried: the port's registry holds exactly
+    the JAX package's names, each from the module of the same name."""
+    jax_all, port_all = _registries()
+    assert sorted(port_all) == sorted(jax_all)
+    jmods = {b.fn.__module__.split(".", 1)[1] for b in jax_all.values()}
+    tmods = {b.fn.__module__.split(".", 1)[1] for b in port_all.values()}
+    assert tmods == jmods and "runtime.builtins.fea2" in tmods

@@ -7,8 +7,9 @@ spectral,sparse_poisson,dl_digits,dl_vowels,sensor_log}.m`) at small
 size on TorchEngine(device="cpu"), and a host session without an engine
 (sensor_log through both, the same checksum, and a MAT file saved under
 the engine loaded on the host), and field_plot (plotting, imfilter and
-the colormap on the engine, the same checksum on the host); the host
-modules of datetime, classdef, files, tables, plotting, control, image
+the colormap on the engine, the same checksum on the host), and
+fea_thermal (fea2, the STEP reader and mesher, the CG on the engine) and
+the command line (`--no-accel -e`); the host modules of datetime, classdef, files, tables, plotting, control, image
 and graphs import there, and the
 profiling, sync-counting, timing and benchmark tools import there too, and
 so do the deep-learning modules (their initial weights drawn without
@@ -153,6 +154,22 @@ h = Session(accelerate=False)
 r = h.execute(field)
 assert r.error is None, r.error
 print("host", r.output.strip())
+s = runmat_tpu_torch.session("cpu")
+eng = accel.active_engine()
+r = s.execute("R = 16; hs = 0.35;\n" +
+              open("runmat_tpu_torch/workloads/fea_thermal.m").read())
+assert r.error is None, r.error
+print(r.output.strip())
+print("fea_thermal solves", [e["n"] for e in eng.launch_log
+                             if e["cat"] == "sparse_cg"],
+      "fallbacks", eng.stats["host_fallbacks"])
+runmat_tpu_torch.uninstall()
+import contextlib, io
+from runmat_tpu_torch import cli
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = cli.main(["--no-accel", "-e", "fprintf('CLI_ok %d\\n', 6 * 7);"])
+print("cli", rc, buf.getvalue().strip())
 h = Session(accelerate=False)
 r = h.execute("x = rand(1, 5); fprintf('HOST_ok %d\\n', numel(x));")
 assert r.error is None, r.error
@@ -168,6 +185,7 @@ def test_port_runs_without_jax(tmp_path):
     # the port runs without jax and without runmat_tpu
     env = dict(os.environ)
     env["PORT_TEST_DIR"] = str(tmp_path)
+    env["HOME"] = str(tmp_path)        # fea.run's registry lives under ~
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     p = subprocess.run([sys.executable, "-c", CODE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=600)
@@ -175,7 +193,7 @@ def test_port_runs_without_jax(tmp_path):
     out = p.stdout
     for label in ("CHECK", "PRICE", "MSE", "HIST", "RANK", "LINALG",
                   "SPECTRAL", "POISSON", "DIGITS", "VOWELS", "SENSOR",
-                  "FIELD"):
+                  "FIELD", "THERMAL", "PLATE"):
         assert f"RESULT_ok {label}=" in out, out
     assert "monte_carlo folds 1 fallbacks 0 plans" in out, out
     assert "elementwise_math folds 0 fallbacks 0 plans 4" in out, out
@@ -196,6 +214,8 @@ def test_port_runs_without_jax(tmp_path):
     sensor = [ln.split("=")[1] for ln in out.splitlines()
               if "RESULT_ok SENSOR=" in ln]
     assert len(sensor) == 2 and sensor[0] == sensor[1], out
+    assert "fea_thermal solves [4335, 4624] fallbacks 0" in out, out
+    assert "cli 0 CLI_ok 42" in out, out
     assert "HOST_ok 5" in out, out
     assert "jax blocked: True" in out, out
     assert "runmat_tpu modules: []" in out, out

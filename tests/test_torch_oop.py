@@ -14,7 +14,8 @@ import test_oop
 import test_packages
 from test_packages import pkgdir  # noqa: F401  (the fixture its tests take)
 from torch_both import no_engine  # noqa: F401
-from torch_paired import PairedSession, run_paired, session_tests
+from torch_paired import (PairedSession, fresh_state, run_paired,
+                          session_tests)
 
 CASES = [(m, n) for m in (test_oop, test_packages) for n in session_tests(m)]
 
@@ -28,6 +29,7 @@ def test_the_jax_tests_agree_through_both(request, monkeypatch, module, name):
 def test_a_classdef_defined_by_execute_runs_in_both(no_engine):
     """`classdef` through `Session.execute`: a value class with a static
     method and a handle class, their objects, display and isa."""
+    fresh_state()
     s = PairedSession(accelerate=False)
     s.execute("classdef Foo\nproperties\nv = 1\nend\nmethods\n"
               "function obj = Foo(x)\nif nargin > 0, obj.v = x; end\nend\n"
@@ -45,3 +47,20 @@ def test_a_classdef_defined_by_execute_runs_in_both(no_engine):
     assert r.error is None, r.error
     assert "Foo with properties" in r.output
     assert sorted(s.classes) == ["Bar", "Foo"]
+
+
+def test_state_left_in_one_package_does_not_reach_a_paired_case(
+        request, monkeypatch):
+    """What a JAX test file run before on the same worker can leave in the
+    JAX package only (a figure, its current number, `hold on`, `format
+    long`), which failed every later paired comparison of the current
+    figure: `run_paired` starts from a fresh process's state in both."""
+    from runmat_tpu.plot import figure as jax_figures
+    from runmat_tpu.utils import display as jax_display
+    fig = jax_figures.figure(2)
+    fig.ax.hold = True
+    jax_display.set_format("long")
+    run_paired(request, monkeypatch, test_packages,
+               "test_import_statement_unqualified")
+    assert jax_figures._FIGURES == {} and jax_display._FORMAT["mode"] == \
+        "short"

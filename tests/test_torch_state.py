@@ -218,3 +218,39 @@ def test_a_value_the_port_cannot_carry_raises(restore_engine):
     with pytest.raises(TypeError, match="cannot be carried"):
         carry_session(js, PortSession(accelerate=False))
     js.base_frame.vars.clear()   # no cleanup output at exit
+
+
+def test_an_fea_study_and_run_cross_as_the_ports_own(restore_engine,
+                                                     monkeypatch, tmp_path):
+    """A study, its model and a thermal run result made by the JAX package
+    (structs tagged by `_fea`, holding a material, conditions, a mesh and
+    the fields) carry into the port, and fea.validate, fea.plan, fea.field
+    and fea.plot there give the JAX package's answers on them."""
+    from torch_paired import fresh_state, same_value
+    monkeypatch.setenv("HOME", str(tmp_path))
+    fresh_state()
+    try:
+        js, ts = _carried(
+            "geom.box = [1 0.5 0.5]; geom.resolution = 4;"
+            " mat = fea.material('k', 45);"
+            " bc = fea.boundaryCondition('temperature', 'x=min', 300);"
+            " model = fea.model(geom, mat, bc);"
+            " study = fea.study(model, 'thermal'); r = fea.run(study);")
+        found = []
+        for n, v in ts.base_frame.vars.items():
+            _jax_objects(v, n, set(), found)
+        assert found == [], found
+        use = ("val = fea.validate(study); ok = val.valid; p = fea.plan(study);"
+               " ne = p.numElements; nd = p.dofs;"
+               " T = fea.field(r, 'temperature'); q = fea.field(r, 'flux');"
+               " m = fea.plot(r, 'temperature'); close all;")
+        rj, rt = js.execute(use), ts.execute(use)
+        assert rj.error is None and rt.error is None, (rj.error, rt.error)
+        assert rt.output == rj.output
+        assert sorted(ts.workspace_names()) == sorted(js.workspace_names())
+        for n in js.workspace_names():
+            same_value(js.get(n), ts.get(n), n)
+        assert bool(ts.get("ok").host()[0, 0])
+        assert ts.get("m").host().shape == (ts.get("T").host().size, 1)
+    finally:
+        fresh_state()

@@ -23,7 +23,13 @@ package's values):
   inside). Between the two runs those directories and the working
   directory are put back as they were before the first, so each package
   sees what the other saw, and after the second as the JAX package left
-  them.
+  them;
+* with `home=True` (a test that points HOME at a directory of its own),
+  likewise the FEA run registry and evidence chain under `~/.runmat_tpu`
+  (`HOME_FILES`, which `fea.run` and `fea.evidence` append to in both
+  packages): put back between the runs, equal after them as JSON but for
+  the run's fresh id, its clock and the hashes over them (`_FEA_KEYS`),
+  and left as the JAX package wrote them.
 
 `loose` names workspace values not compared (each test file says why:
 the clock, a fresh id); `clock` names struct fields not compared (they
@@ -38,6 +44,10 @@ both runs must touch the same figure numbers and end on the same current
 figure, and each touched figure must hold the same object tree in both
 (`same_value`: its axes, their children and their properties, class names
 equal and arrays exactly).
+
+Module-wide state that a test file run before on the same worker may leave
+in one package and not the other (figures, `hold on`, `format long`) is
+put back to a fresh process's by `fresh_state` before each paired test.
 """
 
 import inspect
@@ -52,16 +62,23 @@ import numpy as np
 import helpers
 from runmat_tpu.plot import figure as jax_figures
 from runmat_tpu.session import Session as JaxSession
+from runmat_tpu.utils import display as jax_display
 from runmat_tpu.utils.display import format_value as jax_format
 from runmat_tpu_torch.errors import MatError as PortError
 from runmat_tpu_torch.plot import figure as port_figures
 from runmat_tpu_torch.session import Session as PortSession
+from runmat_tpu_torch.utils import display as port_display
 from runmat_tpu_torch.utils.display import format_value as port_format
 
 _QUOTED = re.compile(r"""['"](/[^'"]*)['"]""")
 _ADDRESS = re.compile(r" at 0x[0-9a-f]+")
 # manifest fields that hold a fresh id or the clock (data_api)
 _VOLATILE_KEYS = {"dataset_id", "created_at", "updated_at", "txn_id"}
+# the files under ~/.runmat_tpu that fea.run and fea.evidence append to,
+# and the keys in them (and in an evidence file) that hold a run's fresh
+# id, its clock, or a hash over them (fea2.py:_save_runs, m_fea_evidence)
+HOME_FILES = ("fea_runs.json", "fea_evidence_chain.json")
+_FEA_KEYS = {"run_id", "wall_s", "when", "runId", "hash", "head", "parent"}
 _BINARY = (".zip", ".xlsx", ".gz", ".tar", ".tgz", ".h5", ".hdf5")
 _SNAPSHOT_LIMIT = 64 << 20
 _CLOCK: frozenset = frozenset()   # struct fields holding the clock (run_paired)
@@ -74,6 +91,14 @@ def shown(text: str) -> str:
     packages (`<runmat_tpu.runtime.builtins.table2.CategoricalArray object
     at 0x...>`)."""
     return _ADDRESS.sub("", text).replace("runmat_tpu_torch.", "runmat_tpu.")
+
+
+def _unclocked(text: str) -> str:
+    """A display with the lines of the `clock` fields left out."""
+    if not _CLOCK:
+        return text
+    pat = re.compile(r"^\s*(%s):" % "|".join(map(re.escape, sorted(_CLOCK))))
+    return "\n".join(ln for ln in text.split("\n") if not pat.match(ln))
 
 
 def _temp_root() -> str:
@@ -134,6 +159,41 @@ def _restore(snap: dict) -> None:
                     f.write(data)
 
 
+def _home_files() -> dict:
+    """The FEA registry files under ~/.runmat_tpu: name -> bytes, or None
+    where there is none."""
+    d = os.path.join(os.path.expanduser("~"), ".runmat_tpu")
+    out = {}
+    for n in HOME_FILES:
+        p = os.path.join(d, n)
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                out[n] = f.read()
+        else:
+            out[n] = None
+    return out
+
+
+def _put_home_files(files: dict) -> None:
+    d = os.path.join(os.path.expanduser("~"), ".runmat_tpu")
+    for n, data in files.items():
+        p = os.path.join(d, n)
+        if data is None:
+            if os.path.exists(p):
+                os.remove(p)
+        else:
+            os.makedirs(d, exist_ok=True)
+            with open(p, "wb") as f:
+                f.write(data)
+
+
+def _same_home_files(want: dict, got: dict) -> None:
+    for n in HOME_FILES:
+        assert (want[n] is None) == (got[n] is None), n
+        if want[n] is not None:
+            assert _same_file(n, want[n], got[n]), n
+
+
 def _same_file(rel: str, want: bytes, got: bytes) -> bool:
     if rel.endswith(_BINARY):
         return len(got) == len(want)
@@ -149,7 +209,7 @@ def _same_file(rel: str, want: bytes, got: bytes) -> bool:
 def _steady(v):
     if isinstance(v, dict):
         return {k: _steady(x) for k, x in v.items()
-                if k not in _VOLATILE_KEYS}
+                if k not in _VOLATILE_KEYS | _FEA_KEYS}
     if isinstance(v, list):
         return [_steady(x) for x in v]
     return v
@@ -243,6 +303,22 @@ def same_value(want, got, path="", seen=None) -> None:
             same_value(w[n], g[n], f"{path}.{n}", seen)
 
 
+def fresh_state() -> None:
+    """Both packages' module-wide state as a fresh process has it: no
+    figure open (each figure's hold off first), the current figure 1, and
+    MATLAB's default display format. The JAX tests assume it; a test file
+    run before on the same worker can leave a figure, `hold on` or `format
+    long` in one package only, and every later paired comparison of the
+    current figure or of a display would then fail."""
+    for figs in (jax_figures, port_figures):
+        for fig in figs._FIGURES.values():
+            for ax in fig.axes:
+                ax.hold = False
+        figs.close_all()
+    jax_display.set_format("short")
+    port_display.set_format("short")
+
+
 def same_figures(jax_touched: list, port_touched: list) -> None:
     """The figures a run touched hold the same trees in both packages."""
     assert port_touched == jax_touched, (port_touched, jax_touched)
@@ -286,10 +362,17 @@ class PairedSession:
     runs = 0
     loose: tuple = ()
     near: dict = {}
+    home = False
 
     def __init__(self, *args, **kw):
         self.__dict__["_jax"] = JaxSession(*args, **kw)
-        self.__dict__["_port"] = PortSession(*args, **kw)
+        tkw = dict(kw)
+        if not args and tkw.get("accelerate") is None:
+            # a bare Session(): the JAX package's auto mode falls back to
+            # the host without a card, the port's raises; the port runs on
+            # the host here, as the JAX tests on the CPU expect
+            tkw["accelerate"] = False
+        self.__dict__["_port"] = PortSession(*args, **tkw)
 
     def __getattr__(self, name):
         if name == "search_path":
@@ -306,6 +389,8 @@ class PairedSession:
         src = call.source
         dirs = _dirs(src)
         before, cwd0 = _snapshot(dirs), os.getcwd()
+        home = type(self).home
+        home0 = _home_files() if home else None
         out, touched = [], []
         for i, (s, figs) in enumerate(((self._jax, jax_figures),
                                        (self._port, port_figures))):
@@ -318,12 +403,19 @@ class PairedSession:
             after, cwd = _snapshot(_dirs(src)), os.getcwd()
             if i == 0:
                 jafter, jcwd = after, cwd
+                jhome = _home_files() if home else None
                 _restore(before)
                 os.chdir(cwd0)
+                if home:
+                    _put_home_files(home0)
         assert cwd == jcwd, (cwd, jcwd)
         _same_files(jafter, after)
+        if home:
+            _same_home_files(jhome, _home_files())
         _restore(jafter)
         os.chdir(jcwd)
+        if home:
+            _put_home_files(jhome)
         same_figures(*touched)
         type(self).runs += 1
         return out
@@ -340,8 +432,8 @@ class PairedSession:
                 continue
             same_value(want, got, name)
             if type(want).__name__ != "MatArray":
-                assert shown(port_format(name, got)) == \
-                    shown(jax_format(name, want)), name
+                assert _unclocked(shown(port_format(name, got))) == \
+                    _unclocked(shown(jax_format(name, want))), name
 
     def execute(self, source, name="<input>"):
         call = (lambda s: s.execute(source, name))
@@ -389,14 +481,16 @@ def session_tests(module) -> list:
 
 
 def run_paired(request, monkeypatch, module, name, loose=(), clock=(),
-               near=None) -> None:
+               near=None, home=False) -> None:
     fn = getattr(module, name)
+    fresh_state()
     monkeypatch.setattr(helpers, "Session", PairedSession)
     if hasattr(module, "Session"):
         monkeypatch.setattr(module, "Session", PairedSession)
     monkeypatch.setattr(PairedSession, "runs", 0)
     monkeypatch.setattr(PairedSession, "loose", tuple(loose))
     monkeypatch.setattr(PairedSession, "near", dict(near or {}))
+    monkeypatch.setattr(PairedSession, "home", home)
     monkeypatch.setitem(globals(), "_CLOCK", frozenset(clock))
     kw = {p.name: request.getfixturevalue(p.name)
           for p in inspect.signature(fn).parameters.values()
