@@ -126,18 +126,23 @@ line is printed:
   9. sparse path: the sparse CG kernels (csrc/spcg.cu: spmv_f64 with
      its alpha tail, cg_update with its beta, k and done-flag tail,
      cg_direction) against their plain versions
-     (runmat_tpu_torch/spbench.py): the product bit for bit on rows that
-     are empty, a row of 5000 nonzeros, triangles that differ in the last
-     bits and the path's matrix; the whole solve on a 60^2 Poisson system
+     (runmat_tpu_torch/spbench.py): the product bit for bit, at each
+     matrix's stage, on rows that are empty, a row of 5000 nonzeros, triangles
+     that differ in the last bits, the path's matrix, the pattern of
+     fea_thermal.m's cube, tiles whose stretches fill the stage and
+     overflow it by one nonzero, and stretches at odd offsets; the whole
+     solve on a 60^2 Poisson system
      and a seeded SPD sprandsym-style matrix, twice bit for bit the same,
      x and k equal to plain_cg(ordered=True)'s (the kernels' order of
      summing in torch ops) bit for bit and x within 1e-8 of plain_cg's
      largest entry; each kernel of one iteration at the path's shape
      against the JAX body's torch ops on the same inputs and each tail's
      scalars against the ordered model, bit for bit, each timed beside
-     its bound, its plain version and cuSPARSE's product or torch.add,
+     its bound, its plain version and cuSPARSE's product or torch.add
+     (the product in turns with the earlier one-thread-a-row design),
      and the product without its partials and the update without its
-     tail (the tails' times); then
+     tail (the tails' times); the product and the earlier design on
+     banded rows of 4, 8, 16 and 32 nonzeros beside cuSPARSE; then
      runmat_tpu_torch/workloads/sparse_poisson.m at N = 1024 (1,048,576
      unknowns) through Session.run_source: one device solve, its
      iterations in chunks of spcg.CHUNK, one read of the done flag a chunk
@@ -243,7 +248,8 @@ line is printed:
      sync debug mode equal the counted ones, and the run's profile; then
      the CG kernels at the cube's matrix (spbench.step_rows: each against
      the JAX body's torch ops and the ordered model, timed beside its
-     bound, plain and cuSPARSE, and an iteration of the replayed graph),
+     bound, plain and cuSPARSE, the product in turns with the earlier
+     design, and an iteration of the replayed graph),
      and its histcounts call held to plain and timed beside its bound and
      torch.histc;
  14. one JSON line of kernel results, then the result line
@@ -1838,23 +1844,26 @@ def phase_pages_path() -> dict:
 
 
 def _sparse_kernels() -> dict:
-    """spmv_f64 against plain_spmv bit for bit on rows that are empty, a
-    row of 5000 nonzeros, triangles that differ in the last bits and the
-    path's Poisson matrix; the whole solve on a 60^2 Poisson system and a
+    """spmv_f64 against plain_spmv bit for bit on each of
+    spbench.spmv_cases; the whole solve on a 60^2 Poisson system and a
     seeded SPD sprandsym-style one (twice, bit for bit the same) against
     plain_cg(ordered=True) bit for bit and plain_cg; then each kernel of
     one iteration at the path's shape held to the JAX body's torch ops,
     each tail's scalars to the ordered model, and timed, with and without
-    its tail (runmat_tpu_torch/spbench.py)."""
+    its tail, the product in turns with the earlier design; the banded
+    sweep; the seconds of each part (runmat_tpu_torch/spbench.py)."""
     import torch
 
     from runmat_tpu_torch import histbench, spbench
     from runmat_tpu_torch.ops import spcg
     dev = torch.device("cuda")
+    laps = [("start", time.perf_counter())]
     for label, *csr in spbench.spmv_cases(dev):
         r = spbench.spmv_held(spcg, *csr)
         check(r["equal"], f"spmv_f64 {label}: {r}")
-        print(f"kernel spmv_f64 {label}: equal to plain_spmv bit for bit")
+        print(f"kernel spmv_f64 {label}: equal to plain_spmv bit for bit "
+              f"at its stage of {r['stage']} products")
+    laps.append(("spmv cases", time.perf_counter()))
     for label, *system in spbench.cg_cases(dev):
         r = spbench.cg_held(spcg, *system)
         check(r["ok"], f"cg {label}: {r}")
@@ -1863,22 +1872,20 @@ def _sparse_kernels() -> dict:
               f"to the ordered model's x and k bit for bit, x within "
               f"{r['rel_err']:.3g} of plain's largest entry (limit "
               f"{spbench.X_TOL:g}), residual {r['residual']:.3g}")
+    laps.append(("cg cases", time.perf_counter()))
     steps = spbench.step_rows(spcg, histbench.time_ms, TIMING_REPS)
+    laps.append(("step rows", time.perf_counter()))
     check(steps["start_ok"] and steps["timed_ok"] and
           all(r["ok"] for r in steps["rows"].values()),
           f"a CG kernel against the JAX body's torch ops and the ordered "
           f"model: {steps}")
     for name, r in steps["rows"].items():
-        lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
         print(f"time {name} (sparse_poisson.m, n={steps['n']}, nnz="
-              f"{steps['nnz']}): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-              f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} "
-              f"bytes), share of bound {r['bound_ms'] / r['ms']:.3f}; max "
-              f"abs err against the body's torch ops {r['max_abs_err']:.3g}"
-              f", its tail's scalars equal the ordered model's")
+              f"{steps['nnz']}): {_kernel_times(r)}; max abs err against "
+              f"the body's torch ops {r['max_abs_err']:.3g}, its tail's "
+              f"scalars equal the ordered model's")
     code = spbench.tail_code()
+    laps.append(("machine code", time.perf_counter()))
     for name, t in steps["tails"].items():
         print(f"time {name} tail (sparse_poisson.m): {t['ms'] * 1e3:.2f} us "
               f"(with it {steps['rows'][name]['ms']:.4f} ms, without "
@@ -1893,7 +1900,35 @@ def _sparse_kernels() -> dict:
           f"{it['bytes']} bytes), share of bound "
           f"{it['bound_ms'] / it['graph_ms']:.3f}; cuSPARSE's product alone "
           f"{it['library_ms']:.4f} ms")
+    sweep = spbench.row_sweep(spcg, histbench.time_ms, TIMING_REPS)
+    laps.append(("row sweep", time.perf_counter()))
+    for r in sweep:
+        print(f"time spmv_f64 without partials, banded {r['per_row']} a "
+              f"row (n={r['n']}, nnz={r['nnz']}, stage {r['stage']}): "
+              f"kernel {r['ms']:.4f} ms (share of bound "
+              f"{r['bound_ms'] / r['ms']:.3f}), the earlier design "
+              f"{r['earlier_ms']:.4f} ms "
+              f"({r['bound_ms'] / r['earlier_ms']:.3f}), cuSPARSE "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bytes']} bytes)")
+    print("sparse kernels, seconds: " + ", ".join(
+        f"{name} {t - laps[k][1]:.1f}" for k, (name, t) in
+        enumerate(laps[1:])))
     return steps["rows"]
+
+
+def _kernel_times(r: dict) -> str:
+    """A CG kernel's row of `spbench.step_rows` as text: its time, the
+    earlier design's for the product, plain, the library call, bound."""
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    earlier = "" if "earlier_ms" not in r else (
+        f" (stage {r['stage']}; in turns with the earlier one-thread-a-row "
+        f"design, which took {r['earlier_ms']:.4f} ms; turns "
+        + ", ".join(f"{t:.4f}" for t in r["turns_ms"]) + ")")
+    return (f"kernel {r['ms']:.4f} ms{earlier}, plain {r['plain_ms']:.4f} "
+            f"ms, library {lib}, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}, {r['bytes']} bytes), share of bound "
+            f"{r['bound_ms'] / r['ms']:.3f}")
 
 
 def phase_sparse_path() -> dict:
@@ -2823,13 +2858,8 @@ def phase_fea_path() -> dict:
               f"fea_thermal: a CG kernel at the cube's matrix against the "
               f"JAX body's torch ops and the ordered model: {steps}")
         for name, r in steps["rows"].items():
-            lib = "none" if r["library_ms"] is None else \
-                f"{r['library_ms']:.4f} ms"
             print(f"time {name} (fea_thermal.m, n={steps['n']}, nnz="
-                  f"{steps['nnz']}): kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} "
-                  f"bytes), share of bound {r['bound_ms'] / r['ms']:.3f}")
+                  f"{steps['nnz']}): {_kernel_times(r)}")
         it = steps["iteration"]
         print(f"time cg iteration (fea_thermal.m): three launches "
               f"{it['ms']:.4f} ms eagerly, {it['graph_ms']:.4f} ms an "

@@ -902,6 +902,15 @@ def _page_pair(pa, pb):
     return pa, pb
 
 
+def _numpy_refuses(fn, *shapes) -> None:
+    """Raise what numpy raises for `fn` of operands of these page shapes:
+    the JAX builder fails on operands whose core dimensions or page counts
+    do not match, and the builtin's host path (`linalg2.py`) then raises
+    numpy's ValueError, whose identifier and text the port keeps. The
+    operands are zero-stride views, so nothing is allocated."""
+    fn(*(np.broadcast_to(np.zeros(()), tuple(s)) for s in shapes))
+
+
 def _b_pagemtimes(eng, opts):
     """Batched page product with 'none'/'transpose'/'ctranspose' on each
     side: one batched product under the session's precision policy (a
@@ -919,6 +928,8 @@ def _b_pagemtimes(eng, opts):
     def f(a, b):
         (pa, psa), (pb, psb) = _page_stack(a), _page_stack(b)
         pa, pb = _page_pair(tr(pa, ta), tr(pb, tb))
+        if pa.shape[2] != pb.shape[1] or pa.shape[0] != pb.shape[0]:
+            _numpy_refuses(np.matmul, pa.shape, pb.shape)
         r = _matmul(pa, pb, eng.matmul_precision)
         if r.shape[0] == 1:
             return r[0]
@@ -959,6 +970,8 @@ def _b_pagesolve(eng, opts):
     def f(a, b):
         (pa, psa), (pb, psb) = _page_stack(a), _page_stack(b)
         pa, pb = _page_pair(pa, pb)
+        if pa.shape[1] != pb.shape[1] or pa.shape[0] != pb.shape[0]:
+            _numpy_refuses(np.linalg.solve, pa.shape, pb.shape)
         with cusolver(pa):
             return _page_unstack(torch.linalg.solve_ex(pa, pb)[0],
                                  psa or psb)
@@ -1003,9 +1016,11 @@ def _b_interp1lin(eng, opts):
     sorted (a NaN knot read as +Inf, so never counted below +Inf), which
     gives the same count for any knots: a query of +Inf does not count the
     NaN knots, a NaN query counts none. The interval is clipped to [0,
-    n-2] and the knots and values gathered from the unsorted operands, and
-    the lerp keeps the JAX builder's order of operations (not torch.lerp,
-    which rounds otherwise for weights of 1/2 and more)."""
+    n-2] and the knots and values gathered from the unsorted operands, an
+    index past the end of a v shorter than x clamped to its last value (as
+    XLA clamps the JAX builder's gather), and the lerp keeps the JAX
+    builder's order of operations (not torch.lerp, which rounds otherwise
+    for weights of 1/2 and more)."""
     def f(x, v, q):
         xv, vv, qv = x.reshape(-1), v.reshape(-1), q.reshape(-1)
         n = xv.numel()
@@ -1017,7 +1032,9 @@ def _b_interp1lin(eng, opts):
         cnt = torch.where(torch.isnan(qv), 0, cnt)
         idx = torch.clamp(cnt - 1, 0, n - 2)
         x0, x1 = xv[idx], xv[idx + 1]
-        v0, v1 = vv[idx], vv[idx + 1]
+        last = vv.numel() - 1
+        v0 = vv[torch.clamp(idx, max=last)]
+        v1 = vv[torch.clamp(idx + 1, max=last)]
         r = v0 + (v1 - v0) * ((qv - x0) / (x1 - x0))
         oob = (qv < xv[0]) | (qv > xv[-1])
         return torch.where(oob, torch.full_like(r, np.nan), r).reshape(

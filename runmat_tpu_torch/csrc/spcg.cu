@@ -9,12 +9,12 @@
 //
 // Three kernels, three launches an iteration:
 //   spmv_f64      y = A p over a CSR (int64 row pointers, int32 columns,
-//                 float64 values), one thread a row adding its products in
-//                 ascending column order from 0, each product and sum
-//                 rounded apart (the BCOO scatter-add's order); with
-//                 partials, the partials of p.y a tile of 256 rows, and
-//                 with a counter the alpha tail: p.Ap and alpha = r.z /
-//                 p.Ap (sparse.py:265-266).
+//                 float64 values), each row's products added in ascending
+//                 column order from 0, each product and sum rounded apart
+//                 (the BCOO scatter-add's order); with partials, the
+//                 partials of p.y a tile of 256 rows, and with a counter
+//                 the alpha tail: p.Ap and alpha = r.z / p.Ap
+//                 (sparse.py:265-266).
 //   cg_update     x += alpha p, r -= alpha Ap, z = invd r, the tiles'
 //                 partials of r.z and r.r; its tail: r.z, r.r, beta =
 //                 (rn.zn) / (r.z), k + 1 and the done flag
@@ -53,11 +53,23 @@
 // What bounds the rest on this card: bytes. An iteration reads the CSR once
 // (12 bytes a nonzero and 8 a row) and streams about a dozen float64
 // vectors of n; its 2 nnz + ~12 n flops are far below the float64 rate.
-// The design assumes few nonzeros a row (the 5-point Poisson rows hold 3-5):
-// one thread walks its row, so a warp's loads of values and columns cover
-// one contiguous stretch of the CSR a step. A row of thousands of nonzeros
-// is right but walked by one thread; rows that long want a warp a row
-// (a later design).
+// The product's design: a tile's stretch of the CSR, the nonzeros of its
+// 256 rows, is read once by the whole block with coalesced streaming
+// loads, four a thread in flight; each value is multiplied by its gathered
+// p (p stays in L2) and the product staged in shared memory; then each
+// thread adds its row's products from there in ascending order. A stretch
+// longer than the stage (ops/spcg.py:stage, a tile's mean stretch and an
+// eighth, 6144 products at most) is walked in chunks, a row's sum carried
+// between them; each tile's stretch bounds are read a tile ahead. Four
+// blocks an SM (64 registers a thread; 38 KB of staged products each at
+// fea_thermal's 17 nonzeros a row) overlap one block's loads with
+// another's adds; a double buffer inside one block (tried with cp.async:
+// slower at both matrices) holds the block at three barriers a chunk. The
+// earlier design, one thread a row walking the CSR in device memory, is
+// not the product: runmat_spmv_row_f64 keeps it as a yardstick for
+// spbench.py alone (at 16 and more nonzeros a row a block's stretches
+// outgrow L1 and its uncoalesced loads are fetched again: 0.15 of its
+// bound at 16 a row, 0.10 at 32).
 //
 // The launches use the caller's stream, allocate nothing and do not
 // synchronise; the C entries return cudaGetLastError() after the launch.
@@ -159,46 +171,157 @@ __device__ void ordered_sums(const double* part, int64_t nb,
 
 // __launch_bounds__(kThreads, kBlocks): the tails may not take registers
 // from the rows; 32 a thread keep 8 blocks, 2048 threads, on an SM. The
-// product and the update launch at most kBlocks blocks an SM, each walking
+// product and the update launch at most one wave of blocks, each walking
 // tiles of kThreads rows blockIdx.x, + gridDim.x, ...: a block counts
 // itself once, after all its tiles, so the arrivals' round trips cost one
 // wave of blocks, not one a tile. A tile's partial is the same tree of the
 // same values whichever block takes it.
 constexpr int kBlocks = 8;
 
-__global__ void __launch_bounds__(kThreads, kBlocks)
-spmv_kernel(int64_t n, int64_t nb, const int64_t* __restrict__ rowptr,
-            const int32_t* __restrict__ col, const double* __restrict__ val,
-            const double* __restrict__ p, double* __restrict__ y,
-            double* part, double* sc, unsigned* count, const int64_t* ctl) {
-  // two buffers, a tile's sums in each by turns: a tile's block_sums
-  // passes a barrier after warp 0 has read the last tile's
-  __shared__ double sh[2][1][kThreads];
-  if (done(ctl)) return;
-  int turn = 0;
-  for (int64_t b = blockIdx.x; b < nb; b += gridDim.x, turn ^= 1) {
-    const int64_t i = b * kThreads + threadIdx.x;
-    double py[1] = {0.0};
-    if (i < n) {
-      double acc = 0.0;
-      const int64_t end = rowptr[i + 1];
-      for (int64_t k = rowptr[i]; k < end; ++k)
-        acc = __dadd_rn(acc, __dmul_rn(val[k], p[col[k]]));
-      y[i] = acc;
-      py[0] = __dmul_rn(p[i], acc);
-    }
-    if (part == nullptr) continue;
-    block_sums<1>(py, sh[turn]);
-    if (threadIdx.x == 0) part[b] = py[0];
+// The end of a tile of the product, in every thread: row i's sum acc is
+// y[i], and with partials the tile's p.y by the block's tree into part[b].
+__device__ void finish_tile(int64_t n, int64_t b, int64_t i, double acc,
+                            const double* __restrict__ p,
+                            double* __restrict__ y, double* part,
+                            double (*sh)[kThreads]) {
+  double py[1] = {0.0};
+  if (i < n) {
+    y[i] = acc;
+    py[0] = __dmul_rn(p[i], acc);
   }
+  if (part == nullptr) return;
+  block_sums<1>(py, sh);
+  if (threadIdx.x == 0) part[b] = py[0];
+}
+
+// The alpha tail of the product, in every thread of every block once its
+// tiles are done: the block that arrives last sums the tiles' partials of
+// p.Ap in their order and writes p.Ap and alpha = r.z / p.Ap.
+__device__ void alpha_tail(int64_t nb, const double* part, double* sc,
+                           unsigned* count, double (*sh)[kThreads]) {
   if (count == nullptr || !last_to_arrive(count)) return;
   const double rz = threadIdx.x == 0 ? sc[kRz] : 0.0;   // ahead of the sum
   double pap[1];
-  ordered_sums<1>(part, nb, sh[0], pap);
+  ordered_sums<1>(part, nb, sh, pap);
   if (threadIdx.x != 0) return;
   sc[kPap] = pap[0];
   sc[kAlpha] = __ddiv_rn(rz, pap[0]);
   *count = 0;
+}
+
+// The product's stage: kStageMax products at most, in shared memory. A
+// half-warp's 16 threads read their rows' products a step, at starts a row
+// length L apart, which meet gcd(L, 16) to a bank: none at odd lengths, as
+// in sparse_poisson's and fea_thermal's rows.
+constexpr int kStageMax = 6144;   // ops/spcg.py:STAGE_MAX
+constexpr int kUnroll = 4;        // a thread's loads in flight
+constexpr int kStagedBlocks = 4;  // registers for 4 blocks an SM
+
+size_t stage_bytes(int stage) { return stage * sizeof(double); }
+
+// prod[j] = val[j] p[col[j]] for j < len, every thread of the block taking
+// j = t, t + kThreads, ...: values and columns read once with coalesced
+// streaming loads, kUnroll a thread in flight, p gathered through the
+// read-only cache.
+__device__ void stage_products(const int32_t* __restrict__ col,
+                               const double* __restrict__ val,
+                               const double* __restrict__ p, int len,
+                               double* prod) {
+  for (int j0 = threadIdx.x; j0 < len; j0 += kUnroll * kThreads) {
+    int c[kUnroll];
+    double v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kThreads;
+      if (j < len) {
+        c[u] = __ldcs(col + j);
+        v[u] = __ldcs(val + j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kThreads;
+      if (j < len) prod[j] = __dmul_rn(v[u], __ldg(p + c[u]));
+    }
+  }
+}
+
+// x clamped to [lo, hi], in int64: a row's bounds within a chunk, however
+// far the row lies from it
+__device__ int64_t within(int64_t x, int64_t lo, int64_t hi) {
+  return x < lo ? lo : x > hi ? hi : x;
+}
+
+__global__ void __launch_bounds__(kThreads, kStagedBlocks)
+spmv_kernel(int64_t n, int64_t nb, int stage,
+            const int64_t* __restrict__ rowptr,
+            const int32_t* __restrict__ col, const double* __restrict__ val,
+            const double* __restrict__ p, double* __restrict__ y,
+            double* part, double* sc, unsigned* count, const int64_t* ctl) {
+  extern __shared__ double prod[];   // stage doubles
+  // two buffers, a tile's sums in each by turns: a tile's block_sums
+  // passes a barrier after warp 0 has read the last tile's
+  __shared__ double sh[2][1][kThreads];
+  if (done(ctl)) return;
+  auto tile_end = [&](int64_t t) {
+    return rowptr[(t + 1) * kThreads < n ? (t + 1) * kThreads : n];
+  };
+  int turn = 0;
+  // each tile's stretch [s, e) read a tile ahead
+  int64_t s2 = rowptr[blockIdx.x * kThreads], e2 = tile_end(blockIdx.x);
+  for (int64_t b = blockIdx.x; b < nb; b += gridDim.x, turn ^= 1) {
+    const int64_t i = b * kThreads + threadIdx.x, s = s2, e = e2;
+    if (b + gridDim.x < nb) {
+      s2 = rowptr[(b + gridDim.x) * kThreads];
+      e2 = tile_end(b + gridDim.x);
+    }
+    int64_t rs = e, re = e;
+    if (i < n) {
+      rs = rowptr[i];
+      re = rowptr[i + 1];
+    }
+    double acc = 0.0;
+    // the stretch in chunks of `stage`: a row's products in each chunk
+    // added in order, its sum carried from one chunk to the next
+    for (int64_t c0 = s; c0 < e; c0 += stage) {
+      const int64_t c1 = e - c0 < stage ? e : c0 + stage;
+      stage_products(col + c0, val + c0, p, static_cast<int>(c1 - c0), prod);
+      __syncthreads();
+      const int lo = static_cast<int>(within(rs, c0, c1) - c0);
+      const int hi = static_cast<int>(within(re, c0, c1) - c0);
+      for (int k = lo; k < hi; ++k) acc = __dadd_rn(acc, prod[k]);
+      __syncthreads();   // before the next chunk is staged
+    }
+    finish_tile(n, b, i, acc, p, y, part, sh[turn]);
+  }
+  alpha_tail(nb, part, sc, count, sh[0]);
+}
+
+// The earlier design of the product, a yardstick spbench.py times
+// spmv_kernel against (runmat_spmv_row_f64); the port never launches it.
+// One thread a row walks its values and columns in device memory: a warp's
+// loads touch 32 rows' stretches, which L1 keeps between steps only while
+// a block's stretch fits it.
+__global__ void __launch_bounds__(kThreads, kBlocks)
+spmv_row_kernel(int64_t n, int64_t nb, const int64_t* __restrict__ rowptr,
+                const int32_t* __restrict__ col,
+                const double* __restrict__ val, const double* __restrict__ p,
+                double* __restrict__ y, double* part, double* sc,
+                unsigned* count, const int64_t* ctl) {
+  __shared__ double sh[2][1][kThreads];   // as in spmv_kernel
+  if (done(ctl)) return;
+  int turn = 0;
+  for (int64_t b = blockIdx.x; b < nb; b += gridDim.x, turn ^= 1) {
+    const int64_t i = b * kThreads + threadIdx.x;
+    double acc = 0.0;
+    if (i < n) {
+      const int64_t end = rowptr[i + 1];
+      for (int64_t k = rowptr[i]; k < end; ++k)
+        acc = __dadd_rn(acc, __dmul_rn(val[k], p[col[k]]));
+    }
+    finish_tile(n, b, i, acc, p, y, part, sh[turn]);
+  }
+  alpha_tail(nb, part, sc, count, sh[0]);
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocks)
@@ -277,13 +400,20 @@ int64_t tiles(int64_t n) { return n > 0 ? (n + kThreads - 1) / kThreads : 1; }
 
 unsigned grid(int64_t n) { return static_cast<unsigned>(tiles(n)); }
 
-// A wave of blocks, at most: kBlocks an SM, no more than there are tiles.
-cudaError_t wave(int64_t n, int device, unsigned* out) {
-  int sms = 0;
-  const cudaError_t e =
+// A wave of blocks of `kernel` with `smem` bytes of dynamic shared memory,
+// at most: as many an SM as fit, no more than there are tiles.
+template <typename K>
+cudaError_t wave(int64_t n, int device, K kernel, size_t smem,
+                 unsigned* out) {
+  int sms = 0, per = 0;
+  cudaError_t e =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
-  const int64_t most = static_cast<int64_t>(sms) * kBlocks;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per < 1) return cudaErrorInvalidConfiguration;
+  const int64_t most = static_cast<int64_t>(sms) * per;
   *out = static_cast<unsigned>(tiles(n) < most ? tiles(n) : most);
   return cudaSuccess;
 }
@@ -295,30 +425,68 @@ bool rows_ok(int64_t n) {
 
 }  // namespace
 
+// Lets the product take kStageMax products of shared memory (above the
+// 48 KB a launch gets without asking); once a device, before any capture.
+extern "C" int runmat_spmv_prepare(int device) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return static_cast<int>(cudaFuncSetAttribute(
+      spmv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(stage_bytes(kStageMax))));
+}
+
 // y = A p (n rows; rowptr n + 1 int64, col int32, val float64, p and y n
-// float64). part: tiles(n) partials of p.y, one a tile of kThreads rows,
-// or null. count: the arrival counter (one unsigned, 0 between launches)
-// for the alpha tail, which writes sc's p.Ap and alpha, or null for no
-// tail. ctl: the done flag [done, k] (int64), or null.
+// float64), staging `stage` products at a time (a multiple of 16 from
+// kThreads to kStageMax). part: tiles(n) partials of p.y, one a tile of
+// kThreads rows, or null. count: the arrival counter (one unsigned, 0
+// between launches) for the alpha tail, which writes sc's p.Ap and alpha,
+// or null for no tail. ctl: the done flag [done, k] (int64), or null.
 extern "C" int runmat_spmv_f64(int64_t n, const void* rowptr, const void* col,
                                const void* val, const void* p, void* y,
                                void* part, void* sc, void* count,
-                               const void* ctl, void* stream, int device) {
+                               const void* ctl, int stage, void* stream,
+                               int device) {
+  if (!rows_ok(n) || (count != nullptr && (part == nullptr || sc == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (stage < kThreads || stage > kStageMax || stage % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const size_t smem = stage_bytes(stage);
+  unsigned blocks = 0;
+  const cudaError_t sized = wave(n, device, spmv_kernel, smem, &blocks);
+  if (sized != cudaSuccess) return static_cast<int>(sized);
+  spmv_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      n, tiles(n), stage, static_cast<const int64_t*>(rowptr),
+      static_cast<const int32_t*>(col), static_cast<const double*>(val),
+      static_cast<const double*>(p), static_cast<double*>(y),
+      static_cast<double*>(part), static_cast<double*>(sc),
+      static_cast<unsigned*>(count), static_cast<const int64_t*>(ctl));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The earlier one-thread-a-row design of the same product, with the same
+// arguments but the stage: a yardstick for spbench.py alone.
+extern "C" int runmat_spmv_row_f64(int64_t n, const void* rowptr,
+                                   const void* col, const void* val,
+                                   const void* p, void* y, void* part,
+                                   void* sc, void* count, const void* ctl,
+                                   void* stream, int device) {
   if (!rows_ok(n) || (count != nullptr && (part == nullptr || sc == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   unsigned blocks = 0;
-  const cudaError_t sized = wave(n, device, &blocks);
+  const cudaError_t sized = wave(n, device, spmv_row_kernel, 0, &blocks);
   if (sized != cudaSuccess) return static_cast<int>(sized);
-  spmv_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  spmv_row_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       n, tiles(n), static_cast<const int64_t*>(rowptr),
-      static_cast<const int32_t*>(col),
-      static_cast<const double*>(val), static_cast<const double*>(p),
-      static_cast<double*>(y), static_cast<double*>(part),
-      static_cast<double*>(sc), static_cast<unsigned*>(count),
-      static_cast<const int64_t*>(ctl));
+      static_cast<const int32_t*>(col), static_cast<const double*>(val),
+      static_cast<const double*>(p), static_cast<double*>(y),
+      static_cast<double*>(part), static_cast<double*>(sc),
+      static_cast<unsigned*>(count), static_cast<const int64_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -335,7 +503,7 @@ extern "C" int runmat_cg_update(int64_t n, int init, void* sc, void* x,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   unsigned blocks = 0;
-  const cudaError_t sized = wave(n, device, &blocks);
+  const cudaError_t sized = wave(n, device, update_kernel, 0, &blocks);
   if (sized != cudaSuccess) return static_cast<int>(sized);
   update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       n, tiles(n), init, static_cast<double*>(sc), static_cast<double*>(x),

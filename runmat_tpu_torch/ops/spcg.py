@@ -19,6 +19,13 @@ On a card one iteration is three launches of three kernels, in this order:
                   !(sqrt(r.r) > tol sqrt(b.b) && k < maxit)
     cg_direction  p = z + beta p
 
+`spmv_f64` stages each tile's products in shared memory: the block reads
+the tile's stretch of the CSR (its THREADS rows' nonzeros) once with
+coalesced loads, multiplies each value by its gathered p into shared
+memory, and each thread then adds its row's products from there in
+ascending order (`stage` sizes the buffer, and a longer stretch goes in
+chunks).
+
 Every kernel reads the done flag first and writes nothing once it is set,
 so CHUNK iterations run as one captured CUDA graph, replayed until the
 host, reading the flag once a chunk (`count_read` is told of each read),
@@ -54,6 +61,7 @@ captured: collections.Counter = collections.Counter()
 
 CHUNK = 128              # iterations a captured graph holds
 THREADS = 256            # rows a tile, and lanes (csrc/spcg.cu: kThreads)
+STAGE_MAX = 6144         # products staged at most (csrc/spcg.cu: kStageMax)
 # the slots of the scalar state (csrc/spcg.cu: Slot)
 SLOTS = {"rz": 0, "bb": 1, "alpha": 2, "beta": 3, "rr": 4, "pap": 5}
 _SCALARS = 8                         # float64 slots of the scalar state
@@ -78,6 +86,15 @@ def blocks(n: int) -> int:
     """Tiles of THREADS rows a vector of n takes: the count of tile
     partials."""
     return max(1, -(-n // THREADS))
+
+
+def stage(n: int, nnz: int) -> int:
+    """The products `spmv_f64` stages in shared memory for a matrix of n
+    rows and nnz nonzeros: a tile's mean stretch (THREADS rows) and an
+    eighth more, rounded up to whole multiples of THREADS, from THREADS to
+    STAGE_MAX; a longer stretch is walked in chunks of this many."""
+    mean = -(-nnz * 9 // max(1, 8 * n))
+    return min(STAGE_MAX, max(THREADS, THREADS * mean))
 
 
 def _launched(label: str, rc: int) -> None:
@@ -238,21 +255,37 @@ def spmv(rowptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     return y
 
 
+_prepared: set = set()
+
+
+def _prepare(device_index: int) -> None:
+    """Lets `spmv_f64` take STAGE_MAX products of shared memory on the
+    device: once a device, before any capture."""
+    if device_index in _prepared:
+        return
+    rc = _entry("runmat_spmv_prepare", [_INT])(device_index)
+    if rc != 0:
+        raise RuntimeError(f"spmv_f64 shared memory: CUDA error {rc}")
+    _prepared.add(device_index)
+
+
 def _spmv(n, rowptr, col, val, p, y, part=None, sc=None, count=None,
           ctl=None) -> None:
-    """The `spmv_f64` launch: y = A p; where given, `part` (blocks(n)
-    values) the tile partials of p.y, `count` (one int32, 0 between
-    launches) the arrival counter of the alpha tail, which writes `sc`'s
-    p.Ap and alpha = r.z / p.Ap, and `ctl` the done flag, which stops the
-    kernel before it writes."""
+    """The `spmv_f64` launch: y = A p, staging `stage(n, nnz)` products at
+    a time; where given, `part` (blocks(n) values) the tile partials of
+    p.y, `count` (one int32, 0 between launches) the arrival counter of
+    the alpha tail, which writes `sc`'s p.Ap and alpha = r.z / p.Ap, and
+    `ctl` the done flag, which stops the kernel before it writes."""
     if n == 0:
         return
+    stream, index = _stream(p)
+    _prepare(index)
     fn = _entry("runmat_spmv_f64", [_I64, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _INT])
-    _launched("spmv_f64", fn(n, rowptr.data_ptr(), col.data_ptr(),
-                             val.data_ptr(), p.data_ptr(), y.data_ptr(),
-                             _ptr(part), _ptr(sc), _ptr(count), _ptr(ctl),
-                             *_stream(p)))
+                                     _P, _INT, _P, _INT])
+    _launched("spmv_f64", fn(
+        n, rowptr.data_ptr(), col.data_ptr(), val.data_ptr(), p.data_ptr(),
+        y.data_ptr(), _ptr(part), _ptr(sc), _ptr(count), _ptr(ctl),
+        stage(n, val.numel()), stream, index))
 
 
 class _Solver:
@@ -279,6 +312,7 @@ class _Solver:
         self.count = torch.zeros(2, dtype=torch.int32, device=dev)
         self.tol, self.maxit = float(tol), int(maxit)
         self.graph, self.graph_launches = None, collections.Counter()
+        _prepare(_stream(self.x)[1])
 
     def load(self, rowptr, col, val, invd) -> None:
         for dst, src in ((self.rowptr, rowptr), (self.col, col),

@@ -5,33 +5,42 @@ them at sparse_poisson.m's shapes.
 
 `spmv_cases` makes the matrices `spmv_f64` is held to `plain_spmv` on,
 bit for bit (both add each row's products in ascending column order from
-0, each rounded apart): rows that are empty, a row of 5000 nonzeros, a
-matrix whose triangles differ in the last bits, and the main path's
-five-point Poisson matrix (`poisson_csr`, N = 1024: 2^20 rows, 5,240,830
-nonzeros). `cg_cases` makes the systems the whole solve (`spcg.cg`, the
-three kernels in captured graphs) is held to on: a 60^2 Poisson system
-and a seeded symmetric positive definite `sprandsym`-style matrix; x and
-k equal to `plain_cg(..., ordered=True)`'s bit for bit (the kernels'
-order of summing, in torch ops), x within `X_TOL` of the largest entry
-of `plain_cg`'s (the JAX loop's ops, whose dot products sum in another
+0, each rounded apart; `spmv_held`), one matrix a case
+(`spmv_case(dev, i)`, i < SPMV_CASES): rows that are empty, a row of 5000
+nonzeros, a matrix whose triangles differ in the last bits, the main
+path's five-point Poisson matrix (`poisson_csr`, N = 1024: 2^20 rows,
+5,240,830 nonzeros), the pattern of fea_thermal.m's cube (`cube_csr`,
+R = 64: 266,175 rows, 4,394,043 nonzeros, 17 in an interior row), tiles whose
+stretches fill the stage exactly and overflow it by one nonzero
+(`filled_stage_lengths`), and stretches that start at odd offsets.
+`cg_cases` makes the systems the whole solve (`spcg.cg`, the three
+kernels in captured graphs) is held to on: a 60^2 Poisson system and a
+seeded symmetric positive definite `sprandsym`-style matrix; x and k
+equal to `plain_cg(..., ordered=True)`'s bit for bit (the kernels' order
+of summing, in torch ops), x within `X_TOL` of the largest entry of
+`plain_cg`'s (the JAX loop's ops, whose dot products sum in another
 order), each residual at most 1e-10 of norm(b). `first_iteration` runs a
 solve's start and one iteration's three launches one at a time, holds
-each kernel's vectors to the torch ops of the JAX loop's body on the same
-inputs and each tail's scalars (p.Ap and alpha; r.z, r.r, beta, k and the
-done flag; at the start b.b) to the ordered model, bit for bit.
-`step_rows` does that on the path's matrix and times each kernel, the
-product without its partials and the update without its tail (the tails'
-times are the differences), the whole iteration and its plain version
-with CUDA events (`histbench.time_ms`), beside the least time the card
-could take (each input read once and each output written once over 3.35
-TB/s, or the flops over the float64 rate outside the tensor cores, 34
-TFLOP/s, whichever is larger) and, where one PyTorch call computes the
-same function, that call: `torch.sparse_csr_tensor(...) @ p` (cuSPARSE)
-for the product, `torch.add(z, p, alpha=beta)` for the direction. Those
-calls are yardsticks; the port calls neither. Run as a script, this file
-imports `runmat_tpu_torch` from DIR (default: the checkout holding this
-file) and prints the card's name and power limit, a line a row and one
-JSON line. Needs a CUDA card.
+each kernel's vectors to the torch ops of the JAX loop's body on the
+same inputs and each tail's scalars (p.Ap and alpha; r.z, r.r, beta, k
+and the done flag; at the start b.b) to the ordered model, bit for bit.
+`step_rows` does that on the path's matrix and times each kernel (the
+product in turns with the earlier one-thread-a-row design, with the same
+partials and tail: `earlier_product`, a yardstick the port never calls),
+the product without its partials and the update without its tail (the
+tails' times are the differences), the whole iteration and its plain
+version with CUDA events (`histbench.time_ms`), beside the least time
+the card could take (each input read once and each output written once
+over 3.35 TB/s, or the flops over the float64 rate outside the tensor
+cores, 34 TFLOP/s, whichever is larger) and, where one PyTorch call
+computes the same function, that call: `torch.sparse_csr_tensor(...)
+@ p` (cuSPARSE) for the product, `torch.add(z, p, alpha=beta)` for the
+direction. Those calls are yardsticks; the port calls neither.
+`row_sweep` times the product and the earlier design on banded rows of
+4, 8, 16 and 32 nonzeros (2^20 rows) beside cuSPARSE and the bound.
+Run as a script, this file imports `runmat_tpu_torch` from DIR (default:
+the checkout holding this file) and prints the card's name and power
+limit, a line a row and one JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import warnings
 import numpy as np
 
 N_POISSON = 1024                # sparse_poisson.m's default N
+THERMAL_R = 64                  # fea_thermal.m's default R
 BYTES_PER_S = 3.35e12
 F64_PER_S = 34e12               # float64 FMA rate outside the tensor cores
 X_TOL = 1e-8                    # of the largest entry of x
@@ -99,52 +109,178 @@ def inverse_diagonal(rowptr, col, val):
     return 1.0 / torch.where(d == 0, torch.ones_like(d), d)
 
 
-def spmv_cases(dev) -> list:
-    """(label, rowptr, col, val, p) on `dev`."""
+def _csr_of_rows(rows, cols, n: int, dev) -> tuple:
+    """(rowptr, col) of the (row, column) pairs `rows`, `cols` (int64
+    tensors, sorted by row, then column) of an n-row matrix."""
+    import torch
+    rowptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    rowptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    return rowptr, cols.to(torch.int32)
+
+
+def cube_csr(R: int, dev, seed: int = 21) -> tuple:
+    """The pattern of fea_thermal.m's conduction matrix at R edges a side
+    (box_mesh's six tets a hex, the nodes of the faces x = 0 and x = 1
+    removed as apply_dirichlet removes them: (R + 1)^3 - 2 (R + 1)^2 rows,
+    17 nonzeros in an interior row), built on `dev`, with seeded values:
+    (rowptr, col, val)."""
     import torch
 
+    from runmat_tpu_torch.fea.mesh import _HEX_TO_TETS
+    m = R + 1
+    a = torch.arange(R, device=dev)
+    i, j, k = (t.reshape(-1) for t in torch.meshgrid(a, a, a, indexing="ij"))
+
+    def nid(di, dj, dk):
+        return ((i + di) * m + j + dj) * m + k + dk
+
+    corners = torch.stack([nid(0, 0, 0), nid(1, 0, 0), nid(1, 1, 0),
+                           nid(0, 1, 0), nid(0, 0, 1), nid(1, 0, 1),
+                           nid(1, 1, 1), nid(0, 1, 1)], 1)
+    tets = corners[:, torch.from_numpy(_HEX_TO_TETS).to(dev)].reshape(-1, 4)
+    nodes = m ** 3
+    keys = torch.unique((tets[:, :, None] * nodes + tets[:, None, :])
+                        .reshape(-1))
+    rows, cols = keys // nodes, keys % nodes
+    x = torch.arange(nodes, device=dev) // (m * m)
+    free = (x > 0) & (x < R)
+    new = torch.cumsum(free.long(), 0) - 1
+    keep = free[rows] & free[cols]
+    n = int(free.sum())
+    rowptr, col = _csr_of_rows(new[rows[keep]], new[cols[keep]], n, dev)
+    val = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        col.numel())).to(dev)
+    return rowptr, col, val
+
+
+def banded_csr(lengths, dev, seed: int = 22) -> tuple:
+    """A CSR whose row i holds lengths[i] nonzeros at the columns i,
+    i + 1, ... (mod n) in ascending order, with seeded values:
+    (rowptr, col, val)."""
+    import torch
+    lens = torch.as_tensor(np.asarray(lengths), dtype=torch.int64,
+                           device=dev)
+    n = lens.numel()
+    rows = torch.repeat_interleave(torch.arange(n, device=dev), lens)
+    start = torch.cumsum(lens, 0) - lens
+    off = torch.arange(rows.numel(), device=dev) - start[rows]
+    cols = (rows + off) % n
+    # the columns that wrapped past n - 1 lead their row
+    order = torch.argsort(rows * n + cols)
+    rowptr, col = _csr_of_rows(rows[order], cols[order], n, dev)
+    val = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        col.numel())).to(dev)
+    return rowptr, col, val
+
+
+def filled_stage_lengths(spcg, n: int = 256 * 64, w: int = 8) -> np.ndarray:
+    """Row lengths of n rows, w a row, but for tile 0's stretch, which
+    holds exactly the product's stage (`spcg.stage` of the whole matrix),
+    and tile 1's, which holds one nonzero more."""
+    T = spcg.THREADS
+    size = spcg.stage(n, n * w)
+    for _ in range(8):
+        lens = np.full(n, w, dtype=np.int64)
+        for b, want in ((0, size), (1, size + 1)):
+            lens[b * T:(b + 1) * T] = want // T
+            lens[b * T:b * T + want % T] += 1
+        again = spcg.stage(n, int(lens.sum()))
+        if again == size:
+            return lens
+        size = again
+    raise AssertionError("spbench: no stage fixed point")
+
+
+SPMV_CASES = 7
+
+
+def spmv_case(dev, i: int) -> tuple:
+    """Case i of `spmv_cases` alone: (label, rowptr, col, val, p) on
+    `dev`, p seeded from i."""
+    import torch
+
+    from runmat_tpu_torch.ops import spcg
     from runmat_tpu_torch.sparse import SparseMatrix
-    rng = np.random.default_rng(13)
-    out = []
-    n = 200_000
-    ii, jj = rng.integers(0, n, 600_000), rng.integers(0, n, 600_000)
-    keep = ii % 3 != 1                            # a third of the rows empty
-    A = SparseMatrix.from_triplets(ii[keep], jj[keep],
-                                   rng.standard_normal(keep.sum()), n, n)
-    out.append(("empty rows (n=200000)", A))
-    n = 20_000
-    ii = np.concatenate([np.full(5000, 7), rng.integers(0, n, 60_000)])
-    jj = np.concatenate([rng.permutation(n)[:5000],
-                         rng.integers(0, n, 60_000)])
-    out.append(("a row of 5000 nonzeros (n=20000)",
-                SparseMatrix.from_triplets(ii, jj,
-                                           rng.standard_normal(ii.size),
-                                           n, n)))
-    n = 100_000
-    i, j = rng.integers(0, n, 300_000), rng.integers(0, n, 300_000)
-    v = rng.standard_normal(300_000)
-    vt = v * (1 + 4 * np.finfo(float).eps * rng.standard_normal(v.size))
-    out.append(("triangles that differ in the last bits (n=100000)",
-                SparseMatrix.from_triplets(np.concatenate([i, j]),
-                                           np.concatenate([j, i]),
-                                           np.concatenate([v, vt]), n, n)))
-    cases = [(label, *csr_of(A, dev)) for label, A in out]
-    cases.append((f"sparse_poisson.m's A (N={N_POISSON})",
-                  *poisson_csr(N_POISSON, dev)))
-    return [(label, rp, c, v,
-             torch.from_numpy(rng.standard_normal(rp.numel() - 1)).to(dev))
-            for label, rp, c, v in cases]
+    rng = np.random.default_rng(13 + i)
+    if i == 0:
+        n = 200_000
+        ii, jj = rng.integers(0, n, 600_000), rng.integers(0, n, 600_000)
+        keep = ii % 3 != 1                        # a third of the rows empty
+        label, csr = "empty rows (n=200000)", csr_of(
+            SparseMatrix.from_triplets(ii[keep], jj[keep],
+                                       rng.standard_normal(keep.sum()), n,
+                                       n), dev)
+    elif i == 1:
+        n = 20_000
+        ii = np.concatenate([np.full(5000, 7), rng.integers(0, n, 60_000)])
+        jj = np.concatenate([rng.permutation(n)[:5000],
+                             rng.integers(0, n, 60_000)])
+        label, csr = "a row of 5000 nonzeros (n=20000)", csr_of(
+            SparseMatrix.from_triplets(ii, jj, rng.standard_normal(ii.size),
+                                       n, n), dev)
+    elif i == 2:
+        n = 100_000
+        a, b = rng.integers(0, n, 300_000), rng.integers(0, n, 300_000)
+        v = rng.standard_normal(300_000)
+        vt = v * (1 + 4 * np.finfo(float).eps * rng.standard_normal(v.size))
+        label, csr = "triangles that differ in the last bits (n=100000)", \
+            csr_of(SparseMatrix.from_triplets(
+                np.concatenate([a, b]), np.concatenate([b, a]),
+                np.concatenate([v, vt]), n, n), dev)
+    elif i == 3:
+        label, csr = f"sparse_poisson.m's A (N={N_POISSON})", \
+            poisson_csr(N_POISSON, dev)
+    elif i == 4:
+        label, csr = f"fea_thermal.m's cube pattern (R={THERMAL_R})", \
+            cube_csr(THERMAL_R, dev)
+    elif i == 5:
+        lens = filled_stage_lengths(spcg)
+        size = spcg.stage(lens.size, int(lens.sum()))
+        label, csr = (f"tile stretches of the stage and one more "
+                      f"(n={lens.size}, stage={size})",
+                      banded_csr(lens, dev))
+    elif i == 6:
+        lens = np.full(100_000, 8)
+        lens[0] = 3             # every later tile starts at an odd offset
+        label, csr = "stretches at odd offsets (n=100000)", \
+            banded_csr(lens, dev)
+    else:
+        raise IndexError(f"spmv_case: {i} of {SPMV_CASES}")
+    n = csr[0].numel() - 1
+    return (label, *csr, torch.from_numpy(rng.standard_normal(n)).to(dev))
+
+
+def spmv_cases(dev) -> list:
+    """Every `spmv_case` on `dev`."""
+    return [spmv_case(dev, i) for i in range(SPMV_CASES)]
 
 
 def spmv_held(spcg, rowptr, col, val, p) -> dict:
-    """The kernel against plain_spmv, bit for bit."""
+    """The kernel against plain_spmv, bit for bit, at the matrix's stage:
+    one launch."""
     import torch
     got = spcg.spmv(rowptr, col, val, p)
     want = spcg.plain_spmv(rowptr, col, val, p)
     torch.cuda.synchronize()
     return {"equal": bool(torch.equal(got, want)),
-            "max_abs_err": float((got - want).abs().max())
-            if got.numel() else 0.0}
+            "stage": spcg.stage(rowptr.numel() - 1, val.numel()),
+            "max_abs_err": _diff(got, want)}
+
+
+def earlier_product(spcg, n, rowptr, col, val, p, y, part=None, sc=None,
+                    count=None, ctl=None) -> None:
+    """The earlier one-thread-a-row design of `spmv_f64`'s product with the
+    same arguments (csrc/spcg.cu:runmat_spmv_row_f64): a yardstick the
+    kernel is timed against, counted nowhere and called by no path."""
+    import ctypes
+    P = ctypes.c_void_p
+    fn = spcg._entry("runmat_spmv_row_f64", [ctypes.c_int64] + [P] * 10 +
+                     [ctypes.c_int])
+    rc = fn(n, rowptr.data_ptr(), col.data_ptr(), val.data_ptr(),
+            p.data_ptr(), y.data_ptr(), spcg._ptr(part), spcg._ptr(sc),
+            spcg._ptr(count), spcg._ptr(ctl), *spcg._stream(p))
+    if rc != 0:
+        raise RuntimeError(f"the earlier spmv design: CUDA error {rc}")
 
 
 def cg_cases(dev) -> list:
@@ -347,6 +483,17 @@ def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON,
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bms, "bound_by": by, "bytes": work[name][0],
                       "max_abs_err": err[name], "ok": check[name]}
+    # the product against the earlier design (one thread a row) with the
+    # same partials and tail, in turns: kernel, earlier, earlier, kernel
+    def earlier():
+        earlier_product(spcg, n, s.rowptr, s.col, s.val, s.p, s.ap, s.part,
+                        s.sc, s.count[0:1], s.ctl)
+
+    turns = [time_ms(f, reps) for f in (s._product, earlier, earlier,
+                                        s._product)]
+    rows["spmv_f64"].update(stage=spcg.stage(n, nnz), turns_ms=turns,
+                            ms=(turns[0] + turns[3]) / 2,
+                            earlier_ms=(turns[1] + turns[2]) / 2)
     # the kernels without their tails, the product without its partials
     bare = {"spmv_f64": (lambda: spcg._spmv(n, s.rowptr, s.col, s.val, s.p,
                                             s.ap, ctl=s.ctl), product),
@@ -390,6 +537,41 @@ def step_rows(spcg, time_ms, reps: int, N: int = N_POISSON,
     return {"n": n, "nnz": nnz, "start_ok": check["start"],
             "timed_ok": timed_ok, "rows": rows, "tails": tails,
             "iteration": iteration}
+
+
+def row_sweep(spcg, time_ms, reps: int, lengths=(4, 8, 16, 32),
+              n: int = 1 << 20) -> list:
+    """The product without partials on `banded_csr` rows of each of
+    `lengths` nonzeros (n rows: the CSR outgrows L2 at each), the kernel
+    and the earlier design in turns (kernel, earlier, earlier, kernel),
+    beside cuSPARSE and the bound (the CSR, p and y once): how the share
+    of bound of each falls as a block's stretch of the CSR grows. One dict
+    a length."""
+    import torch
+    dev = torch.device("cuda")
+    out = []
+    for w in lengths:
+        rowptr, col, val = banded_csr(np.full(n, w), dev)
+        p = torch.from_numpy(np.random.default_rng(w).standard_normal(
+            n)).to(dev)
+        y = torch.empty(n, dtype=torch.float64, device=dev)
+        runs = (lambda: spcg._spmv(n, rowptr, col, val, p, y),
+                lambda: earlier_product(spcg, n, rowptr, col, val, p, y))
+        turns = [time_ms(runs[k], reps) for k in (0, 1, 1, 0)]
+        with warnings.catch_warnings():    # "support is in beta state"
+            warnings.simplefilter("ignore", UserWarning)
+            csr = torch.sparse_csr_tensor(rowptr, col.to(torch.int64), val,
+                                          (n, n), check_invariants=False)
+        nbytes = 8 * (n + 1) + 12 * val.numel() + 16 * n
+        bms = bound(nbytes, 2 * val.numel())[0]
+        out.append({"per_row": w, "n": n, "nnz": val.numel(),
+                    "stage": spcg.stage(n, val.numel()),
+                    "ms": (turns[0] + turns[3]) / 2,
+                    "earlier_ms": (turns[1] + turns[2]) / 2,
+                    "library_ms": time_ms(lambda: csr @ p, reps),
+                    "bound_ms": bms, "bytes": nbytes})
+        del rowptr, col, val, csr
+    return out
 
 
 def tail_code() -> dict:
@@ -437,6 +619,9 @@ def main() -> int:
     for name, row in r["tails"].items():
         print(f"{name} tail: {row}")
     print(f"iteration: {r['iteration']}")
+    r["sweep"] = row_sweep(spcg, histbench.time_ms, args.reps)
+    for row in r["sweep"]:
+        print(f"sweep: {row}")
     r["tail_code"] = tail_code()
     print(f"tail code: {r['tail_code']}")
     print(json.dumps({"tree": os.path.abspath(args.tree), "card": card,

@@ -70,6 +70,13 @@ INTERP = {
                                       "0.25], 3, 4));"),
     "column-knots": ("x = gpuArray((0:0.5:3)'); v = gpuArray((1:7)' .^ 2);",
                      "q = gpuArray([0.2; 2.9; 3]);"),
+    # v shorter than x: XLA clamps the JAX builder's gather into v
+    "magic-knots-short-values": ("x = gpuArray(magic(4)); v = gpuArray(1:5);",
+                                 "q = gpuArray(1:5);"),
+    "short-values-past-the-end": ("x = gpuArray(0:4); v = gpuArray([1 4 9]);",
+                                  "q = gpuArray([0.5 1.5 2.5 3.5 4]);"),
+    "short-values-inside": ("x = gpuArray([1 2 3 4]); v = gpuArray([10 20 "
+                            "30]);", "q = gpuArray(2.5);"),
 }
 
 

@@ -1348,15 +1348,29 @@ def test_parfeval_on_a_device_array_while_the_card_computes(card):
 # tail's scalars the ordered model's
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(7))
 def test_spmv_kernel_matches_plain(card, case):
     from runmat_tpu_torch import spbench
     from runmat_tpu_torch.ops import spcg
-    label, *csr = spbench.spmv_cases(card)[case]
+    label, *csr = spbench.spmv_case(card, case)
     before = spcg.launches
     r = spbench.spmv_held(spcg, *csr)
     assert spcg.launches == before + 1
     assert r["equal"], (label, r)
+
+
+@pytest.mark.parametrize("case", [0, 1, 4])
+def test_the_earlier_spmv_design_matches_plain(card, case):
+    # the one-thread-a-row yardstick the product is timed against, which
+    # no path launches and no count sees
+    from runmat_tpu_torch import spbench
+    from runmat_tpu_torch.ops import spcg
+    label, rowptr, col, val, p = spbench.spmv_case(card, case)
+    before = collections.Counter(spcg.launches_by)
+    got = torch.empty_like(p)
+    spbench.earlier_product(spcg, p.numel(), rowptr, col, val, p, got)
+    assert collections.Counter(spcg.launches_by) == before
+    assert torch.equal(got, spcg.plain_spmv(rowptr, col, val, p)), label
 
 
 @pytest.mark.parametrize("case", range(2))

@@ -7,6 +7,9 @@ packages' device engines on the CPU (`tests/torch_both.py`).
   `pageinv`, `pagemldivide`, `pagenorm` (ord 1, 2, Inf, 'fro') and
   `pagectranspose` through the port's device builders (`accel/dense.py`)
   against the JAX builders (`runmat_tpu/accel/dense.py:407-520`);
+* a shape mismatch in `pagemtimes` or `pagemldivide`: the port's builder
+  raises numpy's ValueError, as the JAX package's host path does once its
+  builder fails (identifier and text equal);
 * `pagefun(@mtimes, A, B)`, which failed in the port before `linalg2` was
   copied, equal to the JAX package's and on the device in both;
 * `filter` of order 39 (40 coefficients), which a card refused before
@@ -95,6 +98,19 @@ def test_a_singular_page_gives_non_finite_values_without_an_error():
         h = np.asarray(s.get("Ai").host())
         assert np.array_equal(h[:, :, 0], np.eye(3) / 2)
         assert not np.isfinite(h[:, :, 1]).any()
+
+
+@pytest.mark.parametrize("src", [
+    "C = pagemtimes(A, B);", "C = pagemtimes(A, 'transpose', B, 'none');",
+    "C = pagemldivide(A, B);"])
+def test_a_shape_mismatch_raises_the_jax_packages_error(src):
+    # the JAX builder fails and its host path raises numpy's ValueError
+    b = run_both("A = gpuArray(magic(4)); B = gpuArray(1:5);", src)
+    assert b.jr.error is not None and b.tr.error is not None
+    assert b.tr.error.identifier == b.jr.error.identifier == \
+        "RunMat:builtin:internalError"
+    assert str(b.tr.error) == str(b.jr.error)
+    assert "ValueError" in str(b.tr.error)
 
 
 @pytest.mark.parametrize("ordv", ["1", "2", "Inf", "'fro'"])

@@ -4,8 +4,15 @@ CPU (`runmat_tpu_torch/sparse.py`, `runmat_tpu_torch/ops/spcg.py`).
 * `spcg.spmv` on a CPU tensor (its plain version) against the JAX
   package's BCOO matvec built as `runmat_tpu/sparse.py:249-252` builds it,
   on seeded matrices with empty rows and columns, summed duplicate
-  triplets and triangles that differ in the last bits: bit-equal, since
-  both add each row's products in ascending column order from 0.
+  triplets, triangles that differ in the last bits, a long row and
+  fea_thermal.m's conduction matrix at R = 12 (the cube's 3-D rows):
+  bit-equal, since both add each row's products in ascending column order
+  from 0.
+* `spbench.cube_csr` (the cube's pattern the card checks build at R = 64)
+  against the JAX package's assembly; the case whose tiles fill the
+  product's stage and overflow it by one nonzero; the card's other
+  `spbench.spmv_case`s built here, each a CSR of sorted rows;
+  `spcg.stage`, the stage's size.
 * `SparseMatrix._cg_device` under the port's `TorchEngine("cpu")` (the
   plain CG, `spcg.plain_cg`) against `runmat_tpu.sparse.SparseMatrix.
   _cg_device` under `JaxEngine("cpu")`: x within 1e-8 of the largest
@@ -28,6 +35,7 @@ from runmat_tpu.accel.engine import JaxEngine
 from runmat_tpu.sparse import SparseMatrix as JaxSparse
 from runmat_tpu_torch import accel as taccel
 from runmat_tpu_torch.accel.engine import TorchEngine
+from runmat_tpu_torch import spbench
 from runmat_tpu_torch.ops import spcg
 from runmat_tpu_torch.sparse import SparseMatrix
 
@@ -70,6 +78,12 @@ def _triplets(case: str, seed: int):
         vt = v * (1 + 4 * np.finfo(float).eps * rng.standard_normal(1200))
         return n, np.concatenate([i, j]), np.concatenate([j, i]), \
             np.concatenate([v, vt])
+    if case == "3-D conduction rows":
+        # fea_thermal.m's conduction matrix at R = 12 (box_mesh's six tets
+        # a hex, the faces x = 0 and x = 1 held): 17 nonzeros an interior
+        # row, the cube's row structure
+        n, ii, jj, vv = _conduction(12)
+        return n, ii, jj, vv
     if case == "a long row":
         n = 5000
         ii = np.concatenate([np.full(4500, 17), rng.integers(0, n, 3000)])
@@ -77,6 +91,21 @@ def _triplets(case: str, seed: int):
                              rng.integers(0, n, 3000)])
         return n, ii, jj, rng.standard_normal(ii.size)
     raise AssertionError(case)
+
+
+def _conduction(R: int) -> tuple:
+    """(n, ii, jj, vv): the free system of fea_thermal.m's cube at R edges
+    a side, assembled by the JAX package as fea.run assembles it."""
+    from runmat_tpu.fea.assembly import apply_dirichlet, assemble_diffusion
+    from runmat_tpu.fea.mesh import box_mesh
+    mesh = box_mesh((1.0, 1.0, 1.0), (R, R, R))
+    x = mesh.nodes[:, 0]
+    fixed = np.nonzero((x < 1e-12) | (x > 1.0 - 1e-12))[0]
+    K, _ = assemble_diffusion(mesh, 45.0)
+    Kff, _, _, _ = apply_dirichlet(K, np.full(mesh.n_nodes, 100.0), fixed,
+                                   np.full(fixed.size, 300.0))
+    ii, jj, vv = Kff.triplets()
+    return Kff.n, ii, jj, vv
 
 
 def _csr(A) -> tuple:
@@ -102,7 +131,7 @@ def _bcoo_matvec(A: JaxSparse, p: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("case", ["empty rows and columns", "duplicates",
                                   "triangles differ in the last bits",
-                                  "a long row"])
+                                  "a long row", "3-D conduction rows"])
 def test_spmv_equals_the_jax_bcoo_matvec(case, seed):
     n, ii, jj, vv = _triplets(case, seed)
     p = np.random.default_rng(seed + 10).standard_normal(n)
@@ -111,6 +140,63 @@ def test_spmv_equals_the_jax_bcoo_matvec(case, seed):
                     torch.from_numpy(p))
     assert got.dtype == torch.float64 and got.shape == (n,)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("R", [3, 8])
+def test_cube_csr_is_fea_thermals_pattern(R):
+    # the card checks build the cube's pattern at R = 64 on the device
+    # (spbench.cube_csr); here it is held to the matrix the JAX package
+    # assembles, position for position
+    n, ii, jj, vv = _conduction(R)
+    rowptr, col, _ = _csr(SparseMatrix.from_triplets(ii, jj, vv, n, n))
+    got = spbench.cube_csr(R, torch.device("cpu"))
+    assert torch.equal(got[0], rowptr) and torch.equal(got[1], col)
+    assert got[2].dtype == torch.float64 and got[2].numel() == col.numel()
+
+
+def test_the_filled_stage_case_fills_the_stage_and_overflows_it_by_one():
+    lens = spbench.filled_stage_lengths(spcg)
+    rowptr, col, _ = spbench.banded_csr(lens, torch.device("cpu"))
+    size = spcg.stage(lens.size, int(lens.sum()))
+    T = spcg.THREADS
+    assert int(rowptr[T] - rowptr[0]) == size
+    assert int(rowptr[2 * T] - rowptr[T]) == size + 1
+    assert np.array_equal(np.diff(rowptr.numpy()), lens)
+    for i in (0, 1, T, lens.size - 1):
+        row = col[int(rowptr[i]):int(rowptr[i + 1])].numpy()
+        assert (np.diff(row) > 0).all()
+
+
+@pytest.mark.parametrize("n,nnz,want", [
+    (266_175, 4_394_043, 4864),          # fea_thermal.m's cube
+    (1 << 20, 5_240_830, 1536),          # sparse_poisson.m's A
+    (10, 0, 256), (1, 10 ** 6, spcg.STAGE_MAX)])
+def test_stage_is_the_mean_stretch_and_an_eighth(n, nnz, want):
+    size = spcg.stage(n, nnz)
+    assert size == want and size % 16 == 0
+    assert spcg.THREADS <= size <= spcg.STAGE_MAX
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, 5, 6])
+def test_spmv_case_is_a_csr_of_sorted_rows(case):
+    # the card's cases, but the two at full size (Poisson and the cube,
+    # held by the tests above), built on the CPU
+    label, rowptr, col, val, p = spbench.spmv_case(torch.device("cpu"), case)
+    n = rowptr.numel() - 1
+    assert rowptr.dtype == torch.int64 and col.dtype == torch.int32
+    assert val.dtype == p.dtype == torch.float64 and p.numel() == n
+    assert int(rowptr[0]) == 0 and int(rowptr[-1]) == col.numel() == \
+        val.numel()
+    lens = rowptr[1:] - rowptr[:-1]
+    assert bool((lens >= 0).all())
+    rows = torch.repeat_interleave(torch.arange(n), lens)
+    key = rows * n + col.long()
+    assert bool((key[1:] > key[:-1]).all()), label    # sorted, no repeats
+    assert bool((col >= 0).all()) and bool((col < n).all())
+    if case == 6:
+        # every tile but the first starts its stretch at an odd offset
+        starts = rowptr[spcg.THREADS:-1:spcg.THREADS]
+        assert starts.numel() > 0 and bool((starts % 2 == 1).all())
 
 
 def test_spmv_refuses_what_the_kernel_does_not_take():

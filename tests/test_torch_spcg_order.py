@@ -12,9 +12,11 @@ the CPU (`runmat_tpu_torch/ops/spcg.py`: `ordered_sum`, `ordered_dot`,
 * `ordered_dot` within 1e-15 relative of `np.dot` on positive inputs.
 * `plain_cg(..., ordered=True)`, the model the kernels' x and k equal bit
   for bit on the card, against `runmat_tpu.sparse.SparseMatrix._cg_device`
-  under `JaxEngine("cpu")`: x within `spbench.X_TOL` of the largest entry
-  (the JAX loop's vdots sum in XLA's order), the residual at most 1e-10 of
-  norm(b); a zero b is done before the first iteration, and maxit stops it.
+  under `JaxEngine("cpu")` on a 60^2 Poisson system, a seeded SPD one and
+  fea_thermal.m's conduction matrix at R = 12 (the cube's 3-D rows): x
+  within `spbench.X_TOL` of the largest entry (the JAX loop's vdots sum in
+  XLA's order), the residual at most 1e-10 of norm(b); a zero b is done
+  before the first iteration, and maxit stops it.
 """
 
 import numpy as np
@@ -85,8 +87,21 @@ def jax_engine():
 
 
 def _system(name: str) -> tuple:
-    """(n, ii, jj, vv): the five-point stencil on a 60^2 grid, or a seeded
-    symmetric, diagonally dominant matrix of 2500 rows."""
+    """(n, ii, jj, vv): the five-point stencil on a 60^2 grid, fea_thermal.m's
+    conduction matrix at R = 12 (the cube's 3-D rows, 17 nonzeros an
+    interior row, assembled by the JAX package as fea.run assembles it),
+    or a seeded symmetric, diagonally dominant matrix of 2500 rows."""
+    if name == "conduction R=12":
+        from runmat_tpu.fea.assembly import (apply_dirichlet,
+                                             assemble_diffusion)
+        from runmat_tpu.fea.mesh import box_mesh
+        mesh = box_mesh((1.0, 1.0, 1.0), (12, 12, 12))
+        x = mesh.nodes[:, 0]
+        fixed = np.nonzero((x < 1e-12) | (x > 1.0 - 1e-12))[0]
+        K, _ = assemble_diffusion(mesh, 45.0)
+        Kff, _, _, _ = apply_dirichlet(K, np.full(mesh.n_nodes, 100.0),
+                                       fixed, np.full(fixed.size, 300.0))
+        return (Kff.n, *Kff.triplets())
     if name == "poisson 60^2":
         N = 60
         n = N * N
@@ -111,7 +126,8 @@ def _csr(n, ii, jj, vv) -> tuple:
                           torch.device("cpu"))
 
 
-@pytest.mark.parametrize("name", ["poisson 60^2", "spd 2500"])
+@pytest.mark.parametrize("name", ["poisson 60^2", "spd 2500",
+                                  "conduction R=12"])
 def test_ordered_cg_matches_the_jax_device_cg(jax_engine, name):
     n, ii, jj, vv = _system(name)
     b = np.random.default_rng(7).standard_normal(n)
