@@ -252,7 +252,25 @@ line is printed:
      design, and an iteration of the replayed graph),
      and its histcounts call held to plain and timed beside its bound and
      torch.histc;
- 14. one JSON line of kernel results, then the result line
+ 14. tooling path: the three benchmark scripts at their default sizes
+     sent as `execute` requests to `python -m runmat_tpu_torch.cli serve
+     --tcp` (a subprocess on the card), their outputs and result variables
+     (`get`) bit for bit those of the same scripts in process on the card,
+     `accel_info` naming the card and counting the Threefry and generated
+     kernels' launches, each request's warm wall beside the in-process one;
+     `run field_plot.m --show` (a subprocess), its figures fetched over
+     HTTP equal to the in-process render; monte_carlo.m read from a
+     ProjectServer on localhost through RemoteFsProvider by a card session,
+     its price the served one; `lsp` over stdio with the fourteen workload
+     scripts opened, its diagnostics equal to `check`'s findings; the
+     native loop tier (runmat_tpu_torch/native, built with g++) taking four
+     scalar loops in a card session, bit for bit the interpreter's at
+     TIER_SMALL iterations and the same loops' in Python floats at 10^7
+     iterations (5*10^6 for two loops the step budget takes no further),
+     each timed; and the CUDA conformance battery
+     (runmat_tpu_torch/cuda_smoke.py) on a card session with no failure
+     and at least 120 checks passed;
+ 15. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
 against that call in turns, ten rounds, for the run-to-run spread of
@@ -430,6 +448,7 @@ RECORDS_MAT = ("rng(7); x = randn(86400, 8); mu = mean(x);"
                " b = x(1:10, 1) > 0;")
 RECORDS_MAT_NAMES = ("x", "mu", "n", "s", "k", "b")
 FIELD_WORKLOAD = "runmat_tpu_torch/workloads/field_plot.m"
+FIELD_FIGURES = 2          # the figures field_plot.m makes
 # std(Y(:)) of the smoothed field: cuDNN's sums of the 225 products in
 # another order than the host's loop
 FIELD_RTOL = 1e-12
@@ -445,6 +464,37 @@ THERMAL_HEAT = 100.0
 # graph replays timed at the cube's matrix: a warm-up and these, CHUNK
 # iterations each, stay short of its 438 iterations
 THERMAL_GRAPH_REPS = 2
+# phase 14: the served scripts' result variables fetched with `get`
+SERVED_VARS = {"elementwise_math": ("checksum",),
+               "monte_carlo": ("price",),
+               "image_normalize": ("mse", "mu", "sigma")}
+SERVED_RUNS = 4            # a first run, then the warm ones
+# the native tier's loops (tests/test_turbine.py's shapes): source, result
+# names, the loop's kind, and the most iterations the tier runs it for
+# here. The interpreter runs each at TIER_SMALL, bit for bit against the
+# tier there; the tier alone runs the last count, against the same loop in
+# Python floats. The tier's step budget (turbine_loop.STEP_BUDGET, 2*10^8
+# VM steps, as the JAX package's) takes the last two at 10^7; the first
+# two take 21 and about 36.2 steps an iteration
+# (tests/test_torch_turbine.py), so at 10^7 the tier hands them back to
+# the interpreter, and they run at 5*10^6.
+TIER_SMALL = 10 ** 4
+TIER_LOOPS = {
+    "sum of squares": ("s = 0; for i = 1:N, s = s + i^2; end", ("s",),
+                       "for", 5 * 10 ** 6),
+    "branches and transcendentals": (
+        "acc = 0; last = 0;\nfor k = 1:N\n"
+        "  v = sin(k * 0.01) * exp(-k * 1e-4);\n  if v > 0.5\n"
+        "    acc = acc + v;\n  else\n    acc = acc - 0.001;\n  end\n"
+        "  last = v;\nend", ("acc", "last", "k"), "for", 5 * 10 ** 6),
+    "break and continue": (
+        "c = 0;\nfor k = 1:N\n  if mod(k, 3) == 0\n    continue\n  end\n"
+        "  c = c + 1;\n  if k > N / 2\n    break\n  end\nend", ("c", "k"),
+        "for", 10 ** 7),
+    "while": ("x = 0; i = 0; while i < N, i = i + 1; x = x + 1 / i; end",
+              ("x", "i"), "while", 10 ** 7),
+}
+BATTERY_MIN_PASSED = 120   # the JAX package's CPU test's bar
 # the subprocess that loads it with jax and runmat_tpu blocked
 NOJAX_LOAD = r"""
 import hashlib, json, sys
@@ -834,26 +884,16 @@ def _sync_check(src: str, label: str) -> None:
 
 
 def _zero_launches() -> None:
-    from runmat_tpu_torch.ops import (cmap, fused, histogram, iir, lstm,
-                                      lstm_seq, optim, spcg, threefry)
-    for mod in (histogram, threefry, fused, iir, spcg, lstm, optim,
-                lstm_seq, cmap):
-        mod.launches = 0
-        mod.launches_by.clear()
+    from runmat_tpu_torch import ops
+    ops.zero_launches()
 
 
 def _read_launches() -> dict:
-    from runmat_tpu_torch.ops import (cmap, fused, histogram, iir, lstm,
-                                      lstm_seq, optim, spcg, threefry)
-    return {"threefry": dict(threefry.launches_by),
-            "histogram": dict(histogram.launches_by),
-            "fused": dict(fused.launches_by),
-            "iir": dict(iir.launches_by),
-            "spcg": dict(spcg.launches_by),
-            "lstm": dict(lstm.launches_by),
-            "lstm_seq": dict(lstm_seq.launches_by),
-            "optim": dict(optim.launches_by),
-            "cmap": dict(cmap.launches_by)}
+    """Each kernel module's `launches_by` as it is (the generated kernels'
+    keys stay (label, module) tuples, as `_group`'s rows read them)."""
+    from runmat_tpu_torch import ops
+    return {m: dict(mod.launches_by)
+            for m, mod in ops.kernel_modules().items()}
 
 
 def _group(name: str) -> str:
@@ -2883,6 +2923,394 @@ def phase_fea_path() -> dict:
     return launches
 
 
+def _tier_model(name: str, n: int) -> dict:
+    """The tier's loop in Python floats: the same IEEE operations in the
+    same order (pow, sin and exp from the C library, as the native VM's)."""
+    import math
+    if name == "sum of squares":
+        s = 0.0
+        for i in range(1, n + 1):
+            s = s + float(i) ** 2.0
+        return {"s": s}
+    if name == "branches and transcendentals":
+        acc = last = 0.0
+        for k in range(1, n + 1):
+            v = math.sin(k * 0.01) * math.exp(-k * 1e-4)
+            acc = acc + v if v > 0.5 else acc - 0.001
+            last = v
+        return {"acc": acc, "last": last, "k": float(n)}
+    if name == "break and continue":
+        c = 0.0
+        for k in range(1, n + 1):
+            if math.fmod(k, 3) == 0:
+                continue
+            c = c + 1
+            if k > n / 2:
+                break
+        return {"c": c, "k": float(k)}
+    x = i = 0.0
+    while i < n:
+        i = i + 1
+        x = x + 1 / i
+    return {"x": x, "i": i}
+
+
+def _scalars(s, names) -> dict:
+    return {v: float(np.asarray(s.get(v).host(), dtype=np.float64)
+                     .reshape(-1)[0]) for v in names}
+
+
+def _tooling_tier() -> None:
+    """(e) The native tier on a card session: each loop taken (counted),
+    bit for bit the interpreter's at TIER_SMALL and the Python-float
+    model's at the loop's own count in TIER_LOOPS, each timed."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import native
+    from runmat_tpu_torch.native import turbine_loop as tl
+    check(native.turbine() is not None,
+          f"native tier not built: {native.build_error}")
+    s = runmat_tpu_torch.session("cuda")
+    try:
+        for name, (src, names, kind, large) in TIER_LOOPS.items():
+            times = {}
+            # the interpreter's run last: a `while` the tier hands back is
+            # not offered to it again in the session (the interpreter's
+            # memo, as in the JAX package)
+            for n, tier in ((TIER_SMALL, True), (large, True),
+                            (TIER_SMALL, False)):
+                check(s.execute(f"N = {n};").error is None, "tier: N")
+                saved = native._LIB
+                if not tier:
+                    native._LIB = None          # the interpreter's run
+                tl.reset_counts()
+                t0 = time.perf_counter()
+                try:
+                    r = s.execute(src)
+                finally:
+                    native._LIB = saved
+                times[(n, tier)] = time.perf_counter() - t0
+                check(r.error is None, f"tier {name}: {r.error}")
+                if tier:
+                    check(dict(tl.taken) == {kind: 1} and not tl.bails,
+                          f"tier {name} at {n}: taken {dict(tl.taken)}, "
+                          f"bails {dict(tl.bails)}")
+                else:
+                    check(not tl.taken, f"tier {name}: taken with the tier "
+                          "off")
+                times[(n, tier, "v")] = _scalars(s, names)
+            small, interp = (times[(TIER_SMALL, True, "v")],
+                             times[(TIER_SMALL, False, "v")])
+            check({k: v.hex() for k, v in small.items()} ==
+                  {k: v.hex() for k, v in interp.items()},
+                  f"tier {name}: {small} against the interpreter's {interp}")
+            got, model = (times[(large, True, "v")],
+                          _tier_model(name, large))
+            check({k: v.hex() for k, v in got.items()} ==
+                  {k: v.hex() for k, v in model.items()},
+                  f"tier {name}: {got} against the model's {model}")
+            print(f"tier {name}: taken, bit for bit; {TIER_SMALL} "
+                  f"iterations tier {times[(TIER_SMALL, True)] * 1e3:.1f} ms, "
+                  f"interpreter {times[(TIER_SMALL, False)] * 1e3:.1f} ms; "
+                  f"{large} iterations tier "
+                  f"{times[(large, True)] * 1e3:.1f} ms ({got})")
+    finally:
+        runmat_tpu_torch.uninstall()
+
+
+def _serve_tcp(env) -> tuple:
+    """`serve --tcp 0` as a subprocess on the card: (process, connection
+    file)."""
+    import socket
+    p = subprocess.Popen([sys.executable, "-m", "runmat_tpu_torch.cli",
+                          "serve", "--tcp", "0"], stderr=subprocess.PIPE,
+                         stdout=subprocess.DEVNULL, text=True, env=env)
+    line = p.stderr.readline()
+    if "listening on" not in line:
+        p.kill()
+        p.wait(timeout=60)
+        raise SmokeFailure(f"serve --tcp: {line}{p.stderr.read()[-2000:]}")
+    port = int(line.rsplit(":", 1)[1])
+    conn = socket.create_connection(("127.0.0.1", port), timeout=600)
+    return p, conn, conn.makefile("rw", encoding="utf-8")
+
+
+def _request(f, req: dict) -> tuple:
+    t0 = time.perf_counter()
+    f.write(json.dumps(req) + "\n")
+    f.flush()
+    resp = json.loads(f.readline())
+    return resp, time.perf_counter() - t0
+
+
+def _stop(p) -> None:
+    if p.poll() is None:
+        p.kill()
+    p.wait(timeout=60)
+
+
+def _tooling_served(env) -> dict:
+    """(a) The three scripts through `serve --tcp` on the card against the
+    same scripts in process: outputs and result variables bit for bit,
+    accel_info naming the card and the kernels launched, each request's
+    warm wall beside the in-process one. Returns monte_carlo's price."""
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import ops
+    sources = {w: open(f"benchmarks/{w}.m").read() for w in WORKLOADS}
+    local = {}
+    ops.zero_launches()
+    for w in WORKLOADS:
+        s = runmat_tpu_torch.session("cuda")
+        walls = []
+        for _ in range(SERVED_RUNS):
+            t0 = time.perf_counter()
+            r = s.execute(sources[w])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check(r.error is None, f"in process {w}: {r.error}")
+        local[w] = (r.output, {v: np.asarray(s.get(v).host(), dtype=float)
+                               for v in SERVED_VARS[w]}, walls)
+        runmat_tpu_torch.uninstall()
+    # the server's process launches what these runs launched, no more
+    launches = ops.launch_counts()
+    p, conn, f = _serve_tcp(env)
+    try:
+        rid = 0
+        served = {}
+        for w in WORKLOADS:
+            walls = []
+            for _ in range(SERVED_RUNS):
+                rid += 1
+                resp, wall = _request(f, {"id": rid, "op": "execute",
+                                          "source": sources[w]})
+                check(resp["ok"], f"served {w}: {resp.get('error')}")
+                walls.append((wall, resp["wall_ms"] / 1e3))
+            values = {}
+            for v in SERVED_VARS[w]:
+                rid += 1
+                got, _ = _request(f, {"id": rid, "op": "get", "name": v})
+                check(got["ok"], f"served {w}: get {v}: {got}")
+                values[v] = np.asarray(got["value"]["value"], dtype=float)
+            served[w] = (resp["output"], values, walls)
+        rid += 1
+        info, _ = _request(f, {"id": rid, "op": "accel_info"})
+        rid += 1
+        bye, _ = _request(f, {"id": rid, "op": "shutdown"})
+        check(bye.get("shutdown") is True, f"shutdown: {bye}")
+        conn.close()
+        check(p.wait(timeout=120) == 0, "serve --tcp exited nonzero")
+    finally:
+        conn.close()
+        _stop(p)
+    acc = info["accel"]
+    name = torch.cuda.get_device_name(0)
+    check(acc["available"] and acc["platform"] == "gpu" and
+          acc["card"]["name"] == name, f"accel_info: {acc.get('card')}")
+    draws, fused = acc["launches"]["threefry"], acc["launches"]["fused"]
+    check(sum(draws.values()) > 0 and sum(fused.values()) > 0,
+          f"accel_info launches: threefry {draws}, fused {fused}")
+    check(acc["launches"] == launches,
+          f"accel_info launches {acc['launches']} against in process "
+          f"{launches}")
+    for w in WORKLOADS:
+        (lout, lvals, lwalls), (sout, svals, swalls) = local[w], served[w]
+        check(sout == lout, f"served {w}: output {sout!r} against {lout!r}")
+        for v in SERVED_VARS[w]:
+            check(svals[v].shape == lvals[v].shape and
+                  svals[v].tobytes() == lvals[v].tobytes(),
+                  f"served {w}: {v} {svals[v]!r} against {lvals[v]!r}")
+        warm_l = statistics.median(lwalls[1:])
+        warm_s = statistics.median(x for x, _ in swalls[1:])
+        warm_x = statistics.median(x for _, x in swalls[1:])
+        print(f"served {w}: {sout.strip()} bit for bit in process "
+              f"({', '.join(SERVED_VARS[w])}); warm wall served "
+              f"{warm_s * 1e3:.1f} ms (the server's execute "
+              f"{warm_x * 1e3:.1f} ms), in process {warm_l * 1e3:.1f} ms, "
+              f"the server adds {(warm_s - warm_l) * 1e3:.1f} ms; first "
+              f"{swalls[0][0] * 1e3:.1f} and {lwalls[0] * 1e3:.1f} ms")
+    print(f"served accel_info: {acc['card']}; threefry launches {draws}; "
+          f"generated kernels {sum(fused.values())} launches of "
+          f"{len(fused)} groups")
+    return float(served["monte_carlo"][1]["price"].reshape(-1)[0])
+
+
+def _tooling_show(env) -> None:
+    """(b) `run field_plot.m --show` serves the figures over HTTP; they
+    equal the in-process render of the same run on the card."""
+    import urllib.request
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import server
+    from runmat_tpu_torch.plot import figure as figmod
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    figmod.close_all()
+    s = runmat_tpu_torch.session("cuda")
+    try:
+        check(s.execute(open(FIELD_WORKLOAD).read()).error is None,
+              "field_plot in process")
+        # the helper skips a figure whose render raises: count them first
+        made = len(figmod._FIGURES)
+        want = server._render_figures()
+    finally:
+        runmat_tpu_torch.uninstall()
+        figmod.close_all()
+    # BROWSER: the command opens the page in a browser; none here
+    p = subprocess.Popen([sys.executable, "-m", "runmat_tpu_torch.cli", "run",
+                          FIELD_WORKLOAD, "--show", "--port", str(port)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, env=dict(env, BROWSER="true"))
+    try:
+        line = ""
+        while "serving figures" not in line:
+            line = p.stdout.readline()
+            check(line != "", "run --show ended before serving")
+        token = re.search(r"token=([A-Za-z0-9_-]+)", line).group(1)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/api",
+            data=json.dumps({"id": 1, "op": "figures"}).encode(),
+            headers={"X-Runmat-Token": token,
+                     "Content-Type": "application/json"})
+        for _ in range(100):
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    got = json.loads(r.read())
+                break
+            except OSError:
+                time.sleep(0.2)
+        else:
+            raise SmokeFailure("run --show: the server never answered")
+    finally:
+        _stop(p)
+        p.stdout.close()
+    check(made == FIELD_FIGURES and len(want) == made,
+          f"field_plot in process: {made} figures, {len(want)} rendered")
+    check(got["ok"] and got["figures"] == want,
+          f"run --show: {len(got.get('figures', []))} figures served, "
+          f"{len(want)} rendered in process, equal "
+          f"{got.get('figures') == want}")
+    print(f"run --show field_plot: {len(want)} figures served over HTTP "
+          f"equal the in-process render ({sum(len(x['svg']) for x in want)}"
+          f" bytes of SVG)")
+
+
+def _tooling_remote(price: float) -> None:
+    """(c) monte_carlo.m read from a ProjectServer on localhost through
+    RemoteFsProvider by a card session: its price is the served one."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import fs
+    from runmat_tpu_torch.remote import ProjectServer, PublicApiClient
+    root = tempfile.mkdtemp(prefix="project_store_")
+    srv = ProjectServer(root).start()
+    try:
+        c = PublicApiClient(srv.base_url, token="")
+        pid = c.create_project(c.create_org("smoke")["id"], "card")["id"]
+        c.fs_write(pid, "monte_carlo.m",
+                   open("benchmarks/monte_carlo.m", "rb").read())
+        fs.set_fs_provider(fs.RemoteFsProvider(srv.base_url, pid, token=""))
+        try:
+            src = fs.fs().read_bytes("monte_carlo.m").decode()
+            s = runmat_tpu_torch.session("cuda")
+            r = s.execute(src, "monte_carlo.m")
+            check(r.error is None, f"remote monte_carlo: {r.error}")
+            got = float(np.asarray(s.get("price").host(),
+                                   dtype=float).reshape(-1)[0])
+            runmat_tpu_torch.uninstall()
+        finally:
+            fs.reset_fs_provider()
+    finally:
+        srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    check(got.hex() == price.hex(),
+          f"remote monte_carlo: price {got!r} against served {price!r}")
+    print(f"remote monte_carlo: read from the project server, price "
+          f"{got!r} equals the served run's")
+
+
+def _tooling_lsp(env) -> None:
+    """(d) `lsp` over stdio: initialize, then didOpen for each of the
+    fourteen workload scripts; the diagnostics equal `check`'s findings."""
+    paths = [f"benchmarks/{w}.m" for w in WORKLOADS] + sorted(
+        os.path.join("runmat_tpu_torch/workloads", f)
+        for f in os.listdir("runmat_tpu_torch/workloads") if f.endswith(".m"))
+    check(len(paths) == 14, f"{len(paths)} workload scripts")
+    msgs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {}}]
+    for path in paths:
+        msgs.append({"jsonrpc": "2.0", "method": "textDocument/didOpen",
+                     "params": {"textDocument": {
+                         "uri": "file://" + os.path.abspath(path),
+                         "text": open(path).read()}}})
+    msgs += [{"jsonrpc": "2.0", "id": 2, "method": "shutdown"},
+             {"jsonrpc": "2.0", "method": "exit"}]
+    data = b"".join(b"Content-Length: %d\r\n\r\n%s" % (len(b), b) for b in
+                    (json.dumps(m).encode() for m in msgs))
+    cli = [sys.executable, "-m", "runmat_tpu_torch.cli"]
+    p = subprocess.run(cli + ["lsp"], input=data, capture_output=True,
+                       env=env, timeout=300)
+    check(p.returncode == 0, f"lsp: {p.stderr[-2000:]}")
+    out, diags = p.stdout, {}
+    while out:
+        head, _, rest = out.partition(b"\r\n\r\n")
+        n = int(head.split(b":")[1])
+        m = json.loads(rest[:n])
+        out = rest[n:]
+        if m.get("method") == "textDocument/publishDiagnostics":
+            path = os.path.relpath(m["params"]["uri"][len("file://"):])
+            diags[path] = sorted((d["range"]["start"]["line"] + 1,
+                                  d["message"])
+                                 for d in m["params"]["diagnostics"])
+    p = subprocess.run(cli + ["check"] + paths, capture_output=True,
+                       text=True, env=env, timeout=300)
+    found = {path: [] for path in paths}
+    for ln in p.stdout.splitlines():
+        m = re.match(r"(.+?):(\d+): \w+: (.+)$", ln)
+        if m:
+            found[m.group(1)].append((int(m.group(2)), m.group(3)))
+    found = {k: sorted(v) for k, v in found.items()}
+    check(diags == found, f"lsp diagnostics {diags} against check {found}")
+    print(f"lsp: {len(paths)} scripts opened, "
+          f"{sum(map(len, diags.values()))} diagnostics, equal to check's "
+          f"findings")
+
+
+def phase_tooling_path() -> dict:
+    """The tooling of the port on the card (phase 14): the main path
+    served over TCP, run --show, the remote filesystem, the language
+    server, the native loop tier and the CUDA conformance battery."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import cuda_smoke
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    laps = [("start", time.perf_counter())]
+    price = _tooling_served(env)
+    laps.append(("served", time.perf_counter()))
+    _tooling_show(env)
+    laps.append(("run --show", time.perf_counter()))
+    _tooling_remote(price)
+    laps.append(("remote", time.perf_counter()))
+    _tooling_lsp(env)
+    laps.append(("lsp", time.perf_counter()))
+    _tooling_tier()
+    laps.append(("tier", time.perf_counter()))
+    s = runmat_tpu_torch.session("cuda")
+    try:
+        res = cuda_smoke.run(s)
+    finally:
+        runmat_tpu_torch.uninstall()
+    laps.append(("battery", time.perf_counter()))
+    print(f"battery: passed {res['passed']} failed {res['failed']} of "
+          f"{res['cases']} cases in {res['seconds']:.1f} s")
+    check(res["failed"] == 0 and res["passed"] >= BATTERY_MIN_PASSED,
+          "battery: " + "; ".join(res["failures"][:20]))
+    print("tooling path, seconds: " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f}" for i, (name, t) in
+        enumerate(laps[1:])))
+    return {}
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2901,7 +3329,7 @@ def main() -> int:
                  phase(phase_linalg_signal_path), phase(phase_pages_path),
                  phase(phase_sparse_path), phase(phase_dl_path),
                  phase(phase_records_path), phase(phase_plot_path),
-                 phase(phase_fea_path)]
+                 phase(phase_fea_path), phase(phase_tooling_path)]
         kernels += phase_linalg_signal_path.kernels + \
             phase_pages_path.kernels + phase_sparse_path.kernels + \
             phase_dl_path.kernels + phase_plot_path.kernels

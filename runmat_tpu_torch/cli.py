@@ -19,16 +19,14 @@ import json
 import os
 import sys
 
-from .unported import not_ported
-
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     from .errors import MatError
     try:
         return _main(argv)
-    except MatError as e:   # no card (the message names --no-accel), or a
-        # command the port does not carry yet
+    except MatError as e:   # no card (the message names --no-accel), or
+        # accel-warmup, which exists only for the TPU
         print(f"Error: {e.message}", file=sys.stderr)
         return 1
 
@@ -108,8 +106,10 @@ def _dispatch(cmd: str, rest: list, no_accel=False) -> int:
         show = "--show" in rest
         if show:
             rest = [a for a in rest if a != "--show"]
-        if "--port" in rest:        # the figure server's (not carried)
+        port = 8765
+        if "--port" in rest:
             i = rest.index("--port")
+            port = int(rest[i + 1])
             del rest[i:i + 2]
         if not rest:
             print("usage: runmat-tpu run <script.m> [--show [--port N]]",
@@ -123,14 +123,32 @@ def _dispatch(cmd: str, rest: list, no_accel=False) -> int:
             print(f"Error: {e.message}", file=sys.stderr)
             return 1
         if show:
-            # interactive figure surface (VERDICT r4 #9; the analog of the
-            # reference's winit+egui window, runmat-plot/src/gui/
-            # native_window.rs): served by runmat_tpu.server, not carried
+            # interactive figure surface (VERDICT r4 #9; the
+            # accelerator-side analog of the reference's winit+egui window,
+            # runmat-plot/src/gui/native_window.rs): serve the session's
+            # figures over HTTP — the embedded client renders typed-
+            # geometry WebGL scenes with orbit/zoom and long-polls
+            # figures_wait for live updates; device arrays are gathered
+            # once per scene revision, never re-gathered unchanged.
             from .plot import figure as figmod
             if not figmod._FIGURES:
                 print("no figures to show", file=sys.stderr)
                 return 0
-            not_ported("the figure server (run --show)", "A 10")
+            import secrets
+            token = secrets.token_urlsafe(24)
+            url = f"http://127.0.0.1:{port}/?token={token}"
+            print(f"serving figures at {url} (Ctrl-C to exit)")
+            try:
+                import threading
+                import webbrowser
+                threading.Timer(0.4, webbrowser.open, (url,)).start()
+            except Exception:
+                pass
+            from .server import serve_http
+            try:
+                return serve_http(sess, "127.0.0.1", port, token=token)
+            except KeyboardInterrupt:
+                return 0
         return 0
 
     if cmd == "check":
@@ -292,19 +310,48 @@ def _dispatch(cmd: str, rest: list, no_accel=False) -> int:
         return 0
 
     if cmd == "lsp":
-        not_ported("the language server (lsp)", "A 10")
+        from .lsp import main as lsp_main
+        return lsp_main()
 
     if cmd == "serve":
-        not_ported("the session server (serve)", "A 10")
+        # JSON-lines session server (≙ the wasm/TS host + remote API surface)
+        # --http serves the in-browser REPL (the wasm-embedding analog)
+        from .server import serve_http, serve_stdio, serve_tcp
+        sess = _make_session(no_accel)
+        if rest and rest[0] == "--tcp":
+            port = int(rest[1]) if len(rest) > 1 else 0
+            return serve_tcp(sess, "127.0.0.1", port)
+        if rest and rest[0] == "--http":
+            port = int(rest[1]) if len(rest) > 1 else 8780
+            return serve_http(sess, "127.0.0.1", port)
+        return serve_stdio(sess)
 
-    if cmd in ("login", "remote"):
-        not_ported(f"the remote project API ({cmd})", "A 10")
+    if cmd == "login":
+        # runmat-tpu login <url> --token T (≙ runmat login, auth.rs)
+        if not rest:
+            print("usage: runmat-tpu login <url> --token <token>",
+                  file=sys.stderr)
+            return 2
+        url = rest[0]
+        token = rest[rest.index("--token") + 1] if "--token" in rest else ""
+        from .remote import auth as rauth
+        rauth.login(url, token)
+        print(f"stored credentials for {url}")
+        return 0
+
+    if cmd == "remote":
+        return _remote(rest)
 
     if cmd == "accel-calibrate":
         return _accel_calibrate()
 
     if cmd == "accel-warmup":
-        not_ported("the warmup-manifest replay (accel-warmup)", "A 15")
+        # it replays the JAX package's manifest of XLA programs into XLA's
+        # persistent cache, which exists only for the TPU
+        from .errors import MatError
+        raise MatError("RunMat:notPorted", "accel-warmup replays XLA "
+                       "programs for the TPU and exists only there; the "
+                       "port builds its kernels at first use")
 
     print(f"unknown command '{cmd}'", file=sys.stderr)
     return 2
@@ -408,6 +455,122 @@ def _check(rest: list) -> int:
             print(f"{path}:{f2.line}: {f2.severity}: {f2.identifier}: "
                   f"{f2.message}")
     return 0 if ok else 1
+
+
+def _remote(rest: list) -> int:
+    """Remote project API commands (≙ runmat remote/org/project/fs/snapshot,
+    runmat-cli's root.rs:207-333 and remote/* over runmat-server-client).
+
+    remote serve <root> [--port N] [--token T]   self-host a project server
+    remote me
+    remote org list | org create <name>
+    remote project list <orgId> | project create <orgId> <name>
+    remote fs ls <proj> [path] | get <proj> <path> [out] |
+              put <proj> <local> <path> | rm <proj> <path>
+    remote snapshot list <proj> | create <proj> [label] |
+              restore <proj> <snapId> | tag <proj> <snapId> <tag>
+    remote history <proj>
+    Server URL: --url flag or RUNMAT_TPU_API_URL (default
+    http://127.0.0.1:8765)."""
+    if not rest:
+        print(_remote.__doc__, file=sys.stderr)
+        return 2
+    sub = rest[0]
+    args = rest[1:]
+    if sub == "serve":
+        from .remote import ProjectServer
+        root = args[0] if args else "."
+        port = int(args[args.index("--port") + 1]) if "--port" in args \
+            else 8765
+        token = args[args.index("--token") + 1] if "--token" in args else None
+        srv = ProjectServer(root, port=port, token=token)
+        print(f"project server on {srv.base_url} (root {root})")
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        return 0
+
+    url = None
+    if "--url" in args:
+        i = args.index("--url")
+        url = args[i + 1]
+        args = args[:i] + args[i + 2:]
+    url = url or os.environ.get("RUNMAT_TPU_API_URL", "http://127.0.0.1:8765")
+    from .errors import MatError
+    from .remote import PublicApiClient
+    c = PublicApiClient(url)
+    try:
+        if sub == "me":
+            print(json.dumps(c.me()))
+        elif sub == "org":
+            if args and args[0] == "create":
+                print(json.dumps(c.create_org(args[1])))
+            else:
+                for o in c.orgs():
+                    print(f"{o['id']}  {o['name']}")
+        elif sub == "project":
+            if args and args[0] == "create":
+                print(json.dumps(c.create_project(args[1], args[2])))
+            else:
+                org = args[1] if len(args) > 1 else args[0]
+                for p in c.projects(org):
+                    print(f"{p['id']}  {p['name']}")
+        elif sub == "fs":
+            op, proj = args[0], args[1]
+            if op == "ls":
+                for e in c.fs_dir(proj, args[2] if len(args) > 2 else ""):
+                    kind = "d" if e["isDir"] else "f"
+                    print(f"{kind} {e['size']:>10}  {e['name']}")
+            elif op == "get":
+                data = c.fs_read(proj, args[2])
+                if len(args) > 3:
+                    with open(args[3], "wb") as f:
+                        f.write(data)
+                    print(f"wrote {args[3]} ({len(data)} bytes)")
+                else:
+                    sys.stdout.write(data.decode("utf-8", "replace"))
+            elif op == "put":
+                with open(args[2], "rb") as f:
+                    data = f.read()
+                print(json.dumps(c.fs_write(proj, args[3], data)))
+            elif op == "rm":
+                c.fs_delete(proj, args[2])
+                print("deleted")
+            else:
+                print(f"unknown fs op: {op}", file=sys.stderr)
+                return 2
+        elif sub == "snapshot":
+            op, proj = args[0], args[1]
+            if op == "list":
+                for s in c.snapshots(proj):
+                    tags = ",".join(s["tags"]) if s["tags"] else "-"
+                    print(f"{s['id']}  files={s['fileCount']} tags={tags} "
+                          f"{s['label']}")
+            elif op == "create":
+                print(json.dumps(c.create_snapshot(
+                    proj, args[2] if len(args) > 2 else "")))
+            elif op == "restore":
+                c.restore_snapshot(proj, args[2])
+                print("restored")
+            elif op == "tag":
+                print(json.dumps(c.tag_snapshot(proj, args[2], args[3])))
+            else:
+                print(f"unknown snapshot op: {op}", file=sys.stderr)
+                return 2
+        elif sub == "history":
+            for e in c.history(args[0]):
+                print(json.dumps(e))
+        else:
+            print(f"unknown remote subcommand: {sub}", file=sys.stderr)
+            return 2
+    except MatError as e:
+        print(f"remote error: {e.identifier}: {e.message}", file=sys.stderr)
+        return 1
+    except IndexError:
+        print(_remote.__doc__, file=sys.stderr)
+        return 2
+    return 0
 
 
 def _benchmark(rest: list, no_accel=False) -> int:

@@ -245,9 +245,9 @@ class RemoteFsProvider:
 
     def __init__(self, base_url: str, project_id: str,
                  token: Optional[str] = None):
-        # the public-API client (remote/*) is not carried yet (ROADMAP A10)
-        from .unported import not_ported
-        not_ported("the remote filesystem provider", "A10")
+        from .remote import PublicApiClient
+        self.client = PublicApiClient(base_url, token)
+        self.project_id = project_id
 
     def read_bytes(self, path: str) -> bytes:
         return self.client.fs_read(self.project_id, path)

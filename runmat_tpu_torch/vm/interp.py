@@ -133,6 +133,7 @@ class Interp:
     def __init__(self, session):
         self.session = session
         self._dloop_failed: set = set()   # (code id, pc) of failed device-loop gates
+        self._nwhile_failed: set = set()  # (code id, pc) of failed native-while gates
         self.active_frames: list = []     # live frame stack (spill candidates)
         registry.ensure_loaded()
 
@@ -566,7 +567,10 @@ class Interp:
                             itv.size >= 8:
                         from ..accel.loops import try_device_loop
                         npc = try_device_loop(self, frame, code, pc, itv)
-                        # the native tier-2 loop executor is not carried
+                        if npc is None:
+                            # tier-2: native scalar-loop executor (≙ Turbine)
+                            from ..native.turbine_loop import try_native_loop
+                            npc = try_native_loop(self, frame, code, pc, itv)
                     if npc is not None:
                         pc = npc
                     else:
@@ -579,9 +583,9 @@ class Interp:
                     else:
                         frame.vars[a] = v
                 elif op == B.WHILE_INFO:
-                    # device-while gate; bail -> the plain interpreter path
-                    # (never required for correctness). The native tier-2
-                    # while executor is not carried.
+                    # device-while gate, then the native tier-2 while
+                    # executor; bail -> the plain interpreter path (never
+                    # required for correctness)
                     key = (id(code), pc - 1)
                     if key not in self._dloop_failed:
                         from ..accel.loops import try_device_while
@@ -590,6 +594,15 @@ class Interp:
                             pc = npc
                         else:
                             self._dloop_failed.add(key)
+                    if pc - 1 == key[1] and key in self._dloop_failed and \
+                            key not in self._nwhile_failed:
+                        from ..native.turbine_loop import try_native_while
+                        npc = try_native_while(self, frame, code, pc - 1,
+                                               a, b)
+                        if npc is not None:
+                            pc = npc
+                        else:
+                            self._nwhile_failed.add(key)
                 elif op == B.FOR_POP:
                     frame.iters.pop()
                 elif op == B.MAKE_ANON:

@@ -5,18 +5,19 @@ JAX package.
   `tests/test_mir.py` runs with each function of `runmat_tpu` it calls
   paired with the port's (`torch_twin`): the same inputs through both,
   results equal exactly (findings, bindings, control-flow graphs,
-  liveness). `test_lsp_diagnostics_include_lints` is left out: it drives
-  `runmat_tpu.lsp`, which is not carried yet (ROADMAP A 10).
+  liveness), `test_lsp_diagnostics_include_lints` (`runmat_tpu.lsp`'s
+  diagnostics) among them.
 * The scenarios of `tests/test_config_cli.py` through both command lines
   in subprocesses, the JAX package's on its CPU engine and the port's on
   the host (`--no-accel`; without it and without a card the port's CLI
   exits 1 and names the flag): the same output for `version`, `info`,
-  `check` (with and without `--mir`), `-e` and a script; the session
-  tests of that file through `torch_paired.PairedSession`; `accel-info
-  --json` in process on `TorchEngine("cpu")`.
-* The commands the port does not carry yet exit 1 naming their ROADMAP
-  item; `accel-calibrate` writes the port's own file under HOME, which a
-  new `TorchEngine` reads back, and the TPU's file is never read.
+  `check` (with and without `--mir`), `-e` and a script; `serve`, `lsp`,
+  `remote` and `login`; the session tests of that file through
+  `torch_paired.PairedSession`; `accel-info --json` in process on
+  `TorchEngine("cpu")`.
+* `accel-warmup`, which exists only for the TPU, exits 1 saying so;
+  `accel-calibrate` writes the port's own file under HOME, which a new
+  `TorchEngine` reads back, and the TPU's file is never read.
 """
 
 import contextlib
@@ -46,10 +47,8 @@ NO_CARD = pytest.mark.skipif(torch.cuda.is_available(),
                              reason="a card is present; this checks the "
                                     "refusal without one")
 
-# drives runmat_tpu.lsp, not carried yet (ROADMAP A 10)
-LSP = {"test_lsp_diagnostics_include_lints"}
 STATIC = [(m, n, p, label) for m in (test_analysis, test_hir, test_mir)
-          for n, p, label in cases(m) if n not in LSP]
+          for n, p, label in cases(m)]
 
 
 @pytest.mark.parametrize("module,name,params", [c[:3] for c in STATIC],
@@ -125,14 +124,103 @@ def test_without_a_card_the_cli_names_no_accel(tmp_path, args):
     assert t.stdout == ""
 
 
-@pytest.mark.parametrize("cmd,item", [("serve", "A 10"), ("lsp", "A 10"),
-                                      ("remote", "A 10"), ("login", "A 10"),
-                                      ("accel-warmup", "A 15")])
-def test_commands_not_carried_name_their_item(tmp_path, cmd, item):
+@pytest.mark.parametrize("cmd", ["accel-warmup"])
+def test_commands_not_carried_name_their_item(tmp_path, cmd):
+    """accel-warmup replays XLA programs into XLA's cache: the port refuses
+    it, saying it exists only for the TPU."""
     t = run_cli("runmat_tpu_torch", cmd, "--no-accel", home=tmp_path)
     assert t.returncode == 1
     assert "RunMat" not in t.stdout
-    assert f"is not yet ported (ROADMAP {item})" in t.stderr
+    assert "exists only there" in t.stderr and "TPU" in t.stderr
+
+
+def _framed(messages) -> str:
+    out = ""
+    for m in messages:
+        body = json.dumps(m)
+        out += f"Content-Length: {len(body.encode())}\r\n\r\n{body}"
+    return out
+
+
+def _unframed(data: str) -> list:
+    out = []
+    while data:
+        head, _, rest = data.partition("\r\n\r\n")
+        n = int(head.split(":")[1])
+        out.append(json.loads(rest.encode()[:n]))
+        data = rest.encode()[n:].decode()
+    return out
+
+
+def _stdin_cli(pkg, args, text, home, env=None):
+    e = dict(os.environ, RUNMAT_TPU_PLATFORM="cpu", JAX_PLATFORMS="cpu",
+             HOME=str(home), **(env or {}))
+    e["PYTHONPATH"] = REPO + os.pathsep + e.get("PYTHONPATH", "")
+    extra = ("--no-accel",) if pkg == "runmat_tpu_torch" else ()
+    # bytes both ways: the LSP's framing holds "\r\n", which text mode
+    # would translate
+    r = subprocess.run([sys.executable, "-m", f"{pkg}.cli", *args, *extra],
+                       input=text.encode(), capture_output=True, cwd=REPO,
+                       env=e, timeout=120)
+    r.stdout = r.stdout.decode()
+    return r
+
+
+@pytest.mark.parametrize("cmd", ["serve", "lsp", "remote", "login"])
+def test_tooling_commands_agree(tmp_path, cmd):
+    """serve (JSON lines on stdio), lsp (framed JSON-RPC on stdio), remote
+    (against a project server on localhost) and login (the credentials
+    file under HOME) through both command lines in subprocesses: the same
+    output, responses equal but for their wall times."""
+    outs = []
+    for pkg in ("runmat_tpu", "runmat_tpu_torch"):
+        home = tmp_path / pkg
+        home.mkdir()
+        if cmd == "serve":
+            reqs = [{"id": 1, "op": "execute",
+                     "source": "x = sum(1:10); disp(x)"},
+                    {"id": 2, "op": "get", "name": "x"},
+                    {"id": 3, "op": "check", "source": "y = zz + 1;"},
+                    {"id": 4, "op": "shutdown"}]
+            r = _stdin_cli(pkg, ["serve"], "\n".join(map(json.dumps, reqs)),
+                           home)
+            lines = [json.loads(ln) for ln in r.stdout.splitlines()]
+            for ln in lines:
+                ln.pop("wall_ms", None)
+            outs.append((r.returncode, lines))
+        elif cmd == "lsp":
+            msgs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                     "params": {}},
+                    {"jsonrpc": "2.0", "method": "textDocument/didOpen",
+                     "params": {"textDocument": {
+                         "uri": "file:///t.m",
+                         "text": "function y = f(x)\nq = 7;\ny = x +;\n"}}},
+                    {"jsonrpc": "2.0", "id": 2, "method": "shutdown"},
+                    {"jsonrpc": "2.0", "method": "exit"}]
+            r = _stdin_cli(pkg, ["lsp"], _framed(msgs), home)
+            outs.append((r.returncode, _unframed(r.stdout)))
+        elif cmd == "remote":
+            from runmat_tpu_torch.remote import ProjectServer
+            srv = ProjectServer(str(tmp_path / f"store-{pkg}")).start()
+            try:
+                env = {"RUNMAT_TPU_API_URL": srv.base_url}
+                r = _stdin_cli(pkg, ["remote", "org", "create", "acme"], "",
+                               home, env)
+                org = json.loads(r.stdout)
+                r2 = _stdin_cli(pkg, ["remote", "org", "list"], "", home,
+                                env)
+            finally:
+                srv.stop()
+            outs.append((r.returncode, r2.returncode, org["name"],
+                         r2.stdout.replace(org["id"], "<id>")))
+        else:
+            r = _stdin_cli(pkg, ["login", "http://127.0.0.1:1", "--token",
+                                 "tok123"], "", home)
+            cred = json.loads((home / ".runmat_tpu" /
+                               "credentials.json").read_text())
+            outs.append((r.returncode, r.stdout, cred))
+    assert outs[1] == outs[0]
+    assert outs[0][0] == 0
 
 
 def test_accel_info_json_on_the_cpu_engine(no_engine):

@@ -14,7 +14,9 @@ and graphs import there, and the
 profiling, sync-counting, timing and benchmark tools import there too, and
 so do the deep-learning modules (their initial weights drawn without
 jax). No module of the JAX package is loaded
-at the end."""
+at the end. A second subprocess does the same for the tooling: the
+session server, the client profile, the remote project API, the language
+server, the native loop tier and the CUDA battery."""
 
 import os
 import subprocess
@@ -219,3 +221,59 @@ def test_port_runs_without_jax(tmp_path):
     assert "HOST_ok 5" in out, out
     assert "jax blocked: True" in out, out
     assert "runmat_tpu modules: []" in out, out
+
+
+TOOLING = r"""
+import json, os, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["runmat_tpu"] = None
+import runmat_tpu_torch
+from runmat_tpu_torch import accel, client, cuda_smoke, lsp, server
+from runmat_tpu_torch.fs import RemoteFsProvider
+from runmat_tpu_torch.native import turbine_loop
+from runmat_tpu_torch.remote import ProjectServer, PublicApiClient
+from runmat_tpu_torch.session import Session
+s = runmat_tpu_torch.session("cpu")
+r = server.handle_request(s, {"id": 1, "op": "execute",
+                              "source": "x = gpuArray(1:8); y = sum(x);"})
+info = server.handle_request(s, {"id": 2, "op": "accel_info"})["accel"]
+print("server", r["ok"], info["platform"], sorted(info["launches"])[:2])
+res = cuda_smoke.run(s)
+print("battery", res["failed"], res["passed"] >= 120)
+runmat_tpu_torch.uninstall()
+print("client", client.run("disp(6 * 7)")["output"].strip())
+srv = ProjectServer(os.path.join(os.environ["PORT_TEST_DIR"], "store"))
+srv.start()
+c = PublicApiClient(srv.base_url, token="")
+pid = c.create_project(c.create_org("o")["id"], "p")["id"]
+c.fs_write(pid, "job.m", b"r = sum(1:100);")
+h = Session(accelerate=False)
+h.run_source(RemoteFsProvider(srv.base_url, pid, token="").read_bytes(
+    "job.m").decode(), "job.m")
+srv.stop()
+print("remote", float(h.get("r").host().reshape(-1)[0]))
+print("lsp", [d["message"].split(":")[0] for d in
+              lsp.diagnostics("x = 1 +;")])
+h.execute("t = 0; for k = 1:1000, t = t + k; end")
+print("native", dict(turbine_loop.taken), float(h.get("t").host()[0, 0]))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] == "runmat_tpu" and sys.modules[m])
+print("runmat_tpu modules:", loaded)
+"""
+
+
+def test_the_tooling_runs_without_jax(tmp_path):
+    """The session server, client profile, remote project API, language
+    server, native loop tier and CUDA battery import and run with jax and
+    runmat_tpu blocked (on the CPU engine or the host)."""
+    env = dict(os.environ, PORT_TEST_DIR=str(tmp_path), HOME=str(tmp_path))
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    p = subprocess.run([sys.executable, "-c", TOOLING], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    out = p.stdout
+    for line in ("server True cpu ['cmap', 'fused']", "battery 0 True",
+                 "client 42", "remote 5050.0", "lsp ['MATLAB']",
+                 "native {'for': 1} 500500.0", "runmat_tpu modules: []"):
+        assert line in out, out

@@ -46,10 +46,19 @@ figure, and each touched figure must hold the same object tree in both
 equal and arrays exactly).
 
 Module-wide state that a test file run before on the same worker may leave
-in one package and not the other (figures, `hold on`, `format long`) is
-put back to a fresh process's by `fresh_state` before each paired test.
+in one package and not the other (figures, `hold on`, `format long`, open
+files and the next file id, timers) is put back to a fresh process's by
+`fresh_state` before each paired test.
+
+A JAX test module that imports the session server's `handle_request` gets
+`paired_handle_request` in its place while `run_paired` runs it: the
+request goes to the JAX package's server over the JAX session and to the
+port's over the port's, with the files and figures held as for `execute`,
+and the two responses held equal (`same_response`: all but `wall_ms` and
+what names the engine or its counters).
 """
 
+import importlib
 import inspect
 import json
 import os
@@ -61,11 +70,13 @@ import numpy as np
 
 import helpers
 from runmat_tpu.plot import figure as jax_figures
+from runmat_tpu.server import handle_request as jax_handle_request
 from runmat_tpu.session import Session as JaxSession
 from runmat_tpu.utils import display as jax_display
 from runmat_tpu.utils.display import format_value as jax_format
 from runmat_tpu_torch.errors import MatError as PortError
 from runmat_tpu_torch.plot import figure as port_figures
+from runmat_tpu_torch.server import handle_request as port_handle_request
 from runmat_tpu_torch.session import Session as PortSession
 from runmat_tpu_torch.utils import display as port_display
 from runmat_tpu_torch.utils.display import format_value as port_format
@@ -82,6 +93,7 @@ _FEA_KEYS = {"run_id", "wall_s", "when", "runId", "hash", "head", "parent"}
 _BINARY = (".zip", ".xlsx", ".gz", ".tar", ".tgz", ".h5", ".hdf5")
 _SNAPSHOT_LIMIT = 64 << 20
 _CLOCK: frozenset = frozenset()   # struct fields holding the clock (run_paired)
+_ULPS = 0   # floating arrays within this many units in the last place (run_paired)
 _START = os.path.realpath(os.getcwd())
 
 
@@ -241,6 +253,17 @@ def _slots(v) -> dict:
 _LIVE = ("session", "vm.interp", "accel")
 
 
+def _within_ulps(got, want, ulps: int) -> bool:
+    """Each element within `ulps` units in the last place of the JAX
+    package's, NaNs in the same places."""
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        return False
+    g, w = got[~nan], want[~nan]
+    return bool(np.all((g == w) | (np.abs(g - w) <=
+                                   ulps * np.spacing(np.abs(w)))))
+
+
 def same_value(want, got, path="", seen=None) -> None:
     """`got` (the port's) holds what `want` (the JAX package's) holds."""
     seen = set() if seen is None else seen
@@ -261,9 +284,13 @@ def same_value(want, got, path="", seen=None) -> None:
         if want.dtype == object:
             for i, w in np.ndenumerate(want):
                 same_value(w, got[i], f"{path}{list(i)}", seen)
+        elif _ULPS and want.dtype.kind == "f":
+            assert _within_ulps(got, want, _ULPS), (path, got, want)
         else:
+            # NaN, and NaT in datetime and timedelta arrays, in the same
+            # places
             assert np.array_equal(got, want, equal_nan=want.dtype.kind
-                                  in "fc"), (path, got, want)
+                                  in "fcmM"), (path, got, want)
         return
     if isinstance(want, (list, tuple)):
         assert type(got) is type(want) and len(got) == len(want), path
@@ -305,11 +332,14 @@ def same_value(want, got, path="", seen=None) -> None:
 
 def fresh_state() -> None:
     """Both packages' module-wide state as a fresh process has it: no
-    figure open (each figure's hold off first), the current figure 1, and
-    MATLAB's default display format. The JAX tests assume it; a test file
-    run before on the same worker can leave a figure, `hold on` or `format
-    long` in one package only, and every later paired comparison of the
-    current figure or of a display would then fail."""
+    figure open (each figure's hold off first), the current figure 1,
+    MATLAB's default display format, no file open and the next file id 3,
+    and no timer (each stopped; a timer's default name counts the live
+    ones). The JAX tests assume it; a test file run before on the same
+    worker can leave a figure, `hold on`, `format long`, an open file or a
+    timer in one package only, and every later paired comparison of the
+    current figure, a display, a file id or a timer's name would then
+    fail."""
     for figs in (jax_figures, port_figures):
         for fig in figs._FIGURES.values():
             for ax in fig.axes:
@@ -317,6 +347,19 @@ def fresh_state() -> None:
         figs.close_all()
     jax_display.set_format("short")
     port_display.set_format("short")
+    # a builtin module is imported after its registry is loaded: two
+    # modules register some names, and the last import wins
+    for pkg in ("runmat_tpu", "runmat_tpu_torch"):
+        importlib.import_module(f"{pkg}.runtime.registry").ensure_loaded()
+        files, timing = (importlib.import_module(
+            f"{pkg}.runtime.builtins.{m}") for m in ("file_io", "timing2"))
+        for f in files._FIDS.values():
+            f.close()
+        files._FIDS.clear()
+        files._NEXT_FID[0] = 3
+        for tm in timing.TimerValue._ALL:
+            tm._stop.set()
+        timing.TimerValue._ALL.clear()
 
 
 def same_figures(jax_touched: list, port_touched: list) -> None:
@@ -473,6 +516,73 @@ class PairedSession:
             raise je
 
 
+# the parts of a server response that name the engine or read its counters
+# (the port's accel_info adds the card and its launch counts) or the clock,
+# and the scene revision, a counter of each package's own (`_REVS` maps it)
+_ENGINE_KEYS = {"platform", "stats", "card", "launches", "telemetry", "rev"}
+_REVS: dict = {}   # a JAX scene revision -> the port's in the same response
+# what the port's fusion_snapshot adds to each plan (the generated kernels
+# and the ops run eagerly), not in the JAX package's
+_PORT_KEYS = {"kernels", "eager"}
+
+
+def same_response(want: dict, got: dict) -> None:
+    """The port's server response holds the JAX package's: the same keys,
+    values equal (`same_value`), but for `wall_ms`, `_PORT_KEYS` and
+    `_ENGINE_KEYS`, of which only the presence is held; an error's text as
+    shown."""
+    def steady(v):
+        if isinstance(v, dict):
+            return {k: (k in _ENGINE_KEYS) if k in _ENGINE_KEYS else steady(x)
+                    for k, x in v.items()
+                    if k != "wall_ms" and k not in _PORT_KEYS}
+        if isinstance(v, list):
+            return [steady(x) for x in v]
+        if isinstance(v, str):
+            return shown(v)
+        return v
+    same_value(steady(want), steady(got), "response")
+
+
+def paired_handle_request(sess, req):
+    """`runmat_tpu.server.handle_request` for a `PairedSession`: each
+    package's server over its own session, responses held equal; returns
+    the JAX package's."""
+    if not isinstance(sess, PairedSession):
+        return jax_handle_request(sess, req)
+    if req.get("op") == "figures_wait":
+        return _paired_wait(sess, req)
+    call = (lambda s: (jax_handle_request if s is sess._jax
+                       else port_handle_request)(s, req))
+    call.source = req.get("source", "")
+    (jr, je), (tr, te) = sess._both(call)
+    assert je is None and te is None, (je, te)
+    same_response(jr, tr)
+    if "rev" in jr:
+        _REVS[jr["rev"]] = tr["rev"]
+    sess._same_workspaces()
+    return jr
+
+
+def _paired_wait(sess, req):
+    """The long poll in both packages at once: it waits for a request that
+    another thread sends (the HTTP bridge runs it outside the session's
+    lock for that reason), so it runs outside `_both`, the port's with
+    the port's revision for the client's."""
+    import threading
+    port_req = dict(req, rev=_REVS.get(req.get("rev"), req.get("rev")))
+    box = {}
+    th = threading.Thread(target=lambda: box.update(
+        r=port_handle_request(sess._port, port_req)))
+    th.start()
+    jr = jax_handle_request(sess._jax, req)
+    th.join()
+    tr = box["r"]
+    same_response(jr, tr)
+    _REVS[jr["rev"]] = tr["rev"]
+    return jr
+
+
 def session_tests(module) -> list:
     """The names of `module`'s test functions, in their order (each must
     drive a session: `run_paired` checks)."""
@@ -481,19 +591,71 @@ def session_tests(module) -> list:
 
 
 def run_paired(request, monkeypatch, module, name, loose=(), clock=(),
-               near=None, home=False) -> None:
+               near=None, home=False, engine=False, ulps=0) -> None:
+    """`engine=True`: the port gets `TorchEngine("cpu")` as its active
+    engine for the test, where the JAX test makes its CPU engine (a session
+    with accelerate=True; the port's would take the card). `ulps`: floating
+    arrays, the figures' among them, held within that many units in the
+    last place (XLA's and torch's CPU transcendentals differ in the last
+    bit, ROADMAP's standing differences) instead of exactly."""
     fn = getattr(module, name)
     fresh_state()
+    if engine:
+        import runmat_tpu_torch
+        runmat_tpu_torch.install("cpu")
+        request.addfinalizer(runmat_tpu_torch.uninstall)
     monkeypatch.setattr(helpers, "Session", PairedSession)
     if hasattr(module, "Session"):
         monkeypatch.setattr(module, "Session", PairedSession)
+    if hasattr(module, "handle_request"):
+        monkeypatch.setattr(module, "handle_request", paired_handle_request)
     monkeypatch.setattr(PairedSession, "runs", 0)
     monkeypatch.setattr(PairedSession, "loose", tuple(loose))
     monkeypatch.setattr(PairedSession, "near", dict(near or {}))
     monkeypatch.setattr(PairedSession, "home", home)
     monkeypatch.setitem(globals(), "_CLOCK", frozenset(clock))
+    monkeypatch.setitem(globals(), "_ULPS", ulps)
     kw = {p.name: request.getfixturevalue(p.name)
           for p in inspect.signature(fn).parameters.values()
           if p.default is inspect.Parameter.empty}
     fn(**kw)
     assert PairedSession.runs > 0, f"{name} ran no session"
+
+
+def run_served_cli(request, monkeypatch, module, name) -> None:
+    """A JAX test that starts the JAX package's command line in a
+    subprocess and talks to its server over HTTP, run twice: as it is, then
+    with the port's command line (with `--no-accel`) in its place. The
+    test's own assertions hold each run, and the JSON responses the two
+    runs read are held equal in order (`same_response`)."""
+    import io
+    import subprocess
+    import urllib.request
+    fn = getattr(module, name)
+    real_popen, real_urlopen = subprocess.Popen, urllib.request.urlopen
+    seen: list = []
+
+    def urlopen(*a, **kw):
+        with real_urlopen(*a, **kw) as r:
+            body = r.read()
+        seen[-1].append(json.loads(body))
+        return io.BytesIO(body)
+
+    def port_popen(args, *a, **kw):
+        args = list(args)
+        if args[1:3] == ["-m", "runmat_tpu.cli"]:
+            args[1:3] = ["-m", "runmat_tpu_torch.cli", "--no-accel"]
+        return real_popen(args, *a, **kw)
+
+    monkeypatch.setattr(urllib.request, "urlopen", urlopen)
+    for popen in (real_popen, port_popen):
+        monkeypatch.setattr(subprocess, "Popen", popen)
+        seen.append([])
+        fresh_state()
+        kw = {p.name: request.getfixturevalue(p.name)
+              for p in inspect.signature(fn).parameters.values()
+              if p.default is inspect.Parameter.empty}
+        fn(**kw)
+    assert seen[0] and len(seen[1]) == len(seen[0]), seen
+    for want, got in zip(*seen):
+        same_response(want, got)

@@ -42,7 +42,8 @@ from torch_paired import PairedSession, same_value
 # names a JAX test imports from a JAX-package module inside its body
 # (replaced on that module only while a test whose source imports them
 # runs: the JAX package's own calls to them would otherwise be paired too)
-LOCAL = {"runmat_tpu.fea.cavity": ("mesh_plc", "_volumes")}
+LOCAL = {"runmat_tpu.fea.cavity": ("mesh_plc", "_volumes"),
+         "runmat_tpu.lsp": ("diagnostics",)}
 
 
 class Count:
