@@ -227,11 +227,11 @@ line is printed:
      yardstick of its reduction), and imfilter's library call timed beside
      its bound;
  13. fea path: runmat_tpu_torch/workloads/fea_thermal.m (a 1 m steel cube
-     meshed at R = 64 edges a side, 274,625 nodes and 1,572,864 TET4
+     meshed at R = 48 edges a side, 117,649 nodes and 663,552 TET4
      elements, held at 300 K and 400 K on two faces; fea.run's conduction
-     solve of 266,175 unknowns by the CG kernels, histcounts of the
+     solve of 112,847 unknowns by the CG kernels, histcounts of the
      temperatures on the card, fea.plot printed to a PNG, an evidence
-     artifact and its replay, a second solve of 270,400 unknowns; then a
+     artifact and its replay, a second solve of 115,248 unknowns; then a
      plate with a bore from plate_bore.step, its faces listed, meshed and
      solved with the bore selected by its face id) through the port's
      command line in a subprocess (`python -m runmat_tpu_torch.cli`, HOME a
@@ -270,13 +270,35 @@ line is printed:
      each timed; and the CUDA conformance battery
      (runmat_tpu_torch/cuda_smoke.py) on a card session with no failure
      and at least 120 checks passed;
- 15. one JSON line of kernel results, then the result line
+ 15. eig path: [V, D] = eig(A) of a 512 x 512 float64 random matrix
+     drawn in a card session (the size of dense_linalg.m's
+     eig(A(1:N/8, 1:N/8)), which phase 7 runs through eig_hess and
+     eig_francis once a run): eig_hess, eig_francis and eig_trevc
+     (runmat_tpu_torch/csrc/eig_qr.cu via ops/eig_qr.py) launched once
+     each, no host fallback, norm(A*V - V*D)/norm(A) under 1e-10, V's
+     columns of unit norm within 1e-12, the eigenvalues within 1e-9 of
+     numpy's eigvals of the gathered A (matched greedily, of the
+     largest), the waits equal to the counted reads; then the kernels
+     against their plain versions at n = 24, 64 and 128 on the card and
+     at the main path's 512 on the CPU copy of each kernel's input
+     (runmat_tpu_torch/linalgbench.py eig_held: eig_hess within 1e-10 of
+     the largest |A|, eig_francis equal to plain_francis on the same H
+     value for value with the same iterations and chain, so the same
+     deflation order, eig_trevc within 1e-9 of the largest |Y|; at 24-128
+     also the card's eigenvalues in the same order as the plain
+     pipeline's on the CPU, within 1e-9), and each timed at 512
+     (eig_rows) beside its operations bound, the QR's chain floor, geev
+     (torch.linalg.eigvals and eig, the earlier design) and its plain
+     version's time on the card at n = 128 (`plain_n` in the kernel
+     line: the plain QR's host loop takes ~0.2 ms a bulge position on the
+     card, minutes at 512; its time on the CPU at 512 is printed);
+ 16. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
 against that call in turns, ten rounds, for the run-to-run spread of
 both, and prints the layout of each float64 map of more than 2^20
 elements (8 warps a block since the layout sweep of fusebench.py). Each
-kernel's `launches` is read from the runs of phases 4 to 13, with the
+kernel's `launches` is read from the runs of phases 4 to 15, with the
 counts set to 0 just before each run (a generated map-reduce counts once
 for its pair of launches, or for its one where one program covers each
 segment); each generated group is a row of its own, counted by its
@@ -457,13 +479,13 @@ CMAP_REPLACES = "runmat_tpu/accel/dense.py:1064"
 THERMAL_WORKLOAD = "runmat_tpu_torch/workloads/fea_thermal.m"
 # fea_thermal.m's cube: R edges a side, k, the two faces' temperatures and
 # fea.run's source (100 at each node), as the script and fea2.py set them
-THERMAL_R = 64
+THERMAL_R = 48             # the script's default is 64 (cut for time)
 THERMAL_K = 45.0
 THERMAL_FACES = (300.0, 400.0)
 THERMAL_HEAT = 100.0
 # graph replays timed at the cube's matrix: a warm-up and these, CHUNK
-# iterations each, stay short of its 438 iterations
-THERMAL_GRAPH_REPS = 2
+# iterations each, stay short of its iterations (438 at R = 64)
+THERMAL_GRAPH_REPS = 1
 # phase 14: the served scripts' result variables fetched with `get`
 SERVED_VARS = {"elementwise_math": ("checksum",),
                "monte_carlo": ("price",),
@@ -495,6 +517,19 @@ TIER_LOOPS = {
               ("x", "i"), "while", 10 ** 7),
 }
 BATTERY_MIN_PASSED = 120   # the JAX package's CPU test's bar
+# phase 15: [V, D] = eig(A) of a 512 f64 random matrix in a card session
+# (dense_linalg.m's eig(A(1:N/8, 1:N/8)) size); the lines of
+# runmat_tpu/accel/eig_qr.py each kernel replaces
+EIG_SOURCE = ("rng(23); A = randn(512, 512); [V, D] = eig(A); w = diag(D);"
+              " res = gather(norm(A*V - V*D) / norm(A));"
+              " un = gather(max(abs(sqrt(sum(abs(V) .^ 2, 1)) - 1)));"
+              " Ah = gather(A);")
+EIG_KERNELS = {"eig_hess": "runmat_tpu/accel/eig_qr.py:48",
+               "eig_francis": "runmat_tpu/accel/eig_qr.py:151",
+               "eig_trevc": "runmat_tpu/accel/eig_qr.py:362"}
+EIG_RESIDUAL = 1e-10       # norm(A*V - V*D) / norm(A)
+EIG_UNIT = 1e-12           # V's columns of unit 2-norm
+EIG_NUMPY_TOL = 1e-9       # the eigenvalues against numpy's, greedily
 # the subprocess that loads it with jax and runmat_tpu blocked
 NOJAX_LOAD = r"""
 import hashlib, json, sys
@@ -905,7 +940,8 @@ def _group(name: str) -> str:
         "lstm_seq" if name.startswith("lstm_seq") else \
         "lstm" if name.startswith("lstm") else \
         "optim" if name.startswith("optim") else \
-        "cmap" if name.startswith("cmap") else "fused"
+        "cmap" if name.startswith("cmap") else \
+        "eig_qr" if name in EIG_KERNELS else "fused"
 
 
 def phase_fused_kernel() -> list:
@@ -1582,6 +1618,8 @@ def phase_linalg_signal_path() -> dict:
     for name in RESIDUALS:
         r = float(np.asarray(s.get(name).host()).reshape(-1)[0])
         check(r < RESIDUAL_LIMIT, f"dense_linalg: {name} = {r!r}")
+    check(launches["eig_qr"] == {"eig_hess": 1, "eig_francis": 1},
+          f"dense_linalg: eig kernels {launches['eig_qr']}")
     print("port dense_linalg: residuals " + ", ".join(
         f"{n} {float(np.asarray(s.get(n).host()).reshape(-1)[0]):.3g}"
         for n in RESIDUALS))
@@ -2683,7 +2721,7 @@ def _host_engine_cg(A, b, tol=1e-10) -> np.ndarray:
     """The host engine's solve (sparse.py:_cg_device with no engine: the
     JAX package's Jacobi-preconditioned loop in numpy), its product by
     scipy's CSR in place of SparseMatrix.matmul's loop over the columns,
-    which at 266,175 columns would take hours."""
+    which at 112,847 columns would take most of an hour."""
     import scipy.sparse as sps
     ii, jj, vv = A.triplets()
     S = sps.csr_matrix((vv, (ii, jj)), shape=(A.m, A.n))
@@ -2741,8 +2779,9 @@ def _fea_histogram(t: np.ndarray, edges: np.ndarray) -> None:
 
 
 def phase_fea_path() -> dict:
-    """fea_thermal.m at its default size (R = 64) through the port's CLI in
-    a subprocess and through Session.run_source; the cube's temperatures
+    """fea_thermal.m at R = THERMAL_R (48; the script's default 64 is cut
+    to keep `chip_smoke.py` inside its time limit) through the port's CLI
+    in a subprocess and through Session.run_source; the cube's temperatures
     against the host engine's solve and its free temperatures against the
     ordered model on the rebuilt system; the solves, launches, reads and
     waits (the run is under torch's sync debug mode and the profiler); then
@@ -2755,8 +2794,11 @@ def phase_fea_path() -> dict:
     from runmat_tpu_torch.ops import spcg
     from runmat_tpu_torch.plot import figure as figmod
 
-    src = open(THERMAL_WORKLOAD).read()
+    src = f"R = {THERMAL_R};\n" + open(THERMAL_WORKLOAD).read()
     home = tempfile.mkdtemp(prefix="fea_home_")
+    script = os.path.join(home, os.path.basename(THERMAL_WORKLOAD))
+    with open(script, "w") as f:
+        f.write(src)
     old_home = os.environ.get("HOME")
     os.environ["HOME"] = home        # fea.run's registry and evidence chain
     laps = [("start", time.perf_counter())]
@@ -2769,7 +2811,7 @@ def phase_fea_path() -> dict:
         card = json.loads(p.stdout)["card"]
         check(card["name"] == torch.cuda.get_device_name(0),
               f"fea: accel-info names {card}")
-        p = subprocess.run(cli + [THERMAL_WORKLOAD], capture_output=True,
+        p = subprocess.run(cli + [script], capture_output=True,
                            text=True, env=env, timeout=900)
         check(p.returncode == 0, f"fea: the CLI run failed: {p.stderr[-2000:]}")
         cli_out = p.stdout
@@ -3311,6 +3353,125 @@ def phase_tooling_path() -> dict:
     return {}
 
 
+def _eig_kernels() -> dict:
+    """The three eigenvalue kernels against their plain versions at
+    linalgbench.EIG_HELD (the plain versions on the card) and at the main
+    path's 512 (the plain versions on the CPU: the same values, far
+    sooner), and timed at 512 (linalgbench.eig_held and eig_rows). Returns
+    eig_rows' result and each kernel's largest difference from plain."""
+    import torch
+
+    from runmat_tpu_torch import linalgbench
+    dev = torch.device("cuda")
+    errs = dict.fromkeys(EIG_KERNELS, 0.0)
+    held = {}
+    for n, pdev in [(n, None) for n in linalgbench.EIG_HELD] + \
+            [(linalgbench.EIG_N, "cpu")]:
+        t0 = time.perf_counter()
+        try:
+            held[n] = r = linalgbench.eig_held(n, dev, pdev)
+        except AssertionError as e:
+            raise SmokeFailure(f"eig kernels against plain at n = {n}: "
+                               f"{e}") from e
+        for k in errs:
+            errs[k] = max(errs[k], r[k])
+        pipe = "" if "v_err" not in r else (
+            f"; the card's eig_values and eig_full against the CPU's plain "
+            f"ones: the eigenvalues in the same order, V within "
+            f"{r['v_err']:.3g} up to a unit factor")
+        print(f"eig kernels n={n}: eig_hess within {r['eig_hess']:.3g} of "
+              f"plain (H and Q), eig_francis equal to plain_francis (T and "
+              f"Z; [ok, iterations, chain] {r['info']}), eig_trevc within "
+              f"{r['eig_trevc']:.3g}{pipe}; plain on the {r['plain_dev']}, "
+              f"ms: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in r["plain_ms"].items())
+              + f" ({time.perf_counter() - t0:.1f} s)")
+    r = linalgbench.eig_rows(TIMING_REPS // 10,
+                             held[linalgbench.EIG_PLAIN_N]["plain_ms"])
+    linalgbench.print_eig(r)
+    check(r["values_ok"] and r["numpy_err"] <= EIG_NUMPY_TOL and
+          r["residual"] < EIG_RESIDUAL and r["unit_err"] < EIG_UNIT and
+          r["same_order"], f"eig at {r['n']}: {r}")
+    r["errs"] = errs
+    return r
+
+
+def phase_eig_path() -> dict:
+    """The general eigenproblem (phase 15): [V, D] = eig(A) of a 512 f64
+    random matrix through a card session (the three kernels once each, no
+    fallback, the eigenvalues against numpy's of the gathered A, the
+    residual, unit columns, the waits equal the counted reads), then the
+    kernels against their plain versions and timed."""
+    import torch
+
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel
+    from runmat_tpu_torch.errors import MatError
+    laps = [("start", time.perf_counter())]
+    s = runmat_tpu_torch.session("cuda")
+    eng = accel.active_engine()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        _run_source(s, EIG_SOURCE)
+    except MatError as e:
+        raise SmokeFailure(f"eig [V, D]: {e}") from e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    st, log = dict(eng.stats), list(eng.launch_log)
+    reasons = dict(eng.sync_reasons)
+    vals = {k: np.asarray(s.get(k).host()) for k in ("w", "res", "un", "Ah")}
+    runmat_tpu_torch.uninstall()
+    laps.append(("card run", time.perf_counter()))
+    check(launches["eig_qr"] == {"eig_hess": 1, "eig_francis": 1,
+                                 "eig_trevc": 1},
+          f"eig [V, D]: eig kernels {launches['eig_qr']}")
+    check(st["host_fallbacks"] == 0,
+          f"eig [V, D]: {st['host_fallbacks']} host fallbacks: "
+          f"{[e for e in log if e['cat'] == 'host_fallback']}")
+    res = float(vals["res"].reshape(-1)[0])
+    un = float(vals["un"].reshape(-1)[0])
+    w = vals["w"].reshape(-1).astype(complex)
+    ref = np.linalg.eigvals(vals["Ah"])
+    got, err = list(w), 0.0
+    for r in ref:
+        d = [abs(g - r) for g in got]
+        j = int(np.argmin(d))
+        err = max(err, d[j])
+        got.pop(j)
+    err /= max(1.0, float(np.max(np.abs(ref))))
+    check(res < EIG_RESIDUAL and un < EIG_UNIT and err <= EIG_NUMPY_TOL,
+          f"eig [V, D]: residual {res}, column norms {un}, against numpy "
+          f"{err}")
+    print(f"port eig [V, D] of 512 f64: residual {res:.3g}, column norms "
+          f"within {un:.3g} of 1, eigenvalues within {err:.3g} of numpy's "
+          f"(greedy, of the largest); launches {launches['eig_qr']}; "
+          f"{st['syncs']} syncs {reasons}, {st['gathers']} gathers; first "
+          f"run {wall * 1e3:.1f} ms")
+    _sync_check(EIG_SOURCE, "eig [V, D]")
+    laps.append(("syncs", time.perf_counter()))
+    r = _eig_kernels()
+    laps.append(("kernels", time.perf_counter()))
+    print("eig path, seconds: " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f}" for i, (name, t) in
+        enumerate(laps[1:])))
+    rows = []
+    for name, replaces in EIG_KERNELS.items():
+        row = r["rows"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "runmat_tpu_torch/csrc/eig_qr.cu",
+            "replaces": replaces, "launches": 0, "launch_key": name,
+            "max_abs_err": r["errs"][name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "plain_n": r["plain_n"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": r["eigvals_H_ms"] if name == "eig_francis"
+            else None})
+    phase_eig_path.kernels = rows
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -3329,10 +3490,12 @@ def main() -> int:
                  phase(phase_linalg_signal_path), phase(phase_pages_path),
                  phase(phase_sparse_path), phase(phase_dl_path),
                  phase(phase_records_path), phase(phase_plot_path),
-                 phase(phase_fea_path), phase(phase_tooling_path)]
+                 phase(phase_fea_path), phase(phase_tooling_path),
+                 phase(phase_eig_path)]
         kernels += phase_linalg_signal_path.kernels + \
             phase_pages_path.kernels + phase_sparse_path.kernels + \
-            phase_dl_path.kernels + phase_plot_path.kernels
+            phase_dl_path.kernels + phase_plot_path.kernels + \
+            phase_eig_path.kernels
         for k in kernels:
             key = k.pop("launch_key")
             on_path = k.pop("on_path", True)

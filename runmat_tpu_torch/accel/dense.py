@@ -23,10 +23,12 @@ Builders (kind -> (engine, opts) -> fn(*tensors)):
   * the dense linear algebra goes through `torch.linalg` (cuSOLVER on a
     card), as the JAX package's goes through `jnp.linalg`: `solve`,
     `lstsq` (economy QR and a triangular solve), `inv`, `pinv`, `det`,
-    `chol` (factor and flag), `qr`, `svd`, `eigh`, `eig_qr` and
-    `eig_full` (LAPACK's eigenvalues and vectors in JaxEngine's
-    `(wr, wi, flags)` and plane-stack contracts, not its Francis QR),
-    `lu`, `trisolve`, `trace`, `ishermitian`, `norm`, `rank`;
+    `chol` (factor and flag), `qr`, `svd`, `eigh`, `lu`, `trisolve`,
+    `trace`, `ishermitian`, `norm`, `rank`;
+  * the general eigenproblem, `eig_qr` and `eig_full`, through the port's
+    Francis QR (`accel/eig_qr.py`, the hand-written kernels of
+    `ops/eig_qr.py`), in JaxEngine's `(wr, wi, flags)` and plane-stack
+    contracts and its eigenvalue order;
   * `fft`, `fft2`, `hilbert` and `spectrogram` through `torch.fft`
     (cuFFT); `conv1`, `conv2`, `imfilter` and `fir` through
     `torch.nn.functional` convolutions (cuDNN), with float32 convolutions
@@ -39,15 +41,16 @@ copied builtins use them unchanged. `spectrogram` returns its result on
 the host, as the builtin reads it with `np.asarray` there (a counted
 gather), and `eig_full` its flags (a counted read).
 
-The general eigenproblem (`eig_qr`, `eig_full`) is cuSOLVER's geev on
-the card under torch 2.11 with CUDA 12.8: the Hessenberg reduction and the
-QR sweeps are card kernels, steered from the host through a few hundred
-small copies inside the call (`linalgbench.eig_where` lists them).
+The general eigenproblem (`eig_qr`, `eig_full`) runs on the card with no
+host read inside: balancing in torch ops, then one launch each of
+eig_hess, eig_francis (the whole QR iteration) and, for `eig_full`,
+eig_trevc; `flags` comes from the iteration's own `ok`, so a run that hits
+the safeguard takes the builtin's counted host fallback.
 
 Waits for the card: torch.linalg's `_ex` forms (`cholesky_ex`, `inv_ex`,
 `solve_ex`, `lu_factor_ex`) do not check LAPACK's `info` on the host. The
-calls without such a form (`svd`/`svdvals`, `eigh`/`eigvalsh`,
-`eig`/`eigvals`) wait inside torch; each such call is counted in
+calls without such a form (`svd`/`svdvals`, `eigh`/`eigvalsh`) wait
+inside torch; each such call is counted in
 `stats["syncs"]` with its kind in `eng.sync_reasons`, so that every wait is
 named (`runmat_tpu_torch/syncs.py` holds the count to the waits torch sees).
 
@@ -75,6 +78,7 @@ import torch
 
 from ..ops import cmap, histogram, iir
 from ..values import MatArray, normalize_shape
+from . import eig_qr
 from .lazy import LazyNode
 
 _WORK = {np.dtype(np.float32): torch.float32,
@@ -463,11 +467,10 @@ def tf32(on: bool, backend: str = "matmul"):
 # --------------------------------------------------------------------------- #
 
 # The waits for the card inside each torch.linalg call that has no `_ex`
-# form (it reads LAPACK's `info`, or steers geev from the host), as
+# form (it reads LAPACK's `info`), as
 # torch's sync debug mode counts them for torch 2.11 on an H100
 # (`python3 runmat_tpu_torch/syncs.py` holds every script's count).
-_TORCH_WAITS = {"svdvals": 2, "svd": 2, "eigvalsh": 1, "eigh": 1,
-                "eigvals": 2, "eig": 3}
+_TORCH_WAITS = {"svdvals": 2, "svd": 2, "eigvalsh": 1, "eigh": 1}
 
 
 def _waits(eng, kind: str, call: str, out: torch.Tensor) -> None:
@@ -604,43 +607,34 @@ def _b_eigh(eng, opts):
     return f
 
 
-def _eig(eng, kind: str, a: torch.Tensor, vectors: bool):
-    """Eigenvalues (and vectors) of a real matrix, the waits counted."""
-    if vectors:
-        w, v = torch.linalg.eig(a)
-        _waits(eng, kind, "eig", w)
-        return w, v
-    w = torch.linalg.eigvals(a)
-    _waits(eng, kind, "eigvals", w)
-    return w
-
-
-def _flags(w: torch.Tensor) -> torch.Tensor:
-    """[converged, has a complex pair] in float64: LAPACK's geev raises
-    where JaxEngine's QR would report no convergence."""
-    one = torch.ones((), dtype=torch.float64, device=w.device)
-    return torch.stack([one, (w.imag != 0).any().to(torch.float64)])
+def _eig_flags(ok: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+    """[converged, has a complex pair] in float64, from the Francis
+    iteration's own ok."""
+    return torch.stack([ok.to(torch.float64),
+                        (wi != 0.0).any().to(torch.float64)])
 
 
 def _b_eig_qr(eng, opts):
-    """General real eigenvalues as `_b_eig_qr`'s (wr, wi, flags), columns
-    of n; LAPACK's order, not the Francis QR's (compare sorted)."""
+    """General real eigenvalues through the port's Francis QR
+    (`accel/eig_qr.py`: balance, eig_hess, eig_francis): (wr, wi, flags),
+    columns of n in the iteration's order, flags = [converged,
+    has_complex_pair]."""
     def f(a):
-        w = _eig(eng, "eig_qr", a.to(torch.float64), False)
-        return (w.real.reshape(-1, 1).contiguous(),
-                w.imag.reshape(-1, 1).contiguous(), _flags(w))
+        wr, wi, ok = eig_qr.eig_values(a.to(torch.float64))
+        return wr.reshape(-1, 1), wi.reshape(-1, 1), _eig_flags(ok, wi)
     return f
 
 
 def _b_eig_full(eng, opts):
-    """[V, D] of a real matrix as `_b_eig_full`'s plane stacks (2, n, n)
-    and its flags, read on the host (the builtin reads them with
-    `np.asarray`); V's columns have unit 2-norm, as MATLAB's."""
+    """[V, D] of a real matrix through the port's Francis QR with Schur
+    vectors and eig_trevc, V = D_bal Q Z Y with unit-norm columns, as
+    plane stacks (2, n, n), and its flags, read on the host (the builtin
+    reads them with `np.asarray`)."""
     def f(a):
-        w, v = _eig(eng, "eig_full", a.to(torch.float64), True)
-        V = torch.stack([v.real, v.imag])
-        D = torch.stack([torch.diag(w.real), torch.diag(w.imag)])
-        flags = _flags(w)
+        Vr, Vi, wr, wi, ok = eig_qr.eig_full(a.to(torch.float64))
+        V = torch.stack([Vr, Vi])
+        D = torch.stack([torch.diag(wr), torch.diag(wi)])
+        flags = _eig_flags(ok, wi)
         eng.count_sync(int(flags.nbytes), "eig_full")
         return V, D, flags.cpu().numpy()
     return f

@@ -33,10 +33,14 @@ torch, at the scripts' shapes, beside its bound: the flop count of the textbook
 algorithm over the card's peak for the type (float64 67 TFLOP/s, the
 tensor cores' DMMA rate; float32 67 TFLOP/s outside the tensor cores), or
 its inputs read and outputs written once over 3.35 TB/s, whichever is
-larger. `eig_where` profiles one general eigenvalue call (dense_linalg.m's
-`eig(A(1:N/8, 1:N/8))`, 512 f64) with torch.profiler: the call's time on
-the host, its card kernels' time and count, and its copies each way, which
-show where cuSOLVER's geev runs. Each time is the mean of `--reps` after a warm-up, CUDA events
+larger. `eig_held` holds the general eigenproblem's three kernels (`ops/eig_qr.py`:
+eig_hess, eig_francis, eig_trevc) to their plain versions on the card and
+the card's pipeline to the plain one on the CPU (the eigenvalues in the
+same order), and times the plain versions; `eig_rows` times the kernels at
+dense_linalg.m's `eig(A(1:N/8, 1:N/8))` (512 f64) beside their operations
+bound, the QR's chain floor and cuSOLVER's geev (torch.linalg.eigvals and
+eig: the earlier design), and holds the eigenvalues to numpy's. Each time
+is the mean of `--reps` after a warm-up, CUDA events
 (`histbench.time_ms`). Run as a script, this file imports
 `runmat_tpu_torch` from DIR (default: the checkout holding this file).
 Prints the card's name and power limit, one line a call, then one JSON
@@ -63,6 +67,21 @@ BUTTER_B = (0.00041659920440659937, 0.0016663968176263975,
             0.00041659920440659937)
 BUTTER_A = (1.0, -3.1806385488747191, 3.8611943489942133,
             -2.1121553551109691, 0.43826514226197977)
+EIG_N = N_LINALG // 8           # dense_linalg.m's eig(A(1:N/8, 1:N/8))
+EIG_HELD = (24, 64, 128)        # the sizes the eig kernels are held at
+EIG_PLAIN_N = 128               # the plain versions are timed here
+# the card pipeline against the plain one on the CPU: eigenvalues in the
+# same order within EIG_TOL of the largest (the reduction's sums differ in
+# order, so do the Hessenberg matrices, by rounding), V's columns within
+# EIG_V_TOL up to a unit factor (a 2x2 block's representation, and so a
+# complex column's phase, turns with rounding)
+EIG_TOL = 1e-9
+EIG_V_TOL = 1e-9
+# the QR's chain floor: each bulge position waits for at least one L2
+# round trip and one block barrier. An assumption, not a measurement:
+# about 260 SM cycles for an L2 hit and 40 for a 1024-thread barrier at
+# 1.755 GHz
+CHAIN_STEP_NS = 300 / 1.755
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -463,38 +482,225 @@ def _fp32_conv2d(img, box):
         return torch.nn.functional.conv2d(img, box, padding=2)
 
 
-def eig_where(n: int = N_LINALG // 8) -> dict:
-    """One torch.linalg.eigvals call on an n x n float64 card matrix under
-    torch.profiler (after a warm-up call): its host time, the time and
-    number of its card kernels, and its copies to and from the host."""
+def eig_matrix(n: int, dev, seed: int = 0):
+    """A random n x n float64 matrix (numpy's generator from `seed`) on
+    `dev`: the general eigenproblem's input."""
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    a = torch.randn(n, n, dtype=torch.float64, device="cuda", generator=gen)
-    torch.linalg.eigvals(a)
+    a = np.random.default_rng(seed + n).standard_normal((n, n))
+    return torch.tensor(a, dtype=torch.float64, device=dev)
+
+
+def _phase_err(V, W) -> float:
+    """The largest column difference of V from W after turning each column
+    of W by the unit factor that best aligns it (a complex eigenvector's
+    phase is free)."""
+    import torch
+    c = torch.sum(W.conj() * V, dim=0)
+    mag = torch.abs(c)
+    u = torch.where(mag > 0, c / torch.where(mag > 0, mag, 1), 1)
+    return float(torch.max(torch.abs(V - W * u[None, :])))
+
+
+def _host_ms(fn):
+    """(result, ms) of one call of `fn` on the host's clock, the card
+    synchronized before and after."""
+    import torch
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.linalg.eigvals(a)
-        torch.cuda.synchronize()
-    out = {"n": n, "call_ms": 0.0, "kernel_ms": 0.0, "kernels": 0,
-           "copies_to_host": 0, "copies_to_card": 0}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = e.cuda_time_total
-        if e.key == "aten::linalg_eigvals":
-            out["call_ms"] = e.cpu_time_total / 1e3
-        elif e.key.startswith("Memcpy DtoH"):
-            out["copies_to_host"] += e.count
-        elif e.key.startswith("Memcpy HtoD"):
-            out["copies_to_card"] += e.count
-        elif e.device_type == torch.autograd.DeviceType.CUDA and \
-                not e.key.startswith("Memcpy") and dev_us > 0:
-            out["kernel_ms"] += dev_us / 1e3
-            out["kernels"] += e.count
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def eig_held(n: int, dev, plain_dev=None) -> dict:
+    """The three eigenvalue kernels against their plain versions at n
+    (`ops/eig_qr.py`), on a random matrix balanced as eig balances it:
+    eig_hess with and without Q within HESS_TOL (of the largest |A|; of 1
+    for Q) of plain_hessenberg; eig_francis with and without Z equal to
+    plain_francis on the kernel's own Hessenberg matrix, value for value,
+    with the same [ok, iterations, chain]; eig_trevc within TREVC_TOL of the
+    largest |Y| on the same T. The plain versions run on `plain_dev` (the
+    card by default), on copies of the kernels' inputs. On the card, the
+    whole pipeline (`accel/eig_qr.py` eig_values and eig_full) is also
+    held to the plain versions on the CPU: the same ok, the eigenvalues in
+    the same order within EIG_TOL of the largest, V column by column
+    within EIG_V_TOL up to a unit factor. On the CPU, each plain version
+    runs once, with Q and with Z (H and T do not depend on them), and the
+    pipeline is not run again. Raises AssertionError; returns each
+    kernel's largest absolute difference, the info and each plain
+    version's time (the host's clock, once)."""
+    import torch
+
+    from runmat_tpu_torch.accel import eig_qr as EQ
+    from runmat_tpu_torch.ops import eig_qr as K
+    pdev = torch.device(dev if plain_dev is None else plain_dev)
+    both = pdev.type != "cpu"       # each plain version without Q/Z as well
+    A = eig_matrix(n, dev)
+    Ab = EQ.balance(A)
+    s = float(torch.max(torch.abs(Ab)))
+    out = {"n": n, "plain_dev": pdev.type, "plain_ms": {}}
+    plain = out["plain_ms"]
+    H, Q = K.hessenberg(Ab, True)
+    H1, _ = K.hessenberg(Ab, False)
+    pAb = Ab.to(pdev)
+    (pH, pQ), plain["eig_hess with Q"] = _host_ms(
+        lambda: K.plain_hessenberg(pAb, True))
+    pH1 = pH
+    if both:
+        (pH1, _), plain["eig_hess"] = _host_ms(
+            lambda: K.plain_hessenberg(pAb, False))
+    err = max(float(torch.max(torch.abs(H - pH.to(dev)))),
+              float(torch.max(torch.abs(H1 - pH1.to(dev)))))
+    qerr = float(torch.max(torch.abs(Q - pQ.to(dev))))
+    assert err <= K.HESS_TOL * s and qerr <= K.HESS_TOL, \
+        ("eig_hess", n, err, qerr)
+    out["eig_hess"] = max(err, qerr)
+    Hp = torch.zeros((n + 3, n + 3), dtype=torch.float64, device=dev)
+    Hp[:n, :n] = H
+    maxit = 40 * n + 100
+    T, Z, info = K.francis(Hp, n, maxit, True)
+    T1, _, info1 = K.francis(Hp, n, maxit, False)
+    pHp = Hp.to(pdev)
+    (pT, pZ, pinfo), plain["eig_francis with Z"] = _host_ms(
+        lambda: K.plain_francis(pHp, n, maxit, True))
+    pT1, pinfo1 = pT, pinfo
+    if both:
+        (pT1, _, pinfo1), plain["eig_francis"] = _host_ms(
+            lambda: K.plain_francis(pHp, n, maxit, False))
+    pT, pZ, pT1 = pT.to(dev), pZ.to(dev), pT1.to(dev)
+    assert torch.equal(T, pT) and torch.equal(Z, pZ) and \
+        torch.equal(T1, pT1), ("eig_francis", n, float(torch.max(torch.abs(
+            T - pT))), float(torch.max(torch.abs(Z - pZ))),
+            float(torch.max(torch.abs(T1 - pT1))))
+    assert info.tolist() == pinfo.tolist() == info1.tolist() == \
+        pinfo1.tolist(), ("eig_francis info", n, info.tolist(),
+                          pinfo.tolist())
+    out["eig_francis"] = 0.0
+    out["info"] = info.tolist()
+    Tn = T[:n, :n].contiguous()
+    q = EQ._quasi_eigs(Tn, n)
+    Yr, Yi = K.trevc(Tn, *q)
+    pTn, pq = Tn.to(pdev), [x.to(pdev) for x in q]
+    (pYr, pYi), plain["eig_trevc"] = _host_ms(lambda: K.plain_trevc(pTn,
+                                                                    *pq))
+    pYr, pYi = pYr.to(dev), pYi.to(dev)
+    yerr = max(float(torch.max(torch.abs(Yr - pYr))),
+               float(torch.max(torch.abs(Yi - pYi))))
+    ys = max(1.0, float(torch.max(torch.abs(pYr))),
+             float(torch.max(torch.abs(pYi))))
+    assert yerr <= K.TREVC_TOL * ys, ("eig_trevc", n, yerr)
+    out["eig_trevc"] = yerr
+    if not both:
+        return out
+    wr, wi, ok = EQ.eig_values(A)
+    cr, ci, cok = EQ.eig_values(A.cpu())
+    Vr, Vi, fr, fi, fok = EQ.eig_full(A)
+    pVr, pVi, gr, gi, gok = EQ.eig_full(A.cpu())
+    assert bool(ok) == bool(cok) == bool(fok) == bool(gok), ("ok", n)
+    w = torch.complex(wr, wi).cpu()
+    ws = max(1.0, float(torch.max(torch.abs(w))))
+    for got, want, what in ((w, torch.complex(cr, ci), "eig_values"),
+                            (torch.complex(fr, fi).cpu(),
+                             torch.complex(gr, gi), "eig_full")):
+        werr = float(torch.max(torch.abs(got - want)))
+        assert werr <= EIG_TOL * ws, (what, "order or values", n, werr)
+    verr = _phase_err(torch.complex(Vr, Vi).cpu(), torch.complex(pVr, pVi))
+    assert verr <= EIG_V_TOL, ("eig_full V", n, verr)
+    out["v_err"] = verr
     return out
+
+
+def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
+    """dense_linalg.m's general eigenproblem at n (512, f64) on the card:
+    each kernel timed with CUDA events (the wrapper's call, its few torch
+    ops included) as the values path calls it (eig_hess without Q,
+    eig_francis without Z) and as [V, D] calls it, beside its operations
+    bound (about 10/3 n^3 for the reduction, 10 n^3 for the QR, n^3 for
+    trevc at the float64 rate; the bytes of its input and output over
+    3.35 TB/s are less), the QR's chain floor (its sum of sweep lengths
+    times CHAIN_STEP_NS), cuSOLVER's geev (torch.linalg.eigvals and eig of
+    A, the earlier design; eigvals of the Hessenberg matrix, eig_francis'
+    own input) and `plain` (`eig_held`'s times at EIG_PLAIN_N); the
+    eigenvalues against numpy's eigvals of the gathered matrix (matched
+    greedily, relative to the largest) and [V, D]'s residual and column
+    norms."""
+    import numpy as np
+    import torch
+
+    from runmat_tpu_torch.accel import eig_qr as EQ
+    from runmat_tpu_torch.histbench import time_ms
+    from runmat_tpu_torch.ops import eig_qr as K
+    dev = torch.device("cuda")
+    A = eig_matrix(n, dev)
+    Ab = EQ.balance(A)
+    H, _ = K.hessenberg(Ab, False)
+    Hp = torch.zeros((n + 3, n + 3), dtype=torch.float64, device=dev)
+    Hp[:n, :n] = H
+    maxit = 40 * n + 100
+    T, _, info = K.francis(Hp, n, maxit, True)
+    ok, iters, chain = info.tolist()
+    Tn = T[:n, :n].contiguous()
+    q = EQ._quasi_eigs(Tn, n)
+    calls = {"eig_hess": lambda: K.hessenberg(Ab, False),
+             "eig_hess with Q": lambda: K.hessenberg(Ab, True),
+             "eig_francis": lambda: K.francis(Hp, n, maxit, False),
+             "eig_francis with Z": lambda: K.francis(Hp, n, maxit, True),
+             "eig_trevc": lambda: K.trevc(Tn, *q)}
+    ops = {"eig_hess": 10 * n ** 3 / 3, "eig_francis": 10 * n ** 3,
+           "eig_trevc": n ** 3}
+    nbytes = {"eig_hess": 2 * n * n * 8, "eig_francis": 2 * n * n * 8,
+              "eig_trevc": 3 * n * n * 8}
+    out = {"n": n, "ok": ok, "iterations": iters, "chain": chain,
+           "chain_floor_ms": chain * CHAIN_STEP_NS * 1e-6, "rows": {},
+           "plain_n": EIG_PLAIN_N}
+    for name, fn in calls.items():
+        kernel = name.split()[0]
+        b = bound(nbytes[kernel], ops[kernel], "float64")
+        out["rows"][name] = {"ms": time_ms(fn, reps), "bound_ms": b[0],
+                             "bound_by": b[1], "plain_ms": plain[name]}
+    out["rows"]["eig_francis"]["chain_floor_ms"] = out["chain_floor_ms"]
+    out["eigvals_ms"] = time_ms(lambda: torch.linalg.eigvals(A), reps)
+    out["eig_ms"] = time_ms(lambda: torch.linalg.eig(A), reps)
+    out["eigvals_H_ms"] = time_ms(lambda: torch.linalg.eigvals(H), reps)
+    wr, wi, vok = EQ.eig_values(A)
+    got = list(wr.cpu().numpy() + 1j * wi.cpu().numpy())
+    ref = np.linalg.eigvals(A.cpu().numpy())
+    err = 0.0
+    for r in ref:
+        d = [abs(g - r) for g in got]
+        j = int(np.argmin(d))
+        err = max(err, d[j])
+        got.pop(j)
+    out["numpy_err"] = err / max(1.0, float(np.max(np.abs(ref))))
+    Vr, Vi, fr, fi, fok = EQ.eig_full(A)
+    V = torch.complex(Vr, Vi)
+    lam = torch.complex(fr, fi)
+    res = torch.linalg.norm(A.to(torch.complex128) @ V - V * lam[None, :])
+    out["residual"] = float(res / torch.linalg.norm(A))
+    out["unit_err"] = float(torch.max(torch.abs(
+        torch.linalg.norm(V, dim=0) - 1)))
+    out["values_ok"] = bool(vok) and bool(fok)
+    out["same_order"] = bool(torch.equal(wr, fr) and torch.equal(wi, fi))
+    return out
+
+
+def print_eig(r: dict) -> None:
+    """`eig_rows`' lines."""
+    print(f"eig {r['n']} f64: ok {r['ok']}, {r['iterations']} iterations, "
+          f"a chain of {r['chain']} bulge positions (floor "
+          f"{r['chain_floor_ms']:.2f} ms at {CHAIN_STEP_NS:.1f} ns a "
+          f"position); eigenvalues within {r['numpy_err']:.3g} of numpy's "
+          f"(greedy, of the largest), [V, D] residual {r['residual']:.3g}, "
+          f"column norms within {r['unit_err']:.3g} of 1, values and [V, D] "
+          f"in the same order {r['same_order']}")
+    for name, row in r["rows"].items():
+        print(f"  {name:18s} {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+              f" ms ({row['bound_by']}), share {row['bound_ms'] / row['ms']:.2g}"
+              f", plain at {r['plain_n']} {row['plain_ms']:.1f} ms")
+    print(f"  geev: torch.linalg.eigvals {r['eigvals_ms']:.3f} ms, "
+          f"torch.linalg.eig {r['eig_ms']:.3f} ms, eigvals of the Hessenberg "
+          f"matrix {r['eigvals_H_ms']:.3f} ms")
 
 
 def main() -> int:
@@ -554,11 +760,9 @@ def main() -> int:
         print(f"{r['op']:16s} {r['call']}: {r['ms']:.4f} ms, library {lib},"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
               f"{r['share']:.3f}")
-    out["eig_where"] = w = eig_where()
-    print(f"eigvals {w['n']} f64: the call {w['call_ms']:.1f} ms on the "
-          f"host, {w['kernels']} card kernels {w['kernel_ms']:.1f} ms, "
-          f"{w['copies_to_host']} copies to the host and "
-          f"{w['copies_to_card']} to the card")
+    held = eig_held(EIG_PLAIN_N, torch.device("cuda"))
+    out["eig"] = r = eig_rows(args.reps, held["plain_ms"])
+    print_eig(r)
     for r in library_rows(args.reps):
         out["library"].append(r)
         print(f"{r['op']:16s} {r['call']}: {r['ms']:.3f} ms, bound "

@@ -5,7 +5,7 @@ PyTorch version), its build, and the elementwise op table."""
 # the modules of the kernels the port launches, each with its `launches`
 # and `launches_by` counters
 KERNEL_MODULES = ("threefry", "histogram", "fused", "iir", "spcg", "lstm",
-                  "lstm_seq", "optim", "cmap")
+                  "lstm_seq", "optim", "cmap", "eig_qr")
 
 
 def kernel_modules() -> dict:

@@ -1,0 +1,438 @@
+"""The general eigenproblem's three kernels: the wrappers around
+`csrc/eig_qr.cu` and their plain PyTorch versions.
+
+The JAX package computes a real nonsymmetric `eig` as one XLA program
+(`runmat_tpu/accel/eig_qr.py`, no Pallas twin); `accel/eig_qr.py` is its
+copy, and its three loops run here:
+
+    eig_hess     the Householder reduction to upper Hessenberg form, with
+                 or without the accumulated Q (`hessenberg`, 48-80;
+                 `hessenberg_q`, 108-141): n - 2 steps, each of four
+                 dependent passes over the matrix
+    eig_francis  the implicit double-shift QR iteration with deflation,
+                 with or without the Schur vectors Z (`francis_qr_z`,
+                 151-284): the whole `lax.while_loop` in one launch
+    eig_trevc    the quasi-triangular back-substitution for the right
+                 eigenvectors (`trevc`, 362-482): one column a warp
+
+A CPU tensor takes the plain version (`plain_hessenberg`, `plain_francis`,
+`plain_trevc`); a CUDA tensor launches the kernel or raises
+`MatError("RunMat:eigKernel")`: a failed build or launch, a type other
+than float64, a shape the kernel does not take. Nothing falls back.
+
+`plain_francis` is a Python loop over the while-loop's branches: the
+scalars that steer it (the deflation tests, the shifts, each 3x3
+reflector) are Python floats read off H, whose operations round as the
+card's float64 operations do, and each reflector's products are summed
+left to right in torch ops, as the kernel sums them (no FMA in either). It
+applies each reflector over the whole padded width, as the JAX version
+does; the kernel over dlahqr's window (rows k..k+2 from column k-1
+rightwards, columns k..k+2 down to row min(k+3, hi)), outside which the
+whole-width products only add exact zeros and O(eps) bulge remnants that
+never reach the window and are cleared at the sweep's end. So the kernel
+equals the plain version on the same H: T and Z value for value (a -0
+where the plain version has +0 at most), `ok`, the iteration count and
+the chain. The Frobenius norm that sets the deflation floor is computed
+by the same torch call for both (`_hfro`).
+
+`plain_hessenberg` and `plain_trevc` sum their long dot products with
+`torch.matmul`, the kernels in their own fixed order, so the two agree
+within rounding (`HESS_TOL`, `TREVC_TOL`).
+
+`launches` counts the kernel launches and nothing else; `launches_by`
+splits them by kernel. `francis` returns [ok, iterations, chain] as an
+int64 tensor on its device: the chain is the sum of the sweeps' lengths
+(bulge positions), the length of the iteration's dependent chain. The
+port reads only `ok`, and on the card only through the builtin's flags.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import math
+
+import torch
+
+from ..errors import MatError
+
+launches = 0
+launches_by: collections.Counter = collections.Counter()
+
+EPS = 2.220446049250313e-16     # float64's machine epsilon
+# the kernels against their plain versions on the same input, relative to
+# the largest magnitude: the Hessenberg reduction's H and Q (sums of n
+# products in another order; H is fixed by Q's first column, but a column
+# after a small subdiagonal h(k+1,k) moves by about eps / |h(k+1,k)|: 4.7e-12
+# of the largest |A| at n = 128 on the card), the eigenvectors of T
+HESS_TOL = 1e-10
+TREVC_TOL = 1e-9
+_entries: dict = {}
+
+
+# --------------------------------------------------------------- plain
+
+
+def plain_hessenberg(A: torch.Tensor, with_q: bool):
+    """(H, Q): A = Q H Q' with H upper Hessenberg (Q None unless `with_q`);
+    the JAX `hessenberg`/`hessenberg_q` step by step in torch ops."""
+    n = A.shape[0]
+    H = A.clone()
+    Q = torch.eye(n, dtype=A.dtype, device=A.device) if with_q else None
+    idx = torch.arange(n, device=A.device)
+    for k in range(max(n - 2, 0)):
+        xt = torch.where(idx > k, H[:, k], 0.0)
+        mx = torch.max(torch.abs(xt))
+        xt = xt / torch.where(mx == 0, 1.0, mx)
+        nrm = torch.sqrt(torch.sum(xt * xt))
+        x1 = xt[k + 1]
+        alpha = -torch.sign(torch.where(x1 == 0, 1.0, x1)) * nrm
+        v = xt - alpha * (idx == k + 1)
+        vn2 = torch.sum(v * v)
+        safe = vn2 > 0
+        v = torch.where(safe, v / torch.sqrt(torch.where(safe, vn2, 1.0)),
+                        0.0)
+        H = H - 2.0 * torch.outer(v, v @ H)
+        H = H - 2.0 * torch.outer(H @ v, v)
+        H[k + 2:, k] = 0.0          # exact zeros below the subdiagonal
+        if with_q:
+            Q = Q - 2.0 * torch.outer(Q @ v, v)
+    return H, Q
+
+
+def _sign(t: float) -> float:
+    """jnp.sign of a nonzero float: NaN stays NaN."""
+    return 1.0 if t > 0 else -1.0 if t < 0 else t
+
+
+def _max(a: float, b: float) -> float:
+    """jnp.maximum: NaN if either is NaN."""
+    return a if a != a or a > b else b
+
+
+def _house3(x: float, y: float, z: float, use3: bool) -> list:
+    """The symmetric 3x3 reflector P = I - 2 v v' with P [x, y, z]' =
+    [r, 0, 0]' (JAX `_house3`, 83-105): z forced to 0 unless `use3`, the
+    vector scaled by its largest magnitude, v of unit length. P as a 3x3
+    list of floats."""
+    if not use3:
+        z = 0.0
+    m = _max(_max(abs(x), abs(y)), abs(z))
+    ms = 1.0 if m == 0 else m
+    x, y, z = x / ms, y / ms, z / ms
+    nrm = math.sqrt(x * x + y * y + z * z)
+    alpha = -_sign(1.0 if x == 0 else x) * nrm
+    u = (x - alpha, y, z)
+    un2 = u[0] * u[0] + u[1] * u[1] + u[2] * u[2]
+    if un2 > 0 and m > 0:
+        r = math.sqrt(un2)
+        v = (u[0] / r, u[1] / r, u[2] / r)
+    else:
+        v = (0.0, 0.0, 0.0)
+    return [[(1.0 if r == c else 0.0) - 2.0 * (v[r] * v[c])
+             for c in range(3)] for r in range(3)]
+
+
+def _rows(R: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """P @ R for R of 3 rows, each sum left to right."""
+    return R[0:1] * P[:, 0:1] + R[1:2] * P[:, 1:2] + R[2:3] * P[:, 2:3]
+
+
+def _cols(C: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """C @ P for C of 3 columns, each sum left to right."""
+    return C[:, 0:1] * P[0:1] + C[:, 1:2] * P[1:2] + C[:, 2:3] * P[2:3]
+
+
+def _hfro(H: torch.Tensor) -> torch.Tensor:
+    """||H||_F, the invariant that sets the deflation floor."""
+    return torch.sqrt(torch.sum(H * H))
+
+
+def plain_francis(Hp: torch.Tensor, n: int, max_iters: int, with_z: bool):
+    """(H, Z, info): the JAX `francis_qr_z` on the (n+3) x (n+3) padded
+    Hessenberg matrix Hp (Z None unless `with_z`), info the int64 tensor
+    [ok, iterations, chain]."""
+    H = Hp.clone()
+    N = H.shape[0]
+    dev = H.device
+    Z = torch.eye(N, dtype=H.dtype, device=dev) if with_z else None
+    floor = 4.0 * EPS * _hfro(H).item()
+    idx = torch.arange(N, device=dev)
+
+    def small(h_prev: float, h_diag: float, s_sub: float) -> bool:
+        a = abs(h_prev) + abs(h_diag)
+        a = 1.0 if a == 0 else a
+        s = abs(s_sub)
+        return s <= 8.0 * EPS * a or s <= floor
+
+    hi, stall, it, chain = n - 1, 0, 0, 0
+    while hi >= 1 and it < max_iters:
+        dabs = torch.abs(torch.diagonal(H))
+        a_all = torch.cat([dabs[:1] * 0.0, dabs[:-1]]) + dabs
+        a_all = torch.where(a_all == 0, 1.0, a_all)
+        sb = torch.abs(H[idx, torch.clamp(idx - 1, min=0)])
+        smallv = (sb <= 8.0 * EPS * a_all) | (sb <= floor)
+        cand = (idx >= 1) & (idx <= hi) & smallv
+        lo = int(torch.max(torch.where(cand, idx, 0)).item())
+        if lo > 0:
+            H[lo, lo - 1] = 0.0
+        w = H[hi - 2 if hi >= 2 else 0:hi + 1, :].tolist()
+
+        def h(r: int, c: int) -> float:     # H[r, c] for r in hi-2..hi
+            return w[r - (hi - 2 if hi >= 2 else 0)][c]
+
+        b = 0 if small(h(hi - 1, hi - 1), h(hi, hi), h(hi, hi - 1)) else \
+            1 if hi - 2 >= lo and small(h(hi - 2, hi - 2), h(hi - 1, hi - 1),
+                                        h(hi - 1, hi - 2)) else \
+            2 if hi - lo <= 1 else 3
+        if b == 0:
+            H[hi, hi - 1] = 0.0
+            new_hi = hi - 1
+        elif b == 1:
+            H[hi - 1, hi - 2] = 0.0
+            new_hi = hi - 2
+        elif b == 2:
+            new_hi = lo - 1
+        else:
+            new_hi = hi
+            t11, t12 = h(hi - 1, hi - 1), h(hi - 1, hi)
+            t21, t22 = h(hi, hi - 1), h(hi, hi)
+            s = t11 + t22
+            p = t11 * t22 - t12 * t21
+            if stall > 0 and stall % 10 == 0:      # exceptional shift
+                ssum = abs(t21) + abs(h(hi - 1, hi - 2))
+                e = t22 + 0.75 * ssum
+                s, p = 2.0 * e, e * e
+            (h11, h12), (h21, h22), (_, h32) = \
+                H[lo:lo + 3, lo:lo + 2].tolist()
+            x = h11 * h11 + h12 * h21 - s * h11 + p
+            y = h21 * (h11 + h22 - s)
+            z = h32 * h21
+            for k in range(lo, hi):
+                P = torch.tensor(_house3(x, y, z, k + 2 <= hi),
+                                 dtype=H.dtype, device=dev)
+                H[k:k + 3, :] = _rows(H[k:k + 3, :], P)
+                H[:, k:k + 3] = _cols(H[:, k:k + 3], P)
+                if with_z:
+                    Z[:, k:k + 3] = _cols(Z[:, k:k + 3], P)
+                x, y, z = H[k + 1:k + 4, k].tolist()
+                if k + 3 > hi:
+                    z = 0.0
+            # exact Hessenberg zeros below the subdiagonal of the window
+            H[lo:hi + 1, lo:hi + 1] = torch.triu(H[lo:hi + 1, lo:hi + 1],
+                                                 diagonal=-1)
+            chain += hi - lo
+        stall = stall + 1 if b == 3 else 0
+        it += 1
+        hi = new_hi
+    info = torch.tensor([int(hi < 1), it, chain], dtype=torch.int64,
+                        device=dev)
+    return H, Z, info
+
+
+def plain_trevc(T, wr, wi, is2, prev2):
+    """(Yr, Yi): the right eigenvectors of the quasi-triangular T, the JAX
+    `trevc` in torch ops (columns unit-normalized at their seeds)."""
+    n = T.shape[0]
+    dev, dt = T.device, T.dtype
+    idx = torch.arange(n, device=dev)
+    smin = _smin(T)
+    jstart = torch.where(prev2, idx - 1, idx)
+    d0 = torch.diagonal(T)
+    zero1 = torch.zeros(1, dtype=dt, device=dev)
+    sup = torch.cat([torch.diagonal(T, 1), zero1]) if n > 1 else zero1
+    sub = torch.cat([torch.diagonal(T, -1), zero1]) if n > 1 else zero1
+    a_p = d0[jstart]
+    b_p = sup[jstart]
+    c_p = sub[jstart]
+    d_p = d0[torch.clamp(jstart + 1, max=n - 1)]
+    n_b = torch.sqrt(b_p * b_p + (wr - a_p) * (wr - a_p) + wi * wi)
+    n_c = torch.sqrt(c_p * c_p + (wr - d_p) * (wr - d_p) + wi * wi)
+    use_b = n_b >= n_c
+    top_r = torch.where(use_b, b_p, wr - d_p)
+    top_i = torch.where(use_b, 0.0, wi)
+    bot_r = torch.where(use_b, wr - a_p, c_p)
+    bot_i = torch.where(use_b, wi, 0.0)
+    snrm = torch.sqrt(top_r * top_r + top_i * top_i
+                      + bot_r * bot_r + bot_i * bot_i)
+    snrm = torch.maximum(snrm, torch.tensor(1e-300, dtype=dt, device=dev))
+    top_r, top_i = top_r / snrm, top_i / snrm
+    bot_r, bot_i = bot_r / snrm, bot_i / snrm
+    pair = is2 | prev2
+    rows = idx[:, None]
+    seed_top = (rows == jstart[None, :]) & pair[None, :]
+    seed_bot = (rows == jstart[None, :] + 1) & pair[None, :]
+    single = (rows == idx[None, :]) & ~pair[None, :]
+    Yr = torch.where(single, 1.0, torch.zeros((), dtype=dt, device=dev))
+    Yr = torch.where(seed_top, top_r[None, :], Yr)
+    Yr = torch.where(seed_bot, bot_r[None, :], Yr)
+    Yi = torch.where(seed_top, top_i[None, :], torch.zeros_like(Yr))
+    Yi = torch.where(seed_bot, bot_i[None, :], Yi)
+    lam_r, lam_i = wr, wi
+    for i in range(n - 1, -1, -1):
+        ip1 = min(i + 1, n - 1)
+        r1r = -(T[i, :] @ Yr)
+        r1i = -(T[i, :] @ Yi)
+        r2r = -(T[ip1, :] @ Yr)
+        r2i = -(T[ip1, :] @ Yi)
+        # the 1x1 solve; a vanishing denominator is replaced by smin
+        den_r = T[i, i] - lam_r
+        den_i = -lam_i
+        dsmall = torch.hypot(den_r, den_i) < smin
+        den_r = torch.where(dsmall, smin, den_r)
+        den_i = torch.where(dsmall, 0.0, den_i)
+        dd = den_r * den_r + den_i * den_i
+        y1r = (r1r * den_r + r1i * den_i) / dd
+        y1i = (r1i * den_r - r1r * den_i) / dd
+        # the 2x2 solve of rows i, i+1 by Cramer's rule
+        aa, bb = T[i, i], T[i, ip1]
+        cc, ddg = T[ip1, i], T[ip1, ip1]
+        m11r, m11i = aa - lam_r, -lam_i
+        m22r, m22i = ddg - lam_r, -lam_i
+        detr = m11r * m22r - m11i * m22i - bb * cc
+        deti = m11r * m22i + m11i * m22r
+        det_small = torch.hypot(detr, deti) < smin * smin
+        detr = torch.where(det_small, smin * smin, detr)
+        deti = torch.where(det_small, 0.0, deti)
+        dmag = detr * detr + deti * deti
+        n1r = r1r * m22r - r1i * m22i - bb * r2r
+        n1i = r1r * m22i + r1i * m22r - bb * r2i
+        n2r = m11r * r2r - m11i * r2i - cc * r1r
+        n2i = m11r * r2i + m11i * r2r - cc * r1i
+        y2tr = (n1r * detr + n1i * deti) / dmag
+        y2ti = (n1i * detr - n1r * deti) / dmag
+        y2br = (n2r * detr + n2i * deti) / dmag
+        y2bi = (n2i * detr - n2r * deti) / dmag
+        blk = is2[i]
+        upd1 = (i < jstart) & ~blk & ~prev2[i]
+        upd2 = (i + 1 < jstart) & blk
+        Yr[i] = torch.where(upd1, y1r, torch.where(upd2, y2tr, Yr[i]))
+        Yi[i] = torch.where(upd1, y1i, torch.where(upd2, y2ti, Yi[i]))
+        Yr[ip1] = torch.where(upd2, y2br, Yr[ip1])
+        Yi[ip1] = torch.where(upd2, y2bi, Yi[ip1])
+    return Yr, Yi
+
+
+def _smin(T: torch.Tensor) -> torch.Tensor:
+    """dtrevc's smallest denominator, max(eps ||T||_F, 1e-300)."""
+    tnorm = torch.sqrt(torch.sum(T * T))
+    return torch.clamp(EPS * tnorm, min=1e-300)
+
+
+# --------------------------------------------------------------- kernels
+
+
+def _entry(name: str, argtypes: list):
+    fn = _entries.get(name)
+    if fn is None:
+        from ._build import library
+        try:
+            fn = getattr(library(), name)
+        except (RuntimeError, OSError, AttributeError) as e:
+            raise MatError("RunMat:eigKernel",
+                           f"the eigenvalue kernels could not be built or "
+                           f"loaded: {str(e)[-1500:]}") from e
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _card(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda" or t.dtype != torch.float64:
+        raise MatError("RunMat:eigKernel",
+                       f"{what} takes float64 on a card, not {t.dtype} on "
+                       f"{t.device}")
+
+
+def _launched(name: str, rc: int) -> None:
+    global launches
+    if rc != 0:
+        raise MatError("RunMat:eigKernel",
+                       f"{name} launch failed: CUDA error {rc}")
+    launches += 1
+    launches_by[name] += 1
+
+
+def _stream(t: torch.Tensor) -> tuple:
+    dev = t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+    return torch.cuda.current_stream(dev).cuda_stream, dev
+
+
+def hessenberg(A: torch.Tensor, with_q: bool):
+    """(H, Q): A's Hessenberg form and, if `with_q`, Q with A = Q H Q'
+    (else None). A CPU tensor takes `plain_hessenberg`; a card tensor
+    launches eig_hess once (no launch for n < 3, which has no step)."""
+    if A.device.type == "cpu":
+        return plain_hessenberg(A, with_q)
+    _card(A, "eig_hess")
+    n = A.shape[0]
+    if A.dim() != 2 or A.shape[1] != n:
+        raise MatError("RunMat:eigKernel", f"eig_hess of a {tuple(A.shape)}"
+                       f" matrix")
+    H = A.contiguous().clone()
+    Q = torch.eye(n, dtype=A.dtype, device=A.device) if with_q else None
+    if n < 3:
+        return H, Q
+    barrier = torch.empty(1, dtype=torch.int64, device=A.device)
+    P = ctypes.c_void_p
+    stream, dev = _stream(A)
+    rc = _entry("runmat_eig_hess", [P, P, ctypes.c_int, P, P, ctypes.c_int])(
+        H.data_ptr(), Q.data_ptr() if with_q else None, n,
+        barrier.data_ptr(), stream, dev)
+    _launched("eig_hess", rc)
+    return H, Q
+
+
+def francis(Hp: torch.Tensor, n: int, max_iters: int, with_z: bool):
+    """(H, Z, info): the Francis QR iteration on the padded Hessenberg Hp
+    (Z None unless `with_z`), info [ok, iterations, chain] as int64 on
+    Hp's device. A CPU tensor takes `plain_francis`; a card tensor
+    launches eig_francis once, one block over the whole iteration (its Z
+    comes back as the transpose of the kernel's, a view)."""
+    if Hp.device.type == "cpu":
+        return plain_francis(Hp, n, max_iters, with_z)
+    _card(Hp, "eig_francis")
+    N = n + 3
+    if tuple(Hp.shape) != (N, N) or n < 2:
+        raise MatError("RunMat:eigKernel", f"eig_francis of a "
+                       f"{tuple(Hp.shape)} matrix for n = {n}")
+    H = Hp.contiguous().clone()
+    # the kernel keeps Z transposed (the identity is its own transpose)
+    Zt = torch.eye(N, dtype=H.dtype, device=H.device) if with_z else None
+    hfro = _hfro(H)
+    info = torch.empty(3, dtype=torch.int64, device=H.device)
+    P = ctypes.c_void_p
+    stream, dev = _stream(H)
+    rc = _entry("runmat_eig_francis",
+                [P, P, ctypes.c_int, ctypes.c_int, P, P, P, ctypes.c_int])(
+        H.data_ptr(), Zt.data_ptr() if with_z else None, n, int(max_iters),
+        hfro.data_ptr(), info.data_ptr(), stream, dev)
+    _launched("eig_francis", rc)
+    return H, Zt.mT if with_z else None, info
+
+
+def trevc(T, wr, wi, is2, prev2):
+    """(Yr, Yi): the right eigenvectors of the quasi-triangular T (its
+    eigenvalues wr + i wi, is2/prev2 its 2x2 blocks as `_quasi_eigs`
+    reads them). A CPU tensor takes `plain_trevc`; a card tensor launches
+    eig_trevc once, a warp a column, which writes the columns as rows
+    (returned transposed)."""
+    if T.device.type == "cpu":
+        return plain_trevc(T, wr, wi, is2, prev2)
+    _card(T, "eig_trevc")
+    n = T.shape[0]
+    T = T.contiguous()
+    smin = _smin(T)
+    yt = torch.empty((2, n, n), dtype=T.dtype, device=T.device)
+    P = ctypes.c_void_p
+    stream, dev = _stream(T)
+    wr, wi = wr.contiguous(), wi.contiguous()
+    is2, prev2 = is2.contiguous(), prev2.contiguous()
+    rc = _entry("runmat_eig_trevc", [P, P, P, P, P, ctypes.c_int, P, P, P,
+                                     ctypes.c_int])(
+        T.data_ptr(), wr.data_ptr(), wi.data_ptr(), is2.data_ptr(),
+        prev2.data_ptr(), n, smin.data_ptr(), yt.data_ptr(), stream, dev)
+    _launched("eig_trevc", rc)
+    return yt[0].mT, yt[1].mT

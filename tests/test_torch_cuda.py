@@ -2182,3 +2182,57 @@ def test_accel_calibrate_on_the_card(card, tmp_path, monkeypatch):
     assert cal["platform"] == "gpu"
     assert cal["device"] == torch.cuda.get_device_name(0)
     assert TorchEngine("cuda").offload_threshold == cal["offload_threshold"]
+
+
+@pytest.mark.parametrize("n", [3, 5, 24, 64])
+def test_eig_kernels_match_plain(card, n):
+    """eig_hess, eig_francis and eig_trevc against their plain versions on
+    the card, and the card's eigenvalues in the plain pipeline's order
+    (`linalgbench.eig_held`)."""
+    from runmat_tpu_torch import linalgbench
+    r = linalgbench.eig_held(n, card)
+    assert r["eig_francis"] == 0.0 and r["info"][0] == 1
+
+
+def test_eig_kernels_refuse_what_they_do_not_take(card):
+    from runmat_tpu_torch.errors import MatError
+    from runmat_tpu_torch.ops import eig_qr
+    a = torch.zeros((4, 4), dtype=torch.float32, device=card)
+    with pytest.raises(MatError, match="eig_hess takes float64"):
+        eig_qr.hessenberg(a, False)
+    with pytest.raises(MatError, match="eig_francis of a"):
+        eig_qr.francis(torch.zeros((5, 5), dtype=torch.float64,
+                                   device=card), 4, 100, False)
+
+
+def test_eig_on_the_card_launches_the_kernels(card):
+    """w = eig(A) and [V, D] = eig(A) in a card session: eig_hess and
+    eig_francis once for the values, all three for [V, D], no fallback,
+    the eigenvalues in the order of the plain pipeline on the CPU."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch import accel, ops
+    from runmat_tpu_torch.accel import eig_qr as EQ
+    from runmat_tpu_torch.ops import eig_qr
+    s = runmat_tpu_torch.session("cuda")
+    try:
+        eng = accel.active_engine()
+        ops.zero_launches()
+        s.run_source("rng(4); A = gpuArray(randn(48, 48)); w = eig(A);"
+                     " Ah = gather(A);", "t")
+        assert dict(eig_qr.launches_by) == {"eig_hess": 1, "eig_francis": 1}
+        ops.zero_launches()
+        s.run_source("B = gpuArray(Ah); [V, D] = eig(B);"
+                     " r = gather(norm(B*V - V*D) / norm(B));"
+                     " d = gather(diag(D));", "t")
+        assert dict(eig_qr.launches_by) == {"eig_hess": 1, "eig_francis": 1,
+                                            "eig_trevc": 1}
+        assert eng.stats["host_fallbacks"] == 0
+    finally:
+        runmat_tpu_torch.uninstall()
+    A = torch.from_numpy(np.asarray(s.get("Ah").host()))
+    wr, wi, ok = EQ.eig_values(A)
+    want = (wr + 1j * wi).numpy()
+    for name in ("w", "d"):
+        got = np.asarray(s.get(name).host()).reshape(-1).astype(complex)
+        assert np.max(np.abs(got - want)) <= 1e-9 * np.max(np.abs(want))
+    assert float(s.get("r").host().reshape(-1)[0]) < 1e-10

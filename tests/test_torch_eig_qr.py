@@ -1,0 +1,311 @@
+"""The general eigenproblem of the port (`runmat_tpu_torch/accel/eig_qr.py`
+and the plain versions of its kernels, `ops/eig_qr.py`) against the JAX
+package's `runmat_tpu/accel/eig_qr.py`, on the CPU in float64, function by
+function, on inputs made with numpy from a seed.
+
+Fixtures: random matrices of n = 0, 1, 2, 3, 5, 24 and 64, and the
+fixtures of `tests/test_device_linalg.py`: a defective 2 I + superdiagonal,
+a nilpotent-like shift, a symmetric B + B', kron(eye(4), [1 2; 3 4]), a pure
+complex pair, and a graded matrix (rows and columns spanning 10^-8..10^8)
+for `balance`.
+
+Tolerances, relative to the largest magnitude of the input (or of the
+eigenvalues):
+* `balance`, `balance_d`, `hessenberg`, `hessenberg_q`: 1e-12 (XLA and
+  torch sum the dot products in other orders).
+* `francis_qr_z` on the same padded Hessenberg matrix: `ok` and the
+  iteration count equal (the JAX loop converges within the port's count
+  and not within one fewer); the same 2x2 blocks; T and Z within 1e-10
+  outside the rows and columns of 2x2 blocks, each block's eigenvalues
+  within 1e-10 and the subspace its two columns of Z span (Z_b Z_b')
+  within 1e-10. Inside a 2x2 block the iteration leaves the block's
+  representation turning sweep by sweep (it stops only the subdiagonal
+  below it), so a difference of one ulp in a product (XLA's CPU dot
+  fuses some of its sums, torch's and the kernel's sums round apart)
+  turns the final block, its rows of T and its columns of Z by an O(1)
+  rotation; everything else is unique up to rounding. Z T Z' = H_in
+  within 1e-10 holds for the port as for the JAX version.
+* `eig_values`, `eig_full`: wr and wi in the same order within 1e-10 of
+  the largest eigenvalue; V column by column within 1e-9 up to a factor of
+  modulus one (a complex column's phase follows its block's rotation).
+  The defective and nilpotent-like fixtures are matched greedily within
+  1e-6, as the JAX test matches them, with V held to its residual.
+* `_house3`: bit for bit against the JAX function run op by op.
+* The builders `eig_qr` and `eig_full` of the port's DenseOps call neither
+  torch.linalg.eig nor torch.linalg.eigvals.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from runmat_tpu.accel import eig_qr as J
+from runmat_tpu_torch.accel import eig_qr as P
+from runmat_tpu_torch.ops import eig_qr as K
+
+jax.config.update("jax_enable_x64", True)
+jnp = jax.numpy
+
+TOL_STEP = 1e-12
+TOL_QR = 1e-10
+TOL_V = 1e-9
+TOL_ILL = 1e-6
+
+
+def _fixture(name: str) -> np.ndarray:
+    if name.startswith("random"):
+        n = int(name[len("random"):])
+        return np.random.default_rng(100 + n).standard_normal((n, n))
+    if name == "defective":
+        return np.eye(12) * 2 + np.diag(np.ones(11), 1)
+    if name == "nilpotent":
+        return np.diag(np.ones(15), -1)
+    if name == "symmetric":
+        B = np.random.default_rng(12).standard_normal((32, 32))
+        return B + B.T
+    if name == "kron":
+        return np.kron(np.eye(4), np.array([[1.0, 2], [3, 4]]))
+    if name == "complex_pair":
+        return np.array([[0.0, -1], [1, 0]])
+    if name == "graded":
+        rng = np.random.default_rng(9)
+        d = 10.0 ** np.linspace(-8, 8, 10)
+        return d[:, None] * rng.standard_normal((10, 10)) / d[None, :]
+    raise KeyError(name)
+
+
+RANDOM = [f"random{n}" for n in (0, 1, 2, 3, 5, 24, 64)]
+ILL = ("defective", "nilpotent")
+FIXTURES = RANDOM + ["defective", "nilpotent", "symmetric", "kron",
+                     "complex_pair", "graded"]
+NONEMPTY = [f for f in FIXTURES if f != "random0"]
+SQUARE = [f for f in NONEMPTY if f != "random1"]
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float64))
+
+
+def _scale(a) -> float:
+    return max(1.0, float(np.max(np.abs(a)))) if np.size(a) else 1.0
+
+
+def _jit(fn):
+    return jax.jit(lambda *a: fn(jnp, *a))
+
+
+def _close(got, want, tol, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    assert err <= tol * _scale(want), (what, err)
+
+
+@pytest.mark.parametrize("name", NONEMPTY)
+def test_balance_and_balance_d(name):
+    A = _fixture(name)
+    want = np.asarray(_jit(J.balance)(A))
+    _close(P.balance(_t(A)).numpy(), want, TOL_STEP, "balance")
+    wa, wd = (np.asarray(v) for v in _jit(J.balance_d)(A))
+    ga, gd = P.balance_d(_t(A))
+    _close(ga.numpy(), wa, TOL_STEP, "balance_d A")
+    _close(gd.numpy(), wd, TOL_STEP, "balance_d d")
+    if name == "graded":      # balancing evens the grading out
+        assert np.max(np.abs(ga.numpy())) < 1e-3 * np.max(np.abs(A))
+
+
+@pytest.mark.parametrize("name", NONEMPTY)
+def test_hessenberg_and_hessenberg_q(name):
+    A = np.asarray(_jit(J.balance)(_fixture(name)))
+    wh, wq = (np.asarray(v) for v in _jit(J.hessenberg_q)(A))
+    gh, gq = P.hessenberg_q(_t(A))
+    _close(gh.numpy(), wh, TOL_STEP, "H")
+    _close(gq.numpy(), wq, TOL_STEP, "Q")
+    _close(P.hessenberg(_t(A)).numpy(), np.asarray(_jit(J.hessenberg)(A)),
+           TOL_STEP, "H alone")
+    assert np.all(np.tril(gh.numpy(), -2) == 0)       # exact zeros
+    _close(gq.numpy() @ gh.numpy() @ gq.numpy().T, A, TOL_STEP, "QHQ'")
+
+
+def _padded_hessenberg(A: np.ndarray) -> np.ndarray:
+    n = A.shape[0]
+    Hp = np.zeros((n + 3, n + 3))
+    Hp[:n, :n] = np.asarray(_jit(J.hessenberg)(np.asarray(
+        _jit(J.balance)(A))))
+    return Hp
+
+
+_FRANCIS = jax.jit(lambda H, m: J.francis_qr_z(jnp, H, H.shape[0] - 3, m))
+
+
+def _blocks(T: np.ndarray, n: int) -> np.ndarray:
+    """The rows (and columns) of T's 2x2 blocks."""
+    sub = np.diagonal(T, -1)[:n - 1] != 0
+    inb = np.zeros(n, bool)
+    inb[:-1] |= sub
+    inb[1:] |= sub
+    return inb
+
+
+@pytest.mark.parametrize("name", SQUARE)
+def test_francis_qr_z(name):
+    A = _fixture(name)
+    n = A.shape[0]
+    Hp = _padded_hessenberg(A)
+    maxit = 40 * n + 100
+    wT, wZ, wok = (np.asarray(v) for v in _FRANCIS(Hp, maxit))
+    gT, gZ, info = K.francis(_t(Hp), n, maxit, True)
+    ok, it, chain = info.tolist()
+    assert bool(ok) == bool(wok)
+    # the JAX loop ends within the port's count of iterations, not one fewer
+    assert bool(_FRANCIS(Hp, it)[2]) and not bool(_FRANCIS(Hp, it - 1)[2])
+    assert 0 <= chain <= it * n          # bulge positions of the sweeps
+    gT, gZ = gT.numpy(), gZ.numpy()
+    inb = _blocks(wT, n)
+    assert np.array_equal(inb, _blocks(gT, n)), name
+    s = _scale(Hp)
+    out = ~inb
+    _close(gT[:n, :n][np.ix_(out, out)], wT[:n, :n][np.ix_(out, out)],
+           TOL_QR * s / _scale(wT), "T outside the 2x2 blocks")
+    _close(gZ[:n, :n][:, out], wZ[:n, :n][:, out], TOL_QR, "Z columns")
+    wr_w, wi_w, _, _ = (np.asarray(v) for v in J._quasi_eigs(
+        jnp, jnp.asarray(wT[:n, :n]), n))
+    wr_g, wi_g, _, _ = (v.numpy() for v in P._quasi_eigs(
+        torch.from_numpy(gT[:n, :n].copy()), n))
+    _close(wr_g, wr_w, TOL_QR * s / _scale(wr_w), "block eigenvalues re")
+    _close(wi_g, wi_w, TOL_QR * s / _scale(wr_w), "block eigenvalues im")
+    for i in np.flatnonzero(np.diagonal(wT, -1)[:n - 1] != 0):
+        zb_w, zb_g = wZ[:n, i:i + 2], gZ[:n, i:i + 2]
+        _close(zb_g @ zb_g.T, zb_w @ zb_w.T, TOL_QR, f"block {i} subspace")
+    _close(gZ[:n, :n] @ gT[:n, :n] @ gZ[:n, :n].T, Hp[:n, :n], TOL_QR,
+           "Z T Z'")
+    H2, ok2 = P.francis_qr(_t(Hp), n, maxit)
+    assert bool(ok2) == bool(ok) and np.array_equal(H2.numpy(), gT)
+
+
+def _match_greedy(got, want, tol):
+    got = list(np.asarray(got, complex))
+    err = 0.0
+    for w in np.asarray(want, complex):
+        d = [abs(g - w) for g in got]
+        j = int(np.argmin(d))
+        err = max(err, d[j])
+        got.pop(j)
+    assert err <= tol * _scale(np.abs(want)), err
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_eig_values_in_the_same_order(name):
+    A = _fixture(name)
+    wr, wi, wok = (np.asarray(v) for v in _jit(J.eig_values)(A))
+    gr, gi, gok = P.eig_values(_t(A))
+    assert bool(gok) == bool(wok)
+    assert gr.dtype == gi.dtype == torch.float64
+    if name in ILL:
+        _match_greedy(gr.numpy() + 1j * gi.numpy(), wr + 1j * wi, TOL_ILL)
+        return
+    s = _scale(np.abs(wr + 1j * wi))
+    _close(gr.numpy(), wr, TOL_QR * s / _scale(wr), "wr")
+    _close(gi.numpy(), wi, TOL_QR * s / _scale(wi), "wi")
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_eig_full_in_the_same_order(name):
+    A = _fixture(name)
+    n = A.shape[0]
+    Vr, Vi, wr, wi, wok = (np.asarray(v) for v in _jit(J.eig_full)(A))
+    gVr, gVi, gr, gi, gok = (v.numpy() for v in P.eig_full(_t(A)))
+    assert bool(gok) == bool(wok)
+    assert gVr.shape == Vr.shape == (n, n)
+    if n == 0:
+        return
+    V, gV = Vr + 1j * Vi, gVr + 1j * gVi
+    w, gw = wr + 1j * wi, gr + 1j * gi
+    if name in ILL:
+        _match_greedy(gw, w, TOL_ILL)
+        res = np.linalg.norm(A @ gV - gV @ np.diag(gw)) / np.linalg.norm(A)
+        assert res < 1e-10, res
+        return
+    s = _scale(np.abs(w))
+    _close(gr, wr, TOL_QR * s / _scale(wr), "wr")
+    _close(gi, wi, TOL_QR * s / _scale(wi), "wi")
+    np.testing.assert_allclose(np.linalg.norm(gV, axis=0), 1.0, atol=1e-12)
+    for j in range(n):
+        c = np.vdot(V[:, j], gV[:, j])          # the columns' relative phase
+        phase = c / abs(c) if abs(c) > 0 else 1.0
+        err = float(np.max(np.abs(gV[:, j] - phase * V[:, j])))
+        assert err <= TOL_V, (j, err)
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_house3_bit_for_bit(case):
+    rng = np.random.default_rng(case)
+    x, y, z = (float(v) for v in rng.standard_normal(3) *
+               10.0 ** rng.integers(-20, 20, 3))
+    if case == 1:
+        x = 0.0
+    if case == 2:
+        x = y = z = 0.0
+    use3 = case % 3 != 0
+    want = np.asarray(J._house3(jnp, jnp.float64(x), jnp.float64(y),
+                                jnp.float64(z), use3))
+    got = np.array(K._house3(x, y, z, use3))
+    assert np.array_equal(got, want), (got, want)
+
+
+def test_trevc_on_the_jax_schur_form():
+    """The eigenvectors of one quasi-triangular T through both."""
+    A = _fixture("random24")
+    n = A.shape[0]
+    T = np.asarray(_FRANCIS(_padded_hessenberg(A), 40 * n + 100)[0])[:n, :n]
+    Tj = jnp.asarray(T)
+    q = J._quasi_eigs(jnp, Tj, n)
+    Yr, Yi = (np.asarray(v) for v in jax.jit(
+        lambda *a: J.trevc(jnp, *a))(Tj, *q))
+    gq = P._quasi_eigs(_t(T), n)
+    for a, b in zip(q, gq):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    gYr, gYi = P.trevc(_t(T), *gq)
+    _close(gYr.numpy(), Yr, TOL_V, "Yr")
+    _close(gYi.numpy(), Yi, TOL_V, "Yi")
+
+
+def test_a_cpu_tensor_launches_nothing():
+    A = _t(_fixture("random24"))
+    before = K.launches
+    P.eig_full(A)
+    P.eig_values(A)
+    assert K.launches == before
+
+
+def test_the_builders_call_no_lapack_eig(monkeypatch):
+    """eig_qr and eig_full of the port's DenseOps run the Francis QR, not
+    torch.linalg.eig/eigvals."""
+    import runmat_tpu_torch
+    from runmat_tpu_torch.values import MatArray
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.linalg.eig reached")
+
+    monkeypatch.setattr(torch.linalg, "eig", refuse)
+    monkeypatch.setattr(torch.linalg, "eigvals", refuse)
+    A = _fixture("random24")
+    s = runmat_tpu_torch.session("cpu", auto_offload=True,
+                                 offload_threshold=1)
+    try:
+        eng = runmat_tpu_torch.accel.active_engine()
+        s.set("A", MatArray(A, "double"))
+        r = s.execute("w = eig(gpuArray(A)); [V, D] = eig(gpuArray(A));"
+                      " res = gather(norm(A*V - V*D) / norm(A));")
+        assert r.error is None, r.error
+        assert eng.stats["host_fallbacks"] == 0
+        ops = [k for e in eng.launch_log if e["cat"] == "linalg"
+               for k in e["ops"]]
+        assert "eig_qr" in ops and "eig_full" in ops, ops
+    finally:
+        runmat_tpu_torch.uninstall()
+    assert float(s.get("res").host().reshape(-1)[0]) < 1e-10
+    want = np.asarray(_jit(J.eig_values)(A)[0])
+    got = np.asarray(s.get("w").host()).reshape(-1)
+    np.testing.assert_allclose(got.real, want, atol=TOL_QR * _scale(want))

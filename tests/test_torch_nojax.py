@@ -36,6 +36,8 @@ import runmat_tpu_torch.ops.boxmuller
 import runmat_tpu_torch.ops.fused
 import runmat_tpu_torch.ops.iir
 import runmat_tpu_torch.ops.spcg
+import runmat_tpu_torch.ops.eig_qr
+import runmat_tpu_torch.accel.eig_qr
 import runmat_tpu_torch.fea
 import runmat_tpu_torch.spbench
 import runmat_tpu_torch.linalgbench
@@ -273,7 +275,7 @@ def test_the_tooling_runs_without_jax(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr[-3000:]
     out = p.stdout
-    for line in ("server True cpu ['cmap', 'fused']", "battery 0 True",
+    for line in ("server True cpu ['cmap', 'eig_qr']", "battery 0 True",
                  "client 42", "remote 5050.0", "lsp ['MATLAB']",
                  "native {'for': 1} 500500.0", "runmat_tpu modules: []"):
         assert line in out, out
