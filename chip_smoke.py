@@ -286,12 +286,22 @@ line is printed:
      value for value with the same iterations and chain, so the same
      deflation order, eig_trevc within 1e-9 of the largest |Y|; at 24-128
      also the card's eigenvalues in the same order as the plain
-     pipeline's on the CPU, within 1e-9), and each timed at 512
-     (eig_rows) beside its operations bound, the QR's chain floor, geev
-     (torch.linalg.eigvals and eig, the earlier design) and its plain
+     pipeline's on the CPU, within 1e-9); eig_francis equal to
+     plain_francis on the card, with and without Z, on the matrices that
+     test its hand-offs (linalgbench.francis_cases: n = 31, 32, 33 and 67
+     about its 32-column band, a matrix that splits near both ends and in
+     the middle, a graded one; at 31, 67 and 128 also with one owner warp,
+     so a thread takes several indices as it does at n > 573) and 20
+     launches on one 128 H identical;
+     and each timed at 512 (eig_rows) beside its operations bound, geev
+     (torch.linalg.eigvals and eig, the earlier design), its plain
      version's time on the card at n = 128 (`plain_n` in the kernel
      line: the plain QR's host loop takes ~0.2 ms a bulge position on the
-     card, minutes at 512; its time on the CPU at 512 is printed);
+     card, minutes at 512; its time on the CPU at 512 is printed) and,
+     for eig_francis, the earlier design (one block barrier a bulge
+     position) timed in turns with it, the chaser's and helper's chain
+     alone over the same iterations (the measured
+     floor, and µs a bulge position) and one profiled launch's cycles;
  16. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
@@ -3386,6 +3396,34 @@ def _eig_kernels() -> dict:
               f"ms: " + ", ".join(
                   f"{k} {v:.1f}" for k, v in r["plain_ms"].items())
               + f" ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for label, (Hp, n) in linalgbench.francis_cases(dev).items():
+        try:
+            info = linalgbench.francis_held(Hp, n, 40 * n + 100)
+        except AssertionError as e:
+            raise SmokeFailure(f"eig_francis against plain on {label}: "
+                               f"{e}") from e
+        print(f"eig_francis on {label}: equal to plain_francis with and "
+              f"without Z, [ok, iterations, chain] {info}")
+    Hp = torch.zeros((131, 131), dtype=torch.float64, device=dev)
+    Hp[:128, :128] = linalgbench.eig_hessenberg(128, dev)
+    cases = linalgbench.francis_cases(dev)
+    for label, (Hq, n) in (("band 31", cases["band 31"]),
+                           ("band 67", cases["band 67"]), ("128", (Hp, 128))):
+        try:
+            linalgbench.francis_held(Hq, n, 40 * n + 100,
+                                     linalgbench.CHAIN_ONE_OWNER_WARP)
+        except AssertionError as e:
+            raise SmokeFailure(f"eig_francis, one owner warp, on {label}: "
+                               f"{e}") from e
+    print("eig_francis with one owner warp (2, 3 and 5 indices a thread) "
+          "on band 31, band 67 and 128: equal to plain_francis")
+    try:
+        info = linalgbench.francis_repeat(Hp, 128, 20)
+    except AssertionError as e:
+        raise SmokeFailure(f"eig_francis repeated: {e}") from e
+    print(f"eig_francis 20 launches on one 128 H: identical (info {info}) "
+          f"({time.perf_counter() - t0:.1f} s with the cases)")
     r = linalgbench.eig_rows(TIMING_REPS // 10,
                              held[linalgbench.EIG_PLAIN_N]["plain_ms"])
     linalgbench.print_eig(r)
@@ -3468,6 +3506,12 @@ def phase_eig_path() -> dict:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": r["eigvals_H_ms"] if name == "eig_francis"
             else None})
+        if name == "eig_francis":
+            rows[-1].update({k: row[k] for k in (
+                "barrier_ms", "chain_floor_ms", "us_per_position")})
+            rows[-1]["with_z_ms"] = r["rows"]["eig_francis with Z"]["ms"]
+            rows[-1]["with_z_barrier_ms"] = \
+                r["rows"]["eig_francis with Z"]["barrier_ms"]
     phase_eig_path.kernels = rows
     return launches
 

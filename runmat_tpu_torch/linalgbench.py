@@ -36,11 +36,17 @@ its inputs read and outputs written once over 3.35 TB/s, whichever is
 larger. `eig_held` holds the general eigenproblem's three kernels (`ops/eig_qr.py`:
 eig_hess, eig_francis, eig_trevc) to their plain versions on the card and
 the card's pipeline to the plain one on the CPU (the eigenvalues in the
-same order), and times the plain versions; `eig_rows` times the kernels at
-dense_linalg.m's `eig(A(1:N/8, 1:N/8))` (512 f64) beside their operations
-bound, the QR's chain floor and cuSOLVER's geev (torch.linalg.eigvals and
-eig: the earlier design), and holds the eigenvalues to numpy's. Each time
-is the mean of `--reps` after a warm-up, CUDA events
+same order), and times the plain versions; `francis_held` holds
+eig_francis to plain_francis on a given Hessenberg matrix; `eig_rows`
+times the kernels at dense_linalg.m's `eig(A(1:N/8, 1:N/8))` (512 f64)
+beside their operations bound, cuSOLVER's geev (torch.linalg.eigvals and
+eig: the earlier design) and, for eig_francis, the design with one block
+barrier a position in turns and the chain of the chaser and helper warps
+alone (owners idle) over the same iterations (the measured floor; the
+bench-only entries `runmat_eig_francis_barrier` and
+`runmat_eig_francis_chain`, which nothing else calls), and holds the
+eigenvalues to numpy's. Each time is the mean of `--reps` after a
+warm-up, CUDA events
 (`histbench.time_ms`). Run as a script, this file imports
 `runmat_tpu_torch` from DIR (default: the checkout holding this file).
 Prints the card's name and power limit, one line a call, then one JSON
@@ -70,6 +76,7 @@ BUTTER_A = (1.0, -3.1806385488747191, 3.8611943489942133,
 EIG_N = N_LINALG // 8           # dense_linalg.m's eig(A(1:N/8, 1:N/8))
 EIG_HELD = (24, 64, 128)        # the sizes the eig kernels are held at
 EIG_PLAIN_N = 128               # the plain versions are timed here
+EIG_BAND = 32                   # eig_francis' band (csrc/eig_qr.cu kBand)
 # the card pipeline against the plain one on the CPU: eigenvalues in the
 # same order within EIG_TOL of the largest (the reduction's sums differ in
 # order, so do the Hessenberg matrices, by rounding), V's columns within
@@ -77,11 +84,14 @@ EIG_PLAIN_N = 128               # the plain versions are timed here
 # complex column's phase, turns with rounding)
 EIG_TOL = 1e-9
 EIG_V_TOL = 1e-9
-# the QR's chain floor: each bulge position waits for at least one L2
-# round trip and one block barrier. An assumption, not a measurement:
-# about 260 SM cycles for an L2 hit and 40 for a 1024-thread barrier at
-# 1.755 GHz
-CHAIN_STEP_NS = 300 / 1.755
+# runmat_eig_francis_chain's modes (csrc/eig_qr.cu): record the
+# iterations' branches, replay them with the owners idle, profile, one
+# owner warp
+CHAIN_RECORD, CHAIN_ALONE, CHAIN_PROFILE = 1, 2, 8
+CHAIN_ONE_OWNER_WARP = 16
+PROF_SLOTS = 64
+PRODUCER_PHASES = ("P @ R", "C @ P and shuffles", "house3", "publish",
+                   "delivery wait", "slide")
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -611,6 +621,162 @@ def eig_held(n: int, dev, plain_dev=None) -> dict:
     return out
 
 
+def francis_bench(Hp, n: int, max_iters: int, with_z: bool, design: str,
+                  mode: int = 0, rec=None, prof=None):
+    """(H, Z, info) of one launch of a bench-only eig_francis entry on the
+    card, as `ops/eig_qr.francis` launches the main one: `design`
+    "barrier" (the earlier kernel, one block barrier a bulge position) or
+    "chain" (the
+    chase with `mode`: CHAIN_RECORD writes each iteration's branch, lo and
+    new hi into `rec`, int32 of 3 max_iters; CHAIN_ALONE replays `rec`'s
+    first max_iters iterations with the owners idle, so H and Z come back
+    wrong and only the time means anything; CHAIN_PROFILE sums clock64
+    cycles into
+    `prof`, uint64 of PROF_SLOTS zeroed: `francis_profile`;
+    CHAIN_ONE_OWNER_WARP gives the owners one warp, so a thread takes
+    several indices, as at n > 573). Counts no launch."""
+    import ctypes
+
+    import torch
+
+    from runmat_tpu_torch.ops import eig_qr as K
+    N = n + 3
+    H = Hp.contiguous().clone()
+    Zt = torch.eye(N, dtype=H.dtype, device=H.device) if with_z else None
+    hfro = K._hfro(H)
+    info = torch.empty(3, dtype=torch.int64, device=H.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream, dev = K._stream(H)
+    z = Zt.data_ptr() if with_z else None
+    if design == "barrier":
+        rc = K._entry("runmat_eig_francis_barrier", [P, P, I, I, P, P, P, I])(
+            H.data_ptr(), z, n, int(max_iters), hfro.data_ptr(),
+            info.data_ptr(), stream, dev)
+    else:
+        rc = K._entry("runmat_eig_francis_chain",
+                      [P, P, I, I, P, P, I, P, P, P, I])(
+            H.data_ptr(), z, n, int(max_iters), hfro.data_ptr(),
+            info.data_ptr(), mode, None if rec is None else rec.data_ptr(),
+            None if prof is None else prof.data_ptr(), stream, dev)
+    if rc != 0:
+        raise RuntimeError(f"eig_francis {design} mode {mode}: CUDA error "
+                           f"{rc}")
+    return H, Zt.mT if with_z else None, info
+
+
+def francis_profile(Hp, n: int, max_iters: int, with_z: bool,
+                    mode: int = 0, rec=None) -> dict:
+    """Where one launch of eig_francis spends its cycles (clock64 on the
+    card, CHAIN_PROFILE): the chaser's phases summed over the bulge
+    positions (cycles a position), the band helper's share of time
+    waiting for a reflector and its work a position, thread 0's time in
+    the lo scan and branch, in the sweeps and after them, the hand-off
+    polls, and each owner warp's cycles waiting against working."""
+    import torch
+    prof = torch.zeros(PROF_SLOTS, dtype=torch.int64, device=Hp.device)
+    francis_bench(Hp, n, max_iters, with_z, "chain", mode | CHAIN_PROFILE,
+                  rec, prof)
+    v = prof.tolist()
+    pos = max(v[11], 1)
+    owners = [(v[16 + 2 * r], v[17 + 2 * r]) for r in range(23)
+              if v[16 + 2 * r] or v[17 + 2 * r]]
+    return {"positions": v[11],
+            "chaser_cycles_a_position": {
+                k: v[i] / pos for i, k in enumerate(PRODUCER_PHASES)},
+            "helper_wait_share": v[6] / max(v[6] + v[7], 1),
+            "helper_work_cycles_a_position": v[7] / pos,
+            "scan_cycles": v[8], "sweep_cycles": v[9], "after_cycles": v[10],
+            "hand_off_polls": v[12],
+            "owner_wait_share": [w / max(w + k, 1) for w, k in owners],
+            "owner_work_cycles_a_position": [k / pos for _, k in owners]}
+
+
+def francis_held(Hp, n: int, max_iters: int, mode=None) -> list:
+    """eig_francis against plain_francis on the card on the padded
+    Hessenberg Hp, with and without Z: T and Z value for value and the
+    same [ok, iterations, chain]; `mode` runs the bench entry in that mode
+    (CHAIN_ONE_OWNER_WARP) in place of the main one. Raises
+    AssertionError; returns the info."""
+    import torch
+
+    from runmat_tpu_torch.ops import eig_qr as K
+    infos = []
+    for with_z in (True, False):
+        T, Z, info = K.francis(Hp, n, max_iters, with_z) if mode is None \
+            else francis_bench(Hp, n, max_iters, with_z, "chain", mode)
+        pT, pZ, pinfo = K.plain_francis(Hp, n, max_iters, with_z)
+        assert torch.equal(T, pT) and (not with_z or torch.equal(Z, pZ)), \
+            ("eig_francis", n, with_z, float(torch.max(torch.abs(T - pT))))
+        assert info.tolist() == pinfo.tolist(), ("eig_francis info", n,
+                                                 info.tolist(),
+                                                 pinfo.tolist())
+        infos.append(info.tolist())
+    assert infos[0] == infos[1], infos
+    return infos[0]
+
+
+def eig_hessenberg(n: int, dev):
+    """The Hessenberg form (eig_hess) of `eig_matrix(n)` balanced, on the
+    card: eig_francis' input at n."""
+    from runmat_tpu_torch.accel import eig_qr as EQ
+    from runmat_tpu_torch.ops import eig_qr as K
+    return K.hessenberg(EQ.balance(eig_matrix(n, dev)), False)[0]
+
+
+def francis_cases(dev) -> dict:
+    """Padded Hessenberg matrices on `dev` for the hand-offs of
+    eig_francis (csrc/eig_qr.cu: the band is EIG_BAND columns): label ->
+    (Hp, n). "band n": the Hessenberg form of `eig_matrix(n)` at n =
+    EIG_BAND - 1, EIG_BAND, EIG_BAND + 1 and 2 EIG_BAND + 3; "splits": a
+    random upper Hessenberg of 70 with exact zeros below the first and the
+    last diagonal entries and negligible subdiagonals near both ends and in
+    the middle, so sweeps start at lo > 0, end next to a deflated block
+    and leave columns right of the window; "graded": a random upper
+    Hessenberg of 48 whose entries fall from 1 to 1e-12 along the
+    diagonal."""
+    import numpy as np
+    import torch
+    out = {}
+
+    def padded(h, n):
+        Hp = torch.zeros((n + 3, n + 3), dtype=torch.float64, device=dev)
+        Hp[:n, :n] = torch.as_tensor(h, dtype=torch.float64, device=dev)
+        return Hp
+
+    for n in (EIG_BAND - 1, EIG_BAND, EIG_BAND + 1, 2 * EIG_BAND + 3):
+        out[f"band {n}"] = (padded(eig_hessenberg(n, dev), n), n)
+    rng = np.random.default_rng(24)
+    n = 70
+    h = np.triu(rng.standard_normal((n, n)), -1)
+    h[1, 0] = 0.0
+    h[n - 1, n - 2] = 0.0
+    h[3, 2] = 1e-19
+    h[35, 34] = 1e-18
+    h[n - 3, n - 4] = 1e-17
+    out["splits"] = (padded(h, n), n)
+    n = 48
+    i = np.arange(n)
+    h = np.triu(rng.standard_normal((n, n)), -1) * 10.0 ** (
+        -6.0 * (i[:, None] + i[None, :]) / n)
+    out["graded"] = (padded(h, n), n)
+    return out
+
+
+def francis_repeat(Hp, n: int, times: int = 20) -> list:
+    """eig_francis with Z `times` times on one Hp: every T, Z and info
+    identical to the first. Raises AssertionError; returns the info."""
+    import torch
+
+    from runmat_tpu_torch.ops import eig_qr as K
+    maxit = 40 * n + 100
+    T0, Z0, i0 = K.francis(Hp, n, maxit, True)
+    for k in range(1, times):
+        T, Z, info = K.francis(Hp, n, maxit, True)
+        assert torch.equal(T, T0) and torch.equal(Z, Z0) and torch.equal(
+            info, i0), ("eig_francis repeat", n, k)
+    return i0.tolist()
+
+
 def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
     """dense_linalg.m's general eigenproblem at n (512, f64) on the card:
     each kernel timed with CUDA events (the wrapper's call, its few torch
@@ -618,10 +784,15 @@ def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
     eig_francis without Z) and as [V, D] calls it, beside its operations
     bound (about 10/3 n^3 for the reduction, 10 n^3 for the QR, n^3 for
     trevc at the float64 rate; the bytes of its input and output over
-    3.35 TB/s are less), the QR's chain floor (its sum of sweep lengths
-    times CHAIN_STEP_NS), cuSOLVER's geev (torch.linalg.eigvals and eig of
-    A, the earlier design; eigvals of the Hessenberg matrix, eig_francis'
-    own input) and `plain` (`eig_held`'s times at EIG_PLAIN_N); the
+    3.35 TB/s are less) and `plain` (`eig_held`'s times at EIG_PLAIN_N).
+    eig_francis also beside the earlier design (`francis_bench`
+    "barrier"), the two timed in turns (new, earlier, new, earlier: each
+    the mean of its two turns), and the chaser's and helper's chain alone
+    over the same iterations (CHAIN_ALONE after CHAIN_RECORD: the measured
+    floor; µs a position = its time over the chain);
+    the cycles of one profiled launch with Z (`francis_profile`);
+    cuSOLVER's geev (torch.linalg.eigvals and eig of A, the earlier
+    design; eigvals of the Hessenberg matrix, eig_francis' own input); the
     eigenvalues against numpy's eigvals of the gathered matrix (matched
     greedily, relative to the largest) and [V, D]'s residual and column
     norms."""
@@ -652,14 +823,39 @@ def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
     nbytes = {"eig_hess": 2 * n * n * 8, "eig_francis": 2 * n * n * 8,
               "eig_trevc": 3 * n * n * 8}
     out = {"n": n, "ok": ok, "iterations": iters, "chain": chain,
-           "chain_floor_ms": chain * CHAIN_STEP_NS * 1e-6, "rows": {},
-           "plain_n": EIG_PLAIN_N}
+           "rows": {}, "plain_n": EIG_PLAIN_N}
     for name, fn in calls.items():
         kernel = name.split()[0]
         b = bound(nbytes[kernel], ops[kernel], "float64")
         out["rows"][name] = {"ms": time_ms(fn, reps), "bound_ms": b[0],
                              "bound_by": b[1], "plain_ms": plain[name]}
-    out["rows"]["eig_francis"]["chain_floor_ms"] = out["chain_floor_ms"]
+    # eig_francis in turns with the earlier design
+    for wz, name in ((False, "eig_francis"), (True, "eig_francis with Z")):
+        row = out["rows"][name]
+        new = [row["ms"]]
+        old = []
+        for _ in range(2):
+            old.append(time_ms(lambda: francis_bench(
+                Hp, n, maxit, wz, "barrier"), reps))
+            new.append(time_ms(lambda: K.francis(Hp, n, maxit, wz), reps))
+        row["ms"] = sum(new[1:]) / 2
+        row["barrier_ms"] = sum(old) / 2
+        row["turns_ms"] = {"new": new[1:], "barrier": old}
+    rec = torch.empty(3 * maxit, dtype=torch.int32, device=dev)
+    _, _, rinfo = francis_bench(Hp, n, maxit, False, "chain", CHAIN_RECORD,
+                                rec)
+    assert rinfo.tolist() == info.tolist(), (rinfo.tolist(), info.tolist())
+    out["chain_floor_ms"] = time_ms(lambda: francis_bench(
+        Hp, n, iters, False, "chain", CHAIN_ALONE, rec), reps)
+    _, _, ainfo = francis_bench(Hp, n, iters, False, "chain", CHAIN_ALONE,
+                                rec)
+    assert ainfo.tolist()[1:] == info.tolist()[1:], ("replay", ainfo.tolist())
+    for name in ("eig_francis", "eig_francis with Z"):
+        row = out["rows"][name]
+        row["chain_floor_ms"] = out["chain_floor_ms"]
+        row["us_per_position"] = row["ms"] * 1e3 / chain
+    out["floor_us_per_position"] = out["chain_floor_ms"] * 1e3 / chain
+    out["profile"] = francis_profile(Hp, n, maxit, True)
     out["eigvals_ms"] = time_ms(lambda: torch.linalg.eigvals(A), reps)
     out["eig_ms"] = time_ms(lambda: torch.linalg.eig(A), reps)
     out["eigvals_H_ms"] = time_ms(lambda: torch.linalg.eigvals(H), reps)
@@ -688,16 +884,29 @@ def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
 def print_eig(r: dict) -> None:
     """`eig_rows`' lines."""
     print(f"eig {r['n']} f64: ok {r['ok']}, {r['iterations']} iterations, "
-          f"a chain of {r['chain']} bulge positions (floor "
-          f"{r['chain_floor_ms']:.2f} ms at {CHAIN_STEP_NS:.1f} ns a "
-          f"position); eigenvalues within {r['numpy_err']:.3g} of numpy's "
-          f"(greedy, of the largest), [V, D] residual {r['residual']:.3g}, "
-          f"column norms within {r['unit_err']:.3g} of 1, values and [V, D] "
-          f"in the same order {r['same_order']}")
+          f"a chain of {r['chain']} bulge positions (chaser and helper alone "
+          f"{r['chain_floor_ms']:.2f} ms, {r['floor_us_per_position']:.3f} "
+          f"us a position); eigenvalues within {r['numpy_err']:.3g} of "
+          f"numpy's (greedy, of the largest), [V, D] residual "
+          f"{r['residual']:.3g}, column norms within {r['unit_err']:.3g} of "
+          f"1, values and [V, D] in the same order {r['same_order']}")
     for name, row in r["rows"].items():
+        extra = "" if "barrier_ms" not in row else (
+            f"; {row['us_per_position']:.3f} us a position, the barrier "
+            f"design "
+            f"{row['barrier_ms']:.2f} ms (turns, ms: new {row['turns_ms']['new']}"
+            f", barrier {row['turns_ms']['barrier']})")
         print(f"  {name:18s} {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}"
               f" ms ({row['bound_by']}), share {row['bound_ms'] / row['ms']:.2g}"
-              f", plain at {r['plain_n']} {row['plain_ms']:.1f} ms")
+              f", plain at {r['plain_n']} {row['plain_ms']:.1f} ms{extra}")
+    p = r["profile"]
+    waits = p["owner_wait_share"]
+    print("  eig_francis with Z, clock64 cycles a position of the chaser "
+          "(profiled; the clock reads add some): " + ", ".join(
+              f"{k} {v:.0f}" for k, v in
+              p["chaser_cycles_a_position"].items())
+          + f"; the band helper waits {p['helper_wait_share']:.2f} of its "
+          f"time, the owner warps {min(waits):.2f}-{max(waits):.2f}")
     print(f"  geev: torch.linalg.eigvals {r['eigvals_ms']:.3f} ms, "
           f"torch.linalg.eig {r['eig_ms']:.3f} ms, eigvals of the Hessenberg "
           f"matrix {r['eigvals_H_ms']:.3f} ms")

@@ -389,8 +389,10 @@ def francis(Hp: torch.Tensor, n: int, max_iters: int, with_z: bool):
     """(H, Z, info): the Francis QR iteration on the padded Hessenberg Hp
     (Z None unless `with_z`), info [ok, iterations, chain] as int64 on
     Hp's device. A CPU tensor takes `plain_francis`; a card tensor
-    launches eig_francis once, one block over the whole iteration (its Z
-    comes back as the transpose of the kernel's, a view)."""
+    launches eig_francis once, one block over the whole iteration: a
+    chaser warp on the bulge, a helper warp on the band beside it and
+    owner threads on the rest, no block barrier between bulge positions
+    (its Z comes back as the transpose of the kernel's, a view)."""
     if Hp.device.type == "cpu":
         return plain_francis(Hp, n, max_iters, with_z)
     _card(Hp, "eig_francis")

@@ -2184,14 +2184,50 @@ def test_accel_calibrate_on_the_card(card, tmp_path, monkeypatch):
     assert TorchEngine("cuda").offload_threshold == cal["offload_threshold"]
 
 
-@pytest.mark.parametrize("n", [3, 5, 24, 64])
+@pytest.mark.parametrize("n", [3, 5, 24, 31, 32, 33, 64, 67, 128])
 def test_eig_kernels_match_plain(card, n):
     """eig_hess, eig_francis and eig_trevc against their plain versions on
     the card, and the card's eigenvalues in the plain pipeline's order
-    (`linalgbench.eig_held`)."""
+    (`linalgbench.eig_held`); eig_francis with and without Z, at sizes
+    about its 32-column band (31, 32, 33, 67) among them."""
     from runmat_tpu_torch import linalgbench
     r = linalgbench.eig_held(n, card)
     assert r["eig_francis"] == 0.0 and r["info"][0] == 1
+
+
+@pytest.mark.parametrize("label", ["splits", "graded"])
+def test_eig_francis_hand_offs_match_plain(card, label):
+    """eig_francis equal to plain_francis, with and without Z, on a matrix
+    that splits near both ends of the sweeps and on a graded one
+    (`linalgbench.francis_cases`)."""
+    from runmat_tpu_torch import linalgbench
+    Hp, n = linalgbench.francis_cases(card)[label]
+    linalgbench.francis_held(Hp, n, 40 * n + 100)
+
+
+@pytest.mark.parametrize("label", ["band 31", "band 67", "128"])
+def test_eig_francis_with_one_owner_warp_matches_plain(card, label):
+    """eig_francis with its owners in one warp (2, 3, 5 indices a thread:
+    the kernel's looped instantiation for n > 573, at small n) equal to
+    plain_francis, with and without Z."""
+    from runmat_tpu_torch import linalgbench
+    if label == "128":
+        Hp = torch.zeros((131, 131), dtype=torch.float64, device=card)
+        Hp[:128, :128] = linalgbench.eig_hessenberg(128, card)
+        n = 128
+    else:
+        Hp, n = linalgbench.francis_cases(card)[label]
+    linalgbench.francis_held(Hp, n, 40 * n + 100,
+                             linalgbench.CHAIN_ONE_OWNER_WARP)
+
+
+def test_eig_francis_repeats_bit_for_bit(card):
+    """20 launches of eig_francis with Z on one 128 H give one T, Z and
+    info."""
+    from runmat_tpu_torch import linalgbench
+    Hp = torch.zeros((131, 131), dtype=torch.float64, device=card)
+    Hp[:128, :128] = linalgbench.eig_hessenberg(128, card)
+    assert linalgbench.francis_repeat(Hp, 128, 20)[0] == 1
 
 
 def test_eig_kernels_refuse_what_they_do_not_take(card):

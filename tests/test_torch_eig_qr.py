@@ -33,6 +33,11 @@ eigenvalues):
 * `_house3`: bit for bit against the JAX function run op by op.
 * The builders `eig_qr` and `eig_full` of the port's DenseOps call neither
   torch.linalg.eig nor torch.linalg.eigvals.
+* The schedule model of the eig_francis kernel (`tests/torch_francis_model.py`)
+  under random and adversarial schedules, at small sizes that reach every
+  hand-off and at the kernel's own: no access unordered by the kernel's
+  synchronisation, no deadlock, and T, Z and info equal to
+  `plain_francis` value for value.
 """
 
 import jax
@@ -277,6 +282,134 @@ def test_a_cpu_tensor_launches_nothing():
     P.eig_full(A)
     P.eig_values(A)
     assert K.launches == before
+
+
+@pytest.mark.parametrize("with_z", [True, False])
+def test_a_cpu_tensor_takes_plain_francis(monkeypatch, with_z):
+    """francis on a CPU tensor is plain_francis (T, Z and info equal) and
+    reaches no kernel entry."""
+    def refuse(*a, **k):
+        raise AssertionError("a kernel entry reached")
+
+    monkeypatch.setattr(K, "_entry", refuse)
+    n = 24
+    Hp = _t(_padded_hessenberg(_fixture("random24")))
+    before = K.launches
+    T, Z, info = K.francis(Hp, n, 40 * n + 100, with_z)
+    pT, pZ, pinfo = K.plain_francis(Hp, n, 40 * n + 100, with_z)
+    assert K.launches == before
+    assert torch.equal(T, pT) and torch.equal(info, pinfo)
+    assert (Z is None and pZ is None) if not with_z else torch.equal(Z, pZ)
+
+
+def test_the_bench_only_entries_are_named_only_by_linalgbench():
+    """runmat_eig_francis_barrier (the earlier design) and
+    runmat_eig_francis_chain (the chaser and helper alone) are defined in
+    csrc/eig_qr.cu and named by linalgbench.py alone: ops/eig_qr.py's
+    francis launches runmat_eig_francis."""
+    import inspect
+    from pathlib import Path
+    pkg = Path(K.__file__).resolve().parents[1]
+    names = ("runmat_eig_francis_barrier", "runmat_eig_francis_chain")
+    files = sorted(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]
+    naming = {p.relative_to(pkg.parent).as_posix() for p in files
+              if any(name in p.read_text() for name in names)}
+    assert naming == {"runmat_tpu_torch/linalgbench.py"}, naming
+    cu = (pkg / "csrc" / "eig_qr.cu").read_text()
+    for name in names + ("runmat_eig_francis",):
+        assert f'extern "C" int {name}(' in cu, name
+    src = inspect.getsource(K.francis)
+    assert '"runmat_eig_francis"' in src
+    assert not any(name in src for name in names)
+
+
+@pytest.mark.parametrize("label", ["band 31", "band 32", "band 33",
+                                   "band 67", "splits", "graded"])
+def test_the_hand_off_cases(label):
+    """The matrices the card holds eig_francis to plain_francis on
+    (`linalgbench.francis_cases`) are padded upper Hessenberg, and the
+    plain iteration converges on them with Z T Z' = H."""
+    from runmat_tpu_torch import linalgbench
+    Hp, n = linalgbench.francis_cases(torch.device("cpu"))[label]
+    h = Hp.numpy()
+    assert h.shape == (n + 3, n + 3)
+    assert np.all(np.tril(h, -2) == 0) and not np.any(h[n:]) \
+        and not np.any(h[:, n:])
+    T, Z, info = K.francis(Hp, n, 40 * n + 100, True)
+    assert info.tolist()[0] == 1
+    T, Z = T.numpy()[:n, :n], Z.numpy()[:n, :n]
+    _close(Z @ T @ Z.T, h[:n, :n], TOL_QR, "Z T Z'")
+    if label == "splits":       # the deflated ends stay where they were
+        assert T[1, 0] == 0 and T[n - 1, n - 2] == 0
+
+
+# eig_francis' sizes in the schedule model: the kernel's own (csrc/eig_qr.cu:
+# kBand, kRing, kHand, owner_slots, a warp) and two cut down, so that small
+# matrices reach every hand-off, reuse ring entries within a sweep and have
+# several owner warps and several indices a thread
+MODEL_KERNEL = dict(band=32, ring=256, hand=64, slots=576, warp=32)
+MODEL_SIZES = {"band 4, ring 2": dict(band=4, ring=2, hand=8, slots=8,
+                                      warp=4),
+               "band 8, ring 4": dict(band=8, ring=4, hand=16, slots=12,
+                                      warp=4)}
+MODEL_SCHEDULES = ("random", "chaser", "owners")
+
+
+def _model_case(label: str):
+    if label.startswith("random"):
+        n = int(label[len("random"):])
+        return torch.from_numpy(_padded_hessenberg(_fixture(label))), n
+    from runmat_tpu_torch import linalgbench
+    return linalgbench.francis_cases(torch.device("cpu"))[label]
+
+
+def _model_equals_plain(label, with_z, sizes, schedule, seed=0):
+    import torch_francis_model as FM
+    Hp, n = _model_case(label)
+    maxit = 40 * n + 100
+    H, Zt, info, _ = FM.francis(Hp, n, maxit, with_z, schedule=schedule,
+                                seed=seed, **sizes)
+    pT, pZ, pinfo = K.plain_francis(Hp, n, maxit, with_z)
+    assert info == pinfo.tolist(), (info, pinfo.tolist())
+    assert torch.equal(torch.tensor(H, dtype=torch.float64), pT)
+    if with_z:
+        assert torch.equal(torch.tensor(Zt, dtype=torch.float64).mT, pZ)
+
+
+@pytest.mark.parametrize("schedule", MODEL_SCHEDULES)
+@pytest.mark.parametrize("sizes", sorted(MODEL_SIZES))
+@pytest.mark.parametrize("label", ["random5", "random24", "splits",
+                                   "graded"])
+def test_the_schedule_model_equals_plain_francis(label, sizes, schedule):
+    """The kernel's chaser, helper and owner warps as coroutines under one
+    schedule, with Z: every read and write ordered by the kernel's counts,
+    fences and barriers, and the result plain_francis's value for
+    value."""
+    _model_equals_plain(label, True, MODEL_SIZES[sizes], schedule, seed=7)
+
+
+@pytest.mark.parametrize("schedule", MODEL_SCHEDULES)
+def test_the_schedule_model_without_z(schedule):
+    _model_equals_plain("random24", False, MODEL_SIZES["band 4, ring 2"],
+                        schedule, seed=3)
+
+
+def test_the_schedule_model_at_the_kernels_sizes():
+    """n = 67 (2 kBand + 3) with the kernel's band, ring, hand-off slots and
+    owner warps: columns enter the band from their owners."""
+    _model_equals_plain("band 67", True, MODEL_KERNEL, "random", seed=1)
+
+
+@pytest.mark.parametrize("schedule", MODEL_SCHEDULES)
+def test_the_schedule_model_sees_an_unordered_ring_reuse(schedule):
+    """With each owner warp's count a plain store read without acquire, the
+    chaser's reuse of a ring entry is not ordered after the owners' reads
+    of it, and the model says so."""
+    import torch_francis_model as FM
+    Hp, n = _model_case("random24")
+    with pytest.raises(FM.Race, match="ring"):
+        FM.francis(Hp, n, 40 * n + 100, True, schedule=schedule,
+                   release=False, **MODEL_SIZES["band 4, ring 2"])
 
 
 def test_the_builders_call_no_lapack_eig(monkeypatch):
