@@ -235,9 +235,9 @@ line is printed:
      plate with a bore from plate_bore.step, its faces listed, meshed and
      solved with the bore selected by its face id) through the port's
      command line in a subprocess (`python -m runmat_tpu_torch.cli`, HOME a
-     directory of its own, after `accel-info --json` names the card) and
-     in process through Session.run_source: THERMAL and PLATE printed alike
-     by both card runs; the cube's system rebuilt from the port's
+     directory of its own, after `accel-info --json` names the card) and,
+     at the same time, in process through Session.run_source: THERMAL
+     and PLATE printed alike by both card runs; the cube's system rebuilt from the port's
      assemble_diffusion and apply_dirichlet on the same mesh, T and THERMAL
      within spbench.X_TOL of the host engine's solve of it (its CG loop,
      with scipy's product for the loop over columns) and the free
@@ -280,7 +280,9 @@ line is printed:
      numpy's eigvals of the gathered A (matched greedily, of the
      largest), the waits equal to the counted reads; then the kernels
      against their plain versions at n = 24, 64 and 128 on the card and
-     at the main path's 512 on the CPU copy of each kernel's input
+     at the main path's 512 on the CPU copy of each kernel's input, and
+     20 launches of eig_hess with Q on one 128 matrix identical and equal
+     to ordered_hessenberg's (linalgbench.hess_held)
      (runmat_tpu_torch/linalgbench.py eig_held: eig_hess within 1e-10 of
      the largest |A|, eig_francis equal to plain_francis on the same H
      value for value with the same iterations and chain, so the same
@@ -298,7 +300,9 @@ line is printed:
      version's time on the card at n = 128 (`plain_n` in the kernel
      line: the plain QR's host loop takes ~0.2 ms a bulge position on the
      card, minutes at 512; its time on the CPU at 512 is printed) and,
-     for eig_francis, the earlier design (one block barrier a bulge
+     for eig_hess, the earlier cooperative design in turns, the barriers
+     alone, µs a step and one profiled launch's cycles a phase; for
+     eig_francis, the earlier design (one block barrier a bulge
      position) timed in turns with it, the chaser's and helper's chain
      alone over the same iterations (the measured
      floor, and µs a bulge position) and one profiled launch's cycles;
@@ -339,6 +343,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2791,11 +2796,11 @@ def _fea_histogram(t: np.ndarray, edges: np.ndarray) -> None:
 def phase_fea_path() -> dict:
     """fea_thermal.m at R = THERMAL_R (48; the script's default 64 is cut
     to keep `chip_smoke.py` inside its time limit) through the port's CLI
-    in a subprocess and through Session.run_source; the cube's temperatures
-    against the host engine's solve and its free temperatures against the
-    ordered model on the rebuilt system; the solves, launches, reads and
-    waits (the run is under torch's sync debug mode and the profiler); then
-    the CG kernels timed at the cube's matrix."""
+    in a subprocess and, beside it, through Session.run_source; the cube's
+    temperatures against the host engine's solve and its free temperatures
+    against the ordered model on the rebuilt system; the solves, launches,
+    reads and waits (the run is under torch's sync debug mode and the
+    profiler); then the CG kernels timed at the cube's matrix."""
     import torch
 
     import runmat_tpu_torch
@@ -2812,6 +2817,7 @@ def phase_fea_path() -> dict:
     old_home = os.environ.get("HOME")
     os.environ["HOME"] = home        # fea.run's registry and evidence chain
     laps = [("start", time.perf_counter())]
+    cli_proc = None
     try:
         env = dict(os.environ, HOME=home)
         cli = [sys.executable, "-m", "runmat_tpu_torch.cli"]
@@ -2821,14 +2827,22 @@ def phase_fea_path() -> dict:
         card = json.loads(p.stdout)["card"]
         check(card["name"] == torch.cuda.get_device_name(0),
               f"fea: accel-info names {card}")
-        p = subprocess.run(cli + [script], capture_output=True,
-                           text=True, env=env, timeout=900)
-        check(p.returncode == 0, f"fea: the CLI run failed: {p.stderr[-2000:]}")
-        cli_out = p.stdout
-        laps.append(("cli run", time.perf_counter()))
-        print(f"cli fea_thermal: accel-info {card}; "
-              f"{cli_out.strip().splitlines()[-1]} "
-              f"({laps[-1][1] - laps[-2][1]:.1f} s with the process start)")
+        laps.append(("accel-info", time.perf_counter()))
+        # the CLI's run goes on beside the one in this process (each is
+        # host work on a core of its own, and the card is idle in both
+        # nearly all the time), so both walls are taken with the other
+        # running
+        cli_proc = subprocess.Popen(cli + [script], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True,
+                                    env=env)
+        cli_done: dict = {}
+
+        def reap():
+            cli_done["out"], cli_done["err"] = cli_proc.communicate()
+            cli_done["t"] = time.perf_counter()
+
+        reaper = threading.Thread(target=reap, daemon=True)
+        reaper.start()
         # the run on the card, under torch's sync debug mode and the
         # profiler: a run costs over a minute of host work, and a second
         # would repeat the first's device work (its three solves differ in
@@ -2843,7 +2857,17 @@ def phase_fea_path() -> dict:
         except MatError as e:
             raise SmokeFailure(f"fea_thermal: {e}") from e
         output = s.stdout.getvalue()
-        laps.append(("card run", time.perf_counter()))
+        laps.append(("card run, the CLI's beside it", time.perf_counter()))
+        reaper.join(timeout=900)
+        check(not reaper.is_alive(), "fea: the CLI run outlasted 900 s")
+        check(cli_proc.returncode == 0,
+              f"fea: the CLI run failed: {cli_done['err'][-2000:]}")
+        cli_out = cli_done["out"]
+        cli_s = cli_done["t"] - laps[1][1]
+        laps.append(("rest of the cli run", time.perf_counter()))
+        print(f"cli fea_thermal: accel-info {card}; "
+              f"{cli_out.strip().splitlines()[-1]} ({cli_s:.1f} s with the "
+              f"process start, beside the run in this process)")
         launches = _read_launches()
         st, why = dict(eng.stats), dict(eng.sync_reasons)
         solves = [e for e in eng.launch_log if e["cat"] == "sparse_cg"]
@@ -2927,7 +2951,8 @@ def phase_fea_path() -> dict:
               f"{st['gathers']} gathers), where: {json.dumps(dict(sites))}")
         print(f"wall fea_thermal (run_source, profiled, under the sync debug "
               f"mode): {prof['wall_ms']:.1f} ms; through the CLI "
-              f"{(laps[1][1] - laps[0][1]) * 1e3:.1f} ms with the process")
+              f"{cli_s * 1e3:.1f} ms with the process (the two side by "
+              f"side)")
         print(f"profile fea_thermal: wall {prof['wall_ms']:.1f} ms, "
               f"{prof['device_items']} device items, busy "
               f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.4f};"
@@ -2964,6 +2989,9 @@ def phase_fea_path() -> dict:
         laps.append(("kernels at its shapes", time.perf_counter()))
         del rowptr, col, val, bv
     finally:
+        if cli_proc is not None and cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
         if old_home is None:
             os.environ.pop("HOME", None)
         else:
@@ -3366,8 +3394,10 @@ def phase_tooling_path() -> dict:
 def _eig_kernels() -> dict:
     """The three eigenvalue kernels against their plain versions at
     linalgbench.EIG_HELD (the plain versions on the card) and at the main
-    path's 512 (the plain versions on the CPU: the same values, far
-    sooner), and timed at 512 (linalgbench.eig_held and eig_rows). Returns
+    path's 512 (the plain versions on the CPU copy of each kernel's input:
+    the same values, far sooner, in a process of their own beside the rest
+    of the phase), eig_hess' repeats at 128, and timed at 512
+    (linalgbench.eig_held, PlainBeside, hess_held and eig_rows). Returns
     eig_rows' result and each kernel's largest difference from plain."""
     import torch
 
@@ -3375,14 +3405,8 @@ def _eig_kernels() -> dict:
     dev = torch.device("cuda")
     errs = dict.fromkeys(EIG_KERNELS, 0.0)
     held = {}
-    for n, pdev in [(n, None) for n in linalgbench.EIG_HELD] + \
-            [(linalgbench.EIG_N, "cpu")]:
-        t0 = time.perf_counter()
-        try:
-            held[n] = r = linalgbench.eig_held(n, dev, pdev)
-        except AssertionError as e:
-            raise SmokeFailure(f"eig kernels against plain at n = {n}: "
-                               f"{e}") from e
+
+    def note(n, r, seconds):
         for k in errs:
             errs[k] = max(errs[k], r[k])
         pipe = "" if "v_err" not in r else (
@@ -3395,41 +3419,73 @@ def _eig_kernels() -> dict:
               f"{r['eig_trevc']:.3g}{pipe}; plain on the {r['plain_dev']}, "
               f"ms: " + ", ".join(
                   f"{k} {v:.1f}" for k, v in r["plain_ms"].items())
-              + f" ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    for label, (Hp, n) in linalgbench.francis_cases(dev).items():
-        try:
-            info = linalgbench.francis_held(Hp, n, 40 * n + 100)
-        except AssertionError as e:
-            raise SmokeFailure(f"eig_francis against plain on {label}: "
-                               f"{e}") from e
-        print(f"eig_francis on {label}: equal to plain_francis with and "
-              f"without Z, [ok, iterations, chain] {info}")
-    Hp = torch.zeros((131, 131), dtype=torch.float64, device=dev)
-    Hp[:128, :128] = linalgbench.eig_hessenberg(128, dev)
-    cases = linalgbench.francis_cases(dev)
-    for label, (Hq, n) in (("band 31", cases["band 31"]),
-                           ("band 67", cases["band 67"]), ("128", (Hp, 128))):
-        try:
-            linalgbench.francis_held(Hq, n, 40 * n + 100,
-                                     linalgbench.CHAIN_ONE_OWNER_WARP)
-        except AssertionError as e:
-            raise SmokeFailure(f"eig_francis, one owner warp, on {label}: "
-                               f"{e}") from e
-    print("eig_francis with one owner warp (2, 3 and 5 indices a thread) "
-          "on band 31, band 67 and 128: equal to plain_francis")
+              + f" ({seconds:.1f} s)")
+
+    # the main path's 512: the kernels here, their plain versions on the
+    # CPU in a process of their own while the rest of the phase runs
+    t512 = time.perf_counter()
+    beside = linalgbench.PlainBeside(linalgbench.EIG_N, dev)
     try:
-        info = linalgbench.francis_repeat(Hp, 128, 20)
-    except AssertionError as e:
-        raise SmokeFailure(f"eig_francis repeated: {e}") from e
-    print(f"eig_francis 20 launches on one 128 H: identical (info {info}) "
-          f"({time.perf_counter() - t0:.1f} s with the cases)")
-    r = linalgbench.eig_rows(TIMING_REPS // 10,
-                             held[linalgbench.EIG_PLAIN_N]["plain_ms"])
-    linalgbench.print_eig(r)
-    check(r["values_ok"] and r["numpy_err"] <= EIG_NUMPY_TOL and
-          r["residual"] < EIG_RESIDUAL and r["unit_err"] < EIG_UNIT and
-          r["same_order"], f"eig at {r['n']}: {r}")
+        for n in linalgbench.EIG_HELD:
+            t0 = time.perf_counter()
+            try:
+                held[n] = r = linalgbench.eig_held(n, dev)
+            except AssertionError as e:
+                raise SmokeFailure(f"eig kernels against plain at n = {n}: "
+                                   f"{e}") from e
+            note(n, r, time.perf_counter() - t0)
+        try:
+            rep = linalgbench.hess_held(128, dev, repeats=19)
+        except AssertionError as e:
+            raise SmokeFailure(f"eig_hess repeats: {e}") from e
+        check(rep["ordered_equal"], f"eig_hess at 128: not "
+              f"ordered_hessenberg's H and Q: {rep}")
+        print("eig_hess: 20 launches with Q on one 128 matrix identical and "
+              "equal to ordered_hessenberg's bit for bit")
+        t0 = time.perf_counter()
+        for label, (Hp, n) in linalgbench.francis_cases(dev).items():
+            try:
+                info = linalgbench.francis_held(Hp, n, 40 * n + 100)
+            except AssertionError as e:
+                raise SmokeFailure(f"eig_francis against plain on {label}: "
+                                   f"{e}") from e
+            print(f"eig_francis on {label}: equal to plain_francis with and "
+                  f"without Z, [ok, iterations, chain] {info}")
+        Hp = torch.zeros((131, 131), dtype=torch.float64, device=dev)
+        Hp[:128, :128] = linalgbench.eig_hessenberg(128, dev)
+        cases = linalgbench.francis_cases(dev)
+        for label, (Hq, n) in (("band 31", cases["band 31"]),
+                               ("band 67", cases["band 67"]),
+                               ("128", (Hp, 128))):
+            try:
+                linalgbench.francis_held(Hq, n, 40 * n + 100,
+                                         linalgbench.CHAIN_ONE_OWNER_WARP)
+            except AssertionError as e:
+                raise SmokeFailure(f"eig_francis, one owner warp, on "
+                                   f"{label}: {e}") from e
+        print("eig_francis with one owner warp (2, 3 and 5 indices a "
+              "thread) on band 31, band 67 and 128: equal to plain_francis")
+        try:
+            info = linalgbench.francis_repeat(Hp, 128, 20)
+        except AssertionError as e:
+            raise SmokeFailure(f"eig_francis repeated: {e}") from e
+        print(f"eig_francis 20 launches on one 128 H: identical (info "
+              f"{info}) ({time.perf_counter() - t0:.1f} s with the cases)")
+        r = linalgbench.eig_rows(TIMING_REPS // 10,
+                                 held[linalgbench.EIG_PLAIN_N]["plain_ms"])
+        linalgbench.print_eig(r)
+        check(r["values_ok"] and r["numpy_err"] <= EIG_NUMPY_TOL and
+              r["residual"] < EIG_RESIDUAL and r["unit_err"] < EIG_UNIT and
+              r["same_order"], f"eig at {r['n']}: {r}")
+        n = linalgbench.EIG_N
+        try:
+            held[n] = h = beside.result()
+        except (AssertionError, RuntimeError) as e:
+            raise SmokeFailure(f"eig kernels against plain at n = {n}: "
+                               f"{e}") from e
+        note(n, h, time.perf_counter() - t512)
+    finally:
+        beside.stop()
     r["errs"] = errs
     return r
 
@@ -3512,6 +3568,13 @@ def phase_eig_path() -> dict:
             rows[-1]["with_z_ms"] = r["rows"]["eig_francis with Z"]["ms"]
             rows[-1]["with_z_barrier_ms"] = \
                 r["rows"]["eig_francis with Z"]["barrier_ms"]
+        if name == "eig_hess":
+            rows[-1].update({k: row[k] for k in (
+                "grid_ms", "grid_floor_ms", "cluster_floor_ms",
+                "us_per_step")})
+            rows[-1]["with_q_ms"] = r["rows"]["eig_hess with Q"]["ms"]
+            rows[-1]["with_q_grid_ms"] = \
+                r["rows"]["eig_hess with Q"]["grid_ms"]
     phase_eig_path.kernels = rows
     return launches
 

@@ -13,19 +13,18 @@
 //                dependent passes: v from column k (scaled by its largest
 //                magnitude, then normalised), H -= 2 v (v'H), H -= 2 (Hv) v',
 //                column k below the subdiagonal set to exact zeros, and
-//                Q -= 2 (Qv) v'. One cooperative launch: every block
-//                computes v itself from column k (no barrier for it) and
-//                keeps that column in shared memory; the column pass gives
-//                each block tiles of 32 columns from k + 1 (lane = column,
-//                the 8 warps share the rows, their partial sums added in
-//                warp order), so v'H and its update need no barrier between
-//                them, and no block writes column k while another reads it;
-//                a grid barrier; the row pass gives each warp rows (lanes
-//                over the columns), Hv, its update, Q's row and column k's
-//                entry: the new subdiagonal, from the kept column, in the
-//                row k + 1, exact zeros below it; a grid barrier. H and Q
-//                are read through L2 (__ldcg): other blocks wrote them
-//                before the barrier.
+//                Q -= 2 (Qv) v'. Routed by n alone (res_smem against
+//                kResBudget; ops/eig_qr.py hess_route): up to n = 627, H
+//                resident in the shared memory of one cluster of 16 blocks
+//                (block b owns rows b, b + 16, ...), two exchanges a step
+//                through st.async and mbarriers, no grid or cluster barrier
+//                inside the loop, and Q on a second cluster that trails the
+//                first, both in one cooperative launch so that they are
+//                resident together (the design and its hand-offs above
+//                eig_hess_resident); above 627, the earlier cooperative
+//                design (one launch, a grid barrier after each of its two
+//                passes a step, H and Q through L2), which also stays as the
+//                bench-only runmat_eig_hess_grid.
 //   eig_francis  francis_qr_z (eig_qr.py:151-284): the whole while-loop in
 //                one block of 768 threads, no host read: the lo scan (a
 //                block max), the branch among deflating one, deflating two,
@@ -69,22 +68,29 @@
 // version's left-to-right torch sums, and the Frobenius norm that sets the
 // deflation floor comes in from the same torch call. eig_hess and
 // eig_trevc sum their long dot products in their own fixed order, so they
-// agree with the plain versions (torch.matmul) within rounding.
+// agree with the plain versions (torch.matmul) within rounding; the
+// resident eig_hess equals ops/eig_qr.py's ordered_hessenberg (its order
+// written out on the CPU) bit for bit.
 //
 // What bounds them on this card: not bytes (H is 2 MB at n = 512 and stays
 // in the 50 MB L2) and not the float64 rate (about 10/3 n^3 operations
 // for the reduction, 10 n^3 for the QR, n^3 for trevc: 2-20 microseconds
-// at 67 TFLOP/s), but dependent chains: the reduction's 2 (n - 2)
-// grid barriers, the QR's sweep positions (the chaser's dot3s, shuffles
+// at 67 TFLOP/s), but dependent chains: the reduction's n - 2 steps, each
+// two exchanges between the cluster's blocks and the latency chains of its
+// scalars, row pass and publication (the numbers above eig_hess_resident),
+// the QR's sweep positions (the chaser's dot3s, shuffles
 // and house3's two square roots and divisions a position, one after
 // another, with the helper's band and the owners' 15 (n + 3) float64
 // operations a position, 30 (n + 3) with Z, beside it on one SM), and
 // trevc's n dependent rows a column.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -94,6 +100,11 @@ constexpr double kEps8 = 8.0 * kEps;   // the relative deflation test's
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kHessThreads = 256;
 constexpr int kHessWarps = kHessThreads / 32;
+constexpr int kResThreads = 256;        // the resident eig_hess' block
+constexpr int kResWarps = kResThreads / 32;
+constexpr int kResBlocks = 16;          // its cluster (non-portable size)
+constexpr int kResPhases = 5;           // its profile's phases (bench only)
+constexpr int kResFlagEvery = 4;        // steps between v releases to Q's
 constexpr int kFrancisThreads = 1024;   // the earlier eig_francis' block
 constexpr int kTrevcWarps = 4;
 
@@ -140,6 +151,39 @@ __device__ __forceinline__ void grid_sync(unsigned long long* count,
     __threadfence();
   }
   __syncthreads();
+}
+
+// The two halves of a cluster barrier: every thread of the cluster's
+// blocks arrives (its earlier shared-memory writes released to the
+// cluster), and waits for all of them (acquiring theirs). Between the two
+// a thread may do work that no peer reads in the next phase.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Bench only: `count` cluster barriers with nothing between them, at the
+// launch's block, cluster and dynamic shared memory (the resident
+// eig_hess' floor)
+__global__ void __launch_bounds__(kResThreads, 1)
+hess_cluster_floor(int count) {
+  for (int i = 0; i < count; ++i) {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+// Bench only: `count` grid barriers with nothing between them, at the
+// launch's grid of kHessThreads blocks (the cooperative eig_hess' floor)
+__global__ void __launch_bounds__(kHessThreads)
+hess_grid_floor(int count, unsigned long long* bar) {
+  unsigned long long target = 0;
+  for (int i = 0; i < count; ++i) {
+    target += gridDim.x;
+    grid_sync(bar, target);
+  }
 }
 
 // Sum (max) over the block's kHessThreads threads, the same in every thread:
@@ -290,6 +334,631 @@ eig_hess(double* __restrict__ H, double* __restrict__ Q, int n,
     }
     target += nb;
     grid_sync(bar, target);
+  }
+}
+
+// ------------------------------------------------ eig_hess, H resident
+
+// The resident design's shared memory, in doubles (ops/eig_qr.py:
+// hess_smem is the same formula): R = ceil(n / 16) rows of H a block; by
+// step parity, what the two exchanges deliver into it (each block's [m, s]:
+// 32, row k + 1's entry: 2, each block's X over the block's slice of
+// columns: 16 R, row k + 1 over the slice: R, v and w: n each); four
+// mbarriers.
+__host__ __device__ inline int res_rows(int n) {
+  return (n + kResBlocks - 1) / kResBlocks;
+}
+__host__ inline size_t res_smem(int n) {
+  const size_t R = res_rows(n), N = n;
+  return sizeof(double) * (R * N + 2 * (2 * kResBlocks + 2 + 17 * R + 2 * N) +
+                           4);
+}
+// the H100's dynamic shared memory a block may opt in to (227 KB): the
+// resident route takes every n whose res_smem fits (n <= 627)
+constexpr size_t kResBudget = 232448;
+// a wait on an exchange that outlasts this (about a second) traps rather
+// than hang the card. The launch is cooperative, so every block it waits
+// on is resident and only a fault of the kernel can reach the trap; a trap
+// is a sticky error that leaves the process's CUDA context unusable, not
+// only this launch.
+constexpr long long kResWaitCycles = 1LL << 31;
+
+// The shared memory of the resident kernel's block, carved from the
+// dynamic allocation; the delivered arrays by step parity p.
+struct ResSmem {
+  double* hs;      // own rows, R x n: local row r is row b + 16 r
+  double* d0;      // parity 0's delivered arrays; parity 1's `stride` on
+  size_t stride;
+  int R, n;
+  unsigned long long* bar;   // [exchange 1 p0, p1, exchange 2 p0, p1]
+  __device__ ResSmem(double* sm, int n_) : n(n_) {
+    R = res_rows(n);
+    hs = sm;
+    d0 = hs + static_cast<size_t>(R) * n;
+    stride = 2 * kResBlocks + 2 + 17 * static_cast<size_t>(R) + 2 * n;
+    bar = reinterpret_cast<unsigned long long*>(d0 + 2 * stride);
+  }
+  // [m_q, s_q] of each block q
+  __device__ double* S(int p) const { return d0 + p * stride; }
+  // H[k+1, k], from row k + 1's owner
+  __device__ double* H1(int p) const { return S(p) + 2 * kResBlocks; }
+  // X_q[j] for the block's slice: [q][j - b R]
+  __device__ double* X(int p) const { return H1(p) + 2; }
+  // H[k+1, j] for the block's slice
+  __device__ double* Rk(int p) const { return X(p) + kResBlocks * R; }
+  // v, by column
+  __device__ double* v(int p) const { return Rk(p) + R; }
+  // v'H, by column
+  __device__ double* w(int p) const { return v(p) + n; }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// v into the same place of block `rank`'s shared memory as `local`'s,
+// counted in bytes on the mbarrier there that `bar` names here
+__device__ __forceinline__ void send(const void* local, int rank, double v,
+                                     const unsigned long long* bar) {
+  unsigned dst, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(dst) : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rbar) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f64 [%0], %1, "
+      "[%2];" ::"r"(dst), "d"(v), "r"(rbar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// the phase's one arrival, expecting `bytes` from the peers' sends
+__device__ __forceinline__ void mbar_arm(unsigned long long* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// until the phase of `parity` completes (acquiring what the peers' sends
+// delivered); traps after kResWaitCycles
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  const long long start = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster."
+        "shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > kResWaitCycles) __trap();
+  }
+}
+
+// The bytes block c receives in exchange 1 of step k: every block's X and
+// row k + 1 over c's slice's columns j >= k, every block's [m, s], and
+// H[k+1, k]; in exchange 2: w_j for j >= k and v_i for i > k.
+__device__ __forceinline__ int res_bytes1(int n, int k, int c, int nb) {
+  const int R = res_rows(n);
+  const int lo = k > c * R ? k : c * R;
+  const int hi = n < c * R + R ? n : c * R + R;
+  const int cnt = hi > lo ? hi - lo : 0;
+  return 8 * (nb * cnt + cnt + 2 * nb + 1);
+}
+__device__ __forceinline__ int res_bytes2(int n, int k) {
+  return 8 * ((n - k) + (n - k - 1));
+}
+
+// Loads in this kernel are unpredicated, from indices clamped into range,
+// and values past the range are masked after all of a batch's loads are
+// issued: a load under a predicate whose value is merged right after
+// stalls the warp for the load's whole latency before the next one issues
+// (the row pass and the publication took over a third longer so).
+__device__ __forceinline__ int clampi(int i, int hi) { return i < hi ? i : hi; }
+
+// Exchange 1 of the step that reduces column kn, from block b (rows b,
+// b + 16, ...), into parity p of the nb blocks: X[j] = the sum over the
+// block's rows i > kn, in ascending order, of (H[i, kn] 2^-e) H[i, j] for
+// j >= kn, to column j's slice owner, where 2^e bounds the block's largest
+// |H[i, kn]| (frexp: an exact scaling, so no product underflows that the
+// reference's scaled column keeps); m, that largest magnitude, and s, the
+// scaled entries' sum of squares without row kn + 1's (each lane's rows r
+// and r + 32, then the lanes' tree), to every block; by row kn + 1's
+// owner, its entry of column kn to every block and the row from column kn
+// to the slice owners. Reads only the block's own rows; every thread of the
+// block calls it after the block barrier that follows the rows' last
+// update.
+__device__ void hess_publish(const ResSmem& s, int n, int b, int rows,
+                             int nb, int kn, int p) {
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int R = res_rows(n);
+  const double* hs = s.hs;
+  const unsigned long long* bar = s.bar + p;
+  const int ra = kn < b ? 0 : (kn - b) / kResBlocks + 1;   // first row > kn
+  // lane r holds local row r's entry, lane r - 32 row r (R <= 40)
+  const double c0 = hs[static_cast<size_t>(clampi(lane, rows - 1)) * n + kn];
+  const double c1 =
+      hs[static_cast<size_t>(clampi(lane + 32, rows - 1)) * n + kn];
+  const bool in0 = lane >= ra && lane < rows;
+  const bool in1 = lane + 32 >= ra && lane + 32 < rows;
+  double m = maxnan(in0 ? fabs(c0) : 0.0, in1 ? fabs(c1) : 0.0);
+  for (int q = 16; q > 0; q >>= 1)
+    m = maxnan(m, __shfl_xor_sync(kFull, m, q));
+  int e = 0;
+  frexp(m, &e);
+  const double xs0 = in0 ? ldexp(c0, -e) : 0.0;
+  const double xs1 = in1 ? ldexp(c1, -e) : 0.0;
+  const int rn = (kn + 1) % kResBlocks == b ? (kn + 1) / kResBlocks : -1;
+  if (warp == 0) {
+    double q2 = 0.0;
+    if (in0 && b + kResBlocks * lane != kn + 1) q2 = add(q2, mul(xs0, xs0));
+    if (in1 && b + kResBlocks * (lane + 32) != kn + 1)
+      q2 = add(q2, mul(xs1, xs1));
+    for (int q = 16; q > 0; q >>= 1)
+      q2 = add(q2, __shfl_down_sync(kFull, q2, q));
+    q2 = __shfl_sync(kFull, q2, 0);
+    if (lane < nb) {
+      send(s.S(p) + 2 * b, lane, m, bar);
+      send(s.S(p) + 2 * b + 1, lane, q2, bar);
+      if (rn >= 0)
+        send(s.H1(p), lane, hs[static_cast<size_t>(rn) * n + kn], bar);
+    }
+  }
+  // the columns j >= kn, a lane each in up to three slots of the block's
+  // width, their sums interleaved; eight rows' loads issued together
+  const int slots = (n - kn - 32 * warp + kResThreads - 1) / kResThreads;
+  int jc[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    jc[c] = clampi(kn + 32 * warp + c * kResThreads + lane, n - 1);
+  double x[3] = {0.0, 0.0, 0.0};
+  for (int r = ra; r < rows; r += 8) {
+    double xv[8], hv[3][8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int rr = r + u;
+      xv[u] = __shfl_sync(kFull, rr < 32 ? xs0 : xs1, rr % 32);
+      const double* row = hs + static_cast<size_t>(clampi(rr, rows - 1)) * n;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) hv[c][u] = row[jc[c]];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (r + u < rows) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) x[c] = add(x[c], mul(xv[u], hv[c][u]));
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int j = kn + 32 * warp + c * kResThreads + lane;
+    if (c < slots && j < n) {
+      const int d = j / R, jj = j - d * R;
+      send(s.X(p) + b * R + jj, d, x[c], bar);
+      if (rn >= 0) send(s.Rk(p) + jj, d, hs[static_cast<size_t>(rn) * n + j],
+                        bar);
+    }
+  }
+}
+
+// v_j for the lane's columns j = k + 1 + lane + 32 q of step k, 0 past n
+// and past the step's nq chunks (so a product with it adds a zero)
+template <int MAXQ>
+__device__ __forceinline__ void hess_lane_v(const double* v, int n, int k,
+                                            double (&vr)[MAXQ]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int q = 0; q < MAXQ; ++q)
+    vr[q] = v[clampi(k + 1 + 32 * q + lane, n - 1)];
+#pragma unroll
+  for (int q = 0; q < MAXQ; ++q)
+    if (k + 1 + 32 * q + lane >= n) vr[q] = 0.0;
+}
+
+// The warp's rows of the block (local rows warp, warp + kResWarps, ...)
+// through step k, two at a time, lanes over the columns j > k, v_j and w_j
+// held in registers for all of them: on a row below k, H -= 2 v (v'H)
+// (x = h - (2 v_i) w_j); then H -= 2 (Hv) v' (h = x - (2 u) v_j, u each
+// lane's sum of x v_j in ascending j, then the lanes' tree). Columns go in
+// chunks of four, each chunk's loads issued together. Column k is
+// hess_column's.
+template <int MAXQ>
+__device__ __forceinline__ void hess_rows(const ResSmem& s, const double* v,
+                                          const double* w, int n, int k,
+                                          int b, int rows) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int base = k + 1, nq = (n - base + 31) / 32;
+  double vr[MAXQ], wr[MAXQ];
+  hess_lane_v<MAXQ>(v, n, k, vr);
+#pragma unroll
+  for (int q = 0; q < MAXQ; ++q) wr[q] = w[clampi(base + 32 * q + lane, n - 1)];
+  for (int ra = warp; ra < rows; ra += 2 * kResWarps) {
+    const int rb = ra + kResWarps < rows ? ra + kResWarps : ra;
+    const bool two = rb != ra;
+    double* const ha = s.hs + static_cast<size_t>(ra) * n;
+    double* const hb = s.hs + static_cast<size_t>(rb) * n;
+    const int ia = b + kResBlocks * ra, ib = b + kResBlocks * rb;
+    const double va = ia > k ? mul(2.0, v[ia]) : 0.0;
+    const double vb = ib > k ? mul(2.0, v[ib]) : 0.0;
+    double xa[MAXQ], xb[MAXQ];
+    double ua = 0.0, ub = 0.0;
+#pragma unroll
+    for (int qc = 0; qc < MAXQ; qc += 4) {
+      if (qc < nq) {
+#pragma unroll
+        for (int q = qc; q < qc + 4 && q < MAXQ; ++q) {
+          const int jc = clampi(base + 32 * q + lane, n - 1);
+          xa[q] = ha[jc];
+          xb[q] = hb[jc];
+        }
+#pragma unroll
+        for (int q = qc; q < qc + 4 && q < MAXQ; ++q) {
+          if (ia > k) xa[q] = sub(xa[q], mul(va, wr[q]));
+          if (ib > k) xb[q] = sub(xb[q], mul(vb, wr[q]));
+          ua = add(ua, mul(xa[q], vr[q]));
+          ub = add(ub, mul(xb[q], vr[q]));
+        }
+      }
+    }
+    for (int q = 16; q > 0; q >>= 1) {
+      ua = add(ua, __shfl_down_sync(kFull, ua, q));
+      ub = add(ub, __shfl_down_sync(kFull, ub, q));
+    }
+    const double a2 = mul(2.0, __shfl_sync(kFull, ua, 0));
+    const double b2 = mul(2.0, __shfl_sync(kFull, ub, 0));
+#pragma unroll
+    for (int qc = 0; qc < MAXQ; qc += 4) {
+      if (qc < nq) {
+#pragma unroll
+        for (int q = qc; q < qc + 4 && q < MAXQ; ++q) {
+          const int j = base + 32 * q + lane;
+          const double na = sub(xa[q], mul(a2, vr[q]));
+          const double nb2 = sub(xb[q], mul(b2, vr[q]));
+          if (j < n) ha[j] = na;
+          if (j < n && two) hb[j] = nb2;
+        }
+      }
+    }
+  }
+}
+
+// Column k of the block's rows after step k: the new subdiagonal in row
+// k + 1 (H[k+1, k] - (2 v_{k+1}) w_k), exact zeros below it; a thread a
+// row. The row pass leaves column k alone, and step k's v was formed from
+// it before the second exchange.
+__device__ __forceinline__ void hess_column(const ResSmem& s, const double* v,
+                                            const double* w, int n, int k,
+                                            int b, int rows) {
+  const int t = threadIdx.x;
+  if (t < rows) {
+    const int i = b + kResBlocks * t;
+    double* const h = s.hs + static_cast<size_t>(t) * n + k;
+    if (i == k + 1) *h = sub(*h, mul(mul(2.0, v[i]), w[k]));
+    if (i > k + 1) *h = 0.0;
+  }
+}
+
+// The second cluster of a launch with Q: Q's rows b + 16 r of its block b,
+// the identity at first, held in its shared memory where the first
+// cluster's blocks hold H's, through every step k: Q -= 2 (Qv) v', v_k read
+// from row k of Q in device memory, where the first cluster's block 0 left
+// it, once `flag` (its count of such rows, released every kResFlagEvery
+// steps and at the end) passes k. Each warp takes its rows two at a time,
+// the sums as hess_rows', with no block barrier: the cluster trails the H
+// chain and never holds it back. After the last step, a cluster barrier
+// (every block has read every v_k) and the rows go out.
+template <int MAXQ>
+__device__ void hess_qcluster(const ResSmem& s, double* Q, int n, int b,
+                              int rows, const unsigned long long* flag) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (size_t e = threadIdx.x; e < static_cast<size_t>(rows) * n;
+       e += kResThreads)
+    s.hs[e] = e % n == b + kResBlocks * (e / n) ? 1.0 : 0.0;
+  __syncthreads();
+  unsigned long long seen = 0;
+  for (int k = 0; k < n - 2; ++k) {
+    const long long start = clock64();
+    while (seen <= static_cast<unsigned long long>(k)) {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                   : "=l"(seen) : "l"(flag) : "memory");
+      if (clock64() - start > kResWaitCycles) __trap();
+    }
+    const int base = k + 1, nq = (n - base + 31) / 32;
+    double vr[MAXQ];
+#pragma unroll
+    for (int q = 0; q < MAXQ; ++q)
+      vr[q] = __ldcg(Q + static_cast<size_t>(k) * n +
+                     clampi(base + 32 * q + lane, n - 1));
+#pragma unroll
+    for (int q = 0; q < MAXQ; ++q)
+      if (base + 32 * q + lane >= n) vr[q] = 0.0;
+    for (int ra = warp; ra < rows; ra += 2 * kResWarps) {
+      const int rb = ra + kResWarps < rows ? ra + kResWarps : ra;
+      const bool two = rb != ra;
+      double* const qa = s.hs + static_cast<size_t>(ra) * n;
+      double* const qb = s.hs + static_cast<size_t>(rb) * n;
+      double ga[MAXQ], gb[MAXQ];
+      double ua = 0.0, ub = 0.0;
+#pragma unroll
+      for (int qc = 0; qc < MAXQ; qc += 4) {
+        if (qc < nq) {
+#pragma unroll
+          for (int q = qc; q < qc + 4 && q < MAXQ; ++q) {
+            const int jc = clampi(base + 32 * q + lane, n - 1);
+            ga[q] = qa[jc];
+            gb[q] = qb[jc];
+          }
+#pragma unroll
+          for (int q = qc; q < qc + 4 && q < MAXQ; ++q) {
+            ua = add(ua, mul(ga[q], vr[q]));
+            ub = add(ub, mul(gb[q], vr[q]));
+          }
+        }
+      }
+      for (int q = 16; q > 0; q >>= 1) {
+        ua = add(ua, __shfl_down_sync(kFull, ua, q));
+        ub = add(ub, __shfl_down_sync(kFull, ub, q));
+      }
+      const double a2 = mul(2.0, __shfl_sync(kFull, ua, 0));
+      const double b2 = mul(2.0, __shfl_sync(kFull, ub, 0));
+#pragma unroll
+      for (int qc = 0; qc < MAXQ; qc += 4) {
+        if (qc < nq) {
+#pragma unroll
+          for (int q = qc; q < qc + 4 && q < MAXQ; ++q) {
+            const int j = base + 32 * q + lane;
+            const double na = sub(ga[q], mul(a2, vr[q]));
+            const double nb2 = sub(gb[q], mul(b2, vr[q]));
+            if (j < n) qa[j] = na;
+            if (j < n && two) qb[j] = nb2;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  cluster_arrive();
+  cluster_wait();
+  for (size_t e = threadIdx.x; e < static_cast<size_t>(rows) * n;
+       e += kResThreads) {
+    const size_t r = e / n;
+    Q[(b + kResBlocks * r) * n + e % n] = s.hs[e];
+  }
+}
+
+// block 0 of the H cluster: v_k into row k of Q (v arrives as 0 where the
+// step is skipped) for the Q cluster
+__device__ __forceinline__ void hess_vrow(double* Q, const double* v, int n,
+                                          int k) {
+  for (int j = k + 1 + static_cast<int>(threadIdx.x); j < n; j += kResThreads)
+    Q[static_cast<size_t>(k) * n + j] = v[j];
+}
+
+// the count of v rows in Q, released to the Q cluster (after a block
+// barrier that follows the rows' stores)
+__device__ __forceinline__ void hess_flag(unsigned long long* flag,
+                                          unsigned long long rows) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               ::"l"(flag), "l"(rows) : "memory");
+}
+
+// H (n x n, row-major) reduced in place, Q (the identity on entry)
+// accumulated unless null; one cluster of kResBlocks blocks of kResThreads,
+// res_smem(n) bytes of dynamic shared memory each; n - 1 <= 32 MAXQ. PROF
+// (bench only): each block's thread 0 sums clock64 cycles a phase into
+// prof[8 b + phase], kResPhases of them.
+//
+// Step k, parity p = k % 2, in block b (rows b, b + 16, ...; the slice of
+// columns [b R, b R + R)):
+//   exchange 1  wait on bar[p] for the peers' sends of step k's
+//               publication (hess_publish at the end of step k - 1);
+//               the scalars from the blocks' [m, s] and H[k+1, k], the
+//               same in every block; w_j on the slice and v_i on the rows
+//               below k, each sent to every block's w[p], v[p] (st.async:
+//               the data and its count travel together, no fence)
+//   exchange 2  wait on bar[2 + p]; the column fix and the row pass from
+//               v[p], w[p]; hess_publish for step k + 1 into parity 1 - p;
+//               Q's rows from v[p], while the peers catch up
+// Each mbarrier takes one arrival a phase, thread 0's arm with the phase's
+// byte count (res_bytes1, res_bytes2), which may come before or after the
+// bytes. Where a race would hide:
+//   - a parity's buffers are rewritten two steps later. A peer sends step
+//     k + 2's exchange 1 only after its own exchange 2 of step k + 1,
+//     which needs this block's sends of step k + 1, which come after this
+//     block read step k's exchange-1 buffers (and a block barrier); it
+//     sends step k + 2's exchange 2 only after its exchange 1 of step
+//     k + 2, which needs this block's publication at the end of step k + 1,
+//     after this block's row pass and Q rows of step k read v[p], w[p].
+//   - bar[p] is re-armed for step k + 2 after the block barrier that
+//     follows every thread's wait on it at step k, and its next phase
+//     needs bytes the peers send only later, so no thread can miss the
+//     phase it waits for.
+//   - H's rows come in before the first cluster barrier (which also
+//     orders the mbarriers' initialisation before any peer's send) and go
+//     out after the last step; a last cluster barrier keeps every block
+//     resident until every block has received all it waits for.
+//   - Q's cluster reads row k of Q (v_k) only after block 0's release of a
+//     count above k, which follows a block barrier after the rows' stores;
+//     it writes its rows of Q only after its own cluster barrier, when no
+//     block of it reads a v row any more.
+//
+// Why this shape (an H100 80GB HBM3 at 700 W, n = 512; linalgbench's
+// hess_floor, hess_profile and eig_rows): a cluster barrier across the 16
+// blocks costs 0.5-0.7 us and a grid barrier across 16-64 blocks 1.5 us,
+// so the earlier design's 1,020 grid barriers alone take 1.6 of its
+// 8.4 ms; a barrier's release is a GPU-scope fence, which st.async does
+// without: its bytes complete an mbarrier at the receiver. With the exchanges so, a step is
+// ~11,300 clock64 cycles (2.9 ms in all, with or without Q): the scalars
+// (two square roots and four divisions deep, 16 shuffles wide) with their
+// sends ~3,150, the row pass ~3,850, the next publication ~3,050 and the
+// two waits ~1,250. Q's rows, put between the H chain's exchanges, added
+// ~6,400 cycles a step; on a cluster of their own they add nothing.
+
+template <int MAXQ, bool PROF = false>
+__global__ void __launch_bounds__(kResThreads, 1)
+eig_hess_resident(double* __restrict__ H, double* __restrict__ Q, int n,
+                  unsigned long long* flag, unsigned long long* prof) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ double sm[];
+  const ResSmem s(sm, n);
+  const int R = res_rows(n);
+  const int b = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, lane = t % 32;
+  const int rows = b < n ? (n - b + kResBlocks - 1) / kResBlocks : 0;
+  const int nb = n < kResBlocks ? n : kResBlocks;         // blocks with rows
+  if (blockIdx.x >= kResBlocks) {                         // the Q cluster
+    if (rows > 0) {
+      hess_qcluster<MAXQ>(s, Q, n, b, rows, flag);
+    } else {
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
+  }
+  long long acc[kResPhases] = {};
+  long long last = PROF ? clock64() : 0;
+  auto lap = [&](int phase) {
+    if constexpr (PROF) {
+      const long long now = clock64();
+      acc[phase] += now - last;
+      last = now;
+    }
+  };
+
+  for (size_t e = t; e < static_cast<size_t>(rows) * n; e += kResThreads) {
+    const size_t r = e / n;
+    s.hs[e] = H[(b + kResBlocks * r) * n + e % n];
+  }
+  if (t == 0 && rows > 0) {
+    for (int q = 0; q < 4; ++q) mbar_init(s.bar + q);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int k = 0; k < 2 && k < n - 2; ++k) {
+      mbar_arm(s.bar + k, res_bytes1(n, k, b, nb));
+      mbar_arm(s.bar + 2 + k, res_bytes2(n, k));
+    }
+  }
+  __syncthreads();
+  cluster_arrive();
+  cluster_wait();
+  if (rows == 0) return;                  // nothing is sent to such a block
+  hess_publish(s, n, b, rows, nb, 0, 0);
+
+  for (int k = 0; k < n - 2; ++k) {
+    const int p = k % 2, phase = (k / 2) % 2;
+    mbar_wait(s.bar + p, phase);
+    lap(0);
+    // exchange 1's data: lane q block q's [m, s]; the slice's X_q and row
+    // k + 1; the scalars, the same in every warp: mxs = ms 2^E the
+    // column's largest magnitude, block q's terms rescaled by 2^(e_q - E)
+    // (exact where they are not far below the largest; 0 for a block whose
+    // entries are all 0, whose exponent 0 may lie far above E), the sum of
+    // squares of x / mxs without row k + 1's (sum_q s_q 4^(e_q - E)) /
+    // ms^2
+    const double* const S = s.S(p);
+    const int lq = clampi(lane, nb - 1);
+    double mq = S[2 * lq], sq = S[2 * lq + 1];
+    if (lane >= nb) mq = sq = 0.0;
+    const double hk1 = s.H1(p)[0];
+    const int j = b * R + t;
+    const bool slice = t < R && j >= k && j < n;
+    const int tc = clampi(t, R - 1);
+    double xq[kResBlocks];
+#pragma unroll
+    for (int q = 0; q < kResBlocks; ++q)
+      xq[q] = s.X(p)[clampi(q, nb - 1) * R + tc];
+    const double rk = s.Rk(p)[tc];
+    double mx = mq;
+    for (int q = 16; q > 0; q >>= 1)
+      mx = maxnan(mx, __shfl_xor_sync(kFull, mx, q));
+    const double mxs = mx == 0 ? 1.0 : mx;
+    int E = 0;
+    const double ms = frexp(mxs, &E);
+    int eq = 0;
+    frexp(mq, &eq);
+    const double sc = mq > 0 ? ldexp(1.0, eq - E) : 0.0;
+    double scq[kResBlocks], tq[kResBlocks];
+    const double term = mul(sq, mul(sc, sc));
+#pragma unroll
+    for (int q = 0; q < kResBlocks; ++q) {
+      scq[q] = __shfl_sync(kFull, sc, q);
+      tq[q] = __shfl_sync(kFull, term, q);
+    }
+    double ss = 0.0;
+#pragma unroll
+    for (int q = 0; q < kResBlocks; ++q)
+      if (q < nb) ss = add(ss, tq[q]);
+    // the quotients that need only mxs first, off the chain below: the
+    // slice's Y / ms (X[j] / mxs = Y[j] 2^E / mxs, Y = sum_q X_q[j] 2^(e_q
+    // - E), in block order) and the rows' x / mxs
+    double yq = 0.0;
+    if (slice) {
+      double y = 0.0;
+#pragma unroll
+      for (int q = 0; q < kResBlocks; ++q)
+        if (q < nb) y = add(y, mul(xq[q], scq[q]));
+      yq = quo(y, ms);
+    }
+    const int i = b + kResBlocks * t;
+    const bool mine = t < rows && i > k;
+    const double xt =
+        mine ? quo(s.hs[static_cast<size_t>(clampi(t, rows - 1)) * n + k],
+                   mxs)
+             : 0.0;
+    const double sp = quo(ss, mul(ms, ms));
+    const double x1 = quo(hk1, mxs);
+    const double nrm = root(add(sp, mul(x1, x1)));
+    const double alpha = mul(-sgn(x1 == 0 ? 1.0 : x1), nrm);
+    const double v1 = sub(x1, alpha);
+    const double vn2 = add(sp, mul(v1, v1));
+    const bool safe = vn2 > 0;
+    const double r = root(safe ? vn2 : 1.0);
+    // exchange 2: v'H on the slice, (X[j] / mxs - alpha H[k+1, j]) / r, and
+    // v on the rows below k, to every block
+    if (slice) {
+      const double wj = safe ? quo(sub(yq, mul(alpha, rk)), r) : 0.0;
+      for (int d = 0; d < nb; ++d) send(s.w(p) + j, d, wj, s.bar + 2 + p);
+    }
+    if (mine) {
+      const double vi = safe ? quo(i == k + 1 ? v1 : xt, r) : 0.0;
+      for (int d = 0; d < nb; ++d) send(s.v(p) + i, d, vi, s.bar + 2 + p);
+    }
+    // block 0: step k - 1's v (intact until step k + 1's exchange 2) into
+    // row k - 1 of Q for the Q cluster, released every kResFlagEvery steps
+    // by a thread that would wait on exchange 2 anyway
+    if (Q != nullptr && b == 0 && k > 0) hess_vrow(Q, s.v(1 - p), n, k - 1);
+    lap(1);
+    __syncthreads();                      // every thread is past bar[p]
+    if (t == 0 && k + 2 < n - 2)
+      mbar_arm(s.bar + p, res_bytes1(n, k + 2, b, nb));
+    if (Q != nullptr && b == 0 && t == 0 && k % kResFlagEvery == 0 && k > 0)
+      hess_flag(flag, k);
+    mbar_wait(s.bar + 2 + p, phase);
+    lap(2);
+    hess_column(s, s.v(p), s.w(p), n, k, b, rows);
+    hess_rows<MAXQ>(s, s.v(p), s.w(p), n, k, b, rows);
+    __syncthreads();
+    if (t == 0 && k + 2 < n - 2) mbar_arm(s.bar + 2 + p, res_bytes2(n, k + 2));
+    lap(3);
+    if (k + 1 < n - 2) hess_publish(s, n, b, rows, nb, k + 1, 1 - p);
+    lap(4);
+  }
+  if (Q != nullptr && b == 0) {           // the last v, and all of them out
+    hess_vrow(Q, s.v((n - 3) % 2), n, n - 3);
+    __syncthreads();
+    if (t == 0) hess_flag(flag, n - 2);
+  }
+  for (size_t e = t; e < static_cast<size_t>(rows) * n; e += kResThreads) {
+    const size_t r = e / n;
+    H[(b + kResBlocks * r) * n + e % n] = s.hs[e];
+  }
+  cluster_arrive();
+  cluster_wait();
+  if constexpr (PROF) {
+    if (t == 0)
+      for (int q = 0; q < kResPhases; ++q) prof[8 * b + q] = acc[q];
   }
 }
 
@@ -1394,6 +2063,55 @@ eig_trevc(const double* __restrict__ T, const double* __restrict__ wr,
   }
 }
 
+// a launch refused at its configuration leaves its error as the last
+// error: clear it, or the next unrelated launch check reports it
+int launched(cudaError_t e) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// `groups` clusters of `blocks` blocks of kResThreads with `smem` bytes of
+// dynamic shared memory each; a cooperative launch (every block resident
+// at once) with `cooperative`, attr then holding two
+cudaLaunchConfig_t cluster_config(int blocks, size_t smem, cudaStream_t s,
+                                  cudaLaunchAttribute* attr, int groups = 1,
+                                  bool cooperative = false) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks * groups, 1, 1);
+  cfg.blockDim = dim3(kResThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cooperative) {
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg.numAttrs = 2;
+  }
+  return cfg;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory and a cluster of
+// `blocks` (non-portable above 8); `clusters` receives how many such
+// clusters the card holds at once (0: it cannot run one).
+cudaError_t cluster_prepare(const void* kernel, int blocks, size_t smem,
+                            int* clusters) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(blocks, smem, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
 int sm_count(int device) {
   int v = 0;
   if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) !=
@@ -1404,42 +2122,161 @@ int sm_count(int device) {
 
 }  // namespace
 
-// H (n x n float64, row-major) to Hessenberg form in place, Q (n x n, the
-// identity on entry) accumulated unless null; n >= 3. barrier: 8 bytes of
-// scratch on the card (zeroed here on the stream). One cooperative launch
-// of as many blocks as the passes use and the card holds at once.
-extern "C" int runmat_eig_hess(void* H, void* Q, int n, void* barrier,
-                               void* stream, int device) {
-  if (H == nullptr || barrier == nullptr || n < 3)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+namespace {
+
+// the cooperative eig_hess (the route for n > 627): one launch of as many
+// blocks as its passes use and the card holds at once
+int hess_grid_run(double* h, double* q, int n, unsigned long long* bar,
+                  cudaStream_t s, int device) {
   const size_t smem = 2 * static_cast<size_t>(n) * sizeof(double);
-  err = cudaFuncSetAttribute(eig_hess,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaFuncSetAttribute(
+      eig_hess, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return launched(err);
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, eig_hess,
                                                       kHessThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return launched(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int tiles = (n + 31) / 32, rows = (n + kHessWarps - 1) / kHessWarps;
   const int want = tiles > rows ? tiles : rows;
   const int most = per_sm * sm_count(device);
   const int blocks = want < most ? want : most;
-  auto s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(barrier, 0, sizeof(unsigned long long), s);
+  err = cudaMemsetAsync(bar, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&h, &q, &n, &bar};
+  return launched(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(eig_hess), dim3(blocks), dim3(kHessThreads),
+      args, smem, s));
+}
+
+// One launch of the resident eig_hess: the H cluster, and with Q the Q
+// cluster beside it, cooperative so that both are resident at once (the Q
+// cluster waits on the H cluster's count); flag zeroed on the stream
+// first.
+template <int MAXQ, bool PROF = false>
+int hess_resident_launch(double* h, double* q, int n,
+                         unsigned long long* flag, unsigned long long* prof,
+                         cudaStream_t s) {
+  const size_t smem = res_smem(n);
+  const void* k =
+      reinterpret_cast<const void*>(eig_hess_resident<MAXQ, PROF>);
+  const int groups = q != nullptr ? 2 : 1;
+  int clusters = 0;
+  cudaError_t err = cluster_prepare(k, kResBlocks, smem, &clusters);
+  if (err != cudaSuccess) return launched(err);
+  if (clusters < groups)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaMemsetAsync(flag, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg =
+      cluster_config(kResBlocks, smem, s, attr, groups, true);
+  return launched(cudaLaunchKernelEx(&cfg, eig_hess_resident<MAXQ, PROF>, h,
+                                     q, n, flag, prof));
+}
+
+// the resident eig_hess (n <= 627): H in one cluster's shared memory (and Q
+// in a second's); MAXQ = 16 covers the n - 1 columns right of column 0 up
+// to n = 513 (dense_linalg's 512; chunks of columns past n - 1 are
+// skipped, so smaller n take the same code and sums), 20 the rest
+int hess_resident_run(double* h, double* q, int n, unsigned long long* flag,
+                      cudaStream_t s) {
+  if (n - 1 <= 32 * 16)
+    return hess_resident_launch<16>(h, q, n, flag, nullptr, s);
+  return hess_resident_launch<20>(h, q, n, flag, nullptr, s);
+}
+
+}  // namespace
+
+// H (n x n float64, row-major) to Hessenberg form in place, Q (n x n, the
+// identity on entry) accumulated unless null; n >= 3. barrier: 8 bytes of
+// scratch on the card (the cooperative route zeroes it on the stream). One
+// launch, routed by n alone: the resident design where res_smem(n) <=
+// kResBudget (n <= 627), else the cooperative one.
+extern "C" int runmat_eig_hess(void* H, void* Q, int n, void* barrier,
+                               void* stream, int device) {
+  if (H == nullptr || barrier == nullptr || n < 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto s = static_cast<cudaStream_t>(stream);
   double* h = static_cast<double*>(H);
   double* q = static_cast<double*>(Q);
-  unsigned long long* bar = static_cast<unsigned long long*>(barrier);
-  void* args[] = {&h, &q, &n, &bar};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(eig_hess),
-                                    dim3(blocks), dim3(kHessThreads), args,
-                                    smem, s);
+  auto* bar = static_cast<unsigned long long*>(barrier);
+  if (res_smem(n) <= kResBudget) return hess_resident_run(h, q, n, bar, s);
+  return hess_grid_run(h, q, n, bar, s, device);
+}
+
+// Bench only (runmat_tpu_torch/linalgbench.py): the cooperative design at
+// any n >= 3 (the earlier kernel, the route above 627), the same arguments as
+// runmat_eig_hess.
+extern "C" int runmat_eig_hess_grid(void* H, void* Q, int n, void* barrier,
+                                    void* stream, int device) {
+  if (H == nullptr || barrier == nullptr || n < 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return hess_grid_run(static_cast<double*>(H), static_cast<double*>(Q), n,
+                       static_cast<unsigned long long*>(barrier),
+                       static_cast<cudaStream_t>(stream), device);
+}
+
+// Bench only (runmat_tpu_torch/linalgbench.py): the resident eig_hess at
+// n <= 513 (the instantiation dense_linalg's 512 takes), as
+// runmat_eig_hess launches it (flag: its 8 bytes of scratch), with each H
+// block's thread 0 summing clock64 cycles a phase into prof (8 uint64 a
+// block, 16 blocks, zeroed by the caller): 0 the wait on exchange 1, 1 the
+// scalars, w and v and their sends (and block 0's row of v for Q), 2 the
+// wait on exchange 2, 3 the column fix and the row pass, 4 the next
+// publication and its sends.
+extern "C" int runmat_eig_hess_profile(void* H, void* Q, int n, void* flag,
+                                       void* prof, void* stream, int device) {
+  if (H == nullptr || flag == nullptr || prof == nullptr || n < 3 ||
+      n - 1 > 32 * 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return hess_resident_launch<16, true>(
+      static_cast<double*>(H), static_cast<double*>(Q), n,
+      static_cast<unsigned long long*>(flag),
+      static_cast<unsigned long long*>(prof),
+      static_cast<cudaStream_t>(stream));
+}
+
+// Bench only (runmat_tpu_torch/linalgbench.py): `count` barriers with
+// nothing between them. design 0: cluster barriers in one cluster of
+// `blocks` (<= 16) blocks of kResThreads with `smem` bytes of dynamic shared
+// memory each (clusters receives how many such clusters the card holds at
+// once; a card that holds none refuses the launch); design 1: grid_sync
+// across a cooperative grid of `blocks` blocks of kHessThreads (barrier: 8
+// bytes of scratch, zeroed here).
+extern "C" int runmat_eig_hess_floor(int design, int blocks, int count,
+                                     int smem, void* barrier, int* clusters,
+                                     void* stream, int device) {
+  if (blocks < 1 || count < 0 || smem < 0 ||
+      (design == 0 && (blocks > kResBlocks || clusters == nullptr)) ||
+      (design == 1 && barrier == nullptr) || (design != 0 && design != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (design == 0) {
+    const void* k = reinterpret_cast<const void*>(hess_cluster_floor);
+    err = cluster_prepare(k, blocks, smem, clusters);
+    if (err != cudaSuccess) return launched(err);
+    if (*clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(blocks, smem, s, attr);
+    return launched(cudaLaunchKernelEx(&cfg, hess_cluster_floor, count));
+  }
+  err = cudaMemsetAsync(barrier, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* bar = static_cast<unsigned long long*>(barrier);
+  void* args[] = {&count, &bar};
+  return launched(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(hess_grid_floor), dim3(blocks),
+      dim3(kHessThreads), args, 0, s));
 }
 
 namespace {

@@ -512,72 +512,93 @@ def _phase_err(V, W) -> float:
     return float(torch.max(torch.abs(V - W * u[None, :])))
 
 
-def _host_ms(fn):
+def _host_ms(fn, dev):
     """(result, ms) of one call of `fn` on the host's clock, the card
-    synchronized before and after."""
+    synchronized before and after where `dev` is the card."""
     import torch
-    torch.cuda.synchronize()
+    card = torch.device(dev).type == "cuda"
+    if card:
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    if card:
+        torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def eig_held(n: int, dev, plain_dev=None) -> dict:
-    """The three eigenvalue kernels against their plain versions at n
-    (`ops/eig_qr.py`), on a random matrix balanced as eig balances it:
-    eig_hess with and without Q within HESS_TOL (of the largest |A|; of 1
-    for Q) of plain_hessenberg; eig_francis with and without Z equal to
-    plain_francis on the kernel's own Hessenberg matrix, value for value,
-    with the same [ok, iterations, chain]; eig_trevc within TREVC_TOL of the
-    largest |Y| on the same T. The plain versions run on `plain_dev` (the
-    card by default), on copies of the kernels' inputs. On the card, the
-    whole pipeline (`accel/eig_qr.py` eig_values and eig_full) is also
-    held to the plain versions on the CPU: the same ok, the eigenvalues in
-    the same order within EIG_TOL of the largest, V column by column
-    within EIG_V_TOL up to a unit factor. On the CPU, each plain version
-    runs once, with Q and with Z (H and T do not depend on them), and the
-    pipeline is not run again. Raises AssertionError; returns each
-    kernel's largest absolute difference, the info and each plain
-    version's time (the host's clock, once)."""
+# eig_trevc's arguments after T, read off T (accel/eig_qr.py _quasi_eigs)
+TREVC_ARGS = ("wr", "wi", "is2", "prev2")
+
+
+def eig_kernels_run(n: int, dev) -> dict:
+    """The three eigenvalue kernels (`ops/eig_qr.py`) on `eig_matrix(n)`
+    balanced as eig balances it, on `dev`: each kernel's inputs and
+    outputs, eig_hess and eig_francis with and without Q and Z, eig_trevc
+    on eig_francis' T."""
     import torch
 
     from runmat_tpu_torch.accel import eig_qr as EQ
     from runmat_tpu_torch.ops import eig_qr as K
-    pdev = torch.device(dev if plain_dev is None else plain_dev)
-    both = pdev.type != "cpu"       # each plain version without Q/Z as well
     A = eig_matrix(n, dev)
     Ab = EQ.balance(A)
-    s = float(torch.max(torch.abs(Ab)))
-    out = {"n": n, "plain_dev": pdev.type, "plain_ms": {}}
-    plain = out["plain_ms"]
     H, Q = K.hessenberg(Ab, True)
     H1, _ = K.hessenberg(Ab, False)
-    pAb = Ab.to(pdev)
-    (pH, pQ), plain["eig_hess with Q"] = _host_ms(
-        lambda: K.plain_hessenberg(pAb, True))
-    pH1 = pH
-    if both:
-        (pH1, _), plain["eig_hess"] = _host_ms(
-            lambda: K.plain_hessenberg(pAb, False))
-    err = max(float(torch.max(torch.abs(H - pH.to(dev)))),
-              float(torch.max(torch.abs(H1 - pH1.to(dev)))))
-    qerr = float(torch.max(torch.abs(Q - pQ.to(dev))))
-    assert err <= K.HESS_TOL * s and qerr <= K.HESS_TOL, \
-        ("eig_hess", n, err, qerr)
-    out["eig_hess"] = max(err, qerr)
     Hp = torch.zeros((n + 3, n + 3), dtype=torch.float64, device=dev)
     Hp[:n, :n] = H
     maxit = 40 * n + 100
     T, Z, info = K.francis(Hp, n, maxit, True)
     T1, _, info1 = K.francis(Hp, n, maxit, False)
-    pHp = Hp.to(pdev)
+    Tn = T[:n, :n].contiguous()
+    q = dict(zip(TREVC_ARGS, EQ._quasi_eigs(Tn, n)))
+    Yr, Yi = K.trevc(Tn, *q.values())
+    return {"n": n, "A": A, "Ab": Ab, "H": H, "Q": Q, "H1": H1, "Hp": Hp,
+            "T": T, "Z": Z, "info": info, "T1": T1, "info1": info1,
+            "Tn": Tn, **q, "Yr": Yr, "Yi": Yi}
+
+
+def eig_plain_held(run: dict, plain_dev) -> dict:
+    """`eig_kernels_run`'s kernels against their plain versions on
+    `plain_dev`, on copies of the kernels' inputs: eig_hess with and
+    without Q within HESS_TOL (of the largest |A|; of 1 for Q) of
+    plain_hessenberg; eig_francis with and without Z equal to
+    plain_francis on the kernel's own Hessenberg matrix, value for value,
+    with the same [ok, iterations, chain]; eig_trevc within TREVC_TOL of the
+    largest |Y| on the same T. On the CPU each plain version runs once,
+    with Q and with Z (H and T do not depend on them). Raises
+    AssertionError; returns each kernel's largest absolute difference, the
+    info and each plain version's time (the host's clock, once)."""
+    import torch
+
+    from runmat_tpu_torch.ops import eig_qr as K
+    n, dev = run["n"], run["H"].device
+    pdev = torch.device(plain_dev)
+    both = pdev.type != "cpu"       # each plain version without Q/Z as well
+    s = float(torch.max(torch.abs(run["Ab"])))
+    out = {"n": n, "plain_dev": pdev.type, "plain_ms": {}}
+    plain = out["plain_ms"]
+    pAb = run["Ab"].to(pdev)
+    (pH, pQ), plain["eig_hess with Q"] = _host_ms(
+        lambda: K.plain_hessenberg(pAb, True), pdev)
+    pH1 = pH
+    if both:
+        (pH1, _), plain["eig_hess"] = _host_ms(
+            lambda: K.plain_hessenberg(pAb, False), pdev)
+    err = max(float(torch.max(torch.abs(run["H"] - pH.to(dev)))),
+              float(torch.max(torch.abs(run["H1"] - pH1.to(dev)))))
+    qerr = float(torch.max(torch.abs(run["Q"] - pQ.to(dev))))
+    assert err <= K.HESS_TOL * s and qerr <= K.HESS_TOL, \
+        ("eig_hess", n, err, qerr)
+    out["eig_hess"] = max(err, qerr)
+    T, Z, T1 = run["T"], run["Z"], run["T1"]
+    info, info1 = run["info"], run["info1"]
+    maxit = 40 * n + 100
+    pHp = run["Hp"].to(pdev)
     (pT, pZ, pinfo), plain["eig_francis with Z"] = _host_ms(
-        lambda: K.plain_francis(pHp, n, maxit, True))
+        lambda: K.plain_francis(pHp, n, maxit, True), pdev)
     pT1, pinfo1 = pT, pinfo
     if both:
         (pT1, _, pinfo1), plain["eig_francis"] = _host_ms(
-            lambda: K.plain_francis(pHp, n, maxit, False))
+            lambda: K.plain_francis(pHp, n, maxit, False), pdev)
     pT, pZ, pT1 = pT.to(dev), pZ.to(dev), pT1.to(dev)
     assert torch.equal(T, pT) and torch.equal(Z, pZ) and \
         torch.equal(T1, pT1), ("eig_francis", n, float(torch.max(torch.abs(
@@ -588,21 +609,36 @@ def eig_held(n: int, dev, plain_dev=None) -> dict:
                           pinfo.tolist())
     out["eig_francis"] = 0.0
     out["info"] = info.tolist()
-    Tn = T[:n, :n].contiguous()
-    q = EQ._quasi_eigs(Tn, n)
-    Yr, Yi = K.trevc(Tn, *q)
-    pTn, pq = Tn.to(pdev), [x.to(pdev) for x in q]
-    (pYr, pYi), plain["eig_trevc"] = _host_ms(lambda: K.plain_trevc(pTn,
-                                                                    *pq))
+    pTn, *pq = (run[k].to(pdev) for k in ("Tn",) + TREVC_ARGS)
+    (pYr, pYi), plain["eig_trevc"] = _host_ms(
+        lambda: K.plain_trevc(pTn, *pq), pdev)
     pYr, pYi = pYr.to(dev), pYi.to(dev)
-    yerr = max(float(torch.max(torch.abs(Yr - pYr))),
-               float(torch.max(torch.abs(Yi - pYi))))
+    yerr = max(float(torch.max(torch.abs(run["Yr"] - pYr))),
+               float(torch.max(torch.abs(run["Yi"] - pYi))))
     ys = max(1.0, float(torch.max(torch.abs(pYr))),
              float(torch.max(torch.abs(pYi))))
     assert yerr <= K.TREVC_TOL * ys, ("eig_trevc", n, yerr)
     out["eig_trevc"] = yerr
-    if not both:
+    return out
+
+
+def eig_held(n: int, dev, plain_dev=None) -> dict:
+    """The three eigenvalue kernels against their plain versions at n
+    (`eig_kernels_run`, `eig_plain_held`), the plain versions on
+    `plain_dev` (the card by default). On the card, the whole pipeline
+    (`accel/eig_qr.py` eig_values and eig_full) is also held to the plain
+    versions on the CPU: the same ok, the eigenvalues in the same order
+    within EIG_TOL of the largest, V column by column within EIG_V_TOL up
+    to a unit factor. Raises AssertionError; returns `eig_plain_held`'s
+    dict, with the V error where the pipeline ran."""
+    import torch
+
+    from runmat_tpu_torch.accel import eig_qr as EQ
+    run = eig_kernels_run(n, dev)
+    out = eig_plain_held(run, dev if plain_dev is None else plain_dev)
+    if out["plain_dev"] == "cpu":
         return out
+    A = run["A"]
     wr, wi, ok = EQ.eig_values(A)
     cr, ci, cok = EQ.eig_values(A.cpu())
     Vr, Vi, fr, fi, fok = EQ.eig_full(A)
@@ -619,6 +655,63 @@ def eig_held(n: int, dev, plain_dev=None) -> dict:
     assert verr <= EIG_V_TOL, ("eig_full V", n, verr)
     out["v_err"] = verr
     return out
+
+
+def _plain_child(conn, arrays: dict) -> None:
+    """`eig_plain_held` on the CPU in a process of its own: the kernels'
+    run as numpy arrays in, its dict (or the AssertionError's arguments)
+    out through `conn`."""
+    import numpy as np
+    import torch
+    run = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for k, v in arrays.items()}
+    try:
+        conn.send(("ok", eig_plain_held(run, "cpu")))
+    except AssertionError as e:
+        conn.send(("assert", e.args))
+    conn.close()
+
+
+class PlainBeside:
+    """`eig_held(n, dev, "cpu")` with its plain versions in a process of
+    their own, so that the host's other work goes on beside them: the
+    kernels run on `dev` at construction, `result()` waits for the check
+    (raising its AssertionError) and `stop()` ends the process."""
+
+    def __init__(self, n: int, dev):
+        import multiprocessing
+
+        import torch
+        run = eig_kernels_run(n, dev)
+        arrays = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                  for k, v in run.items()}
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_plain_child, args=(child, arrays),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+
+    def result(self, timeout: float = 600.0) -> dict:
+        try:
+            if not self.conn.poll(timeout):
+                raise RuntimeError(f"the plain versions outlasted {timeout} s")
+            kind, value = self.conn.recv()
+        except EOFError as e:
+            raise RuntimeError(f"the plain versions' process ended "
+                               f"(exit code {self.proc.exitcode})") from e
+        finally:
+            self.stop(wait=10.0)
+        if kind == "assert":
+            raise AssertionError(*value)
+        return value
+
+    def stop(self, wait: float = 0.0) -> None:
+        """Ends the process, after `wait` seconds for it to end itself."""
+        self.proc.join(wait)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
 
 
 def francis_bench(Hp, n: int, max_iters: int, with_z: bool, design: str,
@@ -715,6 +808,147 @@ def francis_held(Hp, n: int, max_iters: int, mode=None) -> list:
     return infos[0]
 
 
+def hess_grid(A, with_q: bool):
+    """(H, Q) of one launch of the cooperative eig_hess (the earlier design,
+    the route above HESS_RESIDENT_N) at any n >= 3 through the bench-only
+    entry `runmat_eig_hess_grid`, as `ops/eig_qr.hessenberg` launches the
+    main one. Counts no launch."""
+    import ctypes
+
+    import torch
+
+    from runmat_tpu_torch.ops import eig_qr as K
+    n = A.shape[0]
+    H = A.contiguous().clone()
+    Q = torch.eye(n, dtype=A.dtype, device=A.device) if with_q else None
+    barrier = torch.empty(1, dtype=torch.int64, device=A.device)
+    P = ctypes.c_void_p
+    stream, dev = K._stream(A)
+    rc = K._entry("runmat_eig_hess_grid",
+                  [P, P, ctypes.c_int, P, P, ctypes.c_int])(
+        H.data_ptr(), Q.data_ptr() if with_q else None, n,
+        barrier.data_ptr(), stream, dev)
+    if rc != 0:
+        raise RuntimeError(f"eig_hess grid: CUDA error {rc}")
+    return H, Q
+
+
+HESS_PHASES = ("exchange 1: wait", "scalars, w and v, their sends",
+               "exchange 2: wait", "row pass", "publication, its sends")
+
+
+def hess_profile(A, with_q: bool) -> dict:
+    """Where one launch of the resident eig_hess spends its cycles (clock64
+    on the card, each block's thread 0, the bench-only
+    `runmat_eig_hess_profile`; n <= 513): cycles a step of each
+    phase (HESS_PHASES), the mean over the blocks that own rows and the
+    largest, and the total a step. The clock reads add some."""
+    import ctypes
+
+    import torch
+
+    from runmat_tpu_torch.ops import eig_qr as K
+    n = A.shape[0]
+    H = A.contiguous().clone()
+    Q = torch.eye(n, dtype=A.dtype, device=A.device) if with_q else None
+    prof = torch.zeros(8 * K.HESS_BLOCKS, dtype=torch.int64, device=A.device)
+    flag = torch.empty(1, dtype=torch.int64, device=A.device)
+    P = ctypes.c_void_p
+    stream, dev = K._stream(A)
+    rc = K._entry("runmat_eig_hess_profile",
+                  [P, P, ctypes.c_int, P, P, P, ctypes.c_int])(
+        H.data_ptr(), Q.data_ptr() if with_q else None, n, flag.data_ptr(),
+        prof.data_ptr(), stream, dev)
+    if rc != 0:
+        raise RuntimeError(f"eig_hess profile: CUDA error {rc}")
+    v = prof.view(K.HESS_BLOCKS, 8)[:, :len(HESS_PHASES)].tolist()
+    owning = v[:min(n, K.HESS_BLOCKS)]          # blocks b < n own rows
+    steps = n - 2
+    mean = [sum(b[q] for b in owning) / len(owning) / steps
+            for q in range(len(HESS_PHASES))]
+    return {"cycles_a_step": dict(zip(HESS_PHASES, mean)),
+            "largest_a_step": dict(zip(HESS_PHASES, [
+                max(b[q] for b in owning) / steps
+                for q in range(len(HESS_PHASES))])),
+            "total_a_step": sum(mean)}
+
+
+def hess_held(n: int, dev, plain_dev=None, repeats: int = 0) -> dict:
+    """eig_hess (the route `hess_route(n)` names) with and without Q
+    against plain_hessenberg on `plain_dev` (the card by default) within
+    HESS_TOL (of the largest |A|; of 1 for Q), on `eig_matrix(n)`
+    balanced, and `repeats` more launches with Q identical to the first.
+    Also reports, without asserting, whether H and Q equal
+    `ordered_hessenberg`'s (the kernel's order on the CPU) where the
+    resident design ran and n <= 128. Raises AssertionError."""
+    import torch
+
+    from runmat_tpu_torch.accel import eig_qr as EQ
+    from runmat_tpu_torch.ops import eig_qr as K
+    pdev = torch.device(dev if plain_dev is None else plain_dev)
+    Ab = EQ.balance(eig_matrix(n, dev))
+    s = float(torch.max(torch.abs(Ab)))
+    H, Q = K.hessenberg(Ab, True)
+    H1, _ = K.hessenberg(Ab, False)
+    pH, pQ = K.plain_hessenberg(Ab.to(pdev), True)
+    err = max(float(torch.max(torch.abs(H - pH.to(dev)))),
+              float(torch.max(torch.abs(H1 - pH.to(dev)))))
+    qerr = float(torch.max(torch.abs(Q - pQ.to(dev))))
+    assert err <= K.HESS_TOL * s and qerr <= K.HESS_TOL, \
+        ("eig_hess", n, err, qerr)
+    for k in range(repeats):
+        H2, Q2 = K.hessenberg(Ab, True)
+        assert torch.equal(H2, H) and torch.equal(Q2, Q), \
+            ("eig_hess repeat", n, k)
+    out = {"n": n, "route": K.hess_route(n), "err": err / s, "qerr": qerr,
+           "repeats": repeats}
+    if out["route"] == "cluster" and n <= 128:
+        oH, oQ = K.ordered_hessenberg(Ab.cpu(), True)
+        out["ordered_equal"] = bool(torch.equal(H.cpu(), oH) and
+                                    torch.equal(Q.cpu(), oQ))
+    return out
+
+
+def hess_floor(design: str, blocks: int, count: int, smem: int,
+               reps: int) -> dict:
+    """`count` barriers with nothing between them on the card, CUDA
+    events, mean of `reps` launches (the bench-only entry
+    `runmat_eig_hess_floor`): "cluster", hardware cluster barriers across
+    one cluster of `blocks` blocks of 256 threads holding `smem` bytes of
+    dynamic shared memory each (as the resident eig_hess' blocks do), or
+    "grid", the cooperative eig_hess' grid_sync across `blocks` blocks of
+    256.
+    Returns the ms, the µs a barrier and, for a cluster, how many such
+    clusters the card holds at once."""
+    import ctypes
+
+    import torch
+
+    from runmat_tpu_torch.histbench import time_ms
+    from runmat_tpu_torch.ops import eig_qr as K
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bar = torch.empty(1, dtype=torch.int64, device="cuda")
+    clusters = ctypes.c_int(0)
+    stream, dev = K._stream(bar)
+    fn = K._entry("runmat_eig_hess_floor",
+                  [I, I, I, I, P, ctypes.POINTER(ctypes.c_int), P, I])
+    code = {"cluster": 0, "grid": 1}[design]
+
+    def launch():
+        rc = fn(code, blocks, count, smem, bar.data_ptr(),
+                ctypes.byref(clusters), stream, dev)
+        if rc != 0:
+            raise RuntimeError(f"eig_hess floor {design} x {blocks}: CUDA "
+                               f"error {rc} (clusters {clusters.value})")
+
+    ms = time_ms(launch, reps)
+    out = {"design": design, "blocks": blocks, "count": count, "smem": smem,
+           "ms": ms, "us_per_barrier": ms * 1e3 / max(count, 1)}
+    if design == "cluster":
+        out["clusters"] = clusters.value
+    return out
+
+
 def eig_hessenberg(n: int, dev):
     """The Hessenberg form (eig_hess) of `eig_matrix(n)` balanced, on the
     card: eig_francis' input at n."""
@@ -791,6 +1025,10 @@ def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
     over the same iterations (CHAIN_ALONE after CHAIN_RECORD: the measured
     floor; µs a position = its time over the chain);
     the cycles of one profiled launch with Z (`francis_profile`);
+    eig_hess beside the earlier design (`hess_grid`, the cooperative
+    kernel) in turns the same way, the resident design's n - 2 cluster
+    barriers alone (`hess_floor`, its floor), µs a step and one profiled
+    launch's cycles a phase with and without Q (`hess_profile`);
     cuSOLVER's geev (torch.linalg.eigvals and eig of A, the earlier
     design; eigvals of the Hessenberg matrix, eig_francis' own input); the
     eigenvalues against numpy's eigvals of the gathered matrix (matched
@@ -841,6 +1079,30 @@ def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
         row["ms"] = sum(new[1:]) / 2
         row["barrier_ms"] = sum(old) / 2
         row["turns_ms"] = {"new": new[1:], "barrier": old}
+    # eig_hess in turns with the earlier design (the cooperative kernel);
+    # the barriers alone: the earlier design's 2 (n - 2) grid barriers
+    # across its blocks, and n - 2 cluster barriers across 16 blocks holding
+    # the resident design's shared memory (a one-barrier-a-step floor; the
+    # resident kernel's exchanges go through mbarriers, `hess_profile`
+    # times their waits)
+    grid_blocks = max(-(-n // 32), -(-n // 8))
+    floors = {"grid": hess_floor("grid", grid_blocks, 2 * (n - 2), 0, reps),
+              "cluster": hess_floor("cluster", K.HESS_BLOCKS, n - 2,
+                                    K.hess_smem(n), reps)}
+    out["hess_floors"] = floors
+    for wq, name in ((False, "eig_hess"), (True, "eig_hess with Q")):
+        row = out["rows"][name]
+        new = [row["ms"]]
+        old = []
+        for _ in range(2):
+            old.append(time_ms(lambda: hess_grid(Ab, wq), reps))
+            new.append(time_ms(lambda: K.hessenberg(Ab, wq), reps))
+        row["ms"] = sum(new[1:]) / 2
+        row["grid_ms"] = sum(old) / 2
+        row["turns_ms"] = {"new": new[1:], "grid": old}
+        row["us_per_step"] = row["ms"] * 1e3 / (n - 2)
+        row["grid_floor_ms"] = floors["grid"]["ms"]
+        row["cluster_floor_ms"] = floors["cluster"]["ms"]
     rec = torch.empty(3 * maxit, dtype=torch.int32, device=dev)
     _, _, rinfo = francis_bench(Hp, n, maxit, False, "chain", CHAIN_RECORD,
                                 rec)
@@ -856,6 +1118,8 @@ def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
         row["us_per_position"] = row["ms"] * 1e3 / chain
     out["floor_us_per_position"] = out["chain_floor_ms"] * 1e3 / chain
     out["profile"] = francis_profile(Hp, n, maxit, True)
+    out["hess_profile"] = {name: hess_profile(Ab, wq) for wq, name in (
+        (False, "eig_hess"), (True, "eig_hess with Q"))}
     out["eigvals_ms"] = time_ms(lambda: torch.linalg.eigvals(A), reps)
     out["eig_ms"] = time_ms(lambda: torch.linalg.eig(A), reps)
     out["eigvals_H_ms"] = time_ms(lambda: torch.linalg.eigvals(H), reps)
@@ -891,11 +1155,20 @@ def print_eig(r: dict) -> None:
           f"{r['residual']:.3g}, column norms within {r['unit_err']:.3g} of "
           f"1, values and [V, D] in the same order {r['same_order']}")
     for name, row in r["rows"].items():
-        extra = "" if "barrier_ms" not in row else (
-            f"; {row['us_per_position']:.3f} us a position, the barrier "
-            f"design "
-            f"{row['barrier_ms']:.2f} ms (turns, ms: new {row['turns_ms']['new']}"
-            f", barrier {row['turns_ms']['barrier']})")
+        extra = ""
+        if "barrier_ms" in row:
+            extra = (f"; {row['us_per_position']:.3f} us a position, the "
+                     f"barrier design {row['barrier_ms']:.2f} ms (turns, ms: "
+                     f"new {row['turns_ms']['new']}, barrier "
+                     f"{row['turns_ms']['barrier']})")
+        if "grid_ms" in row:
+            extra = (f"; {row['us_per_step']:.3f} us a step; the cooperative "
+                     f"design {row['grid_ms']:.4f} ms (turns, ms: new "
+                     f"{row['turns_ms']['new']}, cooperative "
+                     f"{row['turns_ms']['grid']}), its {2 * (r['n'] - 2)} "
+                     f"grid barriers alone {row['grid_floor_ms']:.4f} ms; "
+                     f"{r['n'] - 2} cluster barriers alone "
+                     f"{row['cluster_floor_ms']:.4f} ms")
         print(f"  {name:18s} {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}"
               f" ms ({row['bound_by']}), share {row['bound_ms'] / row['ms']:.2g}"
               f", plain at {r['plain_n']} {row['plain_ms']:.1f} ms{extra}")
@@ -907,6 +1180,12 @@ def print_eig(r: dict) -> None:
               p["chaser_cycles_a_position"].items())
           + f"; the band helper waits {p['helper_wait_share']:.2f} of its "
           f"time, the owner warps {min(waits):.2f}-{max(waits):.2f}")
+    for name, hp in r["hess_profile"].items():
+        print(f"  {name}, clock64 cycles a step (profiled, blocks' mean; "
+              f"the largest in brackets): " + ", ".join(
+                  f"{k} {v:.0f} ({hp['largest_a_step'][k]:.0f})"
+                  for k, v in hp["cycles_a_step"].items())
+              + f"; {hp['total_a_step']:.0f} in all")
     print(f"  geev: torch.linalg.eigvals {r['eigvals_ms']:.3f} ms, "
           f"torch.linalg.eig {r['eig_ms']:.3f} ms, eigvals of the Hessenberg "
           f"matrix {r['eigvals_H_ms']:.3f} ms")

@@ -8,7 +8,11 @@ copy, and its three loops run here:
     eig_hess     the Householder reduction to upper Hessenberg form, with
                  or without the accumulated Q (`hessenberg`, 48-80;
                  `hessenberg_q`, 108-141): n - 2 steps, each of four
-                 dependent passes over the matrix
+                 dependent passes over the matrix. Routed by n alone
+                 (`hess_route`): up to HESS_RESIDENT_N (627) one cluster of
+                 16 blocks keeps H in its shared memory (`hess_smem(n)`
+                 bytes a block, within HESS_BUDGET), above it the
+                 cooperative grid design
     eig_francis  the implicit double-shift QR iteration with deflation,
                  with or without the Schur vectors Z (`francis_qr_z`,
                  151-284): the whole `lax.while_loop` in one launch
@@ -67,6 +71,12 @@ EPS = 2.220446049250313e-16     # float64's machine epsilon
 # of the largest |A| at n = 128 on the card), the eigenvectors of T
 HESS_TOL = 1e-10
 TREVC_TOL = 1e-9
+# the resident eig_hess (csrc/eig_qr.cu: res_smem, kResBudget): a cluster of
+# HESS_BLOCKS blocks, each holding ceil(n / 16) rows of H and, by step
+# parity, what its two exchanges deliver into it, in its dynamic shared
+# memory, which the H100 lets a block take up to 227 KB of
+HESS_BLOCKS = 16
+HESS_BUDGET = 232448
 _entries: dict = {}
 
 
@@ -97,6 +107,120 @@ def plain_hessenberg(A: torch.Tensor, with_q: bool):
         H[k + 2:, k] = 0.0          # exact zeros below the subdiagonal
         if with_q:
             Q = Q - 2.0 * torch.outer(Q @ v, v)
+    return H, Q
+
+
+def _lanes(x: torch.Tensor, y: torch.Tensor, k: int) -> torch.Tensor:
+    """Each row's sum of x[:, j] y[j] over j > k as a warp of the kernel
+    sums it: lane l adds the products of columns k + 1 + l + 32 q in
+    ascending q, then the lanes' tree (`warp_sum`: lane l takes lane
+    l + s for s = 16, 8, 4, 2, 1); one value a row."""
+    m = x.shape[1] - k - 1
+    nq = -(-m // 32)
+    pad = 32 * nq - m
+    px = torch.nn.functional.pad(x[:, k + 1:], (0, pad))
+    py = torch.nn.functional.pad(y[k + 1:], (0, pad))
+    part = torch.zeros((x.shape[0], 32), dtype=x.dtype)
+    for q in range(nq):
+        part = part + px[:, 32 * q:32 * q + 32] * py[32 * q:32 * q + 32]
+    s = 16
+    while s:
+        part = torch.cat([part[:, :s] + part[:, s:2 * s], part[:, s:]], 1)
+        s //= 2
+    return part[:, 0]
+
+
+def _tree(vals: list) -> float:
+    """A warp's `__shfl_down_sync` sum of 32 values, lane 0's result."""
+    vals = list(vals) + [0.0] * (32 - len(vals))
+    s = 16
+    while s:
+        vals = [vals[i] + vals[i + s] if i < s else vals[i]
+                for i in range(32)]
+        s //= 2
+    return vals[0]
+
+
+def ordered_hessenberg(A: torch.Tensor, with_q: bool):
+    """(H, Q) of the resident eig_hess' order of operations, on the CPU in
+    float64: the kernel's model, every product and sum rounded apart in
+    the kernel's order. Block b of HESS_BLOCKS owns rows b, b + 16, ...
+    and publishes, for the step that reduces column k: X_b[j] = the sum
+    over its rows i > k, in ascending order, of (H[i, k] 2^-e_b) H[i, j],
+    with 2^e_b above its largest |H[i, k]| m_b (frexp), and s_b, the sum
+    of those scaled entries' squares without row k + 1's (`_tree` over 32
+    lanes, lane l holding local rows l and l + 32). With mxs = max m_b =
+    ms 2^E and c_b = 2^(e_b - E) (0 for a block with m_b = 0, whose
+    frexp exponent 0 could be far above E): the sum of squares of x / mxs
+    without row k + 1's is (sum_b s_b c_b^2) / ms^2, the blocks in order;
+    v'H[j] = (Y[j] / ms - alpha H[k+1, j]) / r with Y = sum_b X_b c_b in
+    block order, which is (x'H[j] / mxs - alpha H[k+1, j]) / r, the
+    reference's v'H with v = (x / mxs - alpha e_{k+1}) / r. Hv and Qv are
+    `_lanes` sums; the two updates subtract (2 v_i) w_j and (2 u_i) v_j."""
+    n = A.shape[0]
+    H = A.clone().to(torch.float64)
+    Q = torch.eye(n, dtype=torch.float64) if with_q else None
+    nb = min(n, HESS_BLOCKS)
+
+    def publish(kn):
+        pubs = []
+        for b in range(nb):
+            own = list(range(b, n, HESS_BLOCKS))
+            rows = [i for i in own if i > kn]
+            m = max((abs(float(H[i, kn])) for i in rows), default=0.0)
+            e = math.frexp(m)[1]
+            xs = {i: math.ldexp(float(H[i, kn]), -e) for i in rows}
+            X = torch.zeros(n, dtype=torch.float64)
+            for i in rows:
+                X = X + xs[i] * H[i]
+            lanes = [0.0] * 32
+            for r, i in enumerate(own):
+                if i in xs and i != kn + 1:
+                    lanes[r % 32] = lanes[r % 32] + xs[i] * xs[i]
+            pubs.append((m, e, X, _tree(lanes)))
+        return pubs
+
+    pubs = publish(0)
+    for k in range(max(n - 2, 0)):
+        mx = max(p[0] for p in pubs)
+        mxs = 1.0 if mx == 0 else mx
+        ms, E = math.frexp(mxs)
+        sc = [math.ldexp(1.0, p[1] - E) if p[0] > 0 else 0.0 for p in pubs]
+        ss = 0.0
+        for p, c in zip(pubs, sc):
+            ss = ss + p[3] * (c * c)
+        sp = ss / (ms * ms)
+        x1 = float(H[k + 1, k]) / mxs
+        nrm = math.sqrt(sp + x1 * x1)
+        alpha = -_sign(1.0 if x1 == 0 else x1) * nrm
+        v1 = x1 - alpha
+        vn2 = sp + v1 * v1
+        safe = vn2 > 0
+        r = math.sqrt(vn2 if safe else 1.0)
+        v = torch.zeros(n, dtype=torch.float64)
+        w = torch.zeros(n, dtype=torch.float64)
+        if safe:
+            v[k + 1] = v1 / r
+            v[k + 2:] = H[k + 2:, k] / mxs / r
+            Y = torch.zeros(n, dtype=torch.float64)
+            for p, c in zip(pubs, sc):
+                Y = Y + p[2] * c
+            w[k:] = (Y[k:] / ms - alpha * H[k + 1, k:]) / r
+        below = torch.arange(n) > k
+        x = torch.where(below[:, None],
+                        H - (2.0 * v)[:, None] * w[None, :], H)
+        u2 = 2.0 * _lanes(x, v, k)
+        Hn = x.clone()
+        Hn[:, k + 1:] = x[:, k + 1:] - u2[:, None] * v[None, k + 1:]
+        Hn[:, :k + 1] = H[:, :k + 1]
+        Hn[k + 1, k] = H[k + 1, k] - 2.0 * v[k + 1] * w[k]
+        Hn[k + 2:, k] = 0.0
+        H = Hn
+        if with_q and safe:
+            uq2 = 2.0 * _lanes(Q, v, k)
+            Q[:, k + 1:] = Q[:, k + 1:] - uq2[:, None] * v[None, k + 1:]
+        if k + 1 < n - 2:
+            pubs = publish(k + 1)
     return H, Q
 
 
@@ -360,10 +484,31 @@ def _stream(t: torch.Tensor) -> tuple:
     return torch.cuda.current_stream(dev).cuda_stream, dev
 
 
+def hess_smem(n: int) -> int:
+    """The resident eig_hess' dynamic shared memory a block at n, bytes."""
+    rows = -(-n // HESS_BLOCKS)
+    # H's rows; by step parity, each block's [m, s] (32), H[k+1, k] and a
+    # pad, each block's X and row k + 1 over the slice (17 rows), v and w;
+    # four mbarriers
+    return 8 * (rows * n + 2 * (2 * HESS_BLOCKS + 2 + 17 * rows + 2 * n) + 4)
+
+
+def hess_route(n: int) -> str:
+    """eig_hess' design at n, from n alone: "cluster" (H resident in one
+    cluster's shared memory) where `hess_smem(n)` fits HESS_BUDGET, else
+    "grid" (the cooperative design, H in device memory)."""
+    return "cluster" if hess_smem(n) <= HESS_BUDGET else "grid"
+
+
+# the largest n the resident design takes (627)
+HESS_RESIDENT_N = max(n for n in range(3, 1024) if hess_route(n) == "cluster")
+
+
 def hessenberg(A: torch.Tensor, with_q: bool):
     """(H, Q): A's Hessenberg form and, if `with_q`, Q with A = Q H Q'
     (else None). A CPU tensor takes `plain_hessenberg`; a card tensor
-    launches eig_hess once (no launch for n < 3, which has no step)."""
+    launches eig_hess once (no launch for n < 3, which has no step), in
+    the design `hess_route(n)` names."""
     if A.device.type == "cpu":
         return plain_hessenberg(A, with_q)
     _card(A, "eig_hess")

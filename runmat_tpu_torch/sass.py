@@ -28,6 +28,7 @@ Needs the card's toolkit (nvcc, cuobjdump).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import shutil
@@ -82,8 +83,16 @@ def bound(nbytes: float, cycles: float = 0.0) -> tuple:
 def _library_tool(*args: str) -> str:
     from runmat_tpu_torch.ops._build import library, library_path
     library()
-    return subprocess.run([cuobjdump(), *args, str(library_path())],
-                          capture_output=True, text=True, check=True).stdout
+    return _tool_output(args, str(library_path()))
+
+
+@functools.lru_cache(maxsize=None)
+def _tool_output(args: tuple, path: str) -> str:
+    """cuobjdump's output for a library, once a process: the path names
+    the library's sources by their hash, and the whole disassembly takes
+    cuobjdump about half a minute."""
+    return subprocess.run([cuobjdump(), *args, path], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def resources() -> dict:

@@ -2195,6 +2195,49 @@ def test_eig_kernels_match_plain(card, n):
     assert r["eig_francis"] == 0.0 and r["info"][0] == 1
 
 
+@pytest.mark.parametrize("n", [3, 5, 17, 24, 64, 128, 627, 628])
+def test_eig_hess_matches_plain_on_both_routes(card, n):
+    """eig_hess with and without Q within HESS_TOL of plain_hessenberg (on
+    the card up to 128, on the CPU at the route's boundary, 627 the last n
+    of the resident cluster and 628 the first of the cooperative grid):
+    blocks with few rows or none (3, 5, 17), and the eigenvalue sizes."""
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.ops import eig_qr
+    assert eig_qr.hess_route(627) == "cluster"
+    assert eig_qr.hess_route(628) == "grid"
+    r = linalgbench.hess_held(n, card, None if n <= 128 else "cpu")
+    assert r["route"] == eig_qr.hess_route(n)
+
+
+@pytest.mark.parametrize("n", [5, 24, 64, 128])
+def test_eig_hess_equals_its_order_model(card, n):
+    """The resident eig_hess gives ordered_hessenberg's H and Q (the
+    kernel's order of sums on the CPU) bit for bit."""
+    from runmat_tpu_torch import linalgbench
+    assert linalgbench.hess_held(n, card)["ordered_equal"]
+
+
+def test_eig_hess_repeats_bit_for_bit(card):
+    """20 launches of eig_hess with Q on one 128 matrix give one H and Q."""
+    from runmat_tpu_torch import linalgbench
+    assert linalgbench.hess_held(128, card, repeats=19)["repeats"] == 19
+
+
+def test_eig_hess_earlier_design_matches_plain(card):
+    """The bench-only cooperative design (the earlier kernel) still agrees
+    with plain_hessenberg, at 64 and 512."""
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.ops import eig_qr
+    for n in (64, 512):
+        A = linalgbench.eig_matrix(n, card)
+        H, Q = linalgbench.hess_grid(A, True)
+        pH, pQ = eig_qr.plain_hessenberg(A.cpu(), True)
+        s = float(torch.max(torch.abs(A)))
+        assert float(torch.max(torch.abs(H.cpu() - pH))) <= \
+            eig_qr.HESS_TOL * s
+        assert float(torch.max(torch.abs(Q.cpu() - pQ))) <= eig_qr.HESS_TOL
+
+
 @pytest.mark.parametrize("label", ["splits", "graded"])
 def test_eig_francis_hand_offs_match_plain(card, label):
     """eig_francis equal to plain_francis, with and without Z, on a matrix

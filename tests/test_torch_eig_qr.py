@@ -442,3 +442,127 @@ def test_the_builders_call_no_lapack_eig(monkeypatch):
     want = np.asarray(_jit(J.eig_values)(A)[0])
     got = np.asarray(s.get("w").host()).reshape(-1)
     np.testing.assert_allclose(got.real, want, atol=TOL_QR * _scale(want))
+
+
+# ------------------------------------------------- the resident eig_hess
+
+def _hess_fixture(name: str) -> np.ndarray:
+    """The order model's extra fixtures: a graded matrix (rows and columns
+    spanning 10^-6..10^6), one whose column 3 falls to ~1e-200 below the
+    diagonal, a whole matrix scaled to ~1e-200, the same with that column
+    underflowing to zeros (blocks with no nonzero entry while the column's
+    largest is tiny), and n = 40 (three rows a block, as at n > 32)."""
+    rng = np.random.default_rng(25)
+    if name == "graded48":
+        d = 10.0 ** np.linspace(-6, 6, 48)
+        return d[:, None] * rng.standard_normal((48, 48)) / d[None, :]
+    a = rng.standard_normal((24, 24))
+    if name == "tiny_column":
+        a[5:, 3] *= 1e-200
+        return a
+    if name == "tiny":
+        return a * 1e-200
+    if name == "tiny_zeros":        # column 3 underflows to 0 below row 4
+        a[5:, 3] *= 1e-200
+        return a * 1e-200
+    if name == "random40":
+        return rng.standard_normal((40, 40))
+    return _fixture(name)
+
+
+HESS_FIXTURES = [(name, True) for name in NONEMPTY + [
+    "graded48", "tiny_column", "tiny", "tiny_zeros", "random40"]] + [
+    (name, False) for name in ("tiny_column", "tiny", "tiny_zeros",
+                               "random40")]
+
+
+@pytest.mark.parametrize("name, balanced", HESS_FIXTURES)
+def test_the_resident_kernels_order_stays_within_hess_tol(name, balanced):
+    """`ordered_hessenberg`, the resident eig_hess' order of sums (v'H
+    reassociated from each block's frexp-scaled x'H, the blocks' sums in
+    block order; the card's kernel equals it bit for bit), against the
+    JAX `hessenberg_q` and `hessenberg` on the CPU: H within HESS_TOL of
+    the largest |A|, Q within HESS_TOL, exact zeros below the
+    subdiagonal. The input is balanced first, as eig balances it (and as
+    `test_hessenberg_and_hessenberg_q` does: unbalanced, the graded
+    fixtures' reduction is ill-conditioned, and plain_hessenberg's Q
+    differs from the JAX one's by O(1) too); the tiny fixtures also
+    unbalanced, so that the products of the 1e-200 column meet the
+    block scaling directly."""
+    A = _hess_fixture(name)
+    if balanced:
+        A = np.asarray(_jit(J.balance)(A))
+    wh, wq = (np.asarray(v) for v in _jit(J.hessenberg_q)(A))
+    gh, gq = K.ordered_hessenberg(_t(A), True)
+    s = float(np.max(np.abs(A)))
+    assert float(np.max(np.abs(gh.numpy() - wh))) <= K.HESS_TOL * s
+    assert float(np.max(np.abs(gq.numpy() - wq))) <= K.HESS_TOL
+    h1, q1 = K.ordered_hessenberg(_t(A), False)
+    assert q1 is None and torch.equal(h1, gh)      # H does not depend on Q
+    assert float(np.max(np.abs(h1.numpy() - np.asarray(
+        _jit(J.hessenberg)(A))))) <= K.HESS_TOL * s
+    assert np.all(np.tril(gh.numpy(), -2) == 0)
+
+
+def test_the_route_is_a_function_of_n_from_the_shared_memory_budget():
+    """eig_hess' design is `hess_route(n)`: the resident cluster where
+    `hess_smem(n)` fits HESS_BUDGET (the H100's 227 KB a block), else the
+    cooperative grid; the boundary is HESS_RESIDENT_N = 627, and the
+    kernel library states the same formula, budget and cluster size."""
+    from pathlib import Path
+    routes = [K.hess_route(n) for n in range(3, 1025)]
+    assert routes == ["cluster" if K.hess_smem(n) <= K.HESS_BUDGET
+                      else "grid" for n in range(3, 1025)]
+    assert routes == ["cluster"] * (K.HESS_RESIDENT_N - 2) + ["grid"] * (
+        1024 - K.HESS_RESIDENT_N)
+    assert K.HESS_RESIDENT_N == 627
+    assert K.hess_smem(627) <= K.HESS_BUDGET < K.hess_smem(628)
+    assert K.hess_smem(512) == 8 * (32 * 512 + 2 * (32 + 2 + 17 * 32 +
+                                                    2 * 512) + 4)
+    cu = (Path(K.__file__).resolve().parents[1] / "csrc" /
+          "eig_qr.cu").read_text()
+    assert f"constexpr size_t kResBudget = {K.HESS_BUDGET};" in cu
+    assert f"constexpr int kResBlocks = {K.HESS_BLOCKS};" in cu
+    assert ("return sizeof(double) * (R * N + 2 * (2 * kResBlocks + 2 + "
+            "17 * R + 2 * N) +") in cu
+    assert "if (res_smem(n) <= kResBudget) return hess_resident_run(" in cu
+
+
+@pytest.mark.parametrize("name", ["runmat_eig_hess_grid",
+                                  "runmat_eig_hess_floor",
+                                  "runmat_eig_hess_profile"])
+def test_the_eig_hess_bench_entries_are_named_only_by_linalgbench(name):
+    """The cooperative design forced at any n (the earlier design, timed in
+    turns), the barrier floors and the clock64 profile are defined in
+    csrc/eig_qr.cu and named by linalgbench.py alone: ops/eig_qr.py's
+    hessenberg launches runmat_eig_hess, which routes by n."""
+    import inspect
+    from pathlib import Path
+    pkg = Path(K.__file__).resolve().parents[1]
+    files = sorted(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]
+    naming = {p.relative_to(pkg.parent).as_posix() for p in files
+              if name in p.read_text()}
+    assert naming == {"runmat_tpu_torch/linalgbench.py"}, naming
+    assert f'extern "C" int {name}(' in (pkg / "csrc" /
+                                         "eig_qr.cu").read_text()
+    src = inspect.getsource(K.hessenberg)
+    assert '"runmat_eig_hess"' in src and name not in src
+
+
+def test_a_cpu_tensor_takes_plain_hessenberg(monkeypatch):
+    """hessenberg on a CPU tensor is plain_hessenberg and reaches no kernel
+    entry; the order model agrees with it within HESS_TOL."""
+    def refuse(*a, **k):
+        raise AssertionError("a kernel entry reached")
+
+    monkeypatch.setattr(K, "_entry", refuse)
+    A = _t(_fixture("random24"))
+    before = K.launches
+    H, Q = K.hessenberg(A, True)
+    pH, pQ = K.plain_hessenberg(A, True)
+    assert K.launches == before
+    assert torch.equal(H, pH) and torch.equal(Q, pQ)
+    oH, oQ = K.ordered_hessenberg(A, True)
+    assert float(torch.max(torch.abs(oH - pH))) <= K.HESS_TOL * float(
+        torch.max(torch.abs(A)))
+    assert float(torch.max(torch.abs(oQ - pQ))) <= K.HESS_TOL
