@@ -214,8 +214,8 @@ line is printed:
      heat map printed to a PNG and saved as an SVG, gpuInfo) at its
      default size through Session.run_source against the port's host
      engine: FIELD within a relative 1e-12, imfilter and cmap in the
-     launch log with no host fallback, the colormap kernel launched, the
-     card's heat map bit for bit the plain colormap of the card's own Y
+     launch log with no host fallback, the colormap kernel launched once,
+     the card's heat map bit for bit the plain colormap of the card's own Y
      carried to the CPU, the waits equal to the counted reads, the warm
      walls (runmat_tpu_torch/walls.py) and a profile; then the colormap
      kernel (runmat_tpu_torch/csrc/cmap.cu via ops/cmap.py) against its
@@ -294,7 +294,14 @@ line is printed:
      about its 32-column band, a matrix that splits near both ends and in
      the middle, a graded one; at 31, 67 and 128 also with one owner warp,
      so a thread takes several indices as it does at n > 573) and 20
-     launches on one 128 H identical;
+     launches on one 128 H identical; eig_trevc on its ring route equal
+     to ordered_trevc (its order on the CPU) bit for bit at n = 1, 2, 3
+     and on T with 2x2 blocks at both ends, repeated eigenvalues (the
+     smin replacement in both forms) and a graded T
+     (linalgbench.trevc_case), on the card's Schur forms at 5, 24, 64, 128
+     and 512, 20 launches at 128 identical, and at 513 on the warp route,
+     each within 1e-9 of plain_trevc, as is the earlier design
+     (linalgbench.trevc_held);
      and each timed at 512 (eig_rows) beside its operations bound, geev
      (torch.linalg.eigvals and eig, the earlier design), its plain
      version's time on the card at n = 128 (`plain_n` in the kernel
@@ -306,6 +313,10 @@ line is printed:
      position) timed in turns with it, the chaser's and helper's chain
      alone over the same iterations (the measured
      floor, and µs a bulge position) and one profiled launch's cycles;
+     for eig_trevc, the earlier design (a warp a column) in turns, its
+     chain alone (the measured floor, µs a row) and geev on T
+     (torch.linalg.eig of the quasi-triangular T, its `library_ms`: the
+     whole geev, which does more than trevc);
  16. one JSON line of kernel results, then the result line
      {"ok": true, "device": {...}}.
 Phase 3 also times each generated group that one PyTorch call computes
@@ -542,6 +553,10 @@ EIG_SOURCE = ("rng(23); A = randn(512, 512); [V, D] = eig(A); w = diag(D);"
 EIG_KERNELS = {"eig_hess": "runmat_tpu/accel/eig_qr.py:48",
                "eig_francis": "runmat_tpu/accel/eig_qr.py:151",
                "eig_trevc": "runmat_tpu/accel/eig_qr.py:362"}
+# each kernel's row name and launch key on the main path (512 takes the
+# ring eig_trevc, ops/eig_qr.py TREVC_KEYS)
+EIG_KEYS = {"eig_hess": "eig_hess", "eig_francis": "eig_francis",
+            "eig_trevc": "eig_trevc ring"}
 EIG_RESIDUAL = 1e-10       # norm(A*V - V*D) / norm(A)
 EIG_UNIT = 1e-12           # V's columns of unit 2-norm
 EIG_NUMPY_TOL = 1e-9       # the eigenvalues against numpy's, greedily
@@ -956,7 +971,7 @@ def _group(name: str) -> str:
         "lstm" if name.startswith("lstm") else \
         "optim" if name.startswith("optim") else \
         "cmap" if name.startswith("cmap") else \
-        "eig_qr" if name in EIG_KERNELS else "fused"
+        "eig_qr" if name in EIG_KEYS.values() else "fused"
 
 
 def phase_fused_kernel() -> list:
@@ -2647,7 +2662,7 @@ def phase_plot_path() -> dict:
     check(st["host_fallbacks"] == 0,
           f"field_plot: {st['host_fallbacks']} host fallbacks: "
           f"{[e for e in log if e['cat'] == 'host_fallback']}")
-    check(launches["cmap"].get("cmap f64", 0) >= 1 and
+    check(launches["cmap"] == {"cmap f64": 1} and
           launches["threefry"].get("randn float64", 0) >= 1,
           f"field_plot: cmap {launches['cmap']}, threefry "
           f"{launches['threefry']}")
@@ -3416,7 +3431,10 @@ def _eig_kernels() -> dict:
         print(f"eig kernels n={n}: eig_hess within {r['eig_hess']:.3g} of "
               f"plain (H and Q), eig_francis equal to plain_francis (T and "
               f"Z; [ok, iterations, chain] {r['info']}), eig_trevc within "
-              f"{r['eig_trevc']:.3g}{pipe}; plain on the {r['plain_dev']}, "
+              f"{r['eig_trevc']:.3g}"
+              + (" and equal to ordered_trevc bit for bit"
+                 if r.get("trevc_ordered") else "")
+              + f"{pipe}; plain on the {r['plain_dev']}, "
               f"ms: " + ", ".join(
                   f"{k} {v:.1f}" for k, v in r["plain_ms"].items())
               + f" ({seconds:.1f} s)")
@@ -3471,6 +3489,27 @@ def _eig_kernels() -> dict:
             raise SmokeFailure(f"eig_francis repeated: {e}") from e
         print(f"eig_francis 20 launches on one 128 H: identical (info "
               f"{info}) ({time.perf_counter() - t0:.1f} s with the cases)")
+        t0 = time.perf_counter()
+        done = []
+        for label in linalgbench.TREVC_CASES:
+            T = torch.tensor(linalgbench.trevc_case(label),
+                             dtype=torch.float64, device=dev)
+            done.append((label, T))
+        for n in (5, 128, 513):
+            done.append((str(n), linalgbench.eig_kernels_run(n, dev)["Tn"]))
+        for label, T in done:
+            try:
+                t = linalgbench.trevc_held(T, 19 if label == "128" else 0)
+            except AssertionError as e:
+                raise SmokeFailure(f"eig_trevc on {label}: {e}") from e
+            print(f"eig_trevc on {label} (n = {t['n']}, {t['route']} "
+                  f"route): " + ("equal to ordered_trevc bit for bit, "
+                                 if t["route"] == "ring" else "")
+                  + f"within {t['kernel_err']:.3g} of plain_trevc's largest "
+                  f"|Y| (the earlier design {t['warp_err']:.3g})"
+                  + (f", {t['repeats'] + 1} launches identical"
+                     if t["repeats"] else ""))
+        print(f"eig_trevc cases: {time.perf_counter() - t0:.1f} s")
         r = linalgbench.eig_rows(TIMING_REPS // 10,
                                  held[linalgbench.EIG_PLAIN_N]["plain_ms"])
         linalgbench.print_eig(r)
@@ -3518,8 +3557,7 @@ def phase_eig_path() -> dict:
     vals = {k: np.asarray(s.get(k).host()) for k in ("w", "res", "un", "Ah")}
     runmat_tpu_torch.uninstall()
     laps.append(("card run", time.perf_counter()))
-    check(launches["eig_qr"] == {"eig_hess": 1, "eig_francis": 1,
-                                 "eig_trevc": 1},
+    check(launches["eig_qr"] == {k: 1 for k in EIG_KEYS.values()},
           f"eig [V, D]: eig kernels {launches['eig_qr']}")
     check(st["host_fallbacks"] == 0,
           f"eig [V, D]: {st['host_fallbacks']} host fallbacks: "
@@ -3554,14 +3592,19 @@ def phase_eig_path() -> dict:
     for name, replaces in EIG_KERNELS.items():
         row = r["rows"][name]
         rows.append({
-            "name": name, "route": "cuda",
+            "name": EIG_KEYS[name], "route": "cuda",
             "source": "runmat_tpu_torch/csrc/eig_qr.cu",
-            "replaces": replaces, "launches": 0, "launch_key": name,
+            "replaces": replaces, "launches": 0,
+            "launch_key": EIG_KEYS[name],
             "max_abs_err": r["errs"][name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "plain_n": r["plain_n"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": r["eigvals_H_ms"] if name == "eig_francis"
             else None})
+        if name == "eig_trevc":
+            rows[-1].update({k: row[k] for k in (
+                "warp_ms", "chain_floor_ms", "us_per_row")})
+            rows[-1]["library_ms"] = row["geev_T_ms"]
         if name == "eig_francis":
             rows[-1].update({k: row[k] for k in (
                 "barrier_ms", "chain_floor_ms", "us_per_position")})

@@ -52,13 +52,23 @@
 //                and the remnants' band (two and three below the
 //                diagonal) is what the restore clears.
 //   eig_trevc    trevc (eig_qr.py:362-482): the back-substitution of each
-//                eigen-column is independent of the others (the JAX full
-//                matvec T[i,:] @ Y picks up only settled rows of the same
-//                column), so a warp takes a column: its seed chosen by
-//                norm, rows n-1..0 walked with the smin replacement of a
-//                vanishing denominator (dtrevc's) and Cramer's rule for the
-//                rows of a 2x2 block. The column is written as a row of
-//                yt (coalesced), which the wrapper returns transposed.
+//                eigen-column is independent of the others, and is taken in
+//                dtrevc's column (axpy) order: once row i is solved, every
+//                row above takes its term, r[0:i] -= T[0:i, i] y_i, so the
+//                dependent chain a row is the owner lane's quotient(s), one
+//                shuffle and the next row's multiply and subtract. Routed by
+//                n alone (ops/eig_qr.py trevc_route): up to n = 512
+//                (kTrevcRingN) eig_trevc_ring, a block of kTrevcCols
+//                adjacent columns a warp each, each column's right-hand side
+//                in registers (row m in lane m % 32, slot m / 32), T's
+//                columns streamed by a producer warp through a ring in
+//                shared memory with cp.async.bulk onto mbarriers, each row's
+//                denominators computed before the walk (the design above
+//                the kernel); above 512 the first design (a warp a column,
+//                the JAX row-dot form), which also stays as the bench-only
+//                runmat_eig_trevc_warp. The smin replacement of a vanishing
+//                denominator is dtrevc's; the rows of a 2x2 block are solved
+//                jointly by Cramer's rule.
 //
 // Every product, sum, quotient and square root is rounded apart
 // (__dmul_rn, __dadd_rn, __dsub_rn, __ddiv_rn, __dsqrt_rn: nvcc would
@@ -69,8 +79,9 @@
 // deflation floor comes in from the same torch call. eig_hess and
 // eig_trevc sum their long dot products in their own fixed order, so they
 // agree with the plain versions (torch.matmul) within rounding; the
-// resident eig_hess equals ops/eig_qr.py's ordered_hessenberg (its order
-// written out on the CPU) bit for bit.
+// resident eig_hess equals ops/eig_qr.py's ordered_hessenberg and
+// eig_trevc_ring its ordered_trevc (their orders written out on the CPU)
+// bit for bit.
 //
 // What bounds them on this card: not bytes (H is 2 MB at n = 512 and stays
 // in the 50 MB L2) and not the float64 rate (about 10/3 n^3 operations
@@ -82,7 +93,8 @@
 // and house3's two square roots and divisions a position, one after
 // another, with the helper's band and the owners' 15 (n + 3) float64
 // operations a position, 30 (n + 3) with Z, beside it on one SM), and
-// trevc's n dependent rows a column.
+// trevc's n dependent rows a column (a quotient, a shuffle and an update
+// each).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -106,7 +118,11 @@ constexpr int kResBlocks = 16;          // its cluster (non-portable size)
 constexpr int kResPhases = 5;           // its profile's phases (bench only)
 constexpr int kResFlagEvery = 4;        // steps between v releases to Q's
 constexpr int kFrancisThreads = 1024;   // the earlier eig_francis' block
-constexpr int kTrevcWarps = 4;
+constexpr int kTrevcWarps = 4;         // the earlier eig_trevc's block
+constexpr int kTrevcCols = 4;          // eig_trevc_ring: column warps a block
+constexpr int kTrevcDepth = 12;        // its ring of T's columns
+constexpr int kTrevcSlots = 16;        // its registers: 32 rows a slot
+constexpr int kTrevcRingN = 32 * kTrevcSlots;   // the largest n it takes
 
 __device__ __forceinline__ double add(double a, double b) {
   return __dadd_rn(a, b);
@@ -1949,11 +1965,13 @@ eig_francis_barrier(double* __restrict__ H, double* __restrict__ Z, int n,
 
 // ----------------------------------------------------------- eig_trevc
 
-// Column j of Y (T Y = Y diag(w)) for each warp's j, written as row j of
-// yt (re, then im n x n further on). is2[i]: row i tops a 2x2 block of T;
-// prev2[i]: row i is a block's second row.
+// The earlier design (the route above kTrevcRingN, and the
+// bench-only runmat_eig_trevc_warp): column j of Y (T Y = Y diag(w)) for
+// each warp's j, T row-major, written as row j of yt (re, then im n x n
+// further on). is2[i]: row i tops a 2x2 block of T; prev2[i]: row i is a
+// block's second row.
 __global__ void __launch_bounds__(kTrevcWarps * 32)
-eig_trevc(const double* __restrict__ T, const double* __restrict__ wr,
+eig_trevc_warp(const double* __restrict__ T, const double* __restrict__ wr,
           const double* __restrict__ wi, const bool* __restrict__ is2,
           const bool* __restrict__ prev2, int n,
           const double* __restrict__ sminp, double* yt) {
@@ -2061,6 +2079,411 @@ eig_trevc(const double* __restrict__ T, const double* __restrict__ wr,
     }
     __syncwarp();
   }
+}
+
+// ------------------------------------------ eig_trevc in dtrevc's order
+
+// eig_trevc_ring. Block b takes the columns j = b0 + kTrevcCols b + w
+// (warp w < kTrevcCols, `cols` of them in the last block) and a producer
+// warp (w = kTrevcCols). Column j's seed block tops at js (j, or j - 1 for
+// a block's second column) and its settled rows end at top (js + 1 for a
+// complex pair, else j). The block walks the stages c = cmax ... 0, cmax
+// the largest top among its columns; at stage c a warp whose top is below
+// c only waits, else:
+//   seed    (js <= c <= top): y_c is the seed's entry for row c;
+//   one     (row c a 1x1 block, c < js): y_c = r_c / den_c, the complex
+//           den_c with dtrevc's smin replacement;
+//   two     (row c tops a 2x2 block, c + 1 < js): rows c and c + 1
+//           jointly by Cramer's rule, r_{c+1} taken at stage c + 1;
+//   neither (row c a block's second row): r_c kept for stage c - 1;
+// and then every row above takes its term, r_m = r_m - T[m, c] y_c (for
+// a 2x2 block first column c + 1's term with y_{c+1}, then column c's),
+// each product and difference rounded apart. So r_m collects its terms in
+// descending c, dtrevc's order (ops/eig_qr.py:ordered_trevc writes it out
+// on the CPU and equals the kernel bit for bit); r starts at +0, so r_m is
+// minus the sum of its terms, the JAX version's -(T[m, :] @ Y).
+//
+// The dependent chain a row is the next row's multiply and subtract, one
+// shuffle of r and the quotient(s): the right-hand sides live in
+// registers (row m in lane m % 32, slot m / 32, two planes; the walk over
+// slots is a template recursion, so every slot index is a constant); row
+// c's r reaches every lane by one shuffle from its owner; the two (1x1) or
+// four (2x2) correctly rounded quotients are taken one a lane, side by
+// side, and shuffled to every lane (in one lane after another they were
+// the larger part of a row's time); slot s, which holds row c - 1 unless
+// c % 32 == 0, is updated first, and a 2x2 block's two terms go into each
+// slot together. Rows at or below c take the update too (they are never
+// read again), so no mask is needed; y goes to yt from the row's owner.
+// The ring's waits are at cta scope (a cluster-scope acquire invalidates
+// L1 at every stage).
+//
+// Off the chain: the row constants (den and |den|^2 of a 1x1 row; m11,
+// m22, b, c, det and |det|^2 of a 2x2 block), which depend on T and the
+// column's eigenvalue alone, are computed before the walk by the column's
+// lanes, a row each, into shared memory; and T's columns stream in as T'
+// (the wrapper passes T.mT padded to an even leading dimension ld, so
+// column c of T is a row of T' whose start and length, rounded up to an
+// even count, meet cp.async.bulk's 16-byte rule): the producer's lane 0
+// copies column c's rows 0..c + 1 (a 2x2 block's subdiagonal is T[c + 1,
+// c]) into ring slot k % kTrevcDepth for stage k = cmax - c, completing on
+// full[slot], and the column warps release a slot on empty[slot] one
+// stage after they used it (a 2x2 block reads column c + 1 at stage c).
+// So T is read from L2 once a block, not once a warp. A wait traps after
+// kResWaitCycles rather than hang. CHAIN (bench only) updates only the
+// slots that hold row c - 1: the chain alone, the kernel's floor.
+
+// The ring kernel's slot stride in doubles, and its dynamic shared memory
+// in bytes (ops/eig_qr.py:trevc_smem is the same formula): the ring, each
+// column's row constants (8 doubles a row), the full and empty mbarriers,
+// each column's row kinds (a byte a row).
+__host__ __device__ inline int trevc_stride(int n) {
+  return 32 * ((n + 31) / 32);
+}
+__host__ inline size_t trevc_smem(int n) {
+  return sizeof(double) * (static_cast<size_t>(kTrevcDepth) *
+                               trevc_stride(n) +
+                           static_cast<size_t>(kTrevcCols) * 8 * n) +
+         2 * kTrevcDepth * sizeof(unsigned long long) +
+         static_cast<size_t>(kTrevcCols) * n;
+}
+
+__device__ __forceinline__ void mbar_init_count(unsigned long long* bar,
+                                                int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of `parity` of the block's own mbarrier completes
+// (acquiring what the bulk copy delivered: cta scope, so no L1 invalidation
+// as mbar_wait's cluster scope costs); traps after kResWaitCycles
+__device__ __forceinline__ bool ring_ready(unsigned long long* bar,
+                                           int parity) {
+  unsigned done = 0;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, "
+      "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void ring_wait(unsigned long long* bar,
+                                          int parity) {
+  if (ring_ready(bar, parity)) return;
+  const long long start = clock64();
+  while (!ring_ready(bar, parity))
+    if (clock64() - start > kResWaitCycles) __trap();
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory into shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+// A column warp's state over the walk
+struct TrevcWalk {
+  const double* ring;
+  const double* pre;              // 8 doubles a row
+  const unsigned char* kinds;     // 0 neither, 1 one, 2 two
+  unsigned long long* full;
+  unsigned long long* empty;
+  double* yr;                     // row j of yt, real and imaginary
+  double* yi;
+  int rs, cmax, js, top, lane, k;
+  int slot, phase;                // stage k's ring slot and its parity
+  bool pair;
+  double tr, ti, br, bi, mi;      // the seed, -Im(lambda)
+  double pr, pi;                  // r of the row kept by a `neither` stage
+};
+
+// r_m -= T[m, c] y for the rows of slots 0..S (CHAIN: S and S - 1 only)
+template <bool CHAIN, int S>
+__device__ __forceinline__ void trevc_axpy(double (&rr)[kTrevcSlots],
+                                           double (&ri)[kTrevcSlots],
+                                           const double* col, int lane,
+                                           double yr, double yi) {
+#pragma unroll
+  for (int q = S; q >= 0; --q) {
+    if (!CHAIN || q >= S - 1) {
+      const double t = col[32 * q + lane];
+      rr[q] = sub(rr[q], mul(t, yr));
+      ri[q] = sub(ri[q], mul(t, yi));
+    }
+  }
+}
+
+// a 2x2 block's two terms, r_m -= T[m, c + 1] y_{c+1}, then T[m, c] y_c,
+// slot by slot (col1: column c + 1, col0: column c)
+template <bool CHAIN, int S>
+__device__ __forceinline__ void trevc_axpy2(double (&rr)[kTrevcSlots],
+                                            double (&ri)[kTrevcSlots],
+                                            const double* col1,
+                                            const double* col0, int lane,
+                                            double y1r, double y1i,
+                                            double y0r, double y0i) {
+#pragma unroll
+  for (int q = S; q >= 0; --q) {
+    if (!CHAIN || q >= S - 1) {
+      const double t1 = col1[32 * q + lane], t0 = col0[32 * q + lane];
+      rr[q] = sub(sub(rr[q], mul(t1, y1r)), mul(t0, y0r));
+      ri[q] = sub(sub(ri[q], mul(t1, y1i)), mul(t0, y0i));
+    }
+  }
+}
+
+// the stages of slot S (rows 32 S .. 32 S + 31), then the slots below
+template <bool CHAIN, int S>
+__device__ __forceinline__ void trevc_slot(TrevcWalk& w,
+                                           double (&rr)[kTrevcSlots],
+                                           double (&ri)[kTrevcSlots]) {
+  if (32 * S <= w.cmax) {
+    const int lhi = w.cmax - 32 * S < 31 ? w.cmax - 32 * S : 31;
+    for (int l = lhi; l >= 0; --l, ++w.k) {
+      const int c = 32 * S + l;
+      if (c <= w.top) {
+        ring_wait(w.full + w.slot, w.phase);
+        const double* col = w.ring + static_cast<size_t>(w.slot) * w.rs;
+        double yr = 1.0, yi = 0.0;
+        bool upd = true;
+        if (c >= w.js) {
+          if (w.pair) {
+            yr = c == w.js ? w.tr : w.br;
+            yi = c == w.js ? w.ti : w.bi;
+          }
+        } else {
+          const int kd = w.kinds[c];
+          const double* p = w.pre + 8 * c;
+          const double r1r = __shfl_sync(kFull, rr[S], l);
+          const double r1i = __shfl_sync(kFull, ri[S], l);
+          // the quotients, one a lane (lane q % 2 or q % 4 divides by
+          // dd or |det|^2), then shuffled: the divisions run side by side
+          if (kd == 1) {
+            const double nr = add(mul(r1r, p[0]), mul(r1i, p[1]));
+            const double ni = sub(mul(r1i, p[0]), mul(r1r, p[1]));
+            const double q = quo((w.lane & 1) ? ni : nr, p[2]);
+            yr = __shfl_sync(kFull, q, 0);
+            yi = __shfl_sync(kFull, q, 1);
+          } else if (kd == 2) {
+            const double m11r = p[0], m22r = p[1], bb = p[2], cc = p[3];
+            const double detr = p[4], deti = p[5], dmag = p[6], mi = w.mi;
+            const double r2r = w.pr, r2i = w.pi;
+            const double n1r =
+                sub(sub(mul(r1r, m22r), mul(r1i, mi)), mul(bb, r2r));
+            const double n1i =
+                sub(add(mul(r1r, mi), mul(r1i, m22r)), mul(bb, r2i));
+            const double n2r =
+                sub(sub(mul(m11r, r2r), mul(mi, r2i)), mul(cc, r1r));
+            const double n2i =
+                sub(add(mul(m11r, r2i), mul(mi, r2r)), mul(cc, r1i));
+            const double a0 = add(mul(n1r, detr), mul(n1i, deti));
+            const double a1 = sub(mul(n1i, detr), mul(n1r, deti));
+            const double a2 = add(mul(n2r, detr), mul(n2i, deti));
+            const double a3 = sub(mul(n2i, detr), mul(n2r, deti));
+            const int sel = w.lane & 3;
+            const double q = quo(sel == 0 ? a0 : sel == 1 ? a1
+                                 : sel == 2 ? a2 : a3, dmag);
+            yr = __shfl_sync(kFull, q, 0);
+            yi = __shfl_sync(kFull, q, 1);
+            const double ybr = __shfl_sync(kFull, q, 2);
+            const double ybi = __shfl_sync(kFull, q, 3);
+            if (w.lane == ((l + 1) & 31)) {
+              w.yr[c + 1] = ybr;
+              w.yi[c + 1] = ybi;
+            }
+            if (w.lane == l) {
+              w.yr[c] = yr;
+              w.yi[c] = yi;
+            }
+            // column c + 1 is stage k - 1's slot, not yet released
+            const int prev = w.slot == 0 ? kTrevcDepth - 1 : w.slot - 1;
+            trevc_axpy2<CHAIN, S>(rr, ri,
+                                  w.ring + static_cast<size_t>(prev) * w.rs,
+                                  col, w.lane, ybr, ybi, yr, yi);
+            upd = false;
+          } else {
+            w.pr = r1r;
+            w.pi = r1i;
+            upd = false;
+          }
+        }
+        if (upd) {
+          if (w.lane == l) {
+            w.yr[c] = yr;
+            w.yi[c] = yi;
+          }
+          trevc_axpy<CHAIN, S>(rr, ri, col, w.lane, yr, yi);
+        }
+      }
+      // every lane is done with stage k - 1's slot
+      __syncwarp();
+      if (w.k > 0 && w.lane == 0)
+        mbar_arrive(w.empty + (w.slot == 0 ? kTrevcDepth - 1 : w.slot - 1));
+      if (++w.slot == kTrevcDepth) {
+        w.slot = 0;
+        w.phase ^= 1;
+      }
+    }
+  }
+  if constexpr (S > 0) trevc_slot<CHAIN, S - 1>(w, rr, ri);
+}
+
+// Columns b0 + kTrevcCols blockIdx.x + w of Y (T Y = Y diag(w)), written
+// as rows of yt (re, then im n x n further on); T' = T.mT with leading
+// dimension ld (even, >= n); n <= kTrevcRingN. is2/prev2 as for
+// eig_trevc_warp.
+template <bool CHAIN>
+__global__ void __launch_bounds__((kTrevcCols + 1) * 32)
+eig_trevc_ring(const double* __restrict__ Tt, int ld,
+               const double* __restrict__ wr, const double* __restrict__ wi,
+               const bool* __restrict__ is2, const bool* __restrict__ prev2,
+               int n, const double* __restrict__ sminp, double* yt, int b0) {
+  extern __shared__ __align__(16) unsigned char trevc_sm[];
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  const int rs = trevc_stride(n);
+  double* const ring = reinterpret_cast<double*>(trevc_sm);
+  double* const pre0 = ring + static_cast<size_t>(kTrevcDepth) * rs;
+  auto* const full = reinterpret_cast<unsigned long long*>(
+      pre0 + static_cast<size_t>(kTrevcCols) * 8 * n);
+  unsigned long long* const empty = full + kTrevcDepth;
+  unsigned char* const kinds0 =
+      reinterpret_cast<unsigned char*>(empty + kTrevcDepth);
+  const int j0 = b0 + blockIdx.x * kTrevcCols;
+  const int cols = n - j0 < kTrevcCols ? n - j0 : kTrevcCols;
+  int cmax = 0;
+  for (int q = 0; q < cols; ++q) {
+    const int j = j0 + q;
+    const int top = prev2[j] ? j : (is2[j] ? j + 1 : j);
+    cmax = top > cmax ? top : cmax;
+  }
+  cmax = cmax < n - 1 ? cmax : n - 1;
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < kTrevcDepth; ++d) {
+      mbar_init_count(full + d, 1);
+      mbar_init_count(empty + d, cols);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (wid == kTrevcCols) {            // the producer
+    if (lane == 0) {
+      for (int k = 0; k <= cmax; ++k) {
+        const int slot = k % kTrevcDepth;
+        if (k >= kTrevcDepth)
+          ring_wait(empty + slot, (k / kTrevcDepth - 1) & 1);
+        const int c = cmax - k;
+        int len = (c + 3) & ~1;       // rows 0..c + 1, an even count
+        if (len > ld) len = ld;
+        mbar_arm(full + slot, 8 * len);
+        bulk_load(ring + static_cast<size_t>(slot) * rs,
+                  Tt + static_cast<size_t>(c) * ld, 8 * len, full + slot);
+      }
+    }
+    return;
+  }
+  if (wid >= cols) return;
+  const int j = j0 + wid;
+  auto T = [&](int r, int c) { return Tt[static_cast<size_t>(c) * ld + r]; };
+  TrevcWalk w;
+  w.ring = ring;
+  w.pre = pre0 + static_cast<size_t>(wid) * 8 * n;
+  w.kinds = kinds0 + static_cast<size_t>(wid) * n;
+  w.full = full;
+  w.empty = empty;
+  w.yr = yt + static_cast<size_t>(j) * n;
+  w.yi = yt + static_cast<size_t>(n) * n + static_cast<size_t>(j) * n;
+  w.rs = rs;
+  w.cmax = cmax;
+  w.lane = lane;
+  w.k = 0;
+  w.slot = 0;
+  w.phase = 0;
+  w.pr = 0.0;
+  w.pi = 0.0;
+  const double smin = *sminp, smin2 = mul(smin, smin);
+  w.pair = is2[j] || prev2[j];
+  w.js = prev2[j] ? j - 1 : j;
+  w.top = w.pair ? w.js + 1 : j;
+  const int js = w.js;
+  // the seed: two algebraically equal forms, the one of larger norm
+  const double a_p = T(js, js);
+  const double b_p = js < n - 1 ? T(js, js + 1) : 0.0;
+  const double c_p = js < n - 1 ? T(js + 1, js) : 0.0;
+  const int jd = js + 1 < n - 1 ? js + 1 : n - 1;
+  const double d_p = T(jd, jd);
+  const double lr = wr[j], li = wi[j];
+  const double war = sub(lr, a_p), wdr = sub(lr, d_p);
+  const double n_b = root(add(add(mul(b_p, b_p), mul(war, war)), mul(li, li)));
+  const double n_c = root(add(add(mul(c_p, c_p), mul(wdr, wdr)), mul(li, li)));
+  const bool use_b = n_b >= n_c;
+  double tr = use_b ? b_p : wdr, ti = use_b ? 0.0 : li;
+  double br = use_b ? war : c_p, bi = use_b ? li : 0.0;
+  const double snrm = maxnan(
+      root(add(add(add(mul(tr, tr), mul(ti, ti)), mul(br, br)), mul(bi, bi))),
+      1e-300);
+  w.tr = quo(tr, snrm);
+  w.ti = quo(ti, snrm);
+  w.br = quo(br, snrm);
+  w.bi = quo(bi, snrm);
+  w.mi = -li;
+  for (int m = lane; m < n; m += 32) {
+    w.yr[m] = 0.0;
+    w.yi[m] = 0.0;
+  }
+  // the row constants, a row a lane
+  double* const pre = pre0 + static_cast<size_t>(wid) * 8 * n;
+  unsigned char* const kinds = kinds0 + static_cast<size_t>(wid) * n;
+  for (int m = lane; m < js; m += 32) {
+    const bool blk = is2[m];
+    const bool one = !blk && !prev2[m];
+    const bool two = blk && m + 1 < js;
+    kinds[m] = one ? 1 : (two ? 2 : 0);
+    double* p = pre + 8 * m;
+    if (one) {
+      double den_r = sub(T(m, m), lr), den_i = -li;
+      if (hypot(den_r, den_i) < smin) {
+        den_r = smin;
+        den_i = 0.0;
+      }
+      p[0] = den_r;
+      p[1] = den_i;
+      p[2] = add(mul(den_r, den_r), mul(den_i, den_i));
+    } else if (two) {
+      const double aa = T(m, m), bb = T(m, m + 1);
+      const double cc = T(m + 1, m), ddg = T(m + 1, m + 1);
+      const double m11r = sub(aa, lr), m11i = -li;
+      const double m22r = sub(ddg, lr), m22i = -li;
+      double detr = sub(sub(mul(m11r, m22r), mul(m11i, m22i)), mul(bb, cc));
+      double deti = add(mul(m11r, m22i), mul(m11i, m22r));
+      if (hypot(detr, deti) < smin2) {
+        detr = smin2;
+        deti = 0.0;
+      }
+      p[0] = m11r;
+      p[1] = m22r;
+      p[2] = bb;
+      p[3] = cc;
+      p[4] = detr;
+      p[5] = deti;
+      p[6] = add(mul(detr, detr), mul(deti, deti));
+    }
+  }
+  __syncwarp();
+  double rr[kTrevcSlots], ri[kTrevcSlots];
+#pragma unroll
+  for (int q = 0; q < kTrevcSlots; ++q) {
+    rr[q] = 0.0;
+    ri[q] = 0.0;
+  }
+  trevc_slot<CHAIN, kTrevcSlots - 1>(w, rr, ri);
+  if (lane == 0) mbar_arrive(empty + cmax % kTrevcDepth);
 }
 
 // a launch refused at its configuration leaves its error as the last
@@ -2369,25 +2792,105 @@ extern "C" int runmat_eig_francis_barrier(void* H, void* Z, int n, int max_iters
   return static_cast<int>(cudaGetLastError());
 }
 
-// The right eigenvectors of the n x n quasi-triangular T (row-major) with
-// eigenvalues wr + i wi and blocks is2/prev2 (n bytes each): column j of
-// Y into row j of yt (2 n x n float64, real then imaginary). smin: dtrevc's
-// smallest denominator on the card.
-extern "C" int runmat_eig_trevc(const void* T, const void* wr, const void* wi,
-                                const void* is2, const void* prev2, int n,
-                                const void* smin, void* yt, void* stream,
-                                int device) {
+namespace {
+
+// one launch of the earlier eig_trevc (T row-major), a warp a column
+int trevc_warp_run(const void* T, const void* wr, const void* wi,
+                   const void* is2, const void* prev2, int n,
+                   const void* smin, void* yt, void* stream, int device) {
   if (T == nullptr || wr == nullptr || wi == nullptr || is2 == nullptr ||
       prev2 == nullptr || smin == nullptr || yt == nullptr || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int blocks = (n + kTrevcWarps - 1) / kTrevcWarps;
-  eig_trevc<<<blocks, kTrevcWarps * 32, 0,
-              static_cast<cudaStream_t>(stream)>>>(
+  eig_trevc_warp<<<blocks, kTrevcWarps * 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(T), static_cast<const double*>(wr),
       static_cast<const double*>(wi), static_cast<const bool*>(is2),
       static_cast<const bool*>(prev2), n, static_cast<const double*>(smin),
       static_cast<double*>(yt));
   return static_cast<int>(cudaGetLastError());
+}
+
+// one launch of eig_trevc_ring over `blocks` blocks from block b0 (Tt =
+// T.mT, leading dimension ld: even, >= n; 16-byte aligned)
+template <bool CHAIN>
+int trevc_ring_run(const void* Tt, int ld, const void* wr, const void* wi,
+                   const void* is2, const void* prev2, int n,
+                   const void* smin, void* yt, int b0, int blocks,
+                   void* stream, int device) {
+  if (Tt == nullptr || wr == nullptr || wi == nullptr || is2 == nullptr ||
+      prev2 == nullptr || smin == nullptr || yt == nullptr || n < 1 ||
+      n > kTrevcRingN || ld < n || ld % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(Tt) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the largest n's shared memory, opted in to once a process
+  static bool opted[64] = {false};
+  if (device < 0 || device >= 64)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted[device]) {
+    err = cudaFuncSetAttribute(eig_trevc_ring<CHAIN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(trevc_smem(kTrevcRingN)));
+    if (err != cudaSuccess) return launched(err);
+    opted[device] = true;
+  }
+  const size_t smem = trevc_smem(n);
+  eig_trevc_ring<CHAIN><<<blocks, (kTrevcCols + 1) * 32, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(Tt), ld, static_cast<const double*>(wr),
+      static_cast<const double*>(wi), static_cast<const bool*>(is2),
+      static_cast<const bool*>(prev2), n, static_cast<const double*>(smin),
+      static_cast<double*>(yt), b0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The right eigenvectors of the n x n quasi-triangular T with eigenvalues
+// wr + i wi and blocks is2/prev2 (n bytes each): column j of Y into row j
+// of yt (2 n x n float64, real then imaginary). smin: dtrevc's smallest
+// denominator on the card. One launch, routed by n alone: up to
+// kTrevcRingN eig_trevc_ring, T passed as T.mT with an even leading
+// dimension ld >= n (16-byte aligned); above it the earlier design, T
+// row-major (ld == n).
+extern "C" int runmat_eig_trevc(const void* T, int ld, const void* wr,
+                                const void* wi, const void* is2,
+                                const void* prev2, int n, const void* smin,
+                                void* yt, void* stream, int device) {
+  if (n <= kTrevcRingN)
+    return trevc_ring_run<false>(T, ld, wr, wi, is2, prev2, n, smin, yt, 0,
+                                 (n + kTrevcCols - 1) / kTrevcCols, stream,
+                                 device);
+  if (ld != n) return static_cast<int>(cudaErrorInvalidValue);
+  return trevc_warp_run(T, wr, wi, is2, prev2, n, smin, yt, stream, device);
+}
+
+// Bench only (runmat_tpu_torch/linalgbench.py): the earlier design (a warp
+// a column, T row-major) at any n >= 1, the other arguments as
+// runmat_eig_trevc's.
+extern "C" int runmat_eig_trevc_warp(const void* T, const void* wr,
+                                     const void* wi, const void* is2,
+                                     const void* prev2, int n,
+                                     const void* smin, void* yt,
+                                     void* stream, int device) {
+  return trevc_warp_run(T, wr, wi, is2, prev2, n, smin, yt, stream, device);
+}
+
+// Bench only (runmat_tpu_torch/linalgbench.py): eig_trevc_ring's last
+// block alone (the columns whose walk is longest) with only the slots that
+// hold the next row updated: the quotient, shuffle and update chain, the
+// kernel's floor (its yt is wrong). The arguments as runmat_eig_trevc's,
+// n <= kTrevcRingN.
+extern "C" int runmat_eig_trevc_chain(const void* Tt, int ld, const void* wr,
+                                      const void* wi, const void* is2,
+                                      const void* prev2, int n,
+                                      const void* smin, void* yt,
+                                      void* stream, int device) {
+  const int last = n < 1 ? 0 : (n - 1) / kTrevcCols * kTrevcCols;
+  return trevc_ring_run<true>(Tt, ld, wr, wi, is2, prev2, n, smin, yt, last,
+                              1, stream, device);
 }

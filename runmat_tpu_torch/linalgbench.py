@@ -37,15 +37,22 @@ larger. `eig_held` holds the general eigenproblem's three kernels (`ops/eig_qr.p
 eig_hess, eig_francis, eig_trevc) to their plain versions on the card and
 the card's pipeline to the plain one on the CPU (the eigenvalues in the
 same order), and times the plain versions; `francis_held` holds
-eig_francis to plain_francis on a given Hessenberg matrix; `eig_rows`
+eig_francis to plain_francis on a given Hessenberg matrix; `trevc_held`
+holds eig_trevc on a given quasi-triangular T to `ordered_trevc` bit for
+bit (the ring design) and to plain_trevc within TREVC_TOL, on T from
+`trevc_case` or the card's own Schur forms; `eig_rows`
 times the kernels at dense_linalg.m's `eig(A(1:N/8, 1:N/8))` (512 f64)
 beside their operations bound, cuSOLVER's geev (torch.linalg.eigvals and
 eig: the earlier design) and, for eig_francis, the design with one block
 barrier a position in turns and the chain of the chaser and helper warps
 alone (owners idle) over the same iterations (the measured floor; the
 bench-only entries `runmat_eig_francis_barrier` and
-`runmat_eig_francis_chain`, which nothing else calls), and holds the
-eigenvalues to numpy's. Each time is the mean of `--reps` after a
+`runmat_eig_francis_chain`, which nothing else calls), for eig_trevc the
+earlier design (a warp a column, `runmat_eig_trevc_warp`) in turns, its
+chain alone (`runmat_eig_trevc_chain`: the longest columns' quotient,
+shuffle and update chain, the measured floor) and cuSOLVER's geev on the
+already quasi-triangular T (torch.linalg.eig(T): the whole geev, which
+does more than trevc), and holds the eigenvalues to numpy's. Each time is the mean of `--reps` after a
 warm-up, CUDA events
 (`histbench.time_ms`). Run as a script, this file imports
 `runmat_tpu_torch` from DIR (default: the checkout holding this file).
@@ -90,6 +97,10 @@ EIG_V_TOL = 1e-9
 CHAIN_RECORD, CHAIN_ALONE, CHAIN_PROFILE = 1, 2, 8
 CHAIN_ONE_OWNER_WARP = 16
 PROF_SLOTS = 64
+# eig_trevc's fixtures (`trevc_case`) and the Schur forms it is held on at
+# the card (`eig_kernels_run`'s T), both sides of trevc_route's boundary
+TREVC_CASES = ("n1", "n2", "n3", "ends", "repeated", "graded")
+TREVC_SCHUR = (5, 24, 64, 128, 512, 513)
 PRODUCER_PHASES = ("P @ R", "C @ P and shuffles", "house3", "publish",
                    "delivery wait", "slide")
 
@@ -553,7 +564,7 @@ def eig_kernels_run(n: int, dev) -> dict:
     Yr, Yi = K.trevc(Tn, *q.values())
     return {"n": n, "A": A, "Ab": Ab, "H": H, "Q": Q, "H1": H1, "Hp": Hp,
             "T": T, "Z": Z, "info": info, "T1": T1, "info1": info1,
-            "Tn": Tn, **q, "Yr": Yr, "Yi": Yi}
+            "Tn": Tn, **q, "Yr": Yr, "Yi": Yi, "smin": float(K._smin(Tn))}
 
 
 def eig_plain_held(run: dict, plain_dev) -> dict:
@@ -563,7 +574,9 @@ def eig_plain_held(run: dict, plain_dev) -> dict:
     plain_hessenberg; eig_francis with and without Z equal to
     plain_francis on the kernel's own Hessenberg matrix, value for value,
     with the same [ok, iterations, chain]; eig_trevc within TREVC_TOL of the
-    largest |Y| on the same T. On the CPU each plain version runs once,
+    largest |Y| on the same T and, on the ring route, equal to
+    `ordered_trevc` (on the CPU, with the card's smin) bit for bit. On the
+    CPU each plain version runs once,
     with Q and with Z (H and T do not depend on them). Raises
     AssertionError; returns each kernel's largest absolute difference, the
     info and each plain version's time (the host's clock, once)."""
@@ -619,6 +632,12 @@ def eig_plain_held(run: dict, plain_dev) -> dict:
              float(torch.max(torch.abs(pYi))))
     assert yerr <= K.TREVC_TOL * ys, ("eig_trevc", n, yerr)
     out["eig_trevc"] = yerr
+    if K.trevc_route(n) == "ring":
+        oYr, oYi = K.ordered_trevc(*(run[k].cpu() for k in ("Tn",) +
+                                     TREVC_ARGS), smin=run["smin"])
+        assert torch.equal(run["Yr"].cpu(), oYr) and \
+            torch.equal(run["Yi"].cpu(), oYi), ("eig_trevc ordered", n)
+        out["trevc_ordered"] = True
     return out
 
 
@@ -712,6 +731,109 @@ class PlainBeside:
         if self.proc.is_alive():
             self.proc.terminate()
             self.proc.join()
+
+
+def trevc_case(name: str):
+    """A quasi-triangular T (numpy float64) for eig_trevc's checks: "n1",
+    "n2" (one 2x2 block), "n3" (a 1x1 row above a 2x2 block); "ends" (n =
+    12, 2x2 blocks at the top and the bottom); "repeated" (n = 10: a 1x1
+    eigenvalue twice and one 2x2 block twice, so that dtrevc's smin
+    replacement fires in the 1x1 and the 2x2 form: their denominators
+    come out exactly 0); "graded" (n = 16, entries falling from 1 to
+    1e-12 along the diagonal, two 2x2 blocks)."""
+    import numpy as np
+    rng = np.random.default_rng(26)
+
+    def block(T, i, a, b, c):      # [a b; c a] at (i, i + 1), b c < 0
+        T[i, i] = T[i + 1, i + 1] = a
+        T[i, i + 1], T[i + 1, i] = b, c
+
+    if name == "n1":
+        return np.array([[rng.standard_normal()]])
+    sizes = {"n2": 2, "n3": 3, "ends": 12, "repeated": 10, "graded": 16}
+    n = sizes[name]
+    T = np.triu(rng.standard_normal((n, n)))
+    if name == "n2":
+        block(T, 0, 0.3, 1.7, -0.4)
+    elif name == "n3":
+        block(T, 1, -0.2, 0.9, -1.3)
+    elif name == "ends":
+        block(T, 0, 0.4, 1.1, -0.8)
+        block(T, n - 2, -0.6, 0.7, -1.9)
+    elif name == "repeated":
+        T[0, 0] = T[3, 3] = 2.0
+        block(T, 4, 0.5, 1.0, -1.0)
+        block(T, 7, 0.5, 1.0, -1.0)
+    elif name == "graded":
+        block(T, 3, 0.8, 1.2, -0.5)
+        block(T, 11, -0.3, 0.6, -1.4)
+        i = np.arange(n)
+        T = T * 10.0 ** (-6.0 * (i[:, None] + i[None, :]) / n)
+    return T
+
+
+def trevc_bench(T, q, design: str):
+    """(Yr, Yi) of one launch of a bench-only eig_trevc entry on the card
+    on the quasi-triangular T and `q` = (wr, wi, is2, prev2): "warp" (the
+    earlier design, a warp a column, at any n) or "chain" (the ring
+    kernel's last block with only the next row's slots updated: its chain
+    alone, n <= TREVC_RING_N; the result is wrong, only its time means
+    anything). Counts no launch."""
+    from runmat_tpu_torch.ops import eig_qr as K
+    args = list(K._trevc_args(T, *q))
+    if design == "warp":
+        args[0], args[1] = T.contiguous(), T.shape[0]
+        rc = K._trevc_call("runmat_eig_trevc_warp", tuple(args), False)
+    else:
+        rc = K._trevc_call("runmat_eig_trevc_chain", tuple(args))
+    if rc != 0:
+        raise RuntimeError(f"eig_trevc {design}: CUDA error {rc}")
+    yt = args[-1]
+    return yt[0].mT, yt[1].mT
+
+
+def trevc_held(T, repeats: int = 0, plain_dev=None) -> dict:
+    """eig_trevc on the quasi-triangular T (float64 on the card): one
+    launch, counted under its route's key; on the ring route its Y equal
+    to `ordered_trevc`'s (on the CPU, with the card's smin) bit for bit;
+    within TREVC_TOL of plain_trevc's largest |Y| (plain on `plain_dev`,
+    the card by default); the earlier design (`trevc_bench` "warp")
+    within TREVC_TOL of plain too; `repeats` more launches identical to
+    the first. Raises AssertionError."""
+    import torch
+
+    from runmat_tpu_torch.accel import eig_qr as EQ
+    from runmat_tpu_torch.ops import eig_qr as K
+    n = T.shape[0]
+    q = EQ._quasi_eigs(T, n)
+    route = K.trevc_route(n)
+    key = K.TREVC_KEYS[route]
+    before = K.launches_by[key]
+    Yr, Yi = K.trevc(T, *q)
+    assert K.launches_by[key] == before + 1, ("eig_trevc launches", n)
+    out = {"n": n, "route": route, "repeats": repeats}
+    if route == "ring":
+        oYr, oYi = K.ordered_trevc(T.cpu(), *(v.cpu() for v in q),
+                                   smin=float(K._smin(T)))
+        assert torch.equal(Yr.cpu(), oYr) and torch.equal(Yi.cpu(), oYi), \
+            ("eig_trevc against ordered_trevc", n, float(torch.max(torch.abs(
+                Yr.cpu() - oYr))), float(torch.max(torch.abs(Yi.cpu() - oYi))))
+    pdev = T.device if plain_dev is None else torch.device(plain_dev)
+    pYr, pYi = K.plain_trevc(T.to(pdev), *(v.to(pdev) for v in q))
+    pYr, pYi = pYr.cpu(), pYi.cpu()
+    ys = max(1.0, float(torch.max(torch.abs(pYr))),
+             float(torch.max(torch.abs(pYi))))
+    for what, (gr, gi) in (("kernel", (Yr, Yi)),
+                           ("warp", trevc_bench(T, q, "warp"))):
+        err = max(float(torch.max(torch.abs(gr.cpu() - pYr))),
+                  float(torch.max(torch.abs(gi.cpu() - pYi))))
+        assert err <= K.TREVC_TOL * ys, ("eig_trevc", what, n, err, ys)
+        out[f"{what}_err"] = err / ys
+    for k in range(repeats):
+        Yr2, Yi2 = K.trevc(T, *q)
+        assert torch.equal(Yr2, Yr) and torch.equal(Yi2, Yi), \
+            ("eig_trevc repeat", n, k)
+    return out
 
 
 def francis_bench(Hp, n: int, max_iters: int, with_z: bool, design: str,
@@ -1025,6 +1147,9 @@ def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
     over the same iterations (CHAIN_ALONE after CHAIN_RECORD: the measured
     floor; µs a position = its time over the chain);
     the cycles of one profiled launch with Z (`francis_profile`);
+    eig_trevc beside the earlier design (`trevc_bench` "warp") in turns
+    the same way, its chain alone (`trevc_bench` "chain": the floor) and
+    geev on T (torch.linalg.eig of the quasi-triangular T, the whole geev);
     eig_hess beside the earlier design (`hess_grid`, the cooperative
     kernel) in turns the same way, the resident design's n - 2 cluster
     barriers alone (`hess_floor`, its floor), µs a step and one profiled
@@ -1103,6 +1228,22 @@ def eig_rows(reps: int, plain: dict, n: int = EIG_N) -> dict:
         row["us_per_step"] = row["ms"] * 1e3 / (n - 2)
         row["grid_floor_ms"] = floors["grid"]["ms"]
         row["cluster_floor_ms"] = floors["cluster"]["ms"]
+    # eig_trevc in turns with the earlier design (a warp a column); its
+    # chain alone (the ring kernel's last block with only the next row's
+    # slots updated: the floor); cuSOLVER's geev on T itself
+    row = out["rows"]["eig_trevc"]
+    new = [row["ms"]]
+    old = []
+    for _ in range(2):
+        old.append(time_ms(lambda: trevc_bench(Tn, q, "warp"), reps))
+        new.append(time_ms(lambda: K.trevc(Tn, *q), reps))
+    row["ms"] = sum(new[1:]) / 2
+    row["warp_ms"] = sum(old) / 2
+    row["turns_ms"] = {"new": new[1:], "warp": old}
+    row["chain_floor_ms"] = time_ms(lambda: trevc_bench(Tn, q, "chain"),
+                                    reps)
+    row["us_per_row"] = row["ms"] * 1e3 / (n - 1)
+    row["geev_T_ms"] = time_ms(lambda: torch.linalg.eig(Tn), reps)
     rec = torch.empty(3 * maxit, dtype=torch.int32, device=dev)
     _, _, rinfo = francis_bench(Hp, n, maxit, False, "chain", CHAIN_RECORD,
                                 rec)
@@ -1169,6 +1310,15 @@ def print_eig(r: dict) -> None:
                      f"grid barriers alone {row['grid_floor_ms']:.4f} ms; "
                      f"{r['n'] - 2} cluster barriers alone "
                      f"{row['cluster_floor_ms']:.4f} ms")
+        if "warp_ms" in row:
+            extra = (f"; {row['us_per_row']:.3f} us a row of the longest "
+                     f"column; the earlier design (a warp a column) "
+                     f"{row['warp_ms']:.4f} ms (turns, ms: new "
+                     f"{row['turns_ms']['new']}, warp "
+                     f"{row['turns_ms']['warp']}); its chain alone "
+                     f"{row['chain_floor_ms']:.4f} ms; geev of T (the "
+                     f"whole geev, which does more) {row['geev_T_ms']:.3f} "
+                     f"ms")
         print(f"  {name:18s} {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}"
               f" ms ({row['bound_by']}), share {row['bound_ms'] / row['ms']:.2g}"
               f", plain at {r['plain_n']} {row['plain_ms']:.1f} ms{extra}")

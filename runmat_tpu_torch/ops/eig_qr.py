@@ -17,7 +17,13 @@ copy, and its three loops run here:
                  with or without the Schur vectors Z (`francis_qr_z`,
                  151-284): the whole `lax.while_loop` in one launch
     eig_trevc    the quasi-triangular back-substitution for the right
-                 eigenvectors (`trevc`, 362-482): one column a warp
+                 eigenvectors (`trevc`, 362-482) in dtrevc's column
+                 (axpy) order. Routed by n alone (`trevc_route`): up to
+                 TREVC_RING_N (512) a block of TREVC_COLS adjacent columns,
+                 a warp each, the right-hand sides in registers and T's
+                 columns streamed through a ring in shared memory
+                 (`trevc_smem(n)` bytes); above it the earlier design, one
+                 column a warp in the JAX row-dot form
 
 A CPU tensor takes the plain version (`plain_hessenberg`, `plain_francis`,
 `plain_trevc`); a CUDA tensor launches the kernel or raises
@@ -41,10 +47,12 @@ by the same torch call for both (`_hfro`).
 
 `plain_hessenberg` and `plain_trevc` sum their long dot products with
 `torch.matmul`, the kernels in their own fixed order, so the two agree
-within rounding (`HESS_TOL`, `TREVC_TOL`).
+within rounding (`HESS_TOL`, `TREVC_TOL`). `ordered_hessenberg` and
+`ordered_trevc` write the kernels' orders out on the CPU: the resident
+eig_hess and the ring eig_trevc equal them bit for bit.
 
 `launches` counts the kernel launches and nothing else; `launches_by`
-splits them by kernel. `francis` returns [ok, iterations, chain] as an
+splits them by kernel (the ring eig_trevc as "eig_trevc ring"). `francis` returns [ok, iterations, chain] as an
 int64 tensor on its device: the chain is the sum of the sweeps' lengths
 (bulge positions), the length of the iteration's dependent chain. The
 port reads only `ok`, and on the card only through the builtin's flags.
@@ -56,6 +64,7 @@ import collections
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..errors import MatError
@@ -77,6 +86,11 @@ TREVC_TOL = 1e-9
 # memory, which the H100 lets a block take up to 227 KB of
 HESS_BLOCKS = 16
 HESS_BUDGET = 232448
+# the ring eig_trevc (csrc/eig_qr.cu: kTrevcCols, kTrevcDepth, kTrevcSlots):
+# column warps a block, T's columns in flight, 32-row register slots
+TREVC_COLS = 4
+TREVC_DEPTH = 12
+TREVC_RING_N = 32 * 16
 _entries: dict = {}
 
 
@@ -443,6 +457,127 @@ def _smin(T: torch.Tensor) -> torch.Tensor:
     return torch.clamp(EPS * tnorm, min=1e-300)
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a float64 CPU tensor, as the
+    card's `__dsqrt_rn`: numpy's. torch's own CPU sqrt is not always
+    correctly rounded (its vectorised path can be one ulp off)."""
+    return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+def ordered_trevc(T, wr, wi, is2, prev2, smin=None):
+    """(Yr, Yi) of the ring eig_trevc's order of operations, on the CPU in
+    float64: the kernel's model, every product, sum and quotient rounded
+    apart in its order (csrc/eig_qr.cu above eig_trevc_ring). Column j is
+    seeded as `plain_trevc` seeds it; then the stages c = n-1 .. 0: a
+    seed row's y is the seed's entry; a 1x1 row c < js gives y_c = r_c /
+    den_c; the top row c of a 2x2 block (c + 1 < js) solves rows c and
+    c + 1 with r_{c+1} kept from stage c + 1; a row that is neither keeps
+    its r for the next stage. After a row's y, r_m = r_m - T[m, c] y_c for
+    every m < c (a 2x2 block: column c + 1's term first), so r_m, from +0,
+    collects its terms in descending c (dtrevc's order, not the JAX dot's).
+    `smin` (a float) replaces `_smin(T)`, so that the card's own value can
+    be used. Vectorised across the columns; each torch product, sum and
+    quotient on float64 rounds as the kernel's `__d*_rn` does, and the
+    square roots are numpy's (`_sqrt_rn`)."""
+    T = T.detach().to("cpu", torch.float64)
+    wr, wi = wr.to("cpu", torch.float64), wi.to("cpu", torch.float64)
+    is2, prev2 = is2.to("cpu", torch.bool), prev2.to("cpu", torch.bool)
+    n = T.shape[0]
+    idx = torch.arange(n)
+    smin = float(_smin(T)) if smin is None else float(smin)
+    smin2 = smin * smin
+    pair = is2 | prev2
+    js = torch.where(prev2, idx - 1, idx)
+    top = torch.where(pair, js + 1, idx)
+    # the seed, as the kernel computes it
+    a_p = T[js, js]
+    inner = js < n - 1
+    b_p = torch.where(inner, T[js, torch.clamp(js + 1, max=n - 1)], 0.0)
+    c_p = torch.where(inner, T[torch.clamp(js + 1, max=n - 1), js], 0.0)
+    jd = torch.clamp(js + 1, max=n - 1)
+    d_p = T[jd, jd]
+    war, wdr = wr - a_p, wr - d_p
+    n_b = _sqrt_rn(b_p * b_p + war * war + wi * wi)
+    n_c = _sqrt_rn(c_p * c_p + wdr * wdr + wi * wi)
+    use_b = n_b >= n_c
+    tr = torch.where(use_b, b_p, wdr)
+    ti = torch.where(use_b, 0.0, wi)
+    br = torch.where(use_b, war, c_p)
+    bi = torch.where(use_b, wi, 0.0)
+    snrm = _sqrt_rn(tr * tr + ti * ti + br * br + bi * bi)
+    snrm = torch.where(torch.isnan(snrm) | (snrm > 1e-300), snrm, 1e-300)
+    tr, ti, br, bi = tr / snrm, ti / snrm, br / snrm, bi / snrm
+    mi = -wi
+    # the row constants (row m, column j), for every row: 1x1 and 2x2
+    dg = torch.diagonal(T)
+    up = torch.cat([torch.diagonal(T, 1), torch.zeros(1, dtype=T.dtype)])
+    lo = torch.cat([torch.diagonal(T, -1), torch.zeros(1, dtype=T.dtype)])
+    dg1 = torch.cat([dg[1:], torch.zeros(1, dtype=T.dtype)])
+    m11i = m22i = mi[None, :].expand(n, n)
+    den_r = dg[:, None] - wr[None, :]
+    small = torch.hypot(den_r, m11i) < smin
+    den_r = torch.where(small, smin, den_r)
+    den_i = torch.where(small, 0.0, m11i)
+    dd = den_r * den_r + den_i * den_i
+    m11r = dg[:, None] - wr[None, :]
+    m22r = dg1[:, None] - wr[None, :]
+    bb, cc = up[:, None], lo[:, None]
+    detr = m11r * m22r - m11i * m22i - bb * cc
+    deti = m11r * m22i + m11i * m22r
+    small = torch.hypot(detr, deti) < smin2
+    detr = torch.where(small, smin2, detr)
+    deti = torch.where(small, 0.0, deti)
+    dmag = detr * detr + deti * deti
+    R = torch.zeros((n, n), dtype=T.dtype)      # r, row m of column j
+    Ri = torch.zeros((n, n), dtype=T.dtype)
+    Yr = torch.zeros((n, n), dtype=T.dtype)
+    Yi = torch.zeros((n, n), dtype=T.dtype)
+    pr = torch.zeros(n, dtype=T.dtype)
+    pi = torch.zeros(n, dtype=T.dtype)
+
+    def axpy(c, col, yr, yi, on):
+        if c == 0:
+            return
+        t = T[:c, col][:, None]
+        R[:c] = torch.where(on[None, :], R[:c] - t * yr[None, :], R[:c])
+        Ri[:c] = torch.where(on[None, :], Ri[:c] - t * yi[None, :], Ri[:c])
+
+    for c in range(n - 1, -1, -1):
+        live = c <= top
+        seed = live & (c >= js)
+        reg = live & (c < js)
+        one = reg & ~is2[c] & ~prev2[c]
+        two = reg & is2[c] & (c + 1 < js)
+        neither = reg & ~one & ~two
+        r1r, r1i = R[c], Ri[c]
+        sy_r = torch.where(pair, torch.where(c == js, tr, br), 1.0)
+        sy_i = torch.where(pair, torch.where(c == js, ti, bi), 0.0)
+        y1r = (r1r * den_r[c] + r1i * den_i[c]) / dd[c]
+        y1i = (r1i * den_r[c] - r1r * den_i[c]) / dd[c]
+        r2r, r2i = pr, pi
+        n1r = r1r * m22r[c] - r1i * mi - bb[c] * r2r
+        n1i = r1r * mi + r1i * m22r[c] - bb[c] * r2i
+        n2r = m11r[c] * r2r - mi * r2i - cc[c] * r1r
+        n2i = m11r[c] * r2i + mi * r2r - cc[c] * r1i
+        ytr = (n1r * detr[c] + n1i * deti[c]) / dmag[c]
+        yti = (n1i * detr[c] - n1r * deti[c]) / dmag[c]
+        ybr = (n2r * detr[c] + n2i * deti[c]) / dmag[c]
+        ybi = (n2i * detr[c] - n2r * deti[c]) / dmag[c]
+        pr = torch.where(neither, r1r, pr)
+        pi = torch.where(neither, r1i, pi)
+        if bool(two.any()):
+            Yr[c + 1] = torch.where(two, ybr, Yr[c + 1])
+            Yi[c + 1] = torch.where(two, ybi, Yi[c + 1])
+            axpy(c, c + 1, ybr, ybi, two)
+        yr = torch.where(seed, sy_r, torch.where(one, y1r, ytr))
+        yi = torch.where(seed, sy_i, torch.where(one, y1i, yti))
+        upd = seed | one | two
+        Yr[c] = torch.where(upd, yr, Yr[c])
+        Yi[c] = torch.where(upd, yi, Yi[c])
+        axpy(c, c, yr, yi, upd)
+    return Yr, Yi
+
+
 # --------------------------------------------------------------- kernels
 
 
@@ -560,26 +695,83 @@ def francis(Hp: torch.Tensor, n: int, max_iters: int, with_z: bool):
     return H, Zt.mT if with_z else None, info
 
 
+def trevc_smem(n: int) -> int:
+    """The ring eig_trevc's dynamic shared memory at n, bytes: the ring of
+    TREVC_DEPTH slots of T's columns (32 ceil(n / 32) doubles each), 8
+    doubles of row constants a row a column, the full and empty mbarriers,
+    a byte of row kind a row a column."""
+    return 8 * (TREVC_DEPTH * 32 * -(-n // 32) + TREVC_COLS * 8 * n) + \
+        16 * TREVC_DEPTH + TREVC_COLS * n
+
+
+# each design's launch key: the warp design keeps the key it has had
+# since it was the only one
+TREVC_KEYS = {"ring": "eig_trevc ring", "warp": "eig_trevc"}
+
+
+def trevc_route(n: int) -> str:
+    """eig_trevc's design at n, from n alone: "ring" (dtrevc's order, the
+    right-hand sides in 16 register slots of 32 rows, T streamed through
+    shared memory) up to TREVC_RING_N, else "warp" (the first design, a
+    warp a column)."""
+    return "ring" if n <= TREVC_RING_N else "warp"
+
+
+def _trevc_args(T, wr, wi, is2, prev2):
+    """The kernels' inputs on the card: T as the route takes it (the ring:
+    T.mT in a fresh (n, ld) tensor, ld = n rounded up to even, so that
+    every column of T starts and ends on 16 bytes; the warp design: T
+    row-major), its leading dimension, the rest contiguous, dtrevc's smin
+    and the output yt (2, n, n)."""
+    _card(T, "eig_trevc")
+    n = T.shape[0]
+    if T.dim() != 2 or T.shape[1] != n or n < 1:
+        raise MatError("RunMat:eigKernel", f"eig_trevc of a "
+                       f"{tuple(T.shape)} matrix")
+    if trevc_route(n) == "ring":
+        ld = n + (n & 1)
+        if ld == n:
+            Tk = torch.empty_like(T, memory_format=torch.contiguous_format)
+            Tk.copy_(T.mT)
+        else:
+            Tk = T.new_zeros((n, ld))
+            Tk[:, :n].copy_(T.mT)
+    else:
+        ld = n
+        Tk = T.contiguous()
+    yt = torch.empty((2, n, n), dtype=T.dtype, device=T.device)
+    return (Tk, ld, wr.contiguous(), wi.contiguous(), is2.contiguous(),
+            prev2.contiguous(), _smin(T), yt)
+
+
+def _trevc_call(name: str, args: tuple, with_ld: bool = True) -> int:
+    """rc of one launch of the C entry `name` on `_trevc_args`' tuple."""
+    Tk, ld, wr, wi, is2, prev2, smin, yt = args
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream, dev = _stream(Tk)
+    n = Tk.shape[0]
+    ptrs = [wr.data_ptr(), wi.data_ptr(), is2.data_ptr(), prev2.data_ptr()]
+    if with_ld:
+        return _entry(name, [P, I, P, P, P, P, I, P, P, P, I])(
+            Tk.data_ptr(), ld, *ptrs, n, smin.data_ptr(), yt.data_ptr(),
+            stream, dev)
+    return _entry(name, [P, P, P, P, P, I, P, P, P, I])(
+        Tk.data_ptr(), *ptrs, n, smin.data_ptr(), yt.data_ptr(), stream,
+        dev)
+
+
 def trevc(T, wr, wi, is2, prev2):
     """(Yr, Yi): the right eigenvectors of the quasi-triangular T (its
     eigenvalues wr + i wi, is2/prev2 its 2x2 blocks as `_quasi_eigs`
-    reads them). A CPU tensor takes `plain_trevc`; a card tensor launches
-    eig_trevc once, a warp a column, which writes the columns as rows
-    (returned transposed)."""
+    reads them). A CPU tensor takes `plain_trevc`; a card tensor
+    launches eig_trevc once in the design `trevc_route(n)` names
+    (`launches_by` under `TREVC_KEYS[route]`), which writes the columns
+    as rows (returned transposed)."""
     if T.device.type == "cpu":
         return plain_trevc(T, wr, wi, is2, prev2)
-    _card(T, "eig_trevc")
+    args = _trevc_args(T, wr, wi, is2, prev2)
+    rc = _trevc_call("runmat_eig_trevc", args)
     n = T.shape[0]
-    T = T.contiguous()
-    smin = _smin(T)
-    yt = torch.empty((2, n, n), dtype=T.dtype, device=T.device)
-    P = ctypes.c_void_p
-    stream, dev = _stream(T)
-    wr, wi = wr.contiguous(), wi.contiguous()
-    is2, prev2 = is2.contiguous(), prev2.contiguous()
-    rc = _entry("runmat_eig_trevc", [P, P, P, P, P, ctypes.c_int, P, P, P,
-                                     ctypes.c_int])(
-        T.data_ptr(), wr.data_ptr(), wi.data_ptr(), is2.data_ptr(),
-        prev2.data_ptr(), n, smin.data_ptr(), yt.data_ptr(), stream, dev)
-    _launched("eig_trevc", rc)
+    _launched(TREVC_KEYS[trevc_route(n)], rc)
+    yt = args[-1]
     return yt[0].mT, yt[1].mT

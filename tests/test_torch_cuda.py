@@ -2023,6 +2023,7 @@ def test_field_plot_small_matches_the_host_engine(card, tmp_path):
     ref = float(re.search(r"FIELD=(\S+)", r.output).group(1))
     prev = accel.active_engine()
     before = cmap.launches
+    by = cmap.launches_by["cmap f64"]
     try:
         s = runmat_tpu_torch.session("cuda")
         eng = accel.active_engine()
@@ -2041,6 +2042,7 @@ def test_field_plot_small_matches_the_host_engine(card, tmp_path):
     assert abs(got - ref) <= 1e-12 * abs(ref)
     assert ["imfilter"] in log and ["cmap"] in log and fallbacks == 0
     assert cmap.launches == before + 1
+    assert cmap.launches_by["cmap f64"] == by + 1
     u8 = np.rint(img.data[::-1] * 255).astype(np.uint8)
     want, _ = cmap.plain_cmap(y, torch.from_numpy(cmap.table("parula")))
     assert np.array_equal(u8, want.numpy())
@@ -2273,6 +2275,60 @@ def test_eig_francis_repeats_bit_for_bit(card):
     assert linalgbench.francis_repeat(Hp, 128, 20)[0] == 1
 
 
+@pytest.mark.parametrize("label", ["n1", "n2", "n3", "ends", "repeated",
+                                   "graded"])
+def test_eig_trevc_equals_its_order_model(card, label):
+    """eig_trevc on `linalgbench.trevc_case`'s T (n = 1, 2, 3; 2x2 blocks
+    at both ends; repeated eigenvalues, so the smin replacement fires in
+    both forms; graded): one launch on the ring route, bit for bit
+    ordered_trevc, within TREVC_TOL of plain_trevc, the earlier design
+    too (`linalgbench.trevc_held`)."""
+    from runmat_tpu_torch import linalgbench
+    T = torch.tensor(linalgbench.trevc_case(label), dtype=torch.float64,
+                     device=card)
+    assert linalgbench.trevc_held(T)["route"] == "ring"
+
+
+@pytest.mark.parametrize("n", list((5, 24, 64, 128, 512, 513)))
+def test_eig_trevc_on_the_cards_schur_forms(card, n):
+    """eig_trevc on the card's own Schur form of `eig_matrix(n)` on both
+    sides of trevc_route's boundary: 512 the last n of the ring (bit for
+    bit ordered_trevc), 513 the first of the warp design; each within
+    TREVC_TOL of plain_trevc."""
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.ops import eig_qr
+    T = linalgbench.eig_kernels_run(n, card)["Tn"]
+    r = linalgbench.trevc_held(T, plain_dev="cpu" if n >= 512 else None)
+    assert r["route"] == eig_qr.trevc_route(n)
+    assert eig_qr.trevc_route(512) == "ring"
+    assert eig_qr.trevc_route(513) == "warp"
+
+
+def test_eig_trevc_repeats_bit_for_bit(card):
+    """20 launches of eig_trevc on one 128 T give one Y."""
+    from runmat_tpu_torch import linalgbench
+    T = linalgbench.eig_kernels_run(128, card)["Tn"]
+    assert linalgbench.trevc_held(T, repeats=19)["repeats"] == 19
+
+
+def test_eig_trevc_earlier_design_matches_plain(card):
+    """The bench-only warp design (the first kernel) still agrees with
+    plain_trevc, at 64 and 512; its chain-alone entry launches."""
+    from runmat_tpu_torch import linalgbench
+    from runmat_tpu_torch.accel import eig_qr as EQ
+    from runmat_tpu_torch.ops import eig_qr
+    for n in (64, 512):
+        T = linalgbench.eig_kernels_run(n, card)["Tn"]
+        q = EQ._quasi_eigs(T, n)
+        Yr, Yi = linalgbench.trevc_bench(T, q, "warp")
+        pYr, pYi = eig_qr.plain_trevc(T.cpu(), *(v.cpu() for v in q))
+        s = max(1.0, float(pYr.abs().max()), float(pYi.abs().max()))
+        assert float((Yr.cpu() - pYr).abs().max()) <= eig_qr.TREVC_TOL * s
+        assert float((Yi.cpu() - pYi).abs().max()) <= eig_qr.TREVC_TOL * s
+        linalgbench.trevc_bench(T, q, "chain")
+        torch.cuda.synchronize()
+
+
 def test_eig_kernels_refuse_what_they_do_not_take(card):
     from runmat_tpu_torch.errors import MatError
     from runmat_tpu_torch.ops import eig_qr
@@ -2304,7 +2360,7 @@ def test_eig_on_the_card_launches_the_kernels(card):
                      " r = gather(norm(B*V - V*D) / norm(B));"
                      " d = gather(diag(D));", "t")
         assert dict(eig_qr.launches_by) == {"eig_hess": 1, "eig_francis": 1,
-                                            "eig_trevc": 1}
+                                            "eig_trevc ring": 1}
         assert eng.stats["host_fallbacks"] == 0
     finally:
         runmat_tpu_torch.uninstall()

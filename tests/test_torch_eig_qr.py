@@ -566,3 +566,182 @@ def test_a_cpu_tensor_takes_plain_hessenberg(monkeypatch):
     assert float(torch.max(torch.abs(oH - pH))) <= K.HESS_TOL * float(
         torch.max(torch.abs(A)))
     assert float(torch.max(torch.abs(oQ - pQ))) <= K.HESS_TOL
+
+
+# ------------------------------------------ eig_trevc in dtrevc's order
+
+def _trevc_fixture(name: str) -> np.ndarray:
+    """A quasi-triangular T: `linalgbench.trevc_case`'s (n = 1, 2 and 3, 2x2
+    blocks at both ends, repeated eigenvalues, graded), or the Schur form
+    of a random matrix through the JAX Francis iteration ("random24",
+    "random48")."""
+    from runmat_tpu_torch import linalgbench
+    if name.startswith("random"):
+        A = _fixture(name) if name == "random24" else \
+            np.random.default_rng(148).standard_normal((48, 48))
+        n = A.shape[0]
+        return np.asarray(_FRANCIS(_padded_hessenberg(A),
+                                   40 * n + 100)[0])[:n, :n]
+    return linalgbench.trevc_case(name)
+
+
+TREVC_FIXTURES = ["n1", "n2", "n3", "random24", "random48", "ends",
+                  "repeated", "graded"]
+
+
+@pytest.mark.parametrize("name", TREVC_FIXTURES)
+def test_ordered_trevc_against_the_jax_trevc(name):
+    """`ordered_trevc`, the ring eig_trevc's order (each row's terms
+    T[m, c] y_c subtracted in descending c; the card equals it bit for
+    bit), against the JAX `trevc` under jax.jit on the CPU and against
+    `plain_trevc`: Yr and Yi within TREVC_TOL of the largest |Y|, on the
+    same (wr, wi, is2, prev2) read off T by both packages."""
+    T = _trevc_fixture(name)
+    n = T.shape[0]
+    Tj = jnp.asarray(T)
+    q = J._quasi_eigs(jnp, Tj, n)
+    Yr, Yi = (np.asarray(v) for v in jax.jit(
+        lambda *a: J.trevc(jnp, *a))(Tj, *q))
+    gq = P._quasi_eigs(_t(T), n)
+    for a, b in zip(q, gq):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    oYr, oYi = K.ordered_trevc(_t(T), *gq)
+    s = max(1.0, float(np.max(np.abs(Yr))), float(np.max(np.abs(Yi))))
+    for got, want, what in ((oYr, Yr, "Yr"), (oYi, Yi, "Yi")):
+        err = float(np.max(np.abs(got.numpy() - want)))
+        assert err <= K.TREVC_TOL * s, (name, what, err, s)
+    pYr, pYi = K.plain_trevc(_t(T), *gq)
+    for got, want in ((oYr, pYr), (oYi, pYi)):
+        assert float(torch.max(torch.abs(got - want))) <= K.TREVC_TOL * s
+
+
+def test_the_repeated_fixture_fires_both_smin_replacements():
+    """In "repeated" a 1x1 denominator (row 0 of column 3) and a 2x2
+    determinant (rows 4-5 of column 8's block) come out exactly 0, so the
+    model takes dtrevc's smin replacement in both forms, and its columns
+    are finite."""
+    T = _trevc_fixture("repeated")
+    wr, wi, is2, prev2 = P._quasi_eigs(_t(T), 10)
+    assert T[0, 0] - float(wr[3]) == 0.0 and float(wi[3]) == 0.0
+    assert bool(is2[4]) and bool(is2[7]) and bool(prev2[8])
+    m11r, mi = T[4, 4] - float(wr[8]), -float(wi[8])
+    m22r = T[5, 5] - float(wr[8])
+    assert m11r * m22r - mi * mi - T[4, 5] * T[5, 4] == 0.0
+    assert m11r * mi + mi * m22r == 0.0
+    Yr, Yi = K.ordered_trevc(_t(T), wr, wi, is2, prev2)
+    assert torch.isfinite(Yr).all() and torch.isfinite(Yi).all()
+    assert float(torch.max(torch.abs(Yr[:, 3]))) > 1e10     # y ~ r / smin
+
+
+@pytest.mark.parametrize("schedule", ["random", "producer", "columns"])
+@pytest.mark.parametrize("name", TREVC_FIXTURES)
+def test_the_ring_kernel_model_equals_ordered_trevc(name, schedule):
+    """The model of eig_trevc_ring (`tests/torch_trevc_model.py`: each
+    block's producer and column warps under a schedule, the ring starting
+    full of values no column holds, every lane's unmasked updates of its
+    register slots) reads every ring slot while it holds the stage it
+    expects, never deadlocks, and gives `ordered_trevc`'s Y bit for bit."""
+    from torch_trevc_model import model_trevc
+    T = _t(_trevc_fixture(name))
+    q = P._quasi_eigs(T, T.shape[0])
+    mYr, mYi = model_trevc(T, *q, schedule=schedule, seed=len(name))
+    oYr, oYi = K.ordered_trevc(T, *q)
+    assert torch.equal(mYr, oYr) and torch.equal(mYi, oYi)
+
+
+def test_the_ring_kernel_model_across_register_slots():
+    """The model at n = 70 (three register slots, 2x2 blocks whose rows
+    straddle the slots at 31-32 and 63-64, and a block at the top) and a
+    deeper ring of stages than the ring holds: still ordered_trevc's Y."""
+    from torch_trevc_model import model_trevc
+    rng = np.random.default_rng(70)
+    T = np.triu(rng.standard_normal((70, 70)))
+    for i in (0, 31, 63):
+        T[i + 1, i + 1] = T[i, i]
+        T[i + 1, i] = -abs(T[i, i + 1]) - 0.5
+    T = _t(T)
+    q = P._quasi_eigs(T, 70)
+    assert int(q[2].sum()) == 3
+    mYr, mYi = model_trevc(T, *q, schedule="producer")
+    oYr, oYi = K.ordered_trevc(T, *q)
+    assert torch.equal(mYr, oYr) and torch.equal(mYi, oYi)
+
+
+def test_the_trevc_route_is_a_function_of_n():
+    """eig_trevc's design is `trevc_route(n)` and nothing else: the ring up
+    to TREVC_RING_N = 512 (16 register slots of 32 rows), the first warp
+    design from 513; the ring's shared memory at 512 fits the H100's 227 KB
+    a block; the kernel library states the same constants and formula."""
+    from pathlib import Path
+    routes = [K.trevc_route(n) for n in range(1, 1025)]
+    assert routes == [K.trevc_route(n) for n in range(1, 1025)]
+    assert routes == ["ring"] * 512 + ["warp"] * 512
+    assert K.trevc_route(512) == "ring" and K.trevc_route(513) == "warp"
+    assert K.TREVC_RING_N == 512
+    assert K.trevc_smem(512) == 8 * (12 * 512 + 4 * 8 * 512) + 16 * 12 + \
+        4 * 512 == 182464
+    assert K.trevc_smem(512) <= K.HESS_BUDGET
+    assert K.trevc_smem(1) == 8 * (12 * 32 + 4 * 8) + 16 * 12 + 4
+    cu = (Path(K.__file__).resolve().parents[1] / "csrc" /
+          "eig_qr.cu").read_text()
+    assert f"constexpr int kTrevcCols = {K.TREVC_COLS};" in cu
+    assert f"constexpr int kTrevcDepth = {K.TREVC_DEPTH};" in cu
+    assert "constexpr int kTrevcSlots = 16;" in cu
+    assert "constexpr int kTrevcRingN = 32 * kTrevcSlots;" in cu
+    assert "if (n <= kTrevcRingN)\n    return trevc_ring_run<false>(" in cu
+
+
+@pytest.mark.parametrize("name, benches", [
+    ("runmat_eig_trevc_warp", {"linalgbench"}),
+    ("runmat_eig_trevc_chain", {"linalgbench"})])
+def test_the_eig_trevc_bench_entries_are_named_only_by_benches(name,
+                                                               benches):
+    """The earlier design forced at any n and the chain alone are defined
+    in csrc/eig_qr.cu and named by the bench scripts alone: ops/eig_qr.py's
+    trevc launches runmat_eig_trevc, which routes by n."""
+    import inspect
+    from pathlib import Path
+    pkg = Path(K.__file__).resolve().parents[1]
+    files = sorted(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]
+    naming = {p.relative_to(pkg.parent).as_posix() for p in files
+              if name in p.read_text()}
+    assert naming == {f"runmat_tpu_torch/{b}.py" for b in benches}, naming
+    assert f'extern "C" int {name}(' in (pkg / "csrc" /
+                                         "eig_qr.cu").read_text()
+    src = inspect.getsource(K.trevc)
+    assert '"runmat_eig_trevc"' in src and name not in src
+
+
+@pytest.mark.parametrize("name", ["eig_hess", "eig_francis", "eig_trevc"])
+def test_chip_smoke_reads_each_eig_kernels_launch_key(name):
+    """chip_smoke.py's kernel row of each eig kernel reads, in the eig_qr
+    group, the key its wrapper counts at the main path's n = 512: the
+    ring eig_trevc counts as "eig_trevc ring", the warp design above 512
+    keeps "eig_trevc"."""
+    import inspect
+
+    import chip_smoke
+    assert "randn(512, 512)" in chip_smoke.EIG_SOURCE
+    key = chip_smoke.EIG_KEYS[name]
+    assert chip_smoke._group(key) == "eig_qr"
+    if name == "eig_trevc":
+        assert key == K.TREVC_KEYS[K.trevc_route(512)] == "eig_trevc ring"
+        assert K.TREVC_KEYS[K.trevc_route(513)] == "eig_trevc"
+    else:
+        assert key == name
+        assert f'_launched("{name}", rc)' in inspect.getsource(K)
+
+
+def test_a_cpu_tensor_takes_plain_trevc(monkeypatch):
+    """trevc on a CPU tensor is plain_trevc and reaches no kernel entry."""
+    def refuse(*a, **k):
+        raise AssertionError("a kernel entry reached")
+
+    monkeypatch.setattr(K, "_entry", refuse)
+    T = _t(_trevc_fixture("ends"))
+    q = P._quasi_eigs(T, T.shape[0])
+    before = K.launches
+    Yr, Yi = K.trevc(T, *q)
+    pYr, pYi = K.plain_trevc(T, *q)
+    assert K.launches == before
+    assert torch.equal(Yr, pYr) and torch.equal(Yi, pYi)
